@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's serving path once on an NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving path and train step once on an
+NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-5 below
+    python3 chip_smoke.py            # phases 1-8 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. Phases (each prints one line or a few):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: nvcc builds ``mlx_vae_tpu_torch/csrc/fused_generate.cu`` (sm_90a);
+2. build: one nvcc per source, all at once, builds every
+   ``mlx_vae_tpu_torch/csrc/*.cu`` (sm_90a): the sampler, the fused encoder
+   and the fused training decoder;
 3. kernel vs plain: the fused sampler kernel against its plain PyTorch
    version on the card at the default model width (V=80, E=128, H=256,
    latent 128, 1 condition, 2 layers), at every serving tier B = 256, 2048,
@@ -23,7 +26,28 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    repeated-seed, greedy, multi-pass and malformed requests; the kernel
    launch counter, reset just before, must have risen;
 5. times: kernel vs plain sampler in mols/s at B = 256, 2048, 8192 (L=64,
-   f32, T=0.8), CUDA events after a warm-up.
+   f32, T=0.8), CUDA events after a warm-up;
+6. train kernels vs plain: the fused encoder's and the fused training
+   decoder's forward and backward kernels (both decoder specializations:
+   CE and logits) against their plain PyTorch versions at the default
+   model, L=64, B=4096 and B=1000, f32 and bf16; each backward kernel gets
+   the plain forward's residuals, as its plain twin does. Teacher forcing
+   all on: every output and gradient leaf within max |kernel - plain| /
+   max |plain| <= 1e-4 (f32; the two sum in different orders) or 2e-2
+   (bf16; one ulp of a bf16 rounding is ~4e-3 of the value). Teacher
+   forcing 0.9: the fed-token rows agree on >= 97.0% and the first
+   argmax-fed step on >= 99.0% (an argmax can flip where two logits tie);
+7. the train slice: ``train_step`` at full width (default model, bf16,
+   B=4096, L=64, fused route) takes 8 steps on a fixed synthetic batch; the
+   losses stay finite, the total loss at step 8 is below step 1, and the
+   four train-kernel launch counters, reset just before, have risen. One
+   step on the fused route is held against the plain route
+   (``use_pallas=False``, the scan path with autograd) on the same params
+   and noise, in f32 and bf16: the 9 loss scalars, ``grad_norm`` and the
+   post-Adam params;
+8. train times: each train kernel against its plain version, and the whole
+   step on the fused route against the plain route, at B=4096, L=64, bf16
+   (CUDA events after a warm-up), with tokens/s.
 
 ``--sweep`` times the kernel with each rows-per-thread instance forced
 (1, 2, 4, 8) at B = 256, 1024, 2048, 8192, L=64, T=0.8, f32 and bf16:
@@ -50,6 +74,11 @@ import urllib.request
 
 import torch
 
+TRAIN_KERNELS = ("fused_encoder_fwd", "fused_encoder_bwd", "fused_train_decoder_fwd",
+                 "fused_train_decoder_bwd")
+# max |kernel - plain| / max |plain| per output or gradient leaf
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_BATCHES = (4096, 1000)  # the bench batch and a ragged one
 AGREE_FIRST = 0.99  # share of first tokens that must agree, kernel vs plain
 AGREE_ROWS = 0.97   # share of whole rows that must agree
 # |kernel - plain| of the first step's scaled logits; in bf16 an f32
@@ -317,8 +346,8 @@ def phase_times(smi: str) -> dict:
 
 def phase_sweep(smi: str) -> list:
     """Kernel ms with each rows-per-thread instance forced."""
-    from mlx_vae_tpu_torch.ops.fused_decoder import (_RPTS, fused_generate,
-                                                     prepare_weights)
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate, prepare_weights
+    from mlx_vae_tpu_torch.ops.train_common import RPTS
 
     out = []
     for dtype in ("float32", "bfloat16"):
@@ -327,7 +356,7 @@ def phase_sweep(smi: str) -> list:
         for B in (256, 1024, 2048, 8192):
             h0, cond, seeds, temps = inputs(cfg, params, B, 0.8, seed=3)
             cells = []
-            for rpt in sorted(_RPTS):
+            for rpt in sorted(RPTS):
                 reps = [time_ms(lambda: fused_generate(w, h0, cond, seeds, temps, 64,
                                                        rows_per_thread=rpt), 5)
                         for _ in range(3)]
@@ -336,6 +365,292 @@ def phase_sweep(smi: str) -> list:
                 cells.append(f"R={rpt} {min(reps):.3f}-{max(reps):.3f}")
             log(f"  {dtype} B={B} L=64 T=0.8 kernel ms (3 repeats of 5): "
                 f"{'; '.join(cells)} [{smi}]")
+    return out
+
+
+def build_all() -> None:
+    """One nvcc per CUDA source, all started together, then load each."""
+    from mlx_vae_tpu_torch.ops import fused_decoder, fused_encoder, fused_train_decoder
+    from mlx_vae_tpu_torch.ops.build import compile_sources
+
+    compile_sources(["fused_generate", "fused_encoder", "fused_train_decoder"], verbose=True)
+    for mod in (fused_decoder, fused_encoder, fused_train_decoder):
+        mod.build_library()
+
+
+TRAIN_SOURCES = {
+    "fused_encoder_fwd": "mlx_vae_tpu_torch/csrc/fused_encoder.cu",
+    "fused_encoder_bwd": "mlx_vae_tpu_torch/csrc/fused_encoder.cu",
+    "fused_train_decoder_fwd": "mlx_vae_tpu_torch/csrc/fused_train_decoder.cu",
+    "fused_train_decoder_bwd": "mlx_vae_tpu_torch/csrc/fused_train_decoder.cu",
+}
+TRAIN_REPLACES = {
+    "fused_encoder_fwd": "mlx_vae_tpu/ops/pallas_encoder.py:119",
+    "fused_encoder_bwd": "mlx_vae_tpu/ops/pallas_encoder.py:165",
+    "fused_train_decoder_fwd": "mlx_vae_tpu/ops/pallas_train_decoder.py:136",
+    "fused_train_decoder_bwd": "mlx_vae_tpu/ops/pallas_train_decoder.py:375",
+}
+
+
+def train_counters() -> dict:
+    from mlx_vae_tpu_torch.ops import fused_encoder as fe
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+
+    return {"fused_encoder_fwd": fe.encoder_fwd, "fused_encoder_bwd": fe.encoder_bwd,
+            "fused_train_decoder_fwd": fd.decoder_fwd, "fused_train_decoder_bwd": fd.decoder_bwd}
+
+
+def train_model(dtype: str, seed: int = 0):
+    from mlx_vae_tpu_torch.bench import init_train_params
+    from mlx_vae_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(compute_dtype=dtype, use_pallas=True)
+    return cfg, init_train_params(cfg, "cuda", seed)
+
+
+def train_inputs(cfg, B: int, L: int, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (B, L), generator=g, device="cuda",
+                        dtype=torch.int32)
+    cond = torch.randn((B, cfg.num_conditions), generator=g, device="cuda")
+    h0 = 0.5 * torch.randn((B, cfg.hidden_dim), generator=g, device="cuda")
+    return tok, cond, h0, g
+
+
+def compare(what: str, got, want, dtype: str, worst: list) -> None:
+    """Hold each leaf of ``got`` against ``want``: max |diff| / max |plain|
+    within TRAIN_TOL[dtype]; ``worst`` keeps (max abs, max rel)."""
+    line = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: leaf {i} of the kernel is not finite")
+        diff = (a - b).abs().max().item()
+        rel = diff / max(b.abs().max().item(), 1e-30)
+        worst[0], worst[1] = max(worst[0], diff), max(worst[1], rel)
+        line.append(f"{rel:.2e}")
+        if not rel <= TRAIN_TOL[dtype]:
+            raise AssertionError(f"{what}: leaf {i} differs by {diff:.3e} "
+                                 f"(rel {rel:.3e} > {TRAIN_TOL[dtype]})")
+    log(f"  {what}: max|diff|/max|plain| per leaf [{', '.join(line)}]")
+
+
+def phase_train_kernels() -> dict:
+    """Returns {kernel: (largest abs diff, largest rel diff)} over every run."""
+    from mlx_vae_tpu_torch.ops import fused_encoder as fe
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+    from mlx_vae_tpu_torch.ops import train_common as tc
+
+    L = 64
+    worst = {k: [0.0, 0.0] for k in TRAIN_KERNELS}
+    for dtype in ("float32", "bfloat16"):
+        cfg, params = train_model(dtype)
+        we = tc.prepare_stack_weights(params["encoder"], cfg, with_head=False)
+        wd = tc.prepare_stack_weights(params["decoder"], cfg, with_head=True)
+        for B in TRAIN_BATCHES:
+            tag = f"{dtype} B={B}"
+            tok, cond, h0, g = train_inputs(cfg, B, L, seed=B)
+            k = fe.encoder_fwd(we, tok)
+            p = fe.encoder_fwd_reference(we, tok)
+            torch.cuda.synchronize()
+            compare(f"{tag} encoder fwd [h_last, hs, cs, gs]", k, p, dtype,
+                    worst["fused_encoder_fwd"])
+            dh = torch.randn((B, cfg.hidden_dim), generator=g, device="cuda")
+            kb = fe.encoder_bwd(we, tok, dh, *p[1:])
+            pb = fe.encoder_bwd_reference(we, tok, dh, *p[1:])
+            torch.cuda.synchronize()
+            compare(f"{tag} encoder bwd [dW.., db, demb]", [*kb[0], *kb[1:]],
+                    [*pb[0], *pb[1:]], dtype, worst["fused_encoder_bwd"])
+            del k, p, kb, pb
+            tf_on = torch.ones((L,), dtype=torch.bool, device="cuda")
+            for with_ce in (True, False):
+                spec = "ce" if with_ce else "logits"
+                k = fd.decoder_fwd(wd, h0, cond, tok, tf_on, with_ce)
+                p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf_on, with_ce)
+                torch.cuda.synchronize()
+                if not torch.equal(k[1], p[1]):
+                    raise AssertionError(f"{tag} decoder fwd {spec}: fed tokens differ "
+                                         f"under full teacher forcing")
+                compare(f"{tag} decoder fwd {spec} [out, hs, cs, gs]", (k[0], *k[2:]),
+                        (p[0], *p[2:]), dtype, worst["fused_train_decoder_fwd"])
+                din = (torch.randn((B,), generator=g, device="cuda") if with_ce else
+                       torch.randn((B, L, cfg.vocab_size), generator=g, device="cuda") / (B * L))
+                kb = fd.decoder_bwd(wd, din, tok, p[1], h0, cond, *p[2:], with_ce)
+                pb = fd.decoder_bwd_reference(wd, din, tok, p[1], h0, cond, *p[2:], with_ce)
+                torch.cuda.synchronize()
+                compare(f"{tag} decoder bwd {spec} [dW.., db, dwout, dbout, demb, "
+                        f"dh_init, dcond]", [*kb[0], *kb[1:]], [*pb[0], *pb[1:]], dtype,
+                        worst["fused_train_decoder_bwd"])
+                del k, p, kb, pb
+            tf = torch.rand((L,), generator=g, device="cuda") < 0.9
+            tf[3] = False  # at least one argmax-fed step
+            k = fd.decoder_fwd(wd, h0, cond, tok, tf, True)
+            p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, True)
+            torch.cuda.synchronize()
+            first = int(torch.nonzero(~tf)[0].item())
+            first_ok, rows_ok = agreement(k[1].T[:, first + 1:], p[1].T[:, first + 1:])
+            log(f"  {tag} decoder fwd ce, teacher forcing 0.9: fed-token rows agree "
+                f"{rows_ok:.4%}, first argmax-fed step (t={first + 1}) {first_ok:.4%}")
+            if first_ok < AGREE_FIRST or rows_ok < AGREE_ROWS:
+                raise AssertionError(f"{tag}: fed tokens agree below "
+                                     f"{AGREE_FIRST:.0%} / {AGREE_ROWS:.0%}")
+            del k, p
+    return {k: tuple(v) for k, v in worst.items()}
+
+
+def synthetic_batch(cfg, B: int, L: int):
+    """Tokens [B, L] (pad 0 after EOS) and normalized TPSA [B, 1] from the
+    repo's deterministic synthetic corpus, on the card."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.data.prepare import make_synthetic_dataset
+
+    data = make_synthetic_dataset(n=B, vocab_size=cfg.vocab_size, max_length=L, seed=0)
+    x = np.zeros((B, L), np.int32)
+    for i, seq in enumerate(data["tokenized_sequences"]):
+        x[i, :len(seq)] = seq[:L]
+    tpsa = np.array([m["tpsa"] for m in data["molecules"]], np.float32)[:, None]
+    cond = (tpsa - tpsa.mean()) / tpsa.std()
+    return (torch.as_tensor(x, device="cuda"), torch.as_tensor(cond, device="cuda"))
+
+
+def phase_train_slice() -> dict:
+    """Eight full-width bf16 steps through the kernels; returns the launch
+    count of each train kernel in that run."""
+    import math
+
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import draw_noise, train_step
+    from mlx_vae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    B, L = 4096, 64
+    tcfg = TrainConfig(batch_size=B)
+    cfg, params = train_model("bfloat16")
+    x, cond = synthetic_batch(cfg, B, L)
+    opt = {n: adam_init(p) for n, p in params.items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0  # count only the main path's launches
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(8):
+        _, _, m = train_step(params, opt, cfg, tcfg, x, cond, gen, 0.05, 0.9)
+        losses.append(m["total_loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [float(v) for v in losses]
+    log(f"  8 steps in {wall:.2f}s; total loss per step "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; last recon {float(m['recon_loss']):.4f}, "
+        f"grad_norm {float(m['grad_norm']):.4f}")
+    log(f"  launches during the 8 steps: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"total loss did not fall: {losses[0]} -> {losses[-1]}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a train kernel was never launched: {launches}")
+
+    # one step, fused route against the plain route, same params and noise
+    lr = tcfg.learning_rate
+    max_step = lr * (1 - tcfg.adam_b1) / math.sqrt(1 - tcfg.adam_b2)  # first Adam step
+    # A first Adam step is ~lr * sign(g), so params agree where the gradient
+    # signs agree. In bf16 the two backward contracts (activated-gate
+    # residuals vs autodiff of exact pre-activations) give a few tiny
+    # gradients opposite signs: 99.4352% of elements agreed on an H100. In
+    # f32 100.0000% agreed; a different summation order may still flip the
+    # sign of a near-zero gradient, which moves one element, whereas a
+    # misrouted leaf (a bias, the output head) moves most of its elements.
+    # So in f32 each leaf may have at most max(1, 1e-4 of its elements) off.
+    for dtype, s_tol, same_min, leaf_off in (("float32", 1e-4, 0.9999, 1e-4),
+                                              ("bfloat16", 1e-2, 0.98, None)):
+        cfg, p0 = train_model(dtype, seed=3)
+        noise = draw_noise(gen, cfg, B, L, 0.9)
+        out = {}
+        for route, c in (("fused", cfg), ("plain", cfg.replace(use_pallas=False))):
+            p = tree_map(torch.clone, p0)
+            o = {n: adam_init(v) for n, v in p.items()}
+            _, _, m = train_step(p, o, c, tcfg, x, cond, None, 0.05, 0.9, noise=noise)
+            out[route] = (p, {k: float(v) for k, v in m.items()})
+        (pf, mf), (pp, mp) = out["fused"], out["plain"]
+        worst = max(abs(mf[k] - mp[k]) / max(abs(mp[k]), 1e-6)
+                    for k in mp if k not in ("mu_abs_max", "logvar_min", "logvar_max"))
+        dp = [(a.detach() - b.detach()).abs() for a, b in zip(tree_leaves(pf), tree_leaves(pp))]
+        off = [int((d > 1e-2 * max_step).sum()) for d in dp]
+        same = 1.0 - sum(off) / sum(d.numel() for d in dp)
+        worst_leaf = max(o / d.numel() for o, d in zip(off, dp))
+        big = max(float(d.max()) for d in dp)
+        log(f"  {dtype} one step fused vs plain route: total {mf['total_loss']:.6f} vs "
+            f"{mp['total_loss']:.6f}, grad_norm {mf['grad_norm']:.6f} vs "
+            f"{mp['grad_norm']:.6f}; worst rel diff over the 9 scalars and grad_norm "
+            f"{worst:.3e} (tol {s_tol}); post-Adam params: {same:.4%} of elements took the "
+            f"same step (within 1% of one step), worst leaf {worst_leaf:.4%} off, "
+            f"max |diff| {big:.3e} (one step <= {max_step:.3e})")
+        if not worst <= s_tol:
+            raise AssertionError(f"{dtype}: fused and plain route scalars differ by {worst}")
+        if not (same >= same_min and big <= 2 * max_step * 1.001):
+            raise AssertionError(f"{dtype}: post-Adam params differ ({same:.4%} same)")
+        if leaf_off is not None and any(o > max(1, leaf_off * d.numel())
+                                        for o, d in zip(off, dp)):
+            raise AssertionError(f"{dtype}: a post-Adam leaf differs in "
+                                 f"{worst_leaf:.4%} of its elements")
+    return launches
+
+
+def phase_train_times(smi: str) -> dict:
+    """{kernel: (kernel ms, plain ms)} and the whole step's times."""
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.ops import fused_encoder as fe
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+    from mlx_vae_tpu_torch.ops import train_common as tc
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import train_step
+
+    B, L = 4096, 64
+    cfg, params = train_model("bfloat16")
+    we = tc.prepare_stack_weights(params["encoder"], cfg, with_head=False)
+    wd = tc.prepare_stack_weights(params["decoder"], cfg, with_head=True)
+    tok, cond, h0, g = train_inputs(cfg, B, L, seed=5)
+    tf = torch.rand((L,), generator=g, device="cuda") < 0.9
+    enc = fe.encoder_fwd_reference(we, tok)
+    dh = torch.randn((B, cfg.hidden_dim), generator=g, device="cuda")
+    dec = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, True)
+    dce = torch.full((B,), 1.0 / (B * L), device="cuda")
+    pairs = {
+        "fused_encoder_fwd": (lambda: fe.encoder_fwd(we, tok),
+                              lambda: fe.encoder_fwd_reference(we, tok)),
+        "fused_encoder_bwd": (lambda: fe.encoder_bwd(we, tok, dh, *enc[1:]),
+                              lambda: fe.encoder_bwd_reference(we, tok, dh, *enc[1:])),
+        "fused_train_decoder_fwd": (
+            lambda: fd.decoder_fwd(wd, h0, cond, tok, tf, True),
+            lambda: fd.decoder_fwd_reference(wd, h0, cond, tok, tf, True)),
+        "fused_train_decoder_bwd": (
+            lambda: fd.decoder_bwd(wd, dce, tok, dec[1], h0, cond, *dec[2:], True),
+            lambda: fd.decoder_bwd_reference(wd, dce, tok, dec[1], h0, cond, *dec[2:], True)),
+    }
+    out = {}
+    for name, (kern, plain) in pairs.items():
+        p1 = time_ms(plain, 2)
+        k1 = time_ms(kern, 3)
+        k2 = time_ms(kern, 3)
+        p2 = time_ms(plain, 2)
+        out[name] = (min(k1, k2), min(p1, p2))
+        log(f"  {name}: kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms "
+            f"(plain, kernel, kernel, plain) [{smi}]")
+    del enc, dec
+    tcfg = TrainConfig(batch_size=B)
+    xs, conds = synthetic_batch(cfg, B, L)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for route, c in (("plain", cfg.replace(use_pallas=False)), ("fused", cfg),
+                     ("fused", cfg), ("plain", cfg.replace(use_pallas=False))):
+        p = train_model("bfloat16")[1]
+        o = {n: adam_init(v) for n, v in p.items()}
+        ms = time_ms(lambda: train_step(p, o, c, tcfg, xs, conds, gen, 0.05, 0.9), 3)
+        out.setdefault(f"step_{route}", []).append(ms)
+        log(f"  train step, {route} route: {ms:.3f} ms = {B * L / ms * 1e3:,.0f} tokens/s "
+            f"(B=4096 L=64 bf16) [{smi}]")
     return out
 
 
@@ -348,8 +663,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    from mlx_vae_tpu_torch.ops.fused_decoder import build_library
-
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -358,9 +671,9 @@ def main() -> int:
         f"cuda {torch.version.cuda}; allow_tf32 matmul=False cudnn=False")
 
     t0 = time.perf_counter()
-    build_library(verbose=True)
-    log(f"[2 build] csrc/fused_generate.cu built and loaded in "
-        f"{time.perf_counter() - t0:.2f}s")
+    build_all()
+    log(f"[2 build] csrc/fused_generate.cu, fused_encoder.cu, fused_train_decoder.cu "
+        f"built and loaded in {time.perf_counter() - t0:.2f}s")
 
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
     if args.sweep:
@@ -381,6 +694,15 @@ def main() -> int:
     log(f"[5 times] kernel vs plain sampler, CUDA events [{smi}]")
     times = phase_times(smi)
 
+    log("[6 train kernels vs plain] default model, L=64, B=4096/1000, f32/bf16")
+    errs = phase_train_kernels()
+
+    log("[7 train slice] train_step, default model, bf16, B=4096, L=64, fused route")
+    launches_train = phase_train_slice()
+
+    log(f"[8 train times] B=4096 L=64 bf16, CUDA events [{smi}]")
+    train_times = phase_train_times(smi)
+
     k_ms, p_ms = times[8192]
     log(smi)
     print(json.dumps({"kernels": [{
@@ -394,7 +716,17 @@ def main() -> int:
                       "(tolerance 1e-4 f32, 1e-2 bf16)",
         "max_row_disagreement": worst_rows,
         "ms": k_ms, "plain_ms": p_ms,
-        "timed_shape": "B=8192 L=64 f32 T=0.8"}]}))
+        "timed_shape": "B=8192 L=64 f32 T=0.8"}] + [{
+            "name": kname, "route": "cuda", "source": TRAIN_SOURCES[kname],
+            "replaces": TRAIN_REPLACES[kname], "launches": launches_train[kname],
+            "max_abs_err": errs[kname][0],
+            "err_metric": f"largest |kernel - plain| over every output (forward) or "
+                          f"gradient leaf (backward) at B=4096/1000, f32/bf16, teacher "
+                          f"forcing on; largest max|diff|/max|plain| {errs[kname][1]:.3e} "
+                          f"(tolerance 1e-4 f32, 2e-2 bf16)",
+            "ms": train_times[kname][0], "plain_ms": train_times[kname][1],
+            "timed_shape": "B=4096 L=64 bf16" + (" with_ce" if "decoder" in kname else "")}
+            for kname in TRAIN_KERNELS]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

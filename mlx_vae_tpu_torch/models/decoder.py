@@ -1,19 +1,25 @@
-"""Autoregressive conditional decoder pieces used by generation
-(counterpart of ``mlx_vae_tpu/models/decoder.py:41-85``).
+"""Autoregressive conditional decoder (counterpart of
+``mlx_vae_tpu/models/decoder.py``).
 
 The initial state is h = (z_proj + cond_proj)/2 replicated over layers and
-c = 0. ``decoder_apply`` (teacher-forced training/eval decode) waits for the
-training slice.
+c = 0. ``decoder_apply`` is the teacher-forced decode: the per-step coin
+flips ``tf_mask [L]`` come from the caller, the fed-back argmax carries no
+gradient, and ``reference_zero_state`` restarts every step from zero state.
+With ``cfg.use_pallas`` (and not ``reference_zero_state``) it runs the fused
+training decoder (``ops/fused_train_decoder.py``): its CUDA kernels on CUDA
+tensors, their plain version on CPU tensors. On CUDA a configuration the
+kernels do not take raises ``NotImplementedError``; on the CPU it takes the
+scan.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
-from mlx_vae_tpu_torch.models.layers import init_embedding, init_linear, linear
+from mlx_vae_tpu_torch.models.layers import embedding, init_embedding, init_linear, linear
 from mlx_vae_tpu_torch.ops.lstm import init_lstm_params, lstm_cell
 
 
@@ -58,3 +64,55 @@ def _stacked_cell(params: dict, cfg: ModelConfig, x: torch.Tensor,
         new_c.append(cl)
         x = hl
     return x, torch.stack(new_h), torch.stack(new_c)
+
+
+def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
+                  conditions: torch.Tensor, target_seq: Optional[torch.Tensor] = None,
+                  max_length: int = 80, tf_mask: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Autoregressive decode -> logits ``[B, L, vocab]`` f32.
+
+    With ``target_seq [B, L]``, ``tf_mask [L]`` (bool) is required: the
+    token fed at step t+1 is ``target_seq[:, t]`` where ``tf_mask[t]``, else
+    the argmax of step t's logits. Without it, L = ``max_length`` with pure
+    argmax feedback.
+    """
+    B = z.shape[0]
+    dev = z.device
+    cond_f = conditions.float()
+    if target_seq is not None:
+        L = target_seq.shape[1]
+        if tf_mask is None:
+            raise ValueError("decoder_apply with target_seq requires tf_mask")
+        targets = target_seq.to(torch.int32)
+        tf_mask = tf_mask.to(dev).bool()
+        if cfg.use_pallas and not cfg.reference_zero_state:
+            from mlx_vae_tpu_torch.ops.fused_train_decoder import (
+                decoder_train, fused_train_decoder_supported)
+            # off the CPU the fused route launches its kernels or raises
+            if dev.type != "cpu" or fused_train_decoder_supported(cfg):
+                h_init = hidden_init_row(params, cfg, z, cond_f)
+                return decoder_train(params, cfg, h_init, cond_f, targets, tf_mask)
+        if not cfg.reference_zero_state and (cfg.custom_vjp or cfg.hidden_dim >= 768):
+            raise NotImplementedError(
+                "the custom-VJP training decoder (decoder_train_cv, H >= 768 or "
+                "--custom_vjp) is not ported yet")
+    else:
+        L = max_length
+        targets = torch.zeros((B, L), dtype=torch.int32, device=dev)
+        tf_mask = torch.zeros((L,), dtype=torch.bool, device=dev)
+
+    h, c = initialize_hidden_state(params, cfg, z, cond_f)
+    token = torch.full((B,), cfg.start_token, dtype=torch.int32, device=dev)
+    logits_all = []
+    for t in range(L):
+        if cfg.reference_zero_state:
+            h, c = torch.zeros_like(h), torch.zeros_like(c)
+        emb = embedding(params["embedding"], token, cfg.dtype, onehot=cfg.embed_onehot)
+        x = torch.cat([emb.float(), cond_f], dim=1)
+        out, h, c = _stacked_cell(params, cfg, x, h, c)
+        logits = linear(params["fc_out"], out, cfg.dtype)
+        pred = torch.argmax(logits.detach(), dim=1).to(torch.int32)
+        token = torch.where(tf_mask[t], targets[:, t], pred)
+        logits_all.append(logits)
+    return torch.stack(logits_all, dim=1)

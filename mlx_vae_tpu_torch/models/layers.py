@@ -47,7 +47,13 @@ def init_embedding(gen: torch.Generator, num_embeddings: int, dims: int) -> dict
     return {"weight": w * (dims ** -0.5)}
 
 
-def embedding(params: dict, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """Token lookup as a row read (the JAX one-hot matmul is a TPU idiom
-    for the same function)."""
-    return params["weight"].to(dtype)[ids.long()]
+def embedding(params: dict, ids: torch.Tensor, dtype=torch.float32,
+              onehot: bool = False) -> torch.Tensor:
+    """Token lookup. ``onehot=True`` computes ``one_hot(ids) @ table`` as the
+    JAX package does (its gradient is a matmul, not a scatter); both give
+    the table's rows in ``dtype``."""
+    w = params["weight"].to(dtype)
+    if onehot:
+        oh = torch.nn.functional.one_hot(ids.long(), w.shape[0]).to(dtype)
+        return (oh.float() @ w.float()).to(dtype)
+    return w[ids.long()]

@@ -1,22 +1,39 @@
-"""Prior sampling (counterpart of ``mlx_vae_tpu/models/vae.py:vae_generate``).
+"""The VAE's forward and prior sampling (counterpart of
+``mlx_vae_tpu/models/vae.py:vae_forward`` and ``vae_generate``).
 
-Draws z ~ N(0, I) and decodes it with the fused sampler
-(``ops/fused_decoder.py``): on CUDA tensors that is the kernel, on CPU
-tensors its plain version; neither implements ``reference_zero_state``
-(the plain scan sampler ``models/sampling.py`` does). The ``ARCVAE`` facade
-waits for the encoder slice.
+``vae_forward`` is encode -> reparameterize -> teacher-forced decode to
+logits; with ``cfg.use_pallas`` it runs the fused encoder and the logits
+specialization of the fused training decoder. ``vae_generate`` draws
+z ~ N(0, I) and decodes it with the fused sampler (``ops/fused_decoder.py``):
+on CUDA tensors that is the kernel, on CPU tensors its plain version; neither
+implements ``reference_zero_state`` (the plain scan sampler
+``models/sampling.py`` does). The ``ARCVAE`` facade waits for the eval slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
-from mlx_vae_tpu_torch.models.decoder import hidden_init_row
+from mlx_vae_tpu_torch.models.decoder import decoder_apply, hidden_init_row
+from mlx_vae_tpu_torch.models.encoder import encoder_apply, reparameterize
 from mlx_vae_tpu_torch.ops.fused_decoder import (FusedWeights, block_rows,
                                                  fused_generate, prepare_weights)
+
+
+def vae_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                conditions: torch.Tensor, eps: torch.Tensor, tf_mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """encode -> reparameterize -> decode with teacher forcing. Returns
+    ``(logits, mu, logvar, z)``. ``eps [B, latent]`` and ``tf_mask [L]`` are
+    the noise the JAX version draws from its key."""
+    mu, logvar = encoder_apply(params["encoder"], cfg, x, conditions)
+    z = reparameterize(eps, mu, logvar)
+    logits = decoder_apply(params["decoder"], cfg, z, conditions, target_seq=x,
+                           tf_mask=tf_mask)
+    return logits, mu, logvar, z
 
 
 @torch.no_grad()

@@ -26,29 +26,18 @@ stochastic comparisons are distributional.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
+from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.lstm import combined_weight, lstm_gates
 from mlx_vae_tpu_torch.ops.sampling import _check_truncation, truncate_logits_bisect
+from mlx_vae_tpu_torch.ops.train_common import MAX_SMEM, MAX_V, NT, RPTS, check
 
-_BB = 256           # rows per seed/temperature block (pallas_decoder._BB)
-_NT = 256           # CUDA threads per block (csrc: NT)
-_MAX_V = 512        # csrc: 32 * MAX_VPL
-_MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
-_RPTS = (8, 4, 2, 1)  # rows per thread the kernel is instantiated for
-
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "fused_generate.cu"
-_BUILD = _PKG / "build"
+_BB = 256  # rows per seed/temperature block (pallas_decoder._BB)
 
 
 def block_rows(batch: int) -> int:
@@ -190,8 +179,8 @@ def fused_generate_reference(w: FusedWeights, h0: torch.Tensor,
 
 def _cell_layout(H: int):
     """(TJ, TR): threads along hidden units x row groups (csrc: tj/tr)."""
-    tj = min(H, _NT)
-    return tj, _NT // tj
+    tj = min(H, NT)
+    return tj, NT // tj
 
 
 def _smem_bytes(cfg: ModelConfig, rows: int) -> int:
@@ -209,14 +198,14 @@ def _unsupported_reason(cfg: ModelConfig) -> Optional[str]:
         return f"compute_dtype={cfg.compute_dtype}"
     if not 1 <= cfg.hidden_dim <= 1024:
         return f"hidden_dim={cfg.hidden_dim} (kernel takes 1..1024)"
-    if not 1 <= cfg.vocab_size <= _MAX_V:
-        return f"vocab_size={cfg.vocab_size} (kernel takes 1..{_MAX_V})"
+    if not 1 <= cfg.vocab_size <= MAX_V:
+        return f"vocab_size={cfg.vocab_size} (kernel takes 1..{MAX_V})"
     if cfg.reference_zero_state:
         return "reference_zero_state (plain scan sampler only)"
     _, tr = _cell_layout(cfg.hidden_dim)
-    if _smem_bytes(cfg, tr) > _MAX_SMEM:
+    if _smem_bytes(cfg, tr) > MAX_SMEM:
         return (f"shared-memory plan: {_smem_bytes(cfg, tr)} B for a "
-                f"{tr}-row tile > {_MAX_SMEM} B (H={cfg.hidden_dim}, "
+                f"{tr}-row tile > {MAX_SMEM} B (H={cfg.hidden_dim}, "
                 f"E={cfg.embedding_dim}, C={cfg.num_conditions}, "
                 f"n={cfg.num_layers})")
     return None
@@ -240,68 +229,30 @@ def _tile_rows(cfg: ModelConfig, rows_per_thread: Optional[int] = None) -> int:
     when they leave SMs idle."""
     _, tr = _cell_layout(cfg.hidden_dim)
     if rows_per_thread is not None:
-        if rows_per_thread not in _RPTS:
+        if rows_per_thread not in RPTS:
             raise ValueError(f"rows_per_thread={rows_per_thread}: the kernel is "
-                             f"built for {_RPTS}")
-        if _smem_bytes(cfg, rows_per_thread * tr) > _MAX_SMEM:
+                             f"built for {RPTS}")
+        if _smem_bytes(cfg, rows_per_thread * tr) > MAX_SMEM:
             raise ValueError(f"rows_per_thread={rows_per_thread}: "
                              f"{_smem_bytes(cfg, rows_per_thread * tr)} B of shared "
-                             f"memory > {_MAX_SMEM} B")
+                             f"memory > {MAX_SMEM} B")
         return rows_per_thread * tr
-    for rpt in _RPTS:
-        if _smem_bytes(cfg, rpt * tr) <= _MAX_SMEM:
+    for rpt in RPTS:
+        if _smem_bytes(cfg, rpt * tr) <= MAX_SMEM:
             return rpt * tr
     raise AssertionError("unreachable: the gate admits a one-row-group tile")
 
 
-_lib = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
-                           "cannot build csrc/fused_generate.cu")
-    return nvcc
-
-
 def build_library(verbose: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/fused_generate.cu`` for sm_90a (once per source
-    content) into ``build/`` and load it. Returns the loaded library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    so = _BUILD / f"libfused_generate_{digest}.so"
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.tmp.{os.getpid()}")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        if verbose:
-            print(res.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """Build ``csrc/fused_generate.cu`` for sm_90a (once per source content,
+    ``ops/build.py``), load it and declare its C interface."""
+    lib = load_library("fused_generate", verbose)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_generate_launch.argtypes = [p] * 11 + [i] * 10 + [f] + [i] * 7 + [p]
     lib.fused_generate_launch.restype = i
     lib.fused_generate_error_string.argtypes = [i]
     lib.fused_generate_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
-
-
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} "
-                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device} (contiguous={t.is_contiguous()})")
 
 
 def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
@@ -338,12 +289,12 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
                          f"got B={B}, max_length={max_length}")
     dev = h0.device
     nb = -(-B // block_rows(B))
-    _check(h0, "h0", (B, H), torch.float32, dev)
-    _check(cond, "cond", (B, C), torch.float32, dev)
-    _check(seeds, "seeds", (nb,), torch.int32, dev)
-    _check(temps, "temps", (nb,), torch.float32, dev)
+    check(h0, "h0", (B, H), torch.float32, dev)
+    check(cond, "cond", (B, C), torch.float32, dev)
+    check(seeds, "seeds", (nb,), torch.int32, dev)
+    check(temps, "temps", (nb,), torch.float32, dev)
     if logits_out is not None:
-        _check(logits_out, "logits_out", (B, cfg.vocab_size), torch.float32, dev)
+        check(logits_out, "logits_out", (B, cfg.vocab_size), torch.float32, dev)
     for name, dtype in (("emb", cfg.dtype), ("wcat", cfg.dtype), ("wout", cfg.dtype),
                         ("bias", torch.float32), ("bout", torch.float32)):
         t = getattr(w, name)

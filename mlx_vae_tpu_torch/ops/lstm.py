@@ -3,8 +3,9 @@
 Parameter layout mirrors MLX ``nn.LSTM``: ``{"Wx": [4H, in], "Wh": [4H, H],
 "bias": [4H]}``, gate order (i, f, g, o), ``c' = σ(f)·c + σ(i)·tanh(g)``,
 ``h' = σ(o)·tanh(c')``. One ``[x, h] @ W_cat`` matmul per step with inputs
-cast to the compute dtype and float32 accumulation. The sequence and
-custom-VJP variants wait for the training slice.
+cast to the compute dtype and float32 accumulation. ``lstm_sequence`` is the
+plain per-layer encoder path; the custom-VJP ``lstm_sequence_cv`` (used at
+H >= 768) waits for the hidden-1024 slice.
 """
 
 from __future__ import annotations
@@ -51,3 +52,20 @@ def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     inp = torch.cat([x, h], dim=1)
     gates = mm_f32(inp, combined_weight(params), dtype) + params["bias"].float()
     return lstm_gates(gates, c)
+
+
+def lstm_sequence(params: dict, xs: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                  dtype=torch.float32) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence LSTM: ``xs [B, L, in]`` -> ``(outputs [B, L, H], (h, c))``,
+    one fused ``[x_t, h] @ W`` matmul + gate update per step (autograd
+    differentiates the loop). JAX's ``unroll`` and ``remat`` are XLA
+    scheduling knobs with no counterpart here."""
+    w = combined_weight(params)
+    bias = params["bias"].float()
+    h, c = h0, c0
+    outs = []
+    for t in range(xs.shape[1]):
+        gates = mm_f32(torch.cat([xs[:, t], h], dim=1), w, dtype) + bias
+        h, c = lstm_gates(gates, c)
+        outs.append(h)
+    return torch.stack(outs, dim=1), (h, c)

@@ -4,7 +4,10 @@
 Same keys, same pickled nested dicts (``np.load(..., allow_pickle=True)``
 and ``.item()``), the alphabet as an object array: a file written by either
 package loads in the other. Leaves stay numpy until the caller moves them
-to a device (``utils/tree.py:params_from_numpy``).
+to a device (``utils/tree.py:params_from_numpy``);
+:func:`train_state_from_checkpoint` does that for the encoder, decoder and
+predictor trees and their Adam states, so a checkpoint written by either
+package resumes the train step in the other.
 """
 
 from __future__ import annotations
@@ -12,11 +15,12 @@ from __future__ import annotations
 import os
 import sys
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-from mlx_vae_tpu_torch.utils.tree import params_to_numpy
+from mlx_vae_tpu_torch.utils.tree import params_from_numpy, params_to_numpy
 
 
 def build_checkpoint_host(epoch: int, params: dict, opt_states: dict,
@@ -146,3 +150,19 @@ def load_checkpoint(path) -> dict:
     if notice:
         print(notice, file=sys.stderr)
     return out
+
+
+def train_state_from_checkpoint(ckpt: dict, device="cpu") -> Tuple[dict, dict]:
+    """``(params, opt_states)`` of a :func:`load_checkpoint` result as
+    tensors on ``device``, ready for ``train/steps.py:train_step``: float32
+    params (f32 masters), Adam states ``{"step": int32 scalar, "m", "v"}``
+    with the params' tree structure."""
+    params = {name: params_from_numpy(tree, device, torch.float32)
+              for name, tree in ckpt["params"].items()}
+    opt_states = {
+        name: {"step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                    device=device),
+               "m": params_from_numpy(state["m"], device, torch.float32),
+               "v": params_from_numpy(state["v"], device, torch.float32)}
+        for name, state in ckpt["opt_states"].items()}
+    return params, opt_states

@@ -3,7 +3,7 @@
 Counterpart of ``mlx_vae_tpu/utils/tree.py:tree_to_numpy/tree_from_numpy``
 (JAX-only there). Trees keep the ``.npz`` contract's nested MLX key names,
 so a numpy tree moves between the two packages unchanged — this is the
-weight carry-over the parity tests use.
+weight (and Adam-state) carry-over the parity tests use.
 """
 
 from __future__ import annotations
@@ -37,3 +37,27 @@ def params_to_numpy(tree):
             t = t.float()
         return t.numpy()
     return np.asarray(tree)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict, in key-insertion order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leafwise over nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def global_norm(*trees) -> torch.Tensor:
+    """L2 norm over every leaf of every tree, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                          for t in trees for leaf in tree_leaves(t)))
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)

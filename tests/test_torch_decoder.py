@@ -44,9 +44,13 @@ def _close(got, want, dtype):
 
 def test_config_fields_and_defaults_match():
     import dataclasses
-    jf = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
-    tf = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
-    assert jf == tf
+
+    from mlx_vae_tpu.config import TrainConfig as JaxTrainConfig
+    from mlx_vae_tpu_torch.config import TrainConfig
+    for jax_cls, port_cls in ((JaxConfig, ModelConfig), (JaxTrainConfig, TrainConfig)):
+        jf = {f.name: f.default for f in dataclasses.fields(jax_cls)}
+        tf = {f.name: f.default for f in dataclasses.fields(port_cls)}
+        assert jf == tf
     assert ModelConfig().dtype == torch.float32
     assert ModelConfig(compute_dtype="bfloat16").dtype == torch.bfloat16
     assert (ModelConfig.start_token, ModelConfig.pad_token, ModelConfig.end_token) == (0, 0, 2)

@@ -1,0 +1,178 @@
+"""Port encoder vs the JAX package on the same numpy params and inputs.
+
+``encoder_apply`` (scan path, bidirectional and dropout included), the
+bounded heads, ``reparameterize``, and the fused encoder's plain path
+against ``encoder_stack_pallas`` in interpret mode (forward and every
+gradient leaf, n = 1, 2, 3, at the JAX kernel tests' shapes).
+
+Tolerances: float32 forward values 1e-5 (the frameworks sum in different
+orders); float32 gradients 1e-4, the JAX package's own kernel-vs-autodiff
+tolerance (``tests/test_pallas.py``). bfloat16: the fused paths on both
+sides follow the same activated-gate residual contract and round the same
+operands, so their leaves agree within 2e-2 of each leaf's largest
+magnitude (one bf16 ulp is ~4e-3 relative, and summation order can move a
+rounding); the scan path is held at 2e-2 on its values.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mlx_vae_tpu.config import ModelConfig as JaxConfig
+from mlx_vae_tpu.models import encoder as jenc
+from mlx_vae_tpu.ops.pallas_encoder import encoder_stack_pallas
+from mlx_vae_tpu_torch.config import ModelConfig
+from mlx_vae_tpu_torch.models import encoder as tenc
+from mlx_vae_tpu_torch.ops import fused_encoder as fe
+from mlx_vae_tpu_torch.utils.tree import params_from_numpy, params_to_numpy
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _cfgs(n=2, dtype="float32", H=128, **kw):
+    kw = dict(vocab_size=24, embedding_dim=16, hidden_dim=H, latent_dim=8,
+              num_conditions=1, num_layers=n, compute_dtype=dtype, **kw)
+    return JaxConfig(**kw), ModelConfig(**kw)
+
+
+def _setup(jcfg, B=8, L=9, seed=0):
+    jp = jenc.init_encoder_params(jax.random.PRNGKey(seed), jcfg)
+    npp = jax.tree_util.tree_map(np.asarray, jp)
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, jcfg.vocab_size, (B, L)).astype(np.int32)
+    cond = rng.standard_normal((B, jcfg.num_conditions)).astype(np.float32)
+    return jp, npp, x, cond
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _scaled_close(got, want, tol, what=""):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-3)
+    assert err < tol, f"{what}: scaled err {err:.3e}"
+
+
+def test_init_tree_matches_jax_layout():
+    jcfg, tcfg = _cfgs(2, bidirectional=True)
+    _, npp, _, _ = _setup(jcfg)
+    mine = params_to_numpy(tenc.init_encoder_params(torch.Generator().manual_seed(0), tcfg))
+    assert jax.tree_util.tree_map(np.shape, mine) == jax.tree_util.tree_map(np.shape, npp)
+    assert np.all(mine["fc_logvar"]["bias"] == 0.35)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_encoder_apply_scan_matches_jax(n, dtype):
+    jcfg, tcfg = _cfgs(n, dtype, H=32)
+    jp, npp, x, cond = _setup(jcfg)
+    jmu, jlv = jenc.encoder_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(cond))
+    tmu, tlv = tenc.encoder_apply(params_from_numpy(npp), tcfg, torch.from_numpy(x),
+                                  torch.from_numpy(cond))
+    _close(tmu, jmu, TOL[dtype])
+    _close(tlv, jlv, TOL[dtype])
+    assert float(tmu.abs().max()) <= 2.0 and -2.0 <= float(tlv.min()) <= float(tlv.max()) <= 0.0
+
+
+def test_encoder_apply_bidirectional_and_dropout_match_jax():
+    """The extension flags: reverse-direction layers and inter-layer
+    dropout, with the keep-masks the JAX key draws handed to the port."""
+    jcfg, tcfg = _cfgs(3, H=32, bidirectional=True, apply_dropout=True)
+    jp, npp, x, cond = _setup(jcfg)
+    key = jax.random.PRNGKey(4)
+    jmu, jlv = jenc.encoder_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(cond), dropout_key=key)
+    masks, k = [], key
+    for _ in range(jcfg.num_layers - 1):
+        k, dk = jax.random.split(k)
+        masks.append(torch.from_numpy(np.array(jax.random.bernoulli(
+            dk, 1.0 - jcfg.dropout, (x.shape[0], x.shape[1], 2 * jcfg.hidden_dim)))))
+    tmu, tlv = tenc.encoder_apply(params_from_numpy(npp), tcfg, torch.from_numpy(x),
+                                  torch.from_numpy(cond), keep_masks=masks)
+    _close(tmu, jmu, 1e-5)
+    _close(tlv, jlv, 1e-5)
+    # drawn masks have the JAX shapes and keep rate
+    drawn = tenc.dropout_masks(torch.Generator().manual_seed(0), tcfg, 64, 9)
+    assert len(drawn) == 2 and drawn[0].shape == (64, 9, 64)
+    assert abs(drawn[0].float().mean().item() - 0.8) < 0.02
+
+
+def test_heads_and_reparameterize_match_jax():
+    jcfg, tcfg = _cfgs(2, H=32)
+    jp, npp, _, cond = _setup(jcfg)
+    rng = np.random.default_rng(5)
+    feat = (3.0 * rng.standard_normal((8, 32))).astype(np.float32)  # drives the bounds
+    jmu, jlv = jenc._heads(jp, jcfg, jnp.asarray(feat), jnp.asarray(cond))
+    tmu, tlv = tenc._heads(params_from_numpy(npp), tcfg, torch.from_numpy(feat),
+                           torch.from_numpy(cond))
+    _close(tmu, jmu, 1e-5)
+    _close(tlv, jlv, 1e-5)
+    key = jax.random.PRNGKey(6)
+    eps = np.array(jax.random.normal(key, jmu.shape))
+    _close(tenc.reparameterize(torch.from_numpy(eps), tmu, tlv),
+           jenc.reparameterize(key, jmu, jlv), 1e-5)
+
+
+def _fused_grads(jcfg, tcfg, npp, x, w):
+    """(JAX value, JAX grads, port value, port grads) of sum(pooled * w)."""
+    jv, jg = jax.value_and_grad(lambda p: jnp.sum(
+        encoder_stack_pallas(p, jcfg, jnp.asarray(x), True) * w))(
+        jax.tree_util.tree_map(jnp.asarray, npp))
+    tp = params_from_numpy(npp)
+    leaves = [tp["embedding"]["weight"]] + fe.layer_leaves(tp, tcfg)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    pooled = fe.encoder_stack(tp, tcfg, torch.from_numpy(x))
+    tv = (pooled * torch.from_numpy(w)).sum()
+    tv.backward()
+    return jv, jg, tv.detach(), tp, pooled.detach()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_fused_plain_path_matches_pallas_interpret(n):
+    jcfg, tcfg = _cfgs(n)
+    _, npp, x, _ = _setup(jcfg)
+    w = np.random.default_rng(7).standard_normal((8, 128)).astype(np.float32)
+    jv, jg, tv, tp, pooled = _fused_grads(jcfg, tcfg, npp, x, w)
+    _close(pooled, encoder_stack_pallas(jax.tree_util.tree_map(jnp.asarray, npp), jcfg,
+                                        jnp.asarray(x), True), 1e-5)
+    _close(tv, jv, 1e-5)
+    names = ["embedding"] + [f"lstm_layer_{i}" for i in range(n)]
+    for name in names:
+        for k, leaf in tp[name].items():
+            _close(leaf.grad, jg[name][k], 1e-4)
+
+
+def test_fused_plain_path_matches_pallas_interpret_bf16():
+    """bf16: both sides store activated gates in bf16 and round the same
+    operands, so they agree leaf by leaf within the scaled tolerance."""
+    jcfg, tcfg = _cfgs(2, "bfloat16")
+    _, npp, x, _ = _setup(jcfg)
+    w = np.random.default_rng(7).standard_normal((8, 128)).astype(np.float32)
+    jv, jg, tv, tp, _ = _fused_grads(jcfg, tcfg, npp, x, w)
+    _scaled_close(tv, jv, 2e-2, "value")
+    for name in ["embedding", "lstm_layer_0", "lstm_layer_1"]:
+        for k, leaf in tp[name].items():
+            _scaled_close(leaf.grad, jg[name][k], 2e-2, f"{name}.{k}")
+
+
+def test_fused_route_matches_jax_encoder_apply():
+    """``use_pallas`` on CPU tensors runs the fused encoder's plain version;
+    it equals the JAX encoder (whose CPU backend takes the scan)."""
+    jcfg, tcfg = _cfgs(2)
+    jp, npp, x, cond = _setup(jcfg)
+    jmu, jlv = jenc.encoder_apply(jp, jcfg, jnp.asarray(x), jnp.asarray(cond))
+    tmu, tlv = tenc.encoder_apply(params_from_numpy(npp), tcfg.replace(use_pallas=True),
+                                  torch.from_numpy(x), torch.from_numpy(cond))
+    _close(tmu, jmu, 1e-5)
+    _close(tlv, jlv, 1e-5)
+
+
+def test_custom_vjp_width_is_not_ported_yet():
+    _, tcfg = _cfgs(1, H=32, custom_vjp=True)
+    with pytest.raises(NotImplementedError, match="lstm_sequence_cv"):
+        tenc.encoder_apply(tenc.init_encoder_params(torch.Generator().manual_seed(0), tcfg),
+                           tcfg, torch.zeros((2, 3), dtype=torch.int32), torch.zeros((2, 1)))

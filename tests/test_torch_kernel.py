@@ -23,6 +23,7 @@ import torch
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.models.decoder import hidden_init_row, init_decoder_params
 from mlx_vae_tpu_torch.ops import fused_decoder as fd
+from mlx_vae_tpu_torch.ops.train_common import RPTS
 
 LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
@@ -109,7 +110,7 @@ def test_kernel_tokens_do_not_depend_on_the_tile(dev, dtype):
     same order whatever the tile, so the tokens are bitwise equal."""
     cfg = ModelConfig(latent_dim=8, compute_dtype=dtype, num_layers=2, hidden_dim=64,
                       embedding_dim=16, vocab_size=200)
-    outs = [_run(cfg, dev, rows_per_thread=r)[0] for r in fd._RPTS]
+    outs = [_run(cfg, dev, rows_per_thread=r)[0] for r in RPTS]
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
 

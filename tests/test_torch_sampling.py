@@ -31,6 +31,7 @@ from mlx_vae_tpu_torch.models.sampling import generate_with_temperature
 from mlx_vae_tpu_torch.models.vae import vae_generate
 from mlx_vae_tpu_torch.ops import fused_decoder as fd
 from mlx_vae_tpu_torch.ops import sampling as tsampling
+from mlx_vae_tpu_torch.ops.train_common import MAX_SMEM
 from mlx_vae_tpu_torch.utils.tree import params_from_numpy
 
 AGREE_FIRST, AGREE_ROWS = 0.99, 0.97
@@ -301,7 +302,7 @@ def test_kernel_gate():
     assert fd._tile_rows(ModelConfig(hidden_dim=64)) == 32  # 4 row groups
     big = ModelConfig(hidden_dim=1024, num_layers=8, embedding_dim=512)
     assert fd._tile_rows(big) == 2
-    assert fd._smem_bytes(big, 2) <= fd._MAX_SMEM < fd._smem_bytes(big, 4)
+    assert fd._smem_bytes(big, 2) <= MAX_SMEM < fd._smem_bytes(big, 4)
 
 
 def test_cpu_wrapper_runs_plain_version_without_counting():

@@ -45,9 +45,33 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    (``use_pallas=False``, the scan path with autograd) on the same params
    and noise, in f32 and bf16: the 9 loss scalars, ``grad_norm`` and the
    post-Adam params;
-8. train times: each train kernel against its plain version, and the whole
-   step on the fused route against the plain route, at B=4096, L=64, bf16
-   (CUDA events after a warm-up), with tokens/s.
+8. train times: each train kernel against its plain version and, for the
+   encoder pair, against cuDNN's two-layer ``torch.nn.LSTM`` at the same
+   widths (the yardstick only), and the whole step on the fused route
+   against the plain route, at B=4096, L=64, bf16 (CUDA events after a
+   warm-up), with tokens/s;
+9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
+   (I=128 and I=1024, H=1024, B=2048, L=64, f32 and bf16, and a backward
+   over residuals and inputs addressed inside layer-stacked arrays), the
+   fused training decoder's logits specialization at the scaled model
+   (H=1024, 4 layers, B=2048, L=64, f32 and bf16, teacher forcing 1.0 and
+   0.9) and the LSTM gate pair at [4096, 1024] and [2048, 4096] (f32),
+   each against its plain version, with phase 6's tolerances and
+   agreement floors;
+10. the scaled slice: ``train_step`` at hidden 1024 / 4 layers / latent 512,
+   bf16, B=2048, L=64, fused route (the per-layer one at this size) for 4
+   steps: losses finite, the last below the first, and per step 4
+   sequence-forward, 8 sequence-backward and 1 decoder logits-forward
+   launches and none of the whole-stack kernels. One scaled step, and one
+   default-model ``reference_zero_state`` step (whose decoder scan runs the
+   gate kernel pair L*n times each way), are held against the plain route
+   in f32 and bf16 as in phase 7;
+11. scaled times: each new kernel against its plain version and, for the
+   sequence LSTM, against cuDNN's one-layer ``torch.nn.LSTM`` (forward;
+   backward alone) and for the gate pair against PyTorch's fused LSTM cell
+   (``aten::_thnn_fused_lstm_cell``); the whole-stack kernels at the scaled
+   shape through their ``launch_*`` functions (the route check); and the
+   scaled step on the fused route against the plain route, in tokens/s.
 
 ``--sweep`` times the kernel with each rows-per-thread instance forced
 (1, 2, 4, 8) at B = 256, 1024, 2048, 8192, L=64, T=0.8, f32 and bf16:
@@ -56,8 +80,12 @@ measurement behind the tile rule in ``ops/fused_decoder.py:_tile_rows``.
 
 Any failed check raises, so the script exits non-zero before the last line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the per-kernel JSON record. Without CUDA the script exits 2 and prints no
-result.
+the per-kernel JSON record (each kernel's launches on its main path, its
+largest error against the plain version, its time, the plain version's,
+the library call's where one computes the same function, and its bound:
+the larger of its operations over the card's peak for their type and its
+bytes, each input read once and each output written once, over 3.35 TB/s).
+Without CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -85,6 +113,12 @@ AGREE_ROWS = 0.97   # share of whole rows that must agree
 # difference of one ulp can move an operand's rounding by one bf16 step
 LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TIERS = (256, 2048, 8192)
+# NVIDIA's published H100 SXM peaks (dense): bf16 tensor cores, f32 outside
+# the tensor cores, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+SCALED = dict(hidden_dim=1024, num_layers=4, latent_dim=512)
+SB, SL = 2048, 64  # the scaled batch and length
 
 
 def log(msg: str) -> None:
@@ -368,13 +402,18 @@ def phase_sweep(smi: str) -> list:
     return out
 
 
+SOURCES = ("fused_generate", "fused_encoder", "fused_train_decoder", "fused_seq_lstm",
+           "fused_lstm_gates")
+
+
 def build_all() -> None:
     """One nvcc per CUDA source, all started together, then load each."""
-    from mlx_vae_tpu_torch.ops import fused_decoder, fused_encoder, fused_train_decoder
+    from mlx_vae_tpu_torch.ops import (fused_decoder, fused_encoder, fused_lstm,
+                                       fused_seq_lstm, fused_train_decoder)
     from mlx_vae_tpu_torch.ops.build import compile_sources
 
-    compile_sources(["fused_generate", "fused_encoder", "fused_train_decoder"], verbose=True)
-    for mod in (fused_decoder, fused_encoder, fused_train_decoder):
+    compile_sources(SOURCES, verbose=True)
+    for mod in (fused_decoder, fused_encoder, fused_train_decoder, fused_seq_lstm, fused_lstm):
         mod.build_library()
 
 
@@ -390,14 +429,6 @@ TRAIN_REPLACES = {
     "fused_train_decoder_fwd": "mlx_vae_tpu/ops/pallas_train_decoder.py:136",
     "fused_train_decoder_bwd": "mlx_vae_tpu/ops/pallas_train_decoder.py:375",
 }
-
-
-def train_counters() -> dict:
-    from mlx_vae_tpu_torch.ops import fused_encoder as fe
-    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
-
-    return {"fused_encoder_fwd": fe.encoder_fwd, "fused_encoder_bwd": fe.encoder_bwd,
-            "fused_train_decoder_fwd": fd.decoder_fwd, "fused_train_decoder_bwd": fd.decoder_bwd}
 
 
 def train_model(dtype: str, seed: int = 0):
@@ -514,88 +545,54 @@ def synthetic_batch(cfg, B: int, L: int):
     return (torch.as_tensor(x, device="cuda"), torch.as_tensor(cond, device="cuda"))
 
 
-def phase_train_slice() -> dict:
-    """Eight full-width bf16 steps through the kernels; returns the launch
-    count of each train kernel in that run."""
+def train_steps(cfg, params, x, cond, steps: int, counters: dict) -> dict:
+    """``steps`` train steps on one batch with every launch count set to 0
+    just before; checks that the losses stay finite and fall, and returns
+    the counts."""
     import math
 
     from mlx_vae_tpu_torch.config import TrainConfig
     from mlx_vae_tpu_torch.train.optim import adam_init
-    from mlx_vae_tpu_torch.train.steps import draw_noise, train_step
-    from mlx_vae_tpu_torch.utils.tree import tree_leaves, tree_map
+    from mlx_vae_tpu_torch.train.steps import train_step
 
-    B, L = 4096, 64
-    tcfg = TrainConfig(batch_size=B)
-    cfg, params = train_model("bfloat16")
-    x, cond = synthetic_batch(cfg, B, L)
+    B = x.shape[0]
     opt = {n: adam_init(p) for n, p in params.items()}
     gen = torch.Generator(device="cuda").manual_seed(2)
-    counters = train_counters()
-    for fn in counters.values():
-        fn.launches = 0  # count only the main path's launches
+    reset_counts(counters)  # count only the main path's launches
     losses = []
     t0 = time.perf_counter()
-    for _ in range(8):
-        _, _, m = train_step(params, opt, cfg, tcfg, x, cond, gen, 0.05, 0.9)
+    for _ in range(steps):
+        _, _, m = train_step(params, opt, cfg, TrainConfig(batch_size=B), x, cond, gen, 0.05,
+                             0.9)
         losses.append(m["total_loss"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    counts = read_counts(counters)
     losses = [float(v) for v in losses]
-    log(f"  8 steps in {wall:.2f}s; total loss per step "
+    log(f"  {steps} steps in {wall:.2f}s; total loss per step "
         f"{', '.join(f'{v:.4f}' for v in losses)}; last recon {float(m['recon_loss']):.4f}, "
         f"grad_norm {float(m['grad_norm']):.4f}")
-    log(f"  launches during the 8 steps: {launches}")
+    log(f"  launches during the {steps} steps: {counts}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("a loss is not finite")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"total loss did not fall: {losses[0]} -> {losses[-1]}")
+    return counts
+
+
+def phase_train_slice() -> dict:
+    """Eight full-width bf16 steps through the kernels; returns the launch
+    count of each train kernel in that run."""
+    B, L = 4096, 64
+    cfg, params = train_model("bfloat16")
+    x, cond = synthetic_batch(cfg, B, L)
+    counters = {k: v for k, v in kernel_counters().items() if k in TRAIN_KERNELS}
+    launches = train_steps(cfg, params, x, cond, 8, counters)
     if min(launches.values()) < 1:
         raise AssertionError(f"a train kernel was never launched: {launches}")
 
     # one step, fused route against the plain route, same params and noise
-    lr = tcfg.learning_rate
-    max_step = lr * (1 - tcfg.adam_b1) / math.sqrt(1 - tcfg.adam_b2)  # first Adam step
-    # A first Adam step is ~lr * sign(g), so params agree where the gradient
-    # signs agree. In bf16 the two backward contracts (activated-gate
-    # residuals vs autodiff of exact pre-activations) give a few tiny
-    # gradients opposite signs: 99.4352% of elements agreed on an H100. In
-    # f32 100.0000% agreed; a different summation order may still flip the
-    # sign of a near-zero gradient, which moves one element, whereas a
-    # misrouted leaf (a bias, the output head) moves most of its elements.
-    # So in f32 each leaf may have at most max(1, 1e-4 of its elements) off.
-    for dtype, s_tol, same_min, leaf_off in (("float32", 1e-4, 0.9999, 1e-4),
-                                              ("bfloat16", 1e-2, 0.98, None)):
-        cfg, p0 = train_model(dtype, seed=3)
-        noise = draw_noise(gen, cfg, B, L, 0.9)
-        out = {}
-        for route, c in (("fused", cfg), ("plain", cfg.replace(use_pallas=False))):
-            p = tree_map(torch.clone, p0)
-            o = {n: adam_init(v) for n, v in p.items()}
-            _, _, m = train_step(p, o, c, tcfg, x, cond, None, 0.05, 0.9, noise=noise)
-            out[route] = (p, {k: float(v) for k, v in m.items()})
-        (pf, mf), (pp, mp) = out["fused"], out["plain"]
-        worst = max(abs(mf[k] - mp[k]) / max(abs(mp[k]), 1e-6)
-                    for k in mp if k not in ("mu_abs_max", "logvar_min", "logvar_max"))
-        dp = [(a.detach() - b.detach()).abs() for a, b in zip(tree_leaves(pf), tree_leaves(pp))]
-        off = [int((d > 1e-2 * max_step).sum()) for d in dp]
-        same = 1.0 - sum(off) / sum(d.numel() for d in dp)
-        worst_leaf = max(o / d.numel() for o, d in zip(off, dp))
-        big = max(float(d.max()) for d in dp)
-        log(f"  {dtype} one step fused vs plain route: total {mf['total_loss']:.6f} vs "
-            f"{mp['total_loss']:.6f}, grad_norm {mf['grad_norm']:.6f} vs "
-            f"{mp['grad_norm']:.6f}; worst rel diff over the 9 scalars and grad_norm "
-            f"{worst:.3e} (tol {s_tol}); post-Adam params: {same:.4%} of elements took the "
-            f"same step (within 1% of one step), worst leaf {worst_leaf:.4%} off, "
-            f"max |diff| {big:.3e} (one step <= {max_step:.3e})")
-        if not worst <= s_tol:
-            raise AssertionError(f"{dtype}: fused and plain route scalars differ by {worst}")
-        if not (same >= same_min and big <= 2 * max_step * 1.001):
-            raise AssertionError(f"{dtype}: post-Adam params differ ({same:.4%} same)")
-        if leaf_off is not None and any(o > max(1, leaf_off * d.numel())
-                                        for o, d in zip(off, dp)):
-            raise AssertionError(f"{dtype}: a post-Adam leaf differs in "
-                                 f"{worst_leaf:.4%} of its elements")
+    fused_vs_plain("default", lambda dt: train_model(dt, seed=3), x, cond, B, L)
     return launches
 
 
@@ -632,13 +629,12 @@ def phase_train_times(smi: str) -> dict:
     }
     out = {}
     for name, (kern, plain) in pairs.items():
-        p1 = time_ms(plain, 2)
-        k1 = time_ms(kern, 3)
-        k2 = time_ms(kern, 3)
-        p2 = time_ms(plain, 2)
-        out[name] = (min(k1, k2), min(p1, p2))
-        log(f"  {name}: kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms "
-            f"(plain, kernel, kernel, plain) [{smi}]")
+        out[name] = turns(name, kern, plain, smi, 3, 2)
+    lib = cudnn_lstm_ms(cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers, B, L, "bfloat16")
+    out["library"] = {"fused_encoder_fwd": lib[0], "fused_encoder_bwd": lib[1]}
+    log(f"  cuDNN torch.nn.LSTM, {cfg.num_layers} layers, I={cfg.embedding_dim} "
+        f"H={cfg.hidden_dim} B={B} L={L} bf16: forward {lib[0]} ms, backward alone {lib[1]} ms "
+        f"[{smi}]")
     del enc, dec
     tcfg = TrainConfig(batch_size=B)
     xs, conds = synthetic_batch(cfg, B, L)
@@ -652,6 +648,451 @@ def phase_train_times(smi: str) -> dict:
         log(f"  train step, {route} route: {ms:.3f} ms = {B * L / ms * 1e3:,.0f} tokens/s "
             f"(B=4096 L=64 bf16) [{smi}]")
     return out
+
+
+def turns(name: str, kern, plain, smi: str, k_reps: int, p_reps: int) -> tuple:
+    """(kernel ms, plain ms): the min of two runs each, in the order plain,
+    kernel, kernel, plain."""
+    p1 = time_ms(plain, p_reps)
+    k1 = time_ms(kern, k_reps)
+    k2 = time_ms(kern, k_reps)
+    p2 = time_ms(plain, p_reps)
+    log(f"  {name}: kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms "
+        f"(plain, kernel, kernel, plain) [{smi}]")
+    return min(k1, k2), min(p1, p2)
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cudnn_lstm_ms(I: int, H: int, layers: int, B: int, L: int, dtype: str) -> tuple:
+    """cuDNN's ``torch.nn.LSTM`` at these widths, a yardstick the port never
+    calls: (forward ms, backward-alone ms), or (None, None) where PyTorch
+    refuses the dtype."""
+    wdt = DTYPES[dtype]
+    lstm = torch.nn.LSTM(I, H, num_layers=layers).to("cuda", wdt)
+    lstm.flatten_parameters()
+    x = torch.randn((L, B, I), device="cuda", dtype=wdt, requires_grad=True)
+    hc = (torch.zeros((layers, B, H), device="cuda", dtype=wdt),) * 2
+    try:
+        fwd = time_ms(lambda: lstm(x.detach(), hc), 3)
+    except RuntimeError as e:
+        log(f"  torch.nn.LSTM refused {dtype}: {str(e).splitlines()[0]}")
+        return None, None
+    out, _ = lstm(x, hc)
+    g = torch.randn_like(out)
+    leaves = [x] + list(lstm.parameters())
+    bwd = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 3)
+    return fwd, bwd
+
+
+def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple:
+    """(least ms, "operations" or "bytes"): the larger of the operations over
+    the card's peak for their type and the bytes over its memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def scaled_model(dtype: str, seed: int = 0, use_pallas: bool = True):
+    from mlx_vae_tpu_torch.bench import init_train_params
+    from mlx_vae_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(compute_dtype=dtype, use_pallas=use_pallas, **SCALED)
+    return cfg, init_train_params(cfg, "cuda", seed)
+
+
+def seq_inputs(I: int, H: int, dtype: str, seed: int, stride: int = 1):
+    """Weights like a layer's init, inputs, states and cotangents on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    wdt, s = DTYPES[dtype], H ** -0.5
+    dev = dict(device="cuda")
+    wcat = ((torch.rand((I + H, 4 * H), generator=g, **dev) * 2 - 1) * s).to(wdt)
+    bias = (torch.rand((4 * H,), generator=g, **dev) * 2 - 1) * s
+    xs = torch.randn((SL * stride, SB, I), generator=g, **dev).to(wdt)
+    h0, c0, dhf, dcf = (0.3 * torch.randn((SB, H), generator=g, **dev) for _ in range(4))
+    dhs = torch.randn((SL, SB, H), generator=g, **dev) / (SB * SL) ** 0.5
+    return wcat, bias, xs, h0, c0, dhs, dhf, dcf
+
+
+def phase_scaled_kernels() -> dict:
+    """Returns {kernel: [largest abs diff, largest rel diff]} over every run."""
+    from mlx_vae_tpu_torch.ops import fused_lstm as fl
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+    from mlx_vae_tpu_torch.ops import train_common as tc
+
+    worst = {k: [0.0, 0.0] for k in SEQ_RECORDS}
+    H = SCALED["hidden_dim"]
+    for dtype in ("float32", "bfloat16"):
+        for I in (128, 1024):
+            tag = f"{dtype} I={I} H={H} B={SB} L={SL}"
+            wcat, bias, xs, h0, c0, dhs, dhf, dcf = seq_inputs(I, H, dtype, seed=I)
+            k = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+            p = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
+            torch.cuda.synchronize()
+            compare(f"{tag} seq fwd [hs, cs, gs, hf, cf]", k, p, dtype, worst["seq_lstm_fwd"])
+            del k
+            kb = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
+            pb = fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
+            torch.cuda.synchronize()
+            compare(f"{tag} seq bwd [dxs, dwcat, db, dh0, dc0]", kb, pb, dtype,
+                    worst["seq_lstm_bwd"])
+            if I == 1024:  # residuals and input as rows 2t+1 of [2L, B, .] arrays
+                stk = []
+                for a in (*p[:3], xs):
+                    big = torch.zeros((2 * SL,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                      device="cuda")
+                    big[1::2] = a
+                    stk.append(big)
+                ks = fs.seq_lstm_bwd_tm(wcat, stk[3], h0, c0, *stk[:3], dhs, dhf, dcf,
+                                        res_stride=2, res_offset=1, xs_stride=2, xs_offset=1)
+                torch.cuda.synchronize()
+                compare(f"{tag} seq bwd, strided (stride 2, offset 1)", ks, pb, dtype,
+                        worst["seq_lstm_bwd"])
+                del ks, stk
+            del kb, pb, p
+            torch.cuda.empty_cache()
+        # row 6's counterpart: the decoder's fused forward, logits specialization
+        cfg, params = scaled_model(dtype)
+        wd = tc.prepare_stack_weights(params["decoder"], cfg, with_head=True)
+        tok, cond, h0, g = train_inputs(cfg, SB, SL, seed=11)
+        tag = f"{dtype} scaled decoder fwd logits"
+        tf_on = torch.ones((SL,), dtype=torch.bool, device="cuda")
+        k = fd.decoder_fwd(wd, h0, cond, tok, tf_on, False)
+        p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf_on, False)
+        torch.cuda.synchronize()
+        if not torch.equal(k[1], p[1]):
+            raise AssertionError(f"{tag}: fed tokens differ under full teacher forcing")
+        compare(f"{tag}, tf 1.0 [logits, hs, cs, gs]", (k[0], *k[2:]), (p[0], *p[2:]), dtype,
+                worst["fused_train_decoder_fwd_logits"])
+        del k, p
+        tf = torch.rand((SL,), generator=g, device="cuda") < 0.9
+        tf[3] = False  # at least one argmax-fed step
+        k = fd.decoder_fwd(wd, h0, cond, tok, tf, False)
+        p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False)
+        torch.cuda.synchronize()
+        first = int(torch.nonzero(~tf)[0].item())
+        first_ok, rows_ok = agreement(k[1].T[:, first + 1:], p[1].T[:, first + 1:])
+        log(f"  {tag}, tf 0.9: fed-token rows agree {rows_ok:.4%}, first argmax-fed step "
+            f"(t={first + 1}) {first_ok:.4%}")
+        if first_ok < AGREE_FIRST or rows_ok < AGREE_ROWS:
+            raise AssertionError(f"{tag}: fed tokens agree below "
+                                 f"{AGREE_FIRST:.0%} / {AGREE_ROWS:.0%}")
+        del k, p, wd, params
+        torch.cuda.empty_cache()
+    for B, Hg in ((4096, 1024), (2048, 4096), (4096, 256)):
+        g = torch.Generator(device="cuda").manual_seed(B + Hg)
+        gates = 3 * torch.randn((B, 4 * Hg), generator=g, device="cuda")
+        c, dh, dc = (torch.randn((B, Hg), generator=g, device="cuda") for _ in range(3))
+        k = fl.gates_fwd(gates, c)
+        p = fl.gates_fwd_reference(gates, c)
+        kb = fl.gates_bwd(gates, c, dh, dc)
+        pb = fl.gates_bwd_reference(gates, c, dh, dc)
+        torch.cuda.synchronize()
+        compare(f"float32 gates fwd [{B}, {Hg}] [h, c]", k, p, "float32",
+                worst["lstm_gates_fwd"])
+        compare(f"float32 gates bwd [{B}, {Hg}] [dgates, dc_prev]", kb, pb, "float32",
+                worst["lstm_gates_bwd"])
+    return worst
+
+
+def kernel_counters() -> dict:
+    """{kernel: (wrapper, the attribute that counts its launches)}."""
+    from mlx_vae_tpu_torch.ops import fused_encoder as fe
+    from mlx_vae_tpu_torch.ops import fused_lstm as fl
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+
+    return {"seq_lstm_fwd": (fs.seq_lstm_fwd, "launches"),
+            "seq_lstm_bwd": (fs.seq_lstm_bwd_tm, "launches"),
+            "fused_train_decoder_fwd_logits": (fd.decoder_fwd, "logits_launches"),
+            "lstm_gates_fwd": (fl.gates_fwd, "launches"),
+            "lstm_gates_bwd": (fl.gates_bwd, "launches"),
+            "fused_encoder_fwd": (fe.encoder_fwd, "launches"),
+            "fused_encoder_bwd": (fe.encoder_bwd, "launches"),
+            "fused_train_decoder_fwd": (fd.decoder_fwd, "launches"),
+            "fused_train_decoder_bwd": (fd.decoder_bwd, "launches")}
+
+
+def reset_counts(counters: dict) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def fused_vs_plain(what: str, model, x, cond, B: int, L: int) -> None:
+    """One step on the fused route against the plain route, same params and
+    noise, in f32 and bf16: phase 7's bounds."""
+    import math
+
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import draw_noise, train_step
+    from mlx_vae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    tcfg = TrainConfig(batch_size=B)
+    lr = tcfg.learning_rate
+    max_step = lr * (1 - tcfg.adam_b1) / math.sqrt(1 - tcfg.adam_b2)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for dtype, s_tol, same_min, leaf_off in (("float32", 1e-4, 0.9999, 1e-4),
+                                              ("bfloat16", 1e-2, 0.98, None)):
+        cfg, p0 = model(dtype)
+        noise = draw_noise(gen, cfg, B, L, 0.9)
+        out = {}
+        for route, c in (("fused", cfg), ("plain", cfg.replace(use_pallas=False))):
+            p = tree_map(torch.clone, p0)
+            o = {n: adam_init(v) for n, v in p.items()}
+            _, _, m = train_step(p, o, c, tcfg, x, cond, None, 0.05, 0.9, noise=noise)
+            out[route] = (p, {k: float(v) for k, v in m.items()})
+            del o
+        del p0
+        (pf, mf), (pp, mp) = out["fused"], out["plain"]
+        worst = max(abs(mf[k] - mp[k]) / max(abs(mp[k]), 1e-6)
+                    for k in mp if k not in ("mu_abs_max", "logvar_min", "logvar_max"))
+        dp = [(a.detach() - b.detach()).abs() for a, b in zip(tree_leaves(pf), tree_leaves(pp))]
+        off = [int((d > 1e-2 * max_step).sum()) for d in dp]
+        same = 1.0 - sum(off) / sum(d.numel() for d in dp)
+        worst_leaf = max(o / d.numel() for o, d in zip(off, dp))
+        big = max(float(d.max()) for d in dp)
+        log(f"  {what} {dtype} one step fused vs plain route: total {mf['total_loss']:.6f} vs "
+            f"{mp['total_loss']:.6f}, grad_norm {mf['grad_norm']:.6f} vs {mp['grad_norm']:.6f}; "
+            f"worst rel diff over the 9 scalars and grad_norm {worst:.3e} (tol {s_tol}); "
+            f"post-Adam params: {same:.4%} of elements took the same step, worst leaf "
+            f"{worst_leaf:.4%} off, max |diff| {big:.3e} (one step <= {max_step:.3e})")
+        if not worst <= s_tol:
+            raise AssertionError(f"{what} {dtype}: fused and plain route scalars differ by "
+                                 f"{worst}")
+        if not (same >= same_min and big <= 2 * max_step * 1.001):
+            raise AssertionError(f"{what} {dtype}: post-Adam params differ ({same:.4%} same)")
+        if leaf_off is not None and any(o > max(1, leaf_off * d.numel())
+                                        for o, d in zip(off, dp)):
+            raise AssertionError(f"{what} {dtype}: a post-Adam leaf differs in "
+                                 f"{worst_leaf:.4%} of its elements")
+        del out, pf, pp, dp
+        torch.cuda.empty_cache()
+
+
+def phase_scaled_slice() -> dict:
+    """Four scaled bf16 steps, then the fused-vs-plain checks; returns the
+    launch count of each new kernel on its main path (the scaled steps for
+    the sequence and decoder kernels, the zero-state step for the gate
+    pair)."""
+    import math
+
+    from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import train_step
+
+    cfg, params = scaled_model("bfloat16")
+    x, cond = synthetic_batch(cfg, SB, SL)
+    counters = kernel_counters()
+    steps = 4
+    counts = train_steps(cfg, params, x, cond, steps, counters)
+    per_step = {"seq_lstm_fwd": 4, "seq_lstm_bwd": 8, "fused_train_decoder_fwd_logits": 1}
+    want = {k: steps * per_step.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"scaled launches {counts}, expected {want}")
+    del params
+    torch.cuda.empty_cache()
+    fused_vs_plain("scaled", lambda dt: scaled_model(dt, seed=3), x, cond, SB, SL)
+
+    # the gate pair's main path: a default-model reference_zero_state step
+    B, L = 4096, 64
+    zcfg = ModelConfig(compute_dtype="bfloat16", use_pallas=True, reference_zero_state=True)
+    zx, zcond = synthetic_batch(zcfg, B, L)
+    _, zp = train_model("bfloat16", seed=4)
+    zo = {n: adam_init(p) for n, p in zp.items()}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    reset_counts(counters)
+    _, _, m = train_step(zp, zo, zcfg, TrainConfig(batch_size=B), zx, zcond, gen, 0.05, 0.9)
+    torch.cuda.synchronize()
+    zcounts = read_counts(counters)
+    log(f"  reference_zero_state step, default model, bf16, B={B} L={L}: total loss "
+        f"{float(m['total_loss']):.4f}; launches {zcounts}")
+    n = zcfg.num_layers
+    if not (zcounts["lstm_gates_fwd"] == L * n and zcounts["lstm_gates_bwd"] == L * n
+            and math.isfinite(float(m["total_loss"]))):
+        raise AssertionError(f"gate-kernel launches {zcounts}, expected {L * n} each way")
+    del zp, zo, m
+    torch.cuda.empty_cache()
+    fused_vs_plain("reference_zero_state",
+                   lambda dt: (zcfg.replace(compute_dtype=dt), train_model(dt, seed=5)[1]),
+                   zx, zcond, B, L)
+    counts.update({k: zcounts[k] for k in ("lstm_gates_fwd", "lstm_gates_bwd")})
+    return counts
+
+
+def lstm_flops(B: int, L: int, widths) -> float:
+    """Multiply-adds x 2 of the cells' products over L steps of B rows, for
+    layers of (input width, H)."""
+    return 2.0 * B * L * sum((i + h) * 4 * h for i, h in widths)
+
+
+def phase_scaled_times(smi: str) -> dict:
+    """{kernel: (kernel ms, plain ms, library ms, bound ms, bound by)}, the
+    whole-stack kernels' times at the scaled shape, and the scaled step's."""
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.ops import fused_encoder as fe
+    from mlx_vae_tpu_torch.ops import fused_lstm as fl
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+    from mlx_vae_tpu_torch.ops import train_common as tc
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import train_step
+
+    out = {}
+    H, dt, es = SCALED["hidden_dim"], "bfloat16", 2
+    M = SB * SL
+    for I in (128, 1024):
+        wcat, bias, xs, h0, c0, dhs, dhf, dcf = seq_inputs(I, H, dt, seed=I + 1)
+        res = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+        fl_ops = lstm_flops(SB, SL, [(I, H)])
+        w_bytes = (I + H) * 4 * H * es + 4 * H * 4
+        fwd_bytes = M * I * es + w_bytes + 2 * SB * H * 4 + M * 6 * H * es + 2 * SB * H * 4
+        bwd_bytes = (M * I * es + w_bytes + M * 6 * H * es + M * H * 4 + 4 * SB * H * 4
+                     + M * I * 4 + (I + H) * 4 * H * 4 + 4 * H * 4 + 2 * SB * H * 4)
+        k_ms, p_ms = turns(f"seq_lstm_fwd I={I}", lambda: fs.seq_lstm_fwd(wcat, bias, xs, h0, c0),
+                           lambda: fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0), smi, 3, 2)
+        kb_ms, pb_ms = turns(f"seq_lstm_bwd I={I}",
+                             lambda: fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res[:3], dhs, dhf, dcf),
+                             lambda: fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *res[:3], dhs,
+                                                               dhf, dcf), smi, 2, 2)
+        lib = cudnn_lstm_ms(I, H, 1, SB, SL, dt)
+        log(f"  cuDNN torch.nn.LSTM, 1 layer, I={I} H={H} B={SB} L={SL} bf16: forward "
+            f"{lib[0]} ms, backward alone {lib[1]} ms [{smi}]")
+        out[f"seq_lstm_fwd I={I}"] = (k_ms, p_ms, lib[0], *bound_ms(fl_ops, fwd_bytes, dt))
+        out[f"seq_lstm_bwd I={I}"] = (kb_ms, pb_ms, lib[1], *bound_ms(2 * fl_ops, bwd_bytes, dt))
+        del res, wcat, xs, dhs
+        torch.cuda.empty_cache()
+
+    cfg, params = scaled_model(dt)
+    wd = tc.prepare_stack_weights(params["decoder"], cfg, with_head=True)
+    we = tc.prepare_stack_weights(params["encoder"], cfg, with_head=False)
+    tok, cond, h0, g = train_inputs(cfg, SB, SL, seed=12)
+    tf = torch.rand((SL,), generator=g, device="cuda") < 0.9
+    E, C, V, n = cfg.embedding_dim, cfg.num_conditions, cfg.vocab_size, cfg.num_layers
+    dec_widths = [(E + C, H)] + [(H, H)] * (n - 1)
+    dec_ops = lstm_flops(SB, SL, dec_widths) + 2.0 * M * H * V
+    stack_bytes = sum((i + H) * 4 * H for i, _ in dec_widths) * es
+    res_bytes = M * n * 6 * H * es
+    k_ms, p_ms = turns("fused_train_decoder_fwd_logits",
+                       lambda: fd.decoder_fwd(wd, h0, cond, tok, tf, False),
+                       lambda: fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False), smi, 2, 1)
+    out["fused_train_decoder_fwd_logits"] = (
+        k_ms, p_ms, None, *bound_ms(dec_ops, stack_bytes + res_bytes + M * V * 4 + M * 8, dt))
+
+    # route check: the whole-stack kernels at the scaled shape, through their
+    # launch functions (no route, no counter)
+    st = torch.cuda.current_stream().cuda_stream
+    le, ld = fe.build_library(), fd.build_library()
+    enc_res = fe.launch_encoder_fwd(le, we, tok, st)
+    dec_res = fd.launch_decoder_fwd(ld, wd, h0, cond, tok, tf.int(), True, st)
+    dce = torch.full((SB,), 1.0 / M, device="cuda")
+    whole = {
+        "whole-stack encoder fwd": lambda: fe.launch_encoder_fwd(le, we, tok, st),
+        "whole-stack encoder bwd": lambda: fe.launch_encoder_bwd(le, we, tok, h0, *enc_res[1:],
+                                                                 st),
+        "whole-stack decoder fwd (CE)": lambda: fd.launch_decoder_fwd(ld, wd, h0, cond, tok,
+                                                                      tf.int(), True, st),
+        "whole-stack decoder bwd (CE)": lambda: fd.launch_decoder_bwd(
+            ld, wd, dce, tok, dec_res[1], h0, cond, *dec_res[2:], True, st),
+    }
+    for name, fn in whole.items():
+        ms = time_ms(fn, 1)
+        out[name] = ms
+        log(f"  route check, {name} at H={H} n={n} B={SB} L={SL} bf16: {ms:.3f} ms [{smi}]")
+    del enc_res, dec_res, wd, we, params
+    torch.cuda.empty_cache()
+
+    # the gate pair at its main path's shape (default model: B=4096, H=256)
+    Bg, Hg = 4096, 256
+    g = torch.Generator(device="cuda").manual_seed(9)
+    gates = torch.randn((Bg, 4 * Hg), generator=g, device="cuda")
+    c, dh, dc = (torch.randn((Bg, Hg), generator=g, device="cuda") for _ in range(3))
+    zero = torch.zeros_like(gates)
+    k_ms, p_ms = turns("lstm_gates_fwd", lambda: fl.gates_fwd(gates, c),
+                       lambda: fl.gates_fwd_reference(gates, c), smi, 50, 50)
+    kb_ms, pb_ms = turns("lstm_gates_bwd", lambda: fl.gates_bwd(gates, c, dh, dc),
+                         lambda: fl.gates_bwd_reference(gates, c, dh, dc), smi, 50, 50)
+    aten = torch.ops.aten
+    hy, cy, ws = aten._thnn_fused_lstm_cell(gates, zero, c)
+    lf = time_ms(lambda: aten._thnn_fused_lstm_cell(gates, zero, c), 50)
+    lb = time_ms(lambda: aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, ws, False), 50)
+    log(f"  PyTorch's fused LSTM cell (aten::_thnn_fused_lstm_cell) [{Bg}, {Hg}] f32: forward "
+        f"{lf:.4f} ms, backward {lb:.4f} ms [{smi}]")
+    units = Bg * Hg
+    out["lstm_gates_fwd"] = (k_ms, p_ms, lf, *bound_ms(40.0 * units, 28.0 * units, "float32"))
+    out["lstm_gates_bwd"] = (kb_ms, pb_ms, lb, *bound_ms(70.0 * units, 48.0 * units, "float32"))
+
+    # the scaled step, plain route against the fused route
+    tcfg = TrainConfig(batch_size=SB)
+    xb, cb = synthetic_batch(cfg, SB, SL)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for route, use in (("plain", False), ("fused", True), ("fused", True), ("plain", False)):
+        c_, p = scaled_model(dt, use_pallas=use)
+        o = {k: adam_init(v) for k, v in p.items()}
+        ms = time_ms(lambda: train_step(p, o, c_, tcfg, xb, cb, gen, 0.05, 0.9), 1)
+        out.setdefault(f"scaled_step_{route}", []).append(ms)
+        log(f"  scaled train step, {route} route: {ms:.3f} ms = {M / ms * 1e3:,.0f} tokens/s "
+            f"(H=1024 n=4 B={SB} L={SL} bf16) [{smi}]")
+        del p, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def default_bounds() -> dict:
+    """{kernel: (bound ms, bound by)} of the sampler and the default-model
+    train kernels at the shapes phases 5 and 8 time them."""
+    from mlx_vae_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    E, C, H, V, n = (cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim, cfg.vocab_size,
+                     cfg.num_layers)
+    out = {}
+    B, L = 8192, 64  # the sampler, f32
+    M = B * L
+    ops = lstm_flops(B, L, [(E + C, H)] + [(H, H)] * (n - 1)) + 2.0 * M * H * V
+    w = ((E + C + H) * 4 * H + (n - 1) * 2 * H * 4 * H + H * V + V * E) * 4
+    out["fused_generate"] = bound_ms(ops, w + B * (H + C) * 4 + M * 4, "float32")
+    B, L, es = 4096, 64, 2  # the train kernels, bf16
+    M = B * L
+    res = M * n * 6 * H * es
+    enc_w = [(E, H)] + [(H, H)] * (n - 1)
+    dec_w = [(E + C, H)] + [(H, H)] * (n - 1)
+    enc_ops, dec_ops = lstm_flops(B, L, enc_w), lstm_flops(B, L, dec_w)
+    wb = lambda ws: sum((i + h) * 4 * h for i, h in ws)  # noqa: E731
+    grads = lambda ws, head: (wb(ws) + n * 4 * H + V * E + head) * 4  # noqa: E731
+    out["fused_encoder_fwd"] = bound_ms(enc_ops, M * 4 + (wb(enc_w) + V * E) * es + res
+                                        + B * H * 4, "bfloat16")
+    out["fused_encoder_bwd"] = bound_ms(2 * enc_ops, M * 4 + (wb(enc_w) + V * E) * es + res
+                                        + B * H * 4 + grads(enc_w, 0), "bfloat16")
+    dec_in = M * 4 + B * (H + C) * 4 + (wb(dec_w) + V * E + 2 * H * V) * es
+    out["fused_train_decoder_fwd"] = bound_ms(dec_ops + 2.0 * M * H * V,
+                                              dec_in + B * 4 + M * 4 + res, "bfloat16")
+    out["fused_train_decoder_bwd"] = bound_ms(
+        2 * dec_ops + 6.0 * M * H * V, dec_in + B * 4 + M * 4 + res
+        + grads(dec_w, H * V + V) + B * (H + C) * 4, "bfloat16")
+    return out
+
+
+# kernel: (source, the TPU kernel it replaces, its row in phase 11's times,
+# the timed shape)
+SEQ_RECORDS = {
+    "seq_lstm_fwd": ("fused_seq_lstm.cu", "pallas_seq_lstm.py:116", "seq_lstm_fwd I=1024",
+                     "I=1024 H=1024 B=2048 L=64 bf16"),
+    "seq_lstm_bwd": ("fused_seq_lstm.cu", "pallas_seq_lstm.py:195", "seq_lstm_bwd I=1024",
+                     "I=1024 H=1024 B=2048 L=64 bf16"),
+    "fused_train_decoder_fwd_logits": (
+        "fused_train_decoder.cu", "pallas_train_decoder.py:203",
+        "fused_train_decoder_fwd_logits", "H=1024 n=4 V=80 E=128 B=2048 L=64 bf16 tf 0.9"),
+    "lstm_gates_fwd": ("fused_lstm_gates.cu", "pallas_lstm.py:56", "lstm_gates_fwd",
+                       "B=4096 H=256 f32"),
+    "lstm_gates_bwd": ("fused_lstm_gates.cu", "pallas_lstm.py:68", "lstm_gates_bwd",
+                       "B=4096 H=256 f32"),
+}
 
 
 def main() -> int:
@@ -703,6 +1144,17 @@ def main() -> int:
     log(f"[8 train times] B=4096 L=64 bf16, CUDA events [{smi}]")
     train_times = phase_train_times(smi)
 
+    log("[9 scaled kernels vs plain] sequence LSTM, decoder logits forward, gate pair")
+    seq_errs = phase_scaled_kernels()
+
+    log("[10 scaled slice] train_step, hidden 1024 / 4 layers, bf16, B=2048, L=64, fused "
+        "route; reference_zero_state gate path")
+    launches_seq = phase_scaled_slice()
+
+    log(f"[11 scaled times] CUDA events [{smi}]")
+    seq_times = phase_scaled_times(smi)
+
+    bounds = default_bounds()
     k_ms, p_ms = times[8192]
     log(smi)
     print(json.dumps({"kernels": [{
@@ -716,6 +1168,8 @@ def main() -> int:
                       "(tolerance 1e-4 f32, 1e-2 bf16)",
         "max_row_disagreement": worst_rows,
         "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bounds["fused_generate"][0], "bound_by": bounds["fused_generate"][1],
+        "library_ms": None,
         "timed_shape": "B=8192 L=64 f32 T=0.8"}] + [{
             "name": kname, "route": "cuda", "source": TRAIN_SOURCES[kname],
             "replaces": TRAIN_REPLACES[kname], "launches": launches_train[kname],
@@ -725,8 +1179,19 @@ def main() -> int:
                           f"forcing on; largest max|diff|/max|plain| {errs[kname][1]:.3e} "
                           f"(tolerance 1e-4 f32, 2e-2 bf16)",
             "ms": train_times[kname][0], "plain_ms": train_times[kname][1],
+            "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+            "library_ms": train_times["library"].get(kname),
             "timed_shape": "B=4096 L=64 bf16" + (" with_ce" if "decoder" in kname else "")}
-            for kname in TRAIN_KERNELS]}))
+            for kname in TRAIN_KERNELS] + [{
+            "name": kname, "route": "cuda", "source": f"mlx_vae_tpu_torch/csrc/{src}",
+            "replaces": f"mlx_vae_tpu/ops/{tpu}", "launches": launches_seq[kname],
+            "max_abs_err": seq_errs[kname][0],
+            "err_metric": f"largest |kernel - plain| over every output or gradient leaf "
+                          f"(phase 9); largest max|diff|/max|plain| {seq_errs[kname][1]:.3e} "
+                          f"(tolerance 1e-4 f32, 2e-2 bf16)",
+            **dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), seq_times[row])),
+            "timed_shape": shape}
+            for kname, (src, tpu, row, shape) in SEQ_RECORDS.items()]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -50,8 +50,9 @@ class ModelConfig:
     embed_onehot: bool = True
     custom_vjp: bool = False
     # Every timestep runs from zero LSTM state (the reference decoder's
-    # quirk). Only the plain scan sampler honours it; the fused kernel
-    # raises for it.
+    # quirk). The teacher-forced decode then takes the scan (with
+    # use_pallas, through the fused gate kernels); sampling honours it in
+    # the plain scan sampler.
     reference_zero_state: bool = False
 
     @property

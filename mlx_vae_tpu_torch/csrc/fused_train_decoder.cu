@@ -5,6 +5,10 @@
 // Replaces the TPU kernels of mlx_vae_tpu/ops/pallas_train_decoder.py:
 //   dec_fwd_kernel  <- _fwd_kernel (reached through _run_fwd, from
 //                      decoder_train_ce_pallas and decoder_train_pallas)
+//                      and, in its logits specialization, _fwd_kernel_blk
+//                      (reached through decoder_fwd_blk, the forward of
+//                      ops/decoder_cv.py:decoder_train_cvp; its gate
+//                      blocking only worked around a TPU compiler limit)
 //   dec_bwd_launch  <- _bwd_kernel (reached through _run_bwd)
 // Forward, per step: embed the fed token (a row read of the table) and
 // append the conditions; run the n cells from h_init with c = 0; project to

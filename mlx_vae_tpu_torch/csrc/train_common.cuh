@@ -1,7 +1,8 @@
-// Device code shared by the train-step kernels (fused_encoder.cu and
-// fused_train_decoder.cu), for Hopper (sm_90a): operand loads and rounding,
-// the forward LSTM cell over a row tile, the reverse cell step, and the
-// weight-gradient passes that both backwards end with.
+// Device code shared by the train-step kernels (fused_encoder.cu,
+// fused_train_decoder.cu and fused_seq_lstm.cu; fused_lstm_gates.cu takes
+// its activations), for Hopper (sm_90a): operand loads and rounding, the
+// forward LSTM cell over a row tile, the reverse cell step, and the
+// weight-gradient passes that the backwards end with.
 //
 // Conventions of both kernel pairs (the TPU kernels' residual contract):
 //  * Matmul operands are rounded to the compute dtype T (float or bf16) and
@@ -146,14 +147,15 @@ __device__ __forceinline__ void cell_fwd(const T* W, const float* b, int Kin, in
 // dtype before its products). They go to dg [R][4H] in shared memory and
 // to the dgates slab [B, 4H]; dc becomes dc_tot * f.
 //   gs/cs_t/cs_prev: this layer's residual slabs at t (cs_prev at t-1, or
-//   null at t = 0 where c_prev = 0); dh, dc, fa: [R][H] (fa is the
-//   cotangent arriving from above: the layer above's input cotangent, or
-//   the vocab projection's for the decoder's top layer).
+//   null at t = 0, where c_prev is c0 [B, H] f32, or 0 if c0 is null too);
+//   dh, dc, fa: [R][H] (fa is the cotangent arriving from above: the layer
+//   above's input cotangent, the vocab projection's for the decoder's top
+//   layer, or the per-step output cotangent of a single layer).
 template <typename T>
 __device__ __forceinline__ void cell_bwd_gates(const T* gs, const T* cs_t, const T* cs_prev,
                                                const float* dh, float* dc, const float* fa,
                                                float* dg, T* dg_out, int R, int H, int row0,
-                                               int B) {
+                                               int B, const float* c0 = nullptr) {
   const int G = 4 * H;
   for (int idx = threadIdx.x; idx < R * H; idx += NT) {
     const int r = idx / H, j = idx % H, g = row0 + r;
@@ -165,7 +167,8 @@ __device__ __forceinline__ void cell_bwd_gates(const T* gs, const T* cs_t, const
       gg = ld(gp + 2 * H);
       og = ld(gp + 3 * H);
       c = ld(cs_t + (size_t)g * H + j);
-      cp = cs_prev != nullptr ? ld(cs_prev + (size_t)g * H + j) : 0.0f;
+      cp = cs_prev != nullptr ? ld(cs_prev + (size_t)g * H + j)
+                              : (c0 != nullptr ? c0[(size_t)g * H + j] : 0.0f);
     }
     const float tc = tanhf(c);
     const float dht = dh[idx] + fa[idx];

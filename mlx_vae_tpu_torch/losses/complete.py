@@ -24,6 +24,7 @@ from mlx_vae_tpu_torch.losses.recon import reconstruction_loss
 from mlx_vae_tpu_torch.models.decoder import decoder_apply, hidden_init_row
 from mlx_vae_tpu_torch.models.encoder import encoder_apply, reparameterize
 from mlx_vae_tpu_torch.models.predictor import predictor_apply
+from mlx_vae_tpu_torch.ops.train_common import stack_fits_l2
 
 
 def complete_vae_loss(
@@ -50,7 +51,7 @@ def complete_vae_loss(
     z = reparameterize(eps, mu, logvar)
 
     recon_loss = None
-    if cfg.use_pallas and not cfg.reference_zero_state:
+    if cfg.use_pallas and not cfg.reference_zero_state and stack_fits_l2(cfg):
         # fused decoder + CE: logits never reach device memory
         from mlx_vae_tpu_torch.ops.fused_train_decoder import (
             decoder_train_ce, fused_train_decoder_supported)

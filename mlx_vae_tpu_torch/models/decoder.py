@@ -5,11 +5,21 @@ The initial state is h = (z_proj + cond_proj)/2 replicated over layers and
 c = 0. ``decoder_apply`` is the teacher-forced decode: the per-step coin
 flips ``tf_mask [L]`` come from the caller, the fed-back argmax carries no
 gradient, and ``reference_zero_state`` restarts every step from zero state.
-With ``cfg.use_pallas`` (and not ``reference_zero_state``) it runs the fused
-training decoder (``ops/fused_train_decoder.py``): its CUDA kernels on CUDA
-tensors, their plain version on CPU tensors. On CUDA a configuration the
-kernels do not take raises ``NotImplementedError``; on the CPU it takes the
-scan.
+Routes of the teacher-forced decode (the JAX package's ``decoder_apply``),
+all but the last only without ``reference_zero_state``:
+
+* ``cfg.use_pallas`` and the stack's weights fit in L2
+  (``ops/train_common.py:stack_fits_l2``): the fused training decoder
+  (``ops/fused_train_decoder.py``). On CUDA a configuration its kernels do
+  not take raises ``NotImplementedError``; on the CPU it takes the routes
+  below.
+* ``custom_vjp`` or H >= 768: ``ops/decoder_cv.py``'s
+  ``decoder_train_cvp`` with ``use_pallas`` (off the CPU always, on the CPU
+  where ``decoder_cvp_supported``), else ``decoder_train_cv``.
+* The scan, one ``lstm_cell`` per layer and step, with ``use_pallas``
+  through the fused gate kernel pair (``ops/fused_lstm.py``).
+
+The kernels launch on CUDA tensors; CPU tensors run their plain versions.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.models.layers import embedding, init_embedding, init_linear, linear
 from mlx_vae_tpu_torch.ops.lstm import init_lstm_params, lstm_cell
+from mlx_vae_tpu_torch.ops.train_common import stack_fits_l2
 
 
 def init_decoder_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -59,7 +70,7 @@ def _stacked_cell(params: dict, cfg: ModelConfig, x: torch.Tensor,
     new_h, new_c = [], []
     for layer in range(cfg.num_layers):
         hl, cl = lstm_cell(params[f"lstm_layer_{layer}"], x, h[layer], c[layer],
-                           dtype=cfg.dtype)
+                           dtype=cfg.dtype, use_pallas=cfg.use_pallas)
         new_h.append(hl)
         new_c.append(cl)
         x = hl
@@ -86,7 +97,7 @@ def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
             raise ValueError("decoder_apply with target_seq requires tf_mask")
         targets = target_seq.to(torch.int32)
         tf_mask = tf_mask.to(dev).bool()
-        if cfg.use_pallas and not cfg.reference_zero_state:
+        if cfg.use_pallas and not cfg.reference_zero_state and stack_fits_l2(cfg):
             from mlx_vae_tpu_torch.ops.fused_train_decoder import (
                 decoder_train, fused_train_decoder_supported)
             # off the CPU the fused route launches its kernels or raises
@@ -94,9 +105,12 @@ def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
                 h_init = hidden_init_row(params, cfg, z, cond_f)
                 return decoder_train(params, cfg, h_init, cond_f, targets, tf_mask)
         if not cfg.reference_zero_state and (cfg.custom_vjp or cfg.hidden_dim >= 768):
-            raise NotImplementedError(
-                "the custom-VJP training decoder (decoder_train_cv, H >= 768 or "
-                "--custom_vjp) is not ported yet")
+            from mlx_vae_tpu_torch.ops.decoder_cv import (
+                decoder_cvp_supported, decoder_train_cv, decoder_train_cvp)
+            h_init = hidden_init_row(params, cfg, z, cond_f)
+            if cfg.use_pallas and (dev.type != "cpu" or decoder_cvp_supported(cfg)):
+                return decoder_train_cvp(params, cfg, h_init, cond_f, targets, tf_mask)
+            return decoder_train_cv(params, cfg, h_init, cond_f, targets, tf_mask)
     else:
         L = max_length
         targets = torch.zeros((B, L), dtype=torch.int32, device=dev)

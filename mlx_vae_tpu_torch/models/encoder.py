@@ -5,14 +5,22 @@ condition projection concatenated with the pooled state -> ``fc_mu`` and the
 two-layer ``fc_logvar`` heads, bounded as ``mu = 2 tanh(mu_raw / 2)`` in
 [-2, 2] and ``logvar = tanh(logvar_raw / 2) - 1`` in [-2, 0].
 
-With ``cfg.use_pallas`` the stack runs as the fused encoder
-(``ops/fused_encoder.py``): its CUDA kernels on CUDA tensors, their plain
-version on CPU tensors. On CUDA a configuration the kernels do not take
-(bidirectional, dropout, V > 512, ...) raises ``NotImplementedError``; on
-the CPU it takes the scan. Otherwise each layer is
-``ops/lstm.py:lstm_sequence``, the JAX package's scan path. Randomness comes from the caller:
-:func:`reparameterize` takes ``eps`` and dropout takes keep-masks or a
-``torch.Generator``.
+Routes (the JAX package's ``encoder_apply``):
+
+* ``cfg.use_pallas`` and the whole-stack encoder (``ops/fused_encoder.py``)
+  takes the configuration and its weights fit in L2
+  (``ops/train_common.py:stack_fits_l2``): the whole stack in one kernel
+  pair.
+* Otherwise layer by layer (both directions with ``bidirectional``,
+  inter-layer dropout from the caller's keep-masks with ``apply_dropout``):
+  with ``use_pallas`` each layer is ``ops/fused_seq_lstm.py``'s
+  ``lstm_sequence_fused``; else ``ops/lstm.py:lstm_sequence_cv`` at
+  ``custom_vjp`` or H >= 768, and ``ops/lstm.py:lstm_sequence`` below.
+
+The fused routes launch their CUDA kernels on CUDA tensors (a configuration
+no kernel takes raises ``NotImplementedError``) and run their plain versions
+on CPU tensors. Randomness comes from the caller: :func:`reparameterize`
+takes ``eps`` and dropout takes keep-masks or a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.models.layers import embedding, init_embedding, init_linear, linear
-from mlx_vae_tpu_torch.ops.lstm import init_lstm_params, lstm_sequence
+from mlx_vae_tpu_torch.ops.lstm import init_lstm_params, lstm_sequence, lstm_sequence_cv
+from mlx_vae_tpu_torch.ops.train_common import stack_fits_l2
 
 
 def init_encoder_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -65,24 +74,23 @@ def encoder_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     """
     if cfg.use_pallas:
         from mlx_vae_tpu_torch.ops.fused_encoder import encoder_stack, fused_encoder_supported
-        # off the CPU the fused route launches its kernels or raises
-        if x.device.type != "cpu" or fused_encoder_supported(cfg):
+        if fused_encoder_supported(cfg) and stack_fits_l2(cfg):
             return _heads(params, cfg, encoder_stack(params, cfg, x), conditions)
-
-    if cfg.custom_vjp or cfg.hidden_dim >= 768:
-        raise NotImplementedError(
-            "the custom-VJP sequence LSTM (lstm_sequence_cv, H >= 768 or --custom_vjp) "
-            "is not ported yet")
+        from mlx_vae_tpu_torch.ops.fused_seq_lstm import lstm_sequence_fused as seq
+    elif cfg.custom_vjp or cfg.hidden_dim >= 768:
+        seq = lstm_sequence_cv
+    else:
+        seq = lstm_sequence
     B = x.shape[0]
     dev = x.device
     h0 = torch.zeros((B, cfg.hidden_dim), dtype=torch.float32, device=dev)
     c0 = torch.zeros_like(h0)
     output = embedding(params["embedding"], x, cfg.dtype).float()
     for i in range(cfg.num_layers):
-        fwd = lstm_sequence(params[f"lstm_layer_{i}"], output, h0, c0, cfg.dtype)[0]
+        fwd = seq(params[f"lstm_layer_{i}"], output, h0, c0, cfg.dtype)[0]
         if cfg.bidirectional:
-            bwd = lstm_sequence(params[f"lstm_layer_{i}_rev"], output.flip(1), h0, c0,
-                                cfg.dtype)[0].flip(1)
+            bwd = seq(params[f"lstm_layer_{i}_rev"], output.flip(1), h0, c0,
+                      cfg.dtype)[0].flip(1)
             output = torch.cat([fwd, bwd], dim=-1)
         else:
             output = fwd
@@ -90,7 +98,7 @@ def encoder_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 and i < cfg.num_layers - 1:
             output = torch.where(keep_masks[i], output / (1.0 - cfg.dropout),
                                  torch.zeros_like(output))
-    return _heads(params, cfg, output[:, -1, :], conditions)
+    return _heads(params, cfg, output[:, -1, :].float(), conditions)
 
 
 def _heads(params: dict, cfg: ModelConfig, final_hidden: torch.Tensor,

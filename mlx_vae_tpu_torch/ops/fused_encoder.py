@@ -128,7 +128,7 @@ def _unsupported_reason(cfg: ModelConfig) -> Optional[str]:
         return f"compute_dtype={cfg.compute_dtype}"
     if not 1 <= cfg.vocab_size <= MAX_V:
         return f"vocab_size={cfg.vocab_size} (kernels take 1..{MAX_V})"
-    if fwd_tile(cfg, _fwd_smem(cfg)) is None or bwd_rows(_bwd_smem(cfg)) is None:
+    if fwd_tile(cfg.hidden_dim, _fwd_smem(cfg)) is None or bwd_rows(_bwd_smem(cfg)) is None:
         return (f"shared-memory plan: one row of H={cfg.hidden_dim}, n={cfg.num_layers}, "
                 f"E={cfg.embedding_dim}")
     if not scratch_fits(cfg):
@@ -168,7 +168,7 @@ def launch_encoder_fwd(lib, w: StackWeights, tokens: torch.Tensor, stream: int):
     hs = torch.empty((L, n, B, H), dtype=wdt, device=dev)
     cs = torch.empty_like(hs)
     gs = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
-    R, tj, tr = fwd_tile(cfg, _fwd_smem(cfg))
+    R, tj, tr = fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
     rc = lib.enc_fwd_launch(tokens.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(),
                             w.bias.data_ptr(), h_last.data_ptr(), hs.data_ptr(),
                             cs.data_ptr(), gs.data_ptr(), B, L, cfg.vocab_size,

@@ -181,19 +181,34 @@ def _bwd_smem(cfg: ModelConfig):
     return lambda r: 2 * n * r * H + r * H + 4 * r * H + r * V + r * C
 
 
-def _unsupported_reason(cfg: ModelConfig) -> Optional[str]:
+def _fwd_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     if not 1 <= cfg.num_layers <= 8:
         return f"num_layers={cfg.num_layers} (kernels take 1..8)"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         return f"compute_dtype={cfg.compute_dtype}"
     if not 1 <= cfg.vocab_size <= MAX_V:
         return f"vocab_size={cfg.vocab_size} (kernels take 1..{MAX_V})"
-    if fwd_tile(cfg, _fwd_smem(cfg)) is None or bwd_rows(_bwd_smem(cfg)) is None:
+    if fwd_tile(cfg.hidden_dim, _fwd_smem(cfg)) is None:
         return (f"shared-memory plan: one row of H={cfg.hidden_dim}, n={cfg.num_layers}, "
                 f"E+C={cfg.embedding_dim + cfg.num_conditions} > {MAX_SMEM} B")
+    return None
+
+
+def _unsupported_reason(cfg: ModelConfig) -> Optional[str]:
+    reason = _fwd_unsupported_reason(cfg)
+    if reason is not None:
+        return reason
+    if bwd_rows(_bwd_smem(cfg)) is None:
+        return (f"shared-memory plan: one reverse row of H={cfg.hidden_dim}, "
+                f"n={cfg.num_layers}, V={cfg.vocab_size} > {MAX_SMEM} B")
     if not scratch_fits(cfg):
         return "a weight-gradient pass exceeds the split-reduction scratch"
     return None
+
+
+def fused_train_decoder_fwd_supported(cfg: ModelConfig) -> bool:
+    """Shapes the forward kernel takes (the backward may refuse more)."""
+    return _fwd_unsupported_reason(cfg) is None
 
 
 def fused_train_decoder_supported(cfg: ModelConfig) -> bool:
@@ -230,7 +245,7 @@ def launch_decoder_fwd(lib, w: StackWeights, h_init, cond, targets, tf, with_ce:
     hs = torch.empty((L, n, B, H), dtype=wdt, device=dev)
     cs = torch.empty_like(hs)
     gs = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
-    R, tj, tr = fwd_tile(cfg, _fwd_smem(cfg))
+    R, tj, tr = fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
     rc = lib.dec_fwd_launch(
         targets.data_ptr(), tf.data_ptr(), cond.data_ptr(), h_init.data_ptr(),
         w.emb.data_ptr(), w.wcat.data_ptr(), w.bias.data_ptr(), w.wout.data_ptr(),
@@ -245,11 +260,13 @@ def decoder_fwd(w: StackWeights, h_init: torch.Tensor, cond: torch.Tensor,
                 targets: torch.Tensor, tf_mask: torch.Tensor, with_ce: bool):
     """The forward (contract of :func:`decoder_fwd_reference`). CPU tensors
     run the plain version; CUDA tensors launch the kernel, counted in
-    ``decoder_fwd.launches``."""
+    ``decoder_fwd.launches`` (the CE specialization) or
+    ``decoder_fwd.logits_launches`` (the logits one, which
+    ``ops/decoder_cv.py:decoder_train_cvp`` also runs)."""
     if h_init.device.type == "cpu":
         return decoder_fwd_reference(w, h_init, cond, targets, tf_mask, with_ce)
     cfg = w.cfg
-    require_cuda(h_init, "fused_train_decoder forward", _unsupported_reason(cfg))
+    require_cuda(h_init, "fused_train_decoder forward", _fwd_unsupported_reason(cfg))
     B, L = targets.shape
     dev = h_init.device
     check(targets, "targets", (B, L), torch.int32, dev)
@@ -260,11 +277,15 @@ def decoder_fwd(w: StackWeights, h_init: torch.Tensor, cond: torch.Tensor,
     lib = build_library()
     with torch.cuda.device(dev):
         res = launch_decoder_fwd(lib, w, h_init, cond, targets, tf, with_ce, stream_of(dev))
-    decoder_fwd.launches += 1
+    if with_ce:
+        decoder_fwd.launches += 1
+    else:
+        decoder_fwd.logits_launches += 1
     return res
 
 
 decoder_fwd.launches = 0
+decoder_fwd.logits_launches = 0
 
 
 def launch_decoder_bwd(lib, w: StackWeights, din, targets, toks, h_init, cond, hs, cs, gs,

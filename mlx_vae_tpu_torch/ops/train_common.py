@@ -2,13 +2,14 @@
 ``csrc/train_common.cuh``).
 
 * The card's limits and the kernels' built-in instances: threads per block,
-  shared memory per block, the largest vocabulary, the rows-per-thread and
-  reverse-rows instances, the split-reduction scratch. The sampler's wrapper
+  shared memory per block, L2, the largest vocabulary, the rows-per-thread
+  and reverse-rows instances, the split-reduction scratch. The sampler's wrapper
   (``ops/fused_decoder.py``) uses the first four too.
 * The train kernels' layout: :class:`StackWeights` and
   :func:`prepare_stack_weights`, the mapping between the params' ``{Wx, Wh,
   bias}`` leaves and the kernels' stacked weights and gradients.
-* The tile rule (:func:`fwd_tile`, :func:`bwd_rows`, :func:`scratch_fits`).
+* The tile rule (:func:`fwd_tile`, :func:`bwd_rows`, :func:`scratch_fits`)
+  and the route rule (:func:`stack_fits_l2`).
 * The plain versions' shared steps (one LSTM cell, its reverse step from
   activated gates, the weight- and embedding-gradient sums).
 * The argument and device checks every wrapper makes before a launch.
@@ -22,10 +23,11 @@ from typing import List, Optional, Tuple
 import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
-from mlx_vae_tpu_torch.ops.lstm import combined_weight
+from mlx_vae_tpu_torch.ops.lstm import combined_weight, gate_activations
 
 NT = 256            # CUDA threads per block (csrc: NT, train::NT)
 MAX_SMEM = 232448   # bytes of shared memory one H100 block may use
+L2_BYTES = 50 * 1024 * 1024  # the H100's L2 cache
 MAX_V = 512         # csrc: 32 lanes x 16 vocab entries per lane
 RPTS = (8, 4, 2, 1)  # forward rows per thread the kernels are built for
 RS = (8, 4, 2, 1)    # reverse-kernel rows per block the kernels are built for
@@ -123,12 +125,8 @@ def cell_step_reference(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     """One LSTM cell: ``[x, h]`` rounded to ``wdt`` times the combined
     weight ``w`` in f32, plus ``bias``. Returns ``(h', c', activated gates
     [B, 4H])``, all f32."""
-    H = h.shape[1]
     gates = torch.cat([x, h], dim=1).to(wdt).float() @ w.float() + bias
-    i = torch.sigmoid(gates[:, :H])
-    f = torch.sigmoid(gates[:, H:2 * H])
-    g = torch.tanh(gates[:, 2 * H:3 * H])
-    o = torch.sigmoid(gates[:, 3 * H:])
+    i, f, g, o = gate_activations(gates, h.shape[1])
     c = f * c + i * g
     return o * torch.tanh(c), c, torch.cat([i, f, g, o], dim=1)
 
@@ -170,11 +168,12 @@ def embedding_grad(dx0: torch.Tensor, tokens_lb: torch.Tensor, V: int) -> torch.
 
 # ----------------------------------------------------------- tile rule
 
-def fwd_tile(cfg: ModelConfig, smem_floats) -> Optional[Tuple[int, int, int]]:
-    """(R, TJ, TR) of a forward kernel: TJ threads over hidden units, TR row
-    groups, 8 rows per thread where ``smem_floats(R)`` fits (the rule
-    ``chip_smoke.py --sweep`` found best for the sampler), else fewer."""
-    tj = min(cfg.hidden_dim, NT)
+def fwd_tile(hidden: int, smem_floats) -> Optional[Tuple[int, int, int]]:
+    """(R, TJ, TR) of a forward kernel at a hidden width: TJ threads over
+    hidden units, TR row groups, 8 rows per thread where ``smem_floats(R)``
+    fits (the rule ``chip_smoke.py --sweep`` found best for the sampler),
+    else fewer."""
+    tj = min(hidden, NT)
     tr = NT // tj
     for rpt in RPTS:
         if 4 * smem_floats(rpt * tr) <= MAX_SMEM:
@@ -197,6 +196,20 @@ def scratch_fits(cfg: ModelConfig) -> bool:
     H, E = cfg.hidden_dim, cfg.embedding_dim
     k_seg = max(E, cfg.num_conditions, H)
     return k_seg * 4 * H + 4 * H <= SCRATCH_ELEMS and cfg.vocab_size * E <= SCRATCH_ELEMS
+
+
+def stack_fits_l2(cfg: ModelConfig) -> bool:
+    """Whether one stack's LSTM weights, in the compute dtype, fit in L2.
+
+    The whole-stack kernels (fused encoder, fused training decoder) read
+    every layer's weights in every block at every step, so they are the
+    route only while the whole stack stays in L2; the per-layer kernels
+    stream one layer at a time. The stack counted is the decoder's (layer
+    0 takes the embedding and the conditions): ~1.8 MB at the default model
+    in bf16, ~60 MB at hidden 1024 / 4 layers."""
+    H, n = cfg.hidden_dim, cfg.num_layers
+    rows = cfg.embedding_dim + cfg.num_conditions + H + (n - 1) * 2 * H
+    return rows * 4 * H * torch.finfo(cfg.dtype).bits // 8 <= L2_BYTES
 
 
 # ----------------------------------------------------------- checks

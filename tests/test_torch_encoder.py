@@ -172,7 +172,26 @@ def test_fused_route_matches_jax_encoder_apply():
 
 
 def test_custom_vjp_width_is_not_ported_yet():
-    _, tcfg = _cfgs(1, H=32, custom_vjp=True)
-    with pytest.raises(NotImplementedError, match="lstm_sequence_cv"):
-        tenc.encoder_apply(tenc.init_encoder_params(torch.Generator().manual_seed(0), tcfg),
-                           tcfg, torch.zeros((2, 3), dtype=torch.int32), torch.zeros((2, 1)))
+    """``custom_vjp`` (and H >= 768) once raised here; the encoder now runs
+    each layer through ``lstm_sequence_cv``, as the JAX encoder does, and
+    its heads and gradients equal the JAX package's."""
+    jcfg, tcfg = _cfgs(2, H=32, custom_vjp=True)
+    jp, npp, x, cond = _setup(jcfg)
+    w = np.random.default_rng(3).standard_normal((8, jcfg.latent_dim)).astype(np.float32)
+
+    def jloss(p):
+        mu, lv = jenc.encoder_apply(p, jcfg, jnp.asarray(x), jnp.asarray(cond))
+        return jnp.sum(mu * w) + jnp.sum(lv * w * 0.5)
+
+    jv, jg = jax.value_and_grad(jloss)(jp)
+    tp = params_from_numpy(npp)
+    for v in tp.values():
+        for t in v.values():
+            t.requires_grad_(True)
+    mu, lv = tenc.encoder_apply(tp, tcfg, torch.from_numpy(x), torch.from_numpy(cond))
+    tv = (mu * torch.from_numpy(w)).sum() + (lv * torch.from_numpy(w) * 0.5).sum()
+    tv.backward()
+    _close(tv.detach(), jv, 1e-5)
+    for name, v in tp.items():
+        for k, leaf in v.items():
+            _close(leaf.grad, jg[name][k], 1e-4)

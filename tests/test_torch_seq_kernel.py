@@ -1,0 +1,196 @@
+"""The per-layer sequence LSTM kernels and the LSTM gate kernels against
+their plain PyTorch versions, on the card, and the routes that reach them.
+Tests marked ``cuda`` skip without a CUDA device. This file imports no JAX,
+so it also runs on a GPU machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_seq_kernel.py -q
+
+Yardstick: max |kernel - plain| / max |plain| per output or gradient leaf,
+within 1e-4 in float32 (the two sum in different orders) and 2e-2 in
+bfloat16 (a different summation order can move a stored residual or a
+rounded gate cotangent by one bf16 ulp, ~4e-3 of the value). Each backward
+kernel gets the plain forward's residuals, as its plain twin does.
+
+The shapes cover the sequence kernels' instances the tile plan can pick
+(forward rows per thread 8, 4, 2, 1; reverse rows per block 8, 4, 2, 1),
+widths below, at and above one thread per hidden unit, unaligned widths,
+ragged batches, one row of one step, and residuals addressed inside
+layer-stacked arrays.
+"""
+
+import pytest
+import torch
+
+from mlx_vae_tpu_torch.config import ModelConfig
+from mlx_vae_tpu_torch.models.decoder import init_decoder_params
+from mlx_vae_tpu_torch.ops import decoder_cv as dcv
+from mlx_vae_tpu_torch.ops import fused_lstm as fl
+from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+from mlx_vae_tpu_torch.ops import train_common as tc
+
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# (forward rows per thread, reverse rows per block, I, H, B, L)
+SEQ = [
+    (8, 8, 128, 128, 37, 7),
+    (8, 8, 129, 256, 19, 5),
+    (8, 8, 100, 100, 33, 6),
+    (8, 8, 1024, 1024, 20, 3),
+    (8, 8, 2048, 1024, 9, 2),
+    (8, 4, 64, 2048, 11, 3),
+    (4, 4, 2000, 2048, 6, 3),
+    (4, 8, 3000, 64, 7, 4),
+    (2, 8, 3000, 32, 5, 3),
+    (1, 8, 5000, 32, 5, 3),
+    (4, 2, 16, 4096, 3, 2),
+    (2, 1, 16, 8192, 2, 2),
+    (8, 8, 128, 128, 1, 1),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SEQ)))
+def test_tile_plan_picks_its_instances(case):
+    """A CPU check of the host-side plan the kernels are launched with."""
+    rpt, rows, I, H, _, _ = SEQ[case]
+    R, tj, tr = tc.fwd_tile(H, fs._fwd_smem(I, H))
+    assert (tj, tr, R) == (min(H, 256), 256 // min(H, 256), rpt * (256 // min(H, 256)))
+    assert tc.bwd_rows(fs._bwd_smem(H)) == rows
+    assert fs.fused_seq_supported(I, H, torch.bfloat16)
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU or interpret mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), f"leaf {i} not finite"
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        assert rel <= TOL[dtype], f"leaf {i}: rel {rel:.3e}"
+
+
+def _seq_inputs(I, H, B, L, dtype, dev, stride=1, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    wdt = DT[dtype]
+    s = 1.0 / H ** 0.5
+    wcat = ((torch.rand((I + H, 4 * H), generator=g) * 2 - 1) * s).to(wdt).to(dev)
+    bias = ((torch.rand((4 * H,), generator=g) * 2 - 1) * s).to(dev)
+    xs = torch.randn((L * stride, B, I), generator=g).to(wdt).to(dev)
+    h0, c0 = (0.3 * torch.randn((B, H), generator=g)).to(dev), \
+        (0.3 * torch.randn((B, H), generator=g)).to(dev)
+    cot = [torch.randn(s_, generator=g).to(dev) for s_ in ((L, B, H), (B, H), (B, H))]
+    return wcat, bias, xs, h0, c0, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(SEQ)))
+def test_seq_kernels_match_plain(dev, case, dtype):
+    _, _, I, H, B, L = SEQ[case]
+    wcat, bias, xs, h0, c0, (dhs, dhf, dcf) = _seq_inputs(I, H, B, L, dtype, dev)
+    before = (fs.seq_lstm_fwd.launches, fs.seq_lstm_bwd_tm.launches)
+    k = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+    p = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
+    torch.cuda.synchronize()
+    _close(k, p, dtype)
+    kb = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
+    pb = fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
+    torch.cuda.synchronize()
+    _close(kb, pb, dtype)
+    assert (fs.seq_lstm_fwd.launches, fs.seq_lstm_bwd_tm.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 2), (2, 1)])
+def test_seq_bwd_strided_matches_dense(dev, dtype, offsets):
+    """Residuals and inputs as rows of [L*3, B, .] arrays give the dense
+    call's results bit for bit."""
+    ro, xo = offsets
+    I, H, B, L = 96, 128, 21, 5
+    wcat, bias, xs3, h0, c0, (dhs, dhf, dcf) = _seq_inputs(I, H, B, L, dtype, dev, stride=3)
+    xs = xs3[xo::3].contiguous()
+    hs, cs, gs, _, _ = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+    stk = []
+    for a in (hs, cs, gs):
+        big = torch.randn((L * 3,) + tuple(a.shape[1:]), device=dev).to(a.dtype)
+        big[ro::3] = a
+        stk.append(big)
+    dense = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, hs, cs, gs, dhs, dhf, dcf)
+    strided = fs.seq_lstm_bwd_tm(wcat, xs3, h0, c0, *stk, dhs, dhf, dcf, res_stride=3,
+                                 res_offset=ro, xs_stride=3, xs_offset=xo)
+    torch.cuda.synchronize()
+    for a, b in zip(strided, dense):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 32), (37, 100), (4096, 1024), (2048, 4096)])
+def test_gate_kernels_match_plain(dev, shape):
+    B, H = shape
+    g = torch.Generator().manual_seed(B)
+    gates, c, dh, dc = ((3 * torch.randn(s, generator=g)).to(dev) for s in
+                        ((B, 4 * H), (B, H), (B, H), (B, H)))
+    before = (fl.gates_fwd.launches, fl.gates_bwd.launches)
+    _close(fl.gates_fwd(gates, c), fl.gates_fwd_reference(gates, c), "float32")
+    _close(fl.gates_bwd(gates, c, dh, dc), fl.gates_bwd_reference(gates, c, dh, dc), "float32")
+    torch.cuda.synchronize()
+    assert (fl.gates_fwd.launches, fl.gates_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_on_the_card_matches_the_cpu(dev, dtype):
+    """lstm_sequence_fused, decoder_train_cvp and fused_lstm_gates through
+    autograd on CUDA tensors (the kernels) against the same calls on CPU
+    tensors (the plain versions): values and every gradient."""
+    cfg = ModelConfig(latent_dim=8, compute_dtype=dtype, num_layers=3, hidden_dim=64,
+                      embedding_dim=16, vocab_size=24, use_pallas=True)
+    g = torch.Generator().manual_seed(5)
+    dec = init_decoder_params(g, cfg)
+    B, L = 21, 7
+    tok = torch.randint(0, cfg.vocab_size, (B, L), generator=g, dtype=torch.int32)
+    cond = torch.randn((B, 1), generator=g)
+    h0 = torch.randn((B, cfg.hidden_dim), generator=g)
+    tf = torch.rand((L,), generator=g) < 0.8
+    xs = torch.randn((B, L, 40), generator=g)
+    lp = {k: 0.2 * torch.randn(s, generator=g) for k, s in
+          (("Wx", (256, 40)), ("Wh", (256, 64)), ("bias", (256,)))}
+    gates = torch.randn((B, 256), generator=g)
+
+    def run(device):
+        d = {k: {n: t.to(device).requires_grad_(True) for n, t in v.items()}
+             for k, v in dec.items()}
+        p = {k: v.to(device).requires_grad_(True) for k, v in lp.items()}
+        h, c = h0.to(device).requires_grad_(True), cond.to(device).requires_grad_(True)
+        x, gt = xs.to(device).requires_grad_(True), gates.to(device).requires_grad_(True)
+        logits = dcv.decoder_train_cvp(d, cfg, h, c, tok.to(device), tf.to(device))
+        hs, (hf, cf) = fs.lstm_sequence_fused(p, x, h, 0.5 * h, cfg.dtype)
+        gh, gc = fl.fused_lstm_gates(gt, h)
+        loss = ((logits * logits).sum() + (hs.float() * 1.3).sum() + hf.sum() + 0.3 * cf.sum()
+                + (gh * gc).sum())
+        loss.backward()
+        leaves = [logits, hs, hf, cf, gh, gc, h.grad, c.grad, x.grad, gt.grad]
+        leaves += [t.grad for t in p.values()]
+        leaves += [t.grad for v in d.values() for t in v.values() if t.grad is not None]
+        return [t.detach().cpu() for t in leaves]
+
+    _close(run(dev), run("cpu"), dtype)
+
+
+@pytest.mark.cuda
+def test_fused_seq_refuses_on_the_card(dev):
+    """A width whose row does not fit shared memory raises
+    NotImplementedError; it never runs the plain version in its place."""
+    w = torch.zeros((16 + 9000, 4 * 9000), device=dev)
+    with pytest.raises(NotImplementedError, match="fused_seq_lstm"):
+        fs.seq_lstm_fwd(w, torch.zeros((4 * 9000,), device=dev),
+                        torch.zeros((1, 1, 16), device=dev), torch.zeros((1, 9000), device=dev),
+                        torch.zeros((1, 9000), device=dev))

@@ -107,12 +107,37 @@ def test_decoder_apply_free_running_and_zero_state_match_jax(zero_state):
 
 
 def test_decoder_apply_custom_vjp_width_is_not_ported_yet():
-    _, tcfg = _cfgs(1, H=32, custom_vjp=True)
-    params = tdec.init_decoder_params(torch.Generator().manual_seed(0), tcfg)
-    with pytest.raises(NotImplementedError, match="decoder_train_cv"):
-        tdec.decoder_apply(params, tcfg, torch.zeros((2, 8)), torch.zeros((2, 1)),
-                           target_seq=torch.zeros((2, 3), dtype=torch.int32),
-                           tf_mask=torch.ones(3, dtype=torch.bool))
+    """``custom_vjp`` (and H >= 768) once raised here; the teacher-forced
+    decode now runs ``decoder_train_cv``, as the JAX decoder does (off the
+    TPU), and its logits and gradients equal the JAX package's."""
+    jcfg, tcfg = _cfgs(2, H=32, custom_vjp=True)
+    npp, z, cond, tok = _setup(jcfg)
+    key = jax.random.PRNGKey(3)
+    tf = np.array(jax.random.uniform(key, (tok.shape[1],)) < 0.6)
+    w = np.random.default_rng(2).standard_normal((9, 24)).astype(np.float32)
+
+    def jloss(p, zz, cc):
+        logits = jdec.decoder_apply(p, jcfg, zz, cc, target_seq=jnp.asarray(tok),
+                                    teacher_forcing_ratio=0.6, key=key)
+        return jnp.sum(logits * w[None])
+
+    jv, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(_jax_tree(npp), jnp.asarray(z),
+                                                           jnp.asarray(cond))
+    tp = params_from_numpy(npp)
+    for v in tp.values():
+        for t in v.values():
+            t.requires_grad_(True)
+    tz, tc = torch.from_numpy(z).requires_grad_(True), torch.from_numpy(cond).requires_grad_(True)
+    logits = tdec.decoder_apply(tp, tcfg, tz, tc, target_seq=torch.from_numpy(tok),
+                                tf_mask=torch.from_numpy(tf))
+    tv = (logits * torch.from_numpy(w)[None]).sum()
+    tv.backward()
+    _close(tv.detach(), jv, 1e-5)
+    _close(tz.grad, jg[1], 1e-4, "z")
+    _close(tc.grad, jg[2], 1e-4, "conditions")
+    for name, v in tp.items():
+        for k, leaf in v.items():
+            _close(leaf.grad, jg[0][name][k], 1e-4, f"{name}.{k}")
 
 
 def _pallas(jcfg, npp, z, cond, tok, with_ce, weight):

@@ -62,7 +62,7 @@ def test_config_picks_its_kernel_instances(shape):
     cfg = _cfg(shape)
     assert fe.fused_encoder_supported(cfg) and fd.fused_train_decoder_supported(cfg)
     for mod in (fe, fd):
-        R, tj, tr = tc.fwd_tile(cfg, mod._fwd_smem(cfg))
+        R, tj, tr = tc.fwd_tile(cfg.hidden_dim, mod._fwd_smem(cfg))
         assert (tj, tr) == (min(cfg.hidden_dim, 256), 256 // min(cfg.hidden_dim, 256))
         assert R == rpt * tr
     assert tc.bwd_rows(fd._bwd_smem(cfg)) == rows
@@ -79,7 +79,9 @@ def test_gates_refuse_what_the_kernels_do_not_take():
     assert fd.fused_train_decoder_supported(ModelConfig(compute_dtype="bfloat16"))
 
 
-# configurations a fused route refuses: (kwargs, encoder refuses, decoder refuses)
+# configurations a whole-stack kernel refuses: (kwargs, encoder refuses,
+# decoder refuses). The encoder then runs layer by layer through the
+# sequence kernels; the decoder's whole-stack route raises on the card.
 REFUSED = [
     (dict(bidirectional=True), True, False),
     (dict(apply_dropout=True, dropout=0.2), True, False),
@@ -180,7 +182,8 @@ def test_decoder_kernels_match_plain(dev, shape, dtype, with_ce):
     B, L = tok.shape
     w = tc.prepare_stack_weights(dec, cfg, with_head=True)
     tf = torch.ones((L,), dtype=torch.bool, device=dev)
-    before = (fd.decoder_fwd.launches, fd.decoder_bwd.launches)
+    fwd_count = "launches" if with_ce else "logits_launches"
+    before = (getattr(fd.decoder_fwd, fwd_count), fd.decoder_bwd.launches)
     k = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
     p = fd.decoder_fwd_reference(w, h0, cond, tok, tf, with_ce)
     torch.cuda.synchronize()
@@ -192,7 +195,8 @@ def test_decoder_kernels_match_plain(dev, shape, dtype, with_ce):
     pb = fd.decoder_bwd_reference(w, din, tok, p[1], h0, cond, *p[2:], with_ce)
     torch.cuda.synchronize()
     _close([*kb[0], *kb[1:]], [*pb[0], *pb[1:]], dtype)
-    assert (fd.decoder_fwd.launches, fd.decoder_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (getattr(fd.decoder_fwd, fwd_count), fd.decoder_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -256,17 +260,22 @@ def test_autograd_on_the_card_matches_the_cpu(dev, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(REFUSED)))
 def test_fused_route_raises_on_the_card(dev, case):
-    """With use_pallas on CUDA tensors a configuration the kernels refuse
-    raises NotImplementedError from the dispatch that reaches them; it never
-    runs the scan in their place."""
+    """With use_pallas on CUDA tensors a configuration the whole-stack
+    decoder refuses raises NotImplementedError from the dispatch that
+    reaches it; it never runs the scan in its place. An encoder the
+    whole-stack kernel refuses runs through the per-layer sequence kernels."""
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+
     kw, enc_refuses, dec_refuses = REFUSED[case]
     cfg, enc, dec, x, cond, z, tf = _route_case(kw, dev)
-    if enc_refuses:
-        with pytest.raises(NotImplementedError, match="fused_encoder"):
-            encoder_apply(enc, cfg, x, cond)
+    before = fs.seq_lstm_fwd.launches
+    mu, _ = encoder_apply(enc, cfg, x, cond)
+    torch.cuda.synchronize()
+    assert torch.isfinite(mu).all()
+    assert fs.seq_lstm_fwd.launches - before == \
+        (cfg.num_layers * (1 + cfg.bidirectional) if enc_refuses else 0)
     if dec_refuses:
         with pytest.raises(NotImplementedError, match="fused_train_decoder"):
             decoder_apply(dec, cfg, z, cond, target_seq=x, tf_mask=tf)
-    with pytest.raises(NotImplementedError,
-                       match="fused_encoder" if enc_refuses else "fused_train_decoder"):
-        complete_mod.complete_vae_loss(enc, dec, None, cfg, x, cond, z, tf)
+        with pytest.raises(NotImplementedError, match="fused_train_decoder"):
+            complete_mod.complete_vae_loss(enc, dec, None, cfg, x, cond, z, tf)

@@ -49,10 +49,13 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    encoder pair, against cuDNN's two-layer ``torch.nn.LSTM`` at the same
    widths (the yardstick only), and the whole step on the fused route
    against the plain route, at B=4096, L=64, bf16 (CUDA events after a
-   warm-up), with tokens/s;
+   warm-up), with tokens/s; one fused step under ``torch.profiler``:
+   device time by kernel name and the device's idle share;
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
-   (I=128 and I=1024, H=1024, B=2048, L=64, f32 and bf16, and a backward
-   over residuals and inputs addressed inside layer-stacked arrays), the
+   (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
+   L=64, f32 and bf16, each backward also over residuals and inputs
+   addressed inside layer-stacked arrays, and a second bf16 backward
+   bitwise equal to the first), the
    fused training decoder's logits specialization at the scaled model
    (H=1024, 4 layers, B=2048, L=64, f32 and bf16, teacher forcing 1.0 and
    0.9) and the LSTM gate pair at [4096, 1024] and [2048, 4096] (f32),
@@ -70,8 +73,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    sequence LSTM, against cuDNN's one-layer ``torch.nn.LSTM`` (forward;
    backward alone) and for the gate pair against PyTorch's fused LSTM cell
    (``aten::_thnn_fused_lstm_cell``); the whole-stack kernels at the scaled
-   shape through their ``launch_*`` functions (the route check); and the
-   scaled step on the fused route against the plain route, in tokens/s.
+   shape through their ``launch_*`` functions (the route check); the
+   scaled step on the fused route against the plain route, in tokens/s;
+   and one scaled fused step under ``torch.profiler`` (as in phase 8).
 
 ``--sweep`` times the kernel with each rows-per-thread instance forced
 (1, 2, 4, 8) at B = 256, 1024, 2048, 8192, L=64, T=0.8, f32 and bf16:
@@ -361,6 +365,41 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profile_step(what: str, fn, smi: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` after a warm-up call: the
+    device time of each kernel by name, and the device's idle share (1 -
+    the summed device time over the call's wall time on CUDA events; the
+    port runs on one stream, so its kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:80]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    if not by_name:
+        log(f"  profile, {what}: the profiler recorded no device time [{smi}]")
+        return {"wall_ms": wall, "device_ms": None, "idle_share": None, "kernels": {}}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    log(f"  profile, {what}: {wall:.3f} ms wall, {busy:.3f} ms of device time, idle share "
+        f"{max(0.0, 1 - busy / wall):.4f} [{smi}]")
+    for name, ms in top[:12]:
+        log(f"    {ms:10.3f} ms {ms / busy:7.2%}  {name}")
+    return {"wall_ms": wall, "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
+            "kernels": dict(top)}
+
+
 def phase_times(smi: str) -> dict:
     from mlx_vae_tpu_torch.ops.fused_decoder import (
         fused_generate, fused_generate_reference, prepare_weights)
@@ -647,6 +686,11 @@ def phase_train_times(smi: str) -> dict:
         out.setdefault(f"step_{route}", []).append(ms)
         log(f"  train step, {route} route: {ms:.3f} ms = {B * L / ms * 1e3:,.0f} tokens/s "
             f"(B=4096 L=64 bf16) [{smi}]")
+    p = train_model("bfloat16")[1]
+    o = {n: adam_init(v) for n, v in p.items()}
+    out["profile"] = profile_step("default train step, fused route (B=4096 L=64 bf16)",
+                                  lambda: train_step(p, o, cfg, tcfg, xs, conds, gen, 0.05, 0.9),
+                                  smi)
     return out
 
 
@@ -724,7 +768,8 @@ def phase_scaled_kernels() -> dict:
     worst = {k: [0.0, 0.0] for k in SEQ_RECORDS}
     H = SCALED["hidden_dim"]
     for dtype in ("float32", "bfloat16"):
-        for I in (128, 1024):
+        # I = 129: the scaled decoder's layer 0 (E + C), rows not 16-byte aligned
+        for I in (128, 129, 1024):
             tag = f"{dtype} I={I} H={H} B={SB} L={SL}"
             wcat, bias, xs, h0, c0, dhs, dhf, dcf = seq_inputs(I, H, dtype, seed=I)
             k = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
@@ -737,20 +782,26 @@ def phase_scaled_kernels() -> dict:
             torch.cuda.synchronize()
             compare(f"{tag} seq bwd [dxs, dwcat, db, dh0, dc0]", kb, pb, dtype,
                     worst["seq_lstm_bwd"])
-            if I == 1024:  # residuals and input as rows 2t+1 of [2L, B, .] arrays
-                stk = []
-                for a in (*p[:3], xs):
-                    big = torch.zeros((2 * SL,) + tuple(a.shape[1:]), dtype=a.dtype,
-                                      device="cuda")
-                    big[1::2] = a
-                    stk.append(big)
-                ks = fs.seq_lstm_bwd_tm(wcat, stk[3], h0, c0, *stk[:3], dhs, dhf, dcf,
-                                        res_stride=2, res_offset=1, xs_stride=2, xs_offset=1)
+            # residuals and input as rows 2t+1 of [2L, B, .] arrays (the decoder's
+            # layer-stacked residuals)
+            stk = []
+            for a in (*p[:3], xs):
+                big = torch.zeros((2 * SL,) + tuple(a.shape[1:]), dtype=a.dtype, device="cuda")
+                big[1::2] = a
+                stk.append(big)
+            ks = fs.seq_lstm_bwd_tm(wcat, stk[3], h0, c0, *stk[:3], dhs, dhf, dcf,
+                                    res_stride=2, res_offset=1, xs_stride=2, xs_offset=1)
+            torch.cuda.synchronize()
+            compare(f"{tag} seq bwd, strided (stride 2, offset 1)", ks, pb, dtype,
+                    worst["seq_lstm_bwd"])
+            if dtype == "bfloat16":  # the fixed-order sums repeat bit for bit
+                again = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
                 torch.cuda.synchronize()
-                compare(f"{tag} seq bwd, strided (stride 2, offset 1)", ks, pb, dtype,
-                        worst["seq_lstm_bwd"])
-                del ks, stk
-            del kb, pb, p
+                if not all(torch.equal(a, b) for a, b in zip(kb, again)):
+                    raise AssertionError(f"{tag} seq bwd: two runs differ")
+                log(f"  {tag} seq bwd: a second run is bitwise equal")
+                del again
+            del kb, pb, p, ks, stk
             torch.cuda.empty_cache()
         # row 6's counterpart: the decoder's fused forward, logits specialization
         cfg, params = scaled_model(dtype)
@@ -1040,6 +1091,13 @@ def phase_scaled_times(smi: str) -> dict:
             f"(H=1024 n=4 B={SB} L={SL} bf16) [{smi}]")
         del p, o
         torch.cuda.empty_cache()
+    c_, p = scaled_model(dt)
+    o = {k: adam_init(v) for k, v in p.items()}
+    out["profile"] = profile_step(f"scaled train step, fused route (H=1024 n=4 B={SB} L={SL} "
+                                  f"bf16)", lambda: train_step(p, o, c_, tcfg, xb, cb, gen, 0.05,
+                                                               0.9), smi)
+    del p, o
+    torch.cuda.empty_cache()
     return out
 
 

@@ -15,7 +15,7 @@
 // mlx_vae_tpu_torch/ops/fused_encoder.py, which also builds this file with
 // nvcc and binds it through ctypes (plain C interface below).
 //
-// Design (simple and right first; CUDA-core FMA, no wgmma or TMA yet):
+// Design (simple and right first; the recurrent kernels are CUDA-core FMA):
 //  * Forward: one thread block (256 threads) owns a tile of R rows for the
 //    whole time loop, as in fused_generate.cu. Shared memory holds the
 //    step's embedded input [R][E], h of every layer double-buffered and c.
@@ -28,18 +28,19 @@
 //  * Backward, sums over rows (train_common.cuh): dW and db of each layer
 //    and d(embedding) are split reductions over the t*B rows with partials
 //    added in a fixed order, where the TPU kernel added into one VMEM
-//    accumulator across its sequential grid.
+//    accumulator across its sequential grid. In bf16 dW runs on the tensor
+//    cores (wgmma); in f32 on CUDA cores.
 //
 // What bounds it: at the default model (E=128, H=256, n=2) and B=4096, L=64,
 // bf16, torch.profiler on an H100 80GB HBM3 (700 W) put the forward at
 // 28.3 ms, the reverse kernel at 49.6 ms and the encoder's weight-gradient
-// passes at ~51 ms (of ~102 ms for both halves, ~9.4 TFLOP/s). All three
-// are CUDA-core FMA: ~0.48 TFLOP each. The forward and the reverse kernel
-// stream every weight from L2 at every step (as in fused_generate.cu, whose
-// block step time was found set by its serial weight stream), and the
-// reverse kernel reads its dgates operand from shared memory for every FMA.
-// Tensor cores (mma / wgmma) for all three are the next step; the residual
-// streams (h, c, gates: ~0.8 GB in bf16) are read once by the backward.
+// passes, then on CUDA cores, at ~51 ms (~9.4 TFLOP/s). The forward and the
+// reverse kernel are CUDA-core FMA (~0.48 TFLOP each) and stream every
+// weight from L2 at every step (as in fused_generate.cu, whose block step
+// time was found set by its serial weight stream); the reverse kernel reads
+// its dgates operand from shared memory for every FMA. Tensor cores for
+// those two are the next step; the residual streams (h, c, gates: ~0.8 GB
+// in bf16) are read once by the backward.
 
 #include "train_common.cuh"
 

@@ -22,35 +22,54 @@
 // mlx_vae_tpu_torch/ops/fused_seq_lstm.py, which also builds this file with
 // nvcc and binds it through ctypes (plain C interface below).
 //
-// Design (simple and right first; CUDA-core FMA, no wgmma or TMA yet):
-//  * Forward: one block (256 threads) owns a tile of R rows for all L steps,
-//    with the step input [R][I], h double-buffered and c in shared memory;
-//    the cell is train_common.cuh's forward tile. The layer's weight
-//    ([I + H, 4H], 16.8 MB in bf16 at I = H = 1024) is read by every block
-//    at every step: it stays in the 50 MB L2, so the blocks stream it from
-//    L2, not from device memory.
-//  * Backward, reverse kernel (seq_bwd_kernel): a block owns R rows and
-//    walks t = L-1 .. 0 with dh, dc, the step's output cotangent and its
-//    dgates [R][4H] in shared memory (train_common.cuh's reverse step). It
-//    writes dxs (f32) and dgates [L, B, 4H] (in T, rounded as the TPU rounds
-//    them before its products).
-//  * Backward, sums over rows: dW's input rows from xs, its recurrent rows
-//    from the previous h (h0 at t = 0), and db are train_common.cuh's split
-//    reductions over the L*B rows, partials added in a fixed order: no
-//    atomics, the sums are the same from run to run. Where the TPU kernel
-//    added each batch block into one VMEM accumulator across its sequential
-//    grid, blocks here run in parallel and in no order.
+// What bounds it: at I = H = 1024, B = 2048, L = 64 each direction is ~2.2
+// TFLOP of matrix work per product (the forward's cell dots; the backward's
+// reverse dgates @ W^T and its weight gradient) against ~1.5 GB of residual
+// traffic, so the operations bound it: 4.4 TFLOP for the backward, 4.5 ms
+// at the tensor cores' bf16 rate.
 //
-// What bounds it: at I = H = 1024, B = 2048, L = 64 each half is ~2.2 TFLOP
-// of matrix work (the cell's dots, the reverse dgates @ W^T, and the weight
-// gradient) against ~1.5 GB of residual traffic, so the operations bound it;
-// all of it runs as CUDA-core FMA here, well below the tensor cores' rate.
+// Forward (simple and right first; CUDA-core FMA): one block (256 threads)
+// owns a tile of R rows for all L steps, with the step input [R][I], h
+// double-buffered and c in shared memory; the cell is train_common.cuh's
+// forward tile. The layer's weight ([I + H, 4H], 16.8 MB in bf16 at I = H =
+// 1024) is read by every block at every step: it stays in the 50 MB L2.
+//
+// Backward in bf16 (the tensor cores). A kernel tiled over rows only had to
+// stream the whole weight from L2 at every step to serve a handful of rows
+// (~275 GB of L2 reads a call) on CUDA-core FMA. Here each step is one
+// card-wide GEMM, launched from the host: L + 1 launches, the kernel
+// boundary being the grid-wide barrier the recurrence needs.
+//  * seq_gate_kernel: the gate step of t = L - 1 from dhf, dcf and dhs[L-1].
+//  * seq_step_kernel at t = L-1 .. 0: dinp_t = dgates_t [B, 4H] W^T on wgmma
+//    in 128 x 128 output tiles over [B, I + H] (wgmma.cuh), reading wcat
+//    [I + H, 4H] as it lies (K-major already: no transposed copy). The
+//    epilogue writes columns k < I to dxs[t]; column I + j is the cotangent
+//    of h_{t-1} at unit j, and the thread holding it runs the gate step of
+//    t - 1 there (the stored activations at t - 1, c at t - 1 and t - 2 or
+//    c0, dhs[t-1], and the running dc in the f32 [B, H] dc0 buffer), writing
+//    dgates[t-1] rounded to bf16 (the next launch's operand); at t = 0 it
+//    writes dh0, and dc0 holds the last dc. One writer per element, no
+//    atomics, so the result is the same from run to run.
+//  * The weight gradient: dW's input rows from xs, its recurrent rows from
+//    the previous h (h0 at t = 0), and db, train_common.cuh's split
+//    reductions over the L*B rows (wgmma for dW, a column sum for db),
+//    partials added in a fixed order. Where the TPU kernel added each batch
+//    block into one VMEM accumulator across its sequential grid, blocks here
+//    run in parallel and in no order.
+//
+// Backward in f32: the same contract on CUDA cores (tensor cores in f32
+// mean TF32, about three decimal digits; the f32 contract is 1e-4).
+// seq_bwd_kernel: a block owns R rows and walks t = L-1 .. 0 with dh, dc,
+// the step's output cotangent and its dgates [R][4H] in shared memory
+// (train_common.cuh's reverse step), reading the transpose [4H, I + H];
+// then the f32 split reductions.
 
 #include "train_common.cuh"
 
 namespace {
 
 using train::NT;
+using bf16_t = __nv_bfloat16;
 
 struct FwdArgs {
   const void* xs;       // [L, B, I] T
@@ -115,7 +134,8 @@ struct BwdArgs {
   const void* cs;       // row t at cs + t * h_st: [B, H] T
   long g_st, h_st;
   const float* c0;      // [B, H]
-  const void* wT;       // [4H, I + H] T
+  const void* wcat;     // [I + H, 4H] T (bf16 path)
+  const void* wT;       // [4H, I + H] T (f32 path)
   const float* dhs;     // [L, B, H]
   const float* dhf;     // [B, H]
   const float* dcf;     // [B, H]
@@ -126,7 +146,8 @@ struct BwdArgs {
   int B, L, I, H;
 };
 
-template <typename T, int R>
+// f32: one block owns R rows for all L steps (CUDA-core FMA, full f32).
+template <int R>
 __global__ void __launch_bounds__(NT) seq_bwd_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
   const int H = a.H, I = a.I, B = a.B, G = 4 * H, K = I + H;
@@ -135,10 +156,10 @@ __global__ void __launch_bounds__(NT) seq_bwd_kernel(const BwdArgs a) {
   float* fa = dc + R * H;   // [R][H] this step's output cotangent
   float* dg = fa + R * H;   // [R][4H]
   const int row0 = blockIdx.x * R;
-  const T* gs = static_cast<const T*>(a.gs);
-  const T* cs = static_cast<const T*>(a.cs);
-  const T* wT = static_cast<const T*>(a.wT);
-  T* dgates = static_cast<T*>(a.dgates);
+  const float* gs = static_cast<const float*>(a.gs);
+  const float* cs = static_cast<const float*>(a.cs);
+  const float* wT = static_cast<const float*>(a.wT);
+  float* dgates = static_cast<float*>(a.dgates);
 
   for (int idx = threadIdx.x; idx < R * H; idx += NT) {
     const int g = row0 + idx / H;
@@ -153,12 +174,12 @@ __global__ void __launch_bounds__(NT) seq_bwd_kernel(const BwdArgs a) {
       fa[idx] = g < B ? dht[(size_t)g * H + idx % H] : 0.0f;
     }
     __syncthreads();
-    train::cell_bwd_gates<T>(gs + t * a.g_st, cs + t * a.h_st,
-                             t > 0 ? cs + (t - 1) * a.h_st : nullptr, dh, dc, fa, dg,
-                             dgates + (size_t)t * B * G, R, H, row0, B, a.c0);
+    train::cell_bwd_gates<float>(gs + t * a.g_st, cs + t * a.h_st,
+                                 t > 0 ? cs + (t - 1) * a.h_st : nullptr, dh, dc, fa, dg,
+                                 dgates + (size_t)t * B * G, R, H, row0, B, a.c0);
     __syncthreads();
     float* dxt = a.dxs + (size_t)t * B * I;
-    train::cell_bwd_dinp<T, R>(wT, dg, K, G, [&](int r, int k, float v) {
+    train::cell_bwd_dinp<float, R>(wT, dg, K, G, [&](int r, int k, float v) {
       if (k < I) {
         if (row0 + r < B) dxt[(size_t)(row0 + r) * I + k] = v;
       } else {
@@ -197,14 +218,110 @@ cudaError_t launch_fwd_rpt(const FwdArgs& a, cudaStream_t st) {
   }
 }
 
-template <typename T, int R>
+template <int R>
 cudaError_t launch_bwd_kernel(const BwdArgs& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * (size_t)7 * R * a.H;
-  cudaError_t e = cudaFuncSetAttribute(seq_bwd_kernel<T, R>,
+  cudaError_t e = cudaFuncSetAttribute(seq_bwd_kernel<R>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  seq_bwd_kernel<T, R><<<(a.B + R - 1) / R, NT, smem, st>>>(a);
+  seq_bwd_kernel<R><<<(a.B + R - 1) / R, NT, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// bf16: the reverse chain as L + 1 launches (the kernel boundary is the
+// grid-wide barrier between steps).
+
+// The reverse cell step of one step s, element by element.
+struct GateArgs {
+  const bf16_t* gs;     // [B, 4H] activated gates at s
+  const bf16_t* cs;     // [B, H] c at s
+  const bf16_t* cprev;  // [B, H] c at s - 1, or null: c0
+  const float* c0;      // [B, H]
+  const float* dhs;     // [B, H] output cotangent at s
+  const float* dc_in;   // [B, H] running dc (dcf at s = L - 1)
+  float* dc;            // [B, H] running dc out (dc0 after s = 0)
+  bf16_t* dg;           // [B, 4H] dgates at s
+  int H;
+};
+
+__device__ __forceinline__ void gate_step(const GateArgs& a, int b, int j, float dh) {
+  const int H = a.H;
+  const size_t G = 4 * (size_t)H, bj = (size_t)b * H + j;
+  const bf16_t* gp = a.gs + b * G + j;
+  float g4[4], d4[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) g4[q] = train::ld(gp + q * H);
+  const float cp = a.cprev != nullptr ? train::ld(a.cprev + bj) : a.c0[bj];
+  a.dc[bj] = train::gate_cot<bf16_t>(g4, train::ld(a.cs + bj), cp, dh + a.dhs[bj],
+                                     a.dc_in[bj], d4);
+  bf16_t* o = a.dg + b * G + j;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) train::st(o + q * H, d4[q]);
+}
+
+// The first launch: the gate step of t = L - 1 from dhf and dcf.
+__global__ void __launch_bounds__(256) seq_gate_kernel(const GateArgs a, const float* dhf,
+                                                      int count) {
+  const int idx = blockIdx.x * 256 + threadIdx.x;
+  if (idx < count) gate_step(a, idx / a.H, idx % a.H, dhf[idx]);
+}
+
+struct StepArgs {
+  const bf16_t* dg;     // [B, 4H] dgates at t: the A operand
+  const bf16_t* w;      // [I + H, 4H] wcat: row n is column n of the product
+  float* dx;            // [B, I] dxs at t
+  float* dh0;           // [B, H] (t = 0)
+  int B, I, K, G, t, vec;
+  GateArgs gate;        // the gate step of t - 1 (t > 0)
+};
+
+// dinp_t [B, I + H] = dgates_t [B, 4H] W^T, one 128 x 128 tile a block, on
+// wgmma (both operands K-major: the reduction over 4H runs along rows of
+// dgates and of wcat). The f32 tile then goes through shared memory, so
+// that the epilogue walks it row by row and its loads and stores of the
+// residuals are coalesced: columns k < I go to dxs[t], and each column I + j
+// (the cotangent of h_{t-1}) to the gate step of t - 1 at (row, j), or to
+// dh0 at t = 0. One thread per element, no atomics.
+constexpr int EPI_PITCH = wg::BN + 8;  // floats per staged row: float2 stores conflict-free
+static_assert(wg::BM * EPI_PITCH * 4 <= wg::STAGES * wg::STAGE, "staged tile exceeds the ring");
+
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
+    seq_step_kernel(const StepArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  const int B = a.B, G = a.G, K = a.K;
+  const bool vec = a.vec;
+  float acc[64];
+  wg::gemm<false>(acc, ring, (G + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
+    const int q = kt * wg::BK;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = wg::chunk(u), r = idx >> 3, c = idx & 7;
+      const uint32_t off = wg::swz(r, c);
+      wg::stage8(dst + off, m0 + r < B ? a.dg + (size_t)(m0 + r) * G : nullptr, q + 8 * c, G,
+                 vec);
+      wg::stage8(dst + wg::TILE + off, n0 + r < K ? a.w + (size_t)(n0 + r) * G : nullptr,
+                 q + 8 * c, G, vec);
+    }
+  });
+  __syncthreads();  // both warpgroups' products are done with the ring
+  float* tile = reinterpret_cast<float*>(smem_raw + (ring - wg::smem_u32(smem_raw)));
+#pragma unroll
+  for (int j = 0; j < 64; j += 2)
+    *reinterpret_cast<float2*>(tile + wg::acc_row(j) * EPI_PITCH + wg::acc_col(j)) =
+        make_float2(acc[j], acc[j + 1]);
+  __syncthreads();
+  const int I = a.I, H = K - I;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
+    const int r = idx / wg::BN, cc = idx % wg::BN, row = m0 + r, col = n0 + cc;
+    if (row >= B || col >= K) continue;
+    const float v = tile[r * EPI_PITCH + cc];
+    if (col < I) a.dx[(size_t)row * I + col] = v;
+    else if (a.t == 0) a.dh0[(size_t)row * H + (col - I)] = v;
+    else gate_step(a.gate, row, col - I, v);
+  }
 }
 
 struct GradArgs {
@@ -218,17 +335,10 @@ struct GradArgs {
   long scratch_elems;
 };
 
+// dW's input rows from xs, its recurrent rows from the previous h (h0 at
+// t = 0), and db: train_common.cuh's split reductions over the L*B rows.
 template <typename T>
-cudaError_t launch_bwd(const BwdArgs& a, int R, const GradArgs& o, cudaStream_t st) {
-  cudaError_t e;
-  switch (R) {
-    case 1: e = launch_bwd_kernel<T, 1>(a, st); break;
-    case 2: e = launch_bwd_kernel<T, 2>(a, st); break;
-    case 4: e = launch_bwd_kernel<T, 4>(a, st); break;
-    case 8: e = launch_bwd_kernel<T, 8>(a, st); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return e;
+cudaError_t weight_grads(const BwdArgs& a, const GradArgs& o, cudaStream_t st) {
   const int B = a.B, H = a.H, I = a.I, G = 4 * H;
   train::WgradArgs g = {};
   g.d = a.dgates;
@@ -237,16 +347,14 @@ cudaError_t launch_bwd(const BwdArgs& a, int R, const GradArgs& o, cudaStream_t 
   g.N = G;
   g.B = B;
   g.M = B * a.L;
-  // input rows: the layer's input at step t
   train::WgradArgs gx = g;
   gx.K = I;
   gx.a = o.xs;
   gx.a_mode = train::A_DENSE;
   gx.a_st = o.x_st;
   gx.a_sb = I;
-  e = train::wgrad<T, T>(gx, o.dW, nullptr, o.scratch, o.scratch_elems, st);
+  cudaError_t e = train::wgrad<T, T>(gx, o.dW, nullptr, o.scratch, o.scratch_elems, st);
   if (e != cudaSuccess) return e;
-  // recurrent rows: h at the previous step, h0 at t = 0; and db
   train::WgradArgs gh = g;
   gh.K = H;
   gh.a = o.hs;
@@ -255,6 +363,63 @@ cudaError_t launch_bwd(const BwdArgs& a, int R, const GradArgs& o, cudaStream_t 
   gh.a_sb = H;
   gh.a0 = o.h0;
   return train::wgrad<T, T>(gh, o.dW + (size_t)I * G, o.db, o.scratch, o.scratch_elems, st);
+}
+
+cudaError_t launch_bwd_f32(const BwdArgs& a, int R, const GradArgs& o, cudaStream_t st) {
+  cudaError_t e;
+  switch (R) {
+    case 1: e = launch_bwd_kernel<1>(a, st); break;
+    case 2: e = launch_bwd_kernel<2>(a, st); break;
+    case 4: e = launch_bwd_kernel<4>(a, st); break;
+    case 8: e = launch_bwd_kernel<8>(a, st); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  return weight_grads<float>(a, o, st);
+}
+
+cudaError_t launch_bwd_bf16(const BwdArgs& a, const GradArgs& o, cudaStream_t st) {
+  const int B = a.B, H = a.H, I = a.I, G = 4 * H, K = I + H, L = a.L;
+  const bf16_t* gs = static_cast<const bf16_t*>(a.gs);
+  const bf16_t* cs = static_cast<const bf16_t*>(a.cs);
+  bf16_t* dgates = static_cast<bf16_t*>(a.dgates);
+  auto gate_at = [&](int s) {
+    GateArgs x;
+    x.gs = gs + s * a.g_st;
+    x.cs = cs + s * a.h_st;
+    x.cprev = s > 0 ? cs + (s - 1) * a.h_st : nullptr;
+    x.c0 = a.c0;
+    x.dhs = a.dhs + (size_t)s * B * H;
+    x.dc_in = a.dc0;
+    x.dc = a.dc0;
+    x.dg = dgates + (size_t)s * B * G;
+    x.H = H;
+    return x;
+  };
+  GateArgs first = gate_at(L - 1);
+  first.dc_in = a.dcf;
+  seq_gate_kernel<<<train::cdiv((long)B * H, 256), 256, 0, st>>>(first, a.dhf, B * H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(seq_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           wg::SMEM);
+  if (e != cudaSuccess) return e;
+  StepArgs s = {};
+  s.w = static_cast<const bf16_t*>(a.wcat);
+  s.dh0 = a.dh0;
+  s.B = B; s.I = I; s.K = K; s.G = G;
+  s.vec = G % 8 == 0 && train::aligned16(a.wcat) && train::aligned16(a.dgates);
+  const dim3 grid(train::cdiv(K, wg::BN), train::cdiv(B, wg::BM));
+  for (int t = L - 1; t >= 0; --t) {
+    s.t = t;
+    s.dg = dgates + (size_t)t * B * G;
+    s.dx = a.dxs + (size_t)t * B * I;
+    if (t > 0) s.gate = gate_at(t - 1);
+    seq_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(s);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return weight_grads<bf16_t>(a, o, st);
 }
 
 }  // namespace
@@ -285,13 +450,14 @@ int seq_fwd_launch(const void* xs, const void* h0, const void* c0, const void* w
 
 // gs, cs, hs: base of the [L * res_stride, B, .] residual arrays; xs: base
 // of the [L * xs_stride, B, I] input array. Row t of this layer is row
-// t * stride + offset.
+// t * stride + offset. wcat [I + H, 4H] is read in bf16, its transpose wT
+// [4H, I + H] in f32 (R: the f32 reverse kernel's rows per block).
 int seq_bwd_launch(const void* gs, const void* cs, const void* hs, int res_stride,
                    int res_offset, const void* xs, int xs_stride, int xs_offset,
-                   const void* h0, const void* c0, const void* wT, const void* dhs,
-                   const void* dhf, const void* dcf, void* dgates, void* dxs, void* dW, void* db,
-                   void* dh0, void* dc0, void* scratch, long scratch_elems, int B, int L, int I,
-                   int H, int bf16, int R, void* stream) {
+                   const void* h0, const void* c0, const void* wcat, const void* wT,
+                   const void* dhs, const void* dhf, const void* dcf, void* dgates, void* dxs,
+                   void* dW, void* db, void* dh0, void* dc0, void* scratch, long scratch_elems,
+                   int B, int L, int I, int H, int bf16, int R, void* stream) {
   if (B < 1 || L < 1 || I < 1 || H < 1 || res_stride < 1 || xs_stride < 1 ||
       res_offset < 0 || res_offset >= res_stride || xs_offset < 0 || xs_offset >= xs_stride)
     return (int)cudaErrorInvalidValue;
@@ -303,6 +469,7 @@ int seq_bwd_launch(const void* gs, const void* cs, const void* hs, int res_strid
   a.g_st = (long)res_stride * B * G;
   a.h_st = (long)res_stride * B * H;
   a.c0 = static_cast<const float*>(c0);
+  a.wcat = wcat;
   a.wT = wT;
   a.dhs = static_cast<const float*>(dhs);
   a.dhf = static_cast<const float*>(dhf);
@@ -322,7 +489,7 @@ int seq_bwd_launch(const void* gs, const void* cs, const void* hs, int res_strid
   o.scratch = static_cast<float*>(scratch);
   o.scratch_elems = scratch_elems;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_bwd<__nv_bfloat16>(a, R, o, s) : launch_bwd<float>(a, R, o, s));
+  return (int)(bf16 ? launch_bwd_bf16(a, o, s) : launch_bwd_f32(a, R, o, s));
 }
 
 const char* seq_error_string(int code) {

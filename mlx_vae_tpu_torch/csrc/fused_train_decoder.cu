@@ -26,7 +26,7 @@
 // mlx_vae_tpu_torch/ops/fused_train_decoder.py, which also builds this
 // file with nvcc and binds it through ctypes (plain C interface below).
 //
-// Design (simple and right first; CUDA-core FMA, no wgmma or TMA yet):
+// Design (simple and right first; the recurrent kernels are CUDA-core FMA):
 //  * Forward: one block (256 threads) owns R rows for all L steps, as in
 //    fused_generate.cu: step input [R][E+C], h of every layer
 //    double-buffered, c, the token and the CE sum in shared memory; one warp
@@ -41,15 +41,18 @@
 //  * Backward, sums over rows: dW and db of each layer, d(fc_out),
 //    d(fc_out bias) and d(embedding) are split reductions over the t*B rows
 //    with partials added in a fixed order (train_common.cuh), where the TPU
-//    kernel added into one VMEM accumulator across its sequential grid.
+//    kernel added into one VMEM accumulator across its sequential grid. In
+//    bf16 the dW products run on the tensor cores (wgmma; fc_out's f32
+//    dlogits are rounded to bf16 for its product and summed unrounded into
+//    d(fc_out bias)); in f32 on CUDA cores.
 //
 // What bounds it: at the default model (E=128, C=1, H=256, n=2, V=80) and
 // B=4096, L=64, bf16, torch.profiler on an H100 80GB HBM3 (700 W) put the
 // forward at 31.1 ms, the reverse kernel at 57.6 ms and the decoder's
-// weight-gradient passes at ~51 ms (~9.4 TFLOP/s). All are CUDA-core FMA
-// (~0.49 TFLOP each for the forward and the reverse kernel, ~0.5 TFLOP for
-// the sums); the recurrent kernels stream every weight from L2 at every
-// step. Tensor cores for all three are the next step.
+// weight-gradient passes, then on CUDA cores, at ~51 ms (~9.4 TFLOP/s). The
+// forward and the reverse kernel are CUDA-core FMA (~0.49 TFLOP each) and
+// stream every weight from L2 at every step. Tensor cores for those two are
+// the next step.
 
 #include "train_common.cuh"
 

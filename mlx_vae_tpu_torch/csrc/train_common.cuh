@@ -14,20 +14,31 @@
 //    stored activations, so a gate that saturated to exactly 1.0 in bf16
 //    has a zero a*(1-a) term, as on the TPU.
 //  * Layer l's combined weight is [K_l + H, 4H] (input rows, then recurrent
-//    rows); the reverse step reads its transpose [4H, K_l + H] so that a
-//    thread owning one input column reads neighbouring addresses.
+//    rows); the CUDA-core reverse steps read its transpose [4H, K_l + H] so
+//    that a thread owning one input column reads neighbouring addresses.
 //
 // Cross-row sums. On the TPU a backward kernel adds every batch block's
-// weight gradient into one VMEM accumulator, because its grid runs in
-// order. Blocks on the card run in parallel and in no order, so the reverse
-// kernels here write the per-(t, layer, row) gate cotangents dgates [L, n,
-// B, 4H] (in T, rounded as the TPU rounds them before its dW product) and
-// the layer-0 input cotangent, and wgrad_kernel / demb_kernel form
+// weight gradient into one VMEM accumulator, because its grid runs in order
+// (the dW/db accumulators of mlx_vae_tpu/ops/pallas_seq_lstm.py:_bwd_kernel,
+// pallas_encoder.py:_bwd_kernel and pallas_train_decoder.py:_bwd_kernel).
+// Blocks on the card run in parallel and in no order, so the reverse kernels
+// here write the per-(t, layer, row) gate cotangents dgates [L, n, B, 4H]
+// (in T, rounded as the TPU rounds them before its dW product) and the
+// layer-0 input cotangent, and the passes below form
 //   dW_l = sum_{t,b} inp_l(t,b)^T dgates_l(t,b),   db_l = sum_{t,b} dgates_l,
 //   d(embedding)[v] = sum_{t,b : token(t,b) = v} dx0(t,b)
 // as split reductions: each block sums one output tile over one slice of
 // the t*B rows into its own partial, and reduce_kernel adds the partials in
 // a fixed order. No atomics, so the sums are the same from run to run.
+//
+// What bounds the weight-gradient pass: at I = H = 1024, B = 2048, L = 64 it
+// is 2.2 TFLOP against ~1.3 GB of operands, so the operations (the tensor
+// cores' bf16 rate) bound it. In bf16 it runs on wgmma (wgrad_wgmma_kernel:
+// 128 x 128 tiles, a 3-stage cp.async ring, two blocks an SM, both operands
+// MN-major as they lie in memory, f32 accumulation); db is a separate
+// column sum (colsum_kernel). The f32 pass stays CUDA-core FMA (wgrad_f32_kernel):
+// tensor cores in f32 would mean TF32, about three decimal digits, and the
+// f32 contract holds gradients to 1e-4.
 
 #pragma once
 
@@ -35,6 +46,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
+
+#include <algorithm>
+
+#include "wgmma.cuh"
 
 namespace train {
 
@@ -141,6 +156,23 @@ __device__ __forceinline__ void cell_fwd(const T* W, const float* b, int Kin, in
 
 // ---------------------------------------------------------------- reverse
 
+// The reverse cell step at one (row, unit): from the activated gates a =
+// (i, f, g, o), c and c_prev, the total h cotangent dht and the running dc,
+// the four gate cotangents d4, rounded to T (the TPU casts dgates to the
+// weight dtype before its products); returns the new dc.
+template <typename T>
+__device__ __forceinline__ float gate_cot(const float (&a)[4], float c, float cp, float dht,
+                                          float dc, float (&d4)[4]) {
+  const float ig = a[0], fg = a[1], gg = a[2], og = a[3];
+  const float tc = tanhf(c);
+  const float dct = dc + dht * og * (1.0f - tc * tc);
+  d4[0] = rnd<T>(dct * gg * ig * (1.0f - ig));
+  d4[1] = rnd<T>(dct * cp * fg * (1.0f - fg));
+  d4[2] = rnd<T>(dct * ig * (1.0f - gg * gg));
+  d4[3] = rnd<T>(dht * tc * og * (1.0f - og));
+  return dct * fg;
+}
+
 // Phase A of the reverse step of one layer at step t, for a tile of R rows:
 // from the stored activations and c, and the running (dh, dc), form the
 // four gate cotangents, rounded to T (the TPU casts dgates to the weight
@@ -159,36 +191,24 @@ __device__ __forceinline__ void cell_bwd_gates(const T* gs, const T* cs_t, const
   const int G = 4 * H;
   for (int idx = threadIdx.x; idx < R * H; idx += NT) {
     const int r = idx / H, j = idx % H, g = row0 + r;
-    float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f, c = 0.f, cp = 0.f;
+    float a[4] = {0.f, 0.f, 0.f, 0.f}, c = 0.f, cp = 0.f;
     if (g < B) {
       const T* gp = gs + (size_t)g * G + j;
-      ig = ld(gp);
-      fg = ld(gp + H);
-      gg = ld(gp + 2 * H);
-      og = ld(gp + 3 * H);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[q] = ld(gp + q * H);
       c = ld(cs_t + (size_t)g * H + j);
       cp = cs_prev != nullptr ? ld(cs_prev + (size_t)g * H + j)
                               : (c0 != nullptr ? c0[(size_t)g * H + j] : 0.0f);
     }
-    const float tc = tanhf(c);
-    const float dht = dh[idx] + fa[idx];
-    const float dct = dc[idx] + dht * og * (1.0f - tc * tc);
-    const float di = rnd<T>(dct * gg * ig * (1.0f - ig));
-    const float df = rnd<T>(dct * cp * fg * (1.0f - fg));
-    const float dgg = rnd<T>(dct * ig * (1.0f - gg * gg));
-    const float dout = rnd<T>(dht * tc * og * (1.0f - og));
+    float d4[4];
+    dc[idx] = gate_cot<T>(a, c, cp, dh[idx] + fa[idx], dc[idx], d4);
     float* d = dg + (size_t)r * G + j;
-    d[0] = di;
-    d[H] = df;
-    d[2 * H] = dgg;
-    d[3 * H] = dout;
-    dc[idx] = dct * fg;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q * H] = d4[q];
     if (g < B) {
       T* o = dg_out + (size_t)g * G + j;
-      st(o, di);
-      st(o + H, df);
-      st(o + 2 * H, dgg);
-      st(o + 3 * H, dout);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) st(o + q * H, d4[q]);
     }
   }
 }
@@ -216,10 +236,6 @@ __device__ __forceinline__ void cell_bwd_dinp(const T* WT, const float* dg, int 
 
 // ------------------------------------------------------- gradient sums
 
-constexpr int GB_M = 16;  // rows of t*B per shared-memory stage
-constexpr int GB_K = 64;  // output tile: rows of dW
-constexpr int GB_N = 64;  // output tile: columns of dW
-
 // A(m, k) for m = t * B + b, one of three row sources:
 enum { A_DENSE = 0, A_SHIFT = 1, A_GATHER = 2 };
 
@@ -238,56 +254,55 @@ struct WgradArgs {
   const void* d;    // D(m, n) = d[t*d_st + b*d_sb + n], TD elements
   long d_st, d_sb;
   int K, N, B, M, chunk;
-  float* part;      // [S][K][N]
-  float* part_db;   // [S][N], or null: no bias sum
+  float* part;      // [S][K][N] (the output itself when S = 1)
+  int a_vec, d_vec; // every row of A / D starts 16-byte aligned (set by wgrad)
 };
 
+// Row (t, b) of A (its element 0), or null where the row reads as zeros.
 template <typename T>
-__device__ __forceinline__ float load_a(const WgradArgs& g, int m, int k) {
-  const int t = m / g.B, b = m % g.B;
+__device__ __forceinline__ const T* a_row(const WgradArgs& g, int t, int b) {
   const T* a = static_cast<const T*>(g.a);
-  if (g.a_mode == A_DENSE) return ld(a + t * g.a_st + b * g.a_sb + k);
+  if (g.a_mode == A_DENSE) return a + t * g.a_st + b * g.a_sb;
   if (g.a_mode == A_SHIFT) {
-    if (t > 0) return ld(a + (t - 1) * g.a_st + b * g.a_sb + k);
-    return g.a0 != nullptr ? ld(static_cast<const T*>(g.a0) + (size_t)b * g.K + k) : 0.0f;
+    if (t > 0) return a + (t - 1) * g.a_st + b * g.a_sb;
+    return g.a0 != nullptr ? static_cast<const T*>(g.a0) + (size_t)b * g.K : nullptr;
   }
   const int v = g.tok[t * g.tok_st + b * g.tok_sb];
-  return (v >= 0 && v < g.V) ? ld(a + (size_t)v * g.K + k) : 0.0f;
+  return (v >= 0 && v < g.V) ? a + (size_t)v * g.K : nullptr;
 }
 
-// part[s] = sum over rows [s*chunk, (s+1)*chunk) of A^T D for one 64 x 64
-// tile; with part_db, the blocks of the first k tile also sum D's columns.
-// D is read as stored for the bias sum and rounded to T for the product (the
-// TPU sums f32 dlogits into d(bias) but rounds them for d(fc_out)).
-template <typename T, typename TD>
-__global__ void __launch_bounds__(256) wgrad_kernel(const WgradArgs g) {
+template <typename TD>
+__device__ __forceinline__ const TD* d_row(const WgradArgs& g, int t, int b) {
+  return static_cast<const TD*>(g.d) + t * g.d_st + b * g.d_sb;
+}
+
+// f32: part[s] = sum over rows [s*chunk, (s+1)*chunk) of A^T D for one
+// 64 x 64 tile, CUDA-core FMA in full f32 (tensor cores would mean TF32).
+constexpr int GB_M = 16;  // rows of t*B per shared-memory stage
+constexpr int GB_K = 64;  // output tile: rows of dW
+constexpr int GB_N = 64;  // output tile: columns of dW
+
+__global__ void __launch_bounds__(256) wgrad_f32_kernel(const WgradArgs g) {
   __shared__ float As[GB_M][GB_K];
   __shared__ float Ds[GB_M][GB_N];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * GB_N, k0 = blockIdx.y * GB_K, s = blockIdx.z;
   const int m_begin = s * g.chunk;
   const int m_end = min(m_begin + g.chunk, g.M);
-  const TD* d = static_cast<const TD*>(g.d);
-  const bool do_db = g.part_db != nullptr && blockIdx.y == 0;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  float dbacc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int m0 = m_begin; m0 < m_end; m0 += GB_M) {
     for (int idx = tid; idx < GB_M * GB_K; idx += 256) {
       const int mm = idx / GB_K, kk = idx % GB_K, m = m0 + mm, k = k0 + kk;
-      As[mm][kk] = (m < m_end && k < g.K) ? load_a<T>(g, m, k) : 0.0f;
+      const float* row = (m < m_end && k < g.K) ? a_row<float>(g, m / g.B, m % g.B) : nullptr;
+      As[mm][kk] = row != nullptr ? row[k] : 0.0f;
     }
     for (int idx = tid; idx < GB_M * GB_N; idx += 256) {
       const int mm = idx / GB_N, nn = idx % GB_N, m = m0 + mm, n = n0 + nn;
-      float v = 0.0f;
-      if (m < m_end && n < g.N) {
-        const int t = m / g.B, b = m % g.B;
-        v = ld(d + t * g.d_st + b * g.d_sb + n);
-      }
-      Ds[mm][nn] = v;
+      Ds[mm][nn] = (m < m_end && n < g.N) ? d_row<float>(g, m / g.B, m % g.B)[n] : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -296,11 +311,7 @@ __global__ void __launch_bounds__(256) wgrad_kernel(const WgradArgs g) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) av[i] = As[mm][ty * 4 + i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float raw = Ds[mm][tx * 4 + j];
-        dv[j] = rnd<T>(raw);
-        if (ty == 0) dbacc[j] += raw;
-      }
+      for (int j = 0; j < 4; ++j) dv[j] = Ds[mm][tx * 4 + j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -319,13 +330,73 @@ __global__ void __launch_bounds__(256) wgrad_kernel(const WgradArgs g) {
       if (n < g.N) out[(size_t)k * g.N + n] = acc[i][j];
     }
   }
-  if (do_db && ty == 0) {
+}
+
+// bf16: the same sums on the tensor cores. A block forms one 128 x 128 tile
+// of dW (128 rows k, 128 columns n) over its slice of rows m, 64 rows a
+// stage: A's stage is 64 rows m of 128 k-values and D's 64 rows m of 128
+// n-values, each row a contiguous run in device memory, so both operands
+// are MN-major and are copied as they are (cp.async where a row is 16-byte
+// aligned). D in f32 (TD = float) is rounded to bf16 while it is staged.
+// Rows past the slice and columns past K or N are zeros.
+template <typename TD>
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM) wgrad_wgmma_kernel(
+    const WgradArgs g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, k0 = blockIdx.y * wg::BM, s = blockIdx.z;
+  const int m_begin = s * g.chunk;
+  const int m_end = min(m_begin + g.chunk, g.M);
+  const int nk = (m_end - m_begin + wg::BK - 1) / wg::BK;
+  // This thread stages rows mm = tid / 16 + 16 u (u = 0..3) of every stage,
+  // 16-byte chunk c = tid % 16 of each (atom c / 8); (t, b) of each row
+  // advance by BK rows a stage.
+  const int c = threadIdx.x & 15, mm0 = threadIdx.x >> 4;
+  int t[4], b[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < g.N) g.part_db[(size_t)s * g.N + n] = dbacc[j];
-    }
+  for (int u = 0; u < 4; ++u) {
+    const int m = m_begin + mm0 + 16 * u;
+    t[u] = m / g.B;
+    b[u] = m % g.B;
   }
+  float acc[64];
+  wg::gemm<true>(acc, ring, nk, [&](uint32_t dst, int kt) {
+    const int m0 = m_begin + kt * wg::BK;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int mm = mm0 + 16 * u;
+      const uint32_t off = (c >> 3) * 8192 + wg::swz(mm, c & 7);
+      const bool in = m0 + mm < m_end;
+      wg::stage8(dst + off, in ? a_row<__nv_bfloat16>(g, t[u], b[u]) : nullptr, k0 + 8 * c,
+                 g.K, g.a_vec);
+      wg::stage8(dst + wg::TILE + off, in ? d_row<TD>(g, t[u], b[u]) : nullptr, n0 + 8 * c,
+                 g.N, g.d_vec);
+      for (b[u] += wg::BK; b[u] >= g.B; b[u] -= g.B) ++t[u];
+    }
+  });
+  float* out = g.part + (size_t)s * g.K * g.N;
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    const int k = k0 + wg::acc_row(j), n = n0 + wg::acc_col(j);
+    if (k < g.K && n < g.N) out[(size_t)k * g.N + n] = acc[j];
+  }
+}
+
+// part[s][n] = sum over rows [s*chunk, (s+1)*chunk) of D(m, n), as stored
+// (f32 dlogits unrounded, bf16 gate cotangents as rounded).
+template <typename TD>
+__global__ void __launch_bounds__(256) colsum_kernel(const WgradArgs g, float* part) {
+  const int n = blockIdx.x * 256 + threadIdx.x, s = blockIdx.y;
+  if (n >= g.N) return;
+  const int m_end = min((s + 1) * g.chunk, g.M);
+  int m = s * g.chunk, t = m / g.B, b = m % g.B;
+  float acc = 0.0f;
+#pragma unroll 4
+  for (; m < m_end; ++m) {
+    acc += ld(d_row<TD>(g, t, b) + n);
+    if (++b == g.B) { b = 0; ++t; }
+  }
+  part[(size_t)s * g.N + n] = acc;
 }
 
 // out[i] = sum_s part[s * count + i], s in order.
@@ -366,33 +437,84 @@ __global__ void __launch_bounds__(DE_COLS) demb_kernel(const T* dx, const int* t
 
 inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
 
+// blocks of the tensor-core passes resident at once on an H100 SXM (132 SMs)
+constexpr int SLOTS = 132 * wg::BLOCKS_PER_SM;
+
 inline cudaError_t reduce(const float* part, int S, long count, float* out, cudaStream_t st) {
   reduce_kernel<<<cdiv(count, 256), 256, 0, st>>>(part, S, count, out);
   return cudaGetLastError();
 }
 
-// dW rows [out, out + K) (+ db when db != null) from one A source. The split
-// count S targets ~1024 blocks and is capped by the scratch capacity.
+// Splits of the M rows for `tiles` output tiles: the fewest that fill one or
+// more whole waves of SLOTS blocks to within 10%, at most 32, at least
+// `rows_min` rows each, and at most `cap`.
+inline int split_count(int tiles, long M, int rows_min, long cap) {
+  int best = 1;
+  double best_eff = (double)tiles / ((double)cdiv(tiles, SLOTS) * SLOTS);
+  for (int S = 2; S <= 32 && best_eff < 0.9; ++S) {
+    const double eff = (double)tiles * S / ((double)cdiv((long)tiles * S, SLOTS) * SLOTS);
+    if (eff > best_eff + 0.05) { best = S; best_eff = eff; }
+  }
+  if ((long)best * rows_min > M) best = cdiv(M, rows_min);
+  if (best > cap) best = (int)cap;
+  return best < 1 ? 1 : best;
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// dW rows [out, out + K) (+ db when db != null) from one A source: the f32
+// kernel for T = float, the tensor-core kernel for bf16 (a dispatch on
+// dtype: f32 on the tensor cores would be TF32). Partials are added in a
+// fixed order by reduce_kernel, so the sums are the same from run to run.
 template <typename T, typename TD>
 cudaError_t wgrad(WgradArgs g, float* out, float* db, float* scratch, long scratch_elems,
                   cudaStream_t st) {
-  const int tiles = cdiv(g.K, GB_K) * cdiv(g.N, GB_N);
-  int S = cdiv(1024, tiles);
-  S = S < cdiv(g.M, GB_M) ? S : cdiv(g.M, GB_M);
-  const long per = (long)g.K * g.N + g.N;
-  if (per > scratch_elems) return cudaErrorInvalidValue;
-  if ((long)S * per > scratch_elems) S = (int)(scratch_elems / per);
-  g.chunk = cdiv(cdiv(g.M, S), GB_M) * GB_M;
+  constexpr bool TC = sizeof(T) == 2;
+  const int bm = TC ? wg::BM : GB_K, bn = TC ? wg::BN : GB_N, bk = TC ? wg::BK : GB_M;
+  const int tiles = cdiv(g.K, bm) * cdiv(g.N, bn);
+  const long per = (long)g.K * g.N;
+  // f32: ~1024 blocks of 256 threads, several resident per SM
+  int S = TC ? split_count(tiles, g.M, 8 * bk, scratch_elems / per)
+             : std::max(1L, std::min({(long)cdiv(1024, tiles), (long)cdiv(g.M, bk),
+                                      scratch_elems / per}));
+  g.chunk = cdiv(cdiv(g.M, S), bk) * bk;
   S = cdiv(g.M, g.chunk);
-  g.part = scratch;
-  g.part_db = db != nullptr ? scratch + (size_t)S * g.K * g.N : nullptr;
-  dim3 grid(cdiv(g.N, GB_N), cdiv(g.K, GB_K), S);
-  wgrad_kernel<T, TD><<<grid, 256, 0, st>>>(g);
-  cudaError_t e = cudaGetLastError();
+  if (S > 1 && (long)S * per > scratch_elems) return cudaErrorInvalidValue;
+  g.part = S > 1 ? scratch : out;
+  dim3 grid(cdiv(g.N, bn), cdiv(g.K, bm), S);
+  cudaError_t e;
+  if constexpr (TC) {
+    constexpr int E = 8;  // bf16 per 16 bytes
+    const bool shift_ok = g.a_mode != A_SHIFT || g.a0 == nullptr || aligned16(g.a0);
+    g.a_vec = aligned16(g.a) && shift_ok && g.K % E == 0 &&
+              (g.a_mode == A_GATHER || (g.a_st % E == 0 && g.a_sb % E == 0));
+    constexpr int ED = 16 / sizeof(TD);
+    g.d_vec = aligned16(g.d) && g.d_st % ED == 0 && g.d_sb % ED == 0;
+    e = cudaFuncSetAttribute(wgrad_wgmma_kernel<TD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::SMEM);
+    if (e != cudaSuccess) return e;
+    wgrad_wgmma_kernel<TD><<<grid, wg::NTH, wg::SMEM, st>>>(g);
+  } else {
+    wgrad_f32_kernel<<<grid, 256, 0, st>>>(g);
+  }
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = reduce(g.part, S, (long)g.K * g.N, out, st);
-  if (e != cudaSuccess || db == nullptr) return e;
-  return reduce(g.part_db, S, g.N, db, st);
+  if (S > 1) {
+    e = reduce(scratch, S, per, out, st);
+    if (e != cudaSuccess) return e;
+  }
+  if (db == nullptr) return cudaSuccess;
+  // db: column sums of D, split over the rows, partials added in order
+  int Sd = cdiv(2 * SLOTS, cdiv(g.N, 256));
+  Sd = Sd < cdiv(g.M, 256) ? Sd : cdiv(g.M, 256);
+  if ((long)Sd * g.N > scratch_elems) Sd = (int)(scratch_elems / g.N);
+  if (Sd < 1) return cudaErrorInvalidValue;
+  g.chunk = cdiv(g.M, Sd);
+  Sd = cdiv(g.M, g.chunk);
+  colsum_kernel<TD><<<dim3(cdiv(g.N, 256), Sd), 256, 0, st>>>(g, scratch);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return reduce(scratch, Sd, g.N, db, st);
 }
 
 template <typename T>

@@ -4,8 +4,9 @@ plain PyTorch versions.
 Counterpart of ``mlx_vae_tpu/ops/pallas_seq_lstm.py``: the forward of
 ``lstm_sequence_pallas`` and the time-major backward
 ``lstm_seq_bwd_pallas_tm``. The kernels are in ``csrc/fused_seq_lstm.cu``
-(CUDA C++ for ``sm_90a``); their design and what bounds them are noted at
-the top of that file.
+(CUDA C++ for ``sm_90a``; the bf16 backward runs on the tensor cores,
+``wgmma``, the f32 one on CUDA cores); their design and what bounds them are
+noted at the top of that file.
 
 * :func:`seq_lstm_fwd`: ``xs_t [L, B, I]`` (compute dtype), ``h0``/``c0``
   ``[B, H]`` f32 -> ``hs_t``, ``cs_t [L, B, H]`` and activated gates
@@ -99,18 +100,26 @@ def _bwd_smem(H: int):
     return lambda r: 7 * r * H
 
 
+def bwd_plan(H: int, dtype) -> Optional[int]:
+    """Rows per block of the f32 reverse kernel (its dh, dc, output
+    cotangent and dgates in shared memory), or None where one row does not
+    fit. 0 for bf16: its per-step GEMMs tile rows and columns through a
+    fixed shared-memory ring, so any width fits."""
+    return 0 if dtype == torch.bfloat16 else bwd_rows(_bwd_smem(H))
+
+
 def _unsupported_reason(I: int, H: int, dtype) -> Optional[str]:
     if dtype not in _DTYPES:
         return f"compute dtype {dtype}"
-    if fwd_tile(H, _fwd_smem(I, H)) is None or bwd_rows(_bwd_smem(H)) is None:
+    if fwd_tile(H, _fwd_smem(I, H)) is None or bwd_plan(H, dtype) is None:
         return f"shared-memory plan: one row of I={I}, H={H} > {MAX_SMEM} B"
     return None
 
 
 def fused_seq_supported(input_size: int, hidden: int, dtype) -> bool:
-    """Shapes the kernels take: f32 or bf16, and one row's state (input,
-    h twice, c; or the reverse step's dh, dc, output cotangent and dgates)
-    within a block's shared memory. Any width, any batch."""
+    """Shapes the kernels take: f32 or bf16, one row's forward state
+    (input, h twice, c) within a block's shared memory and, in f32, one
+    row's reverse state (:func:`bwd_plan`). Any batch."""
     return _unsupported_reason(input_size, hidden, dtype) is None
 
 
@@ -121,7 +130,7 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.seq_fwd_launch.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.seq_fwd_launch.restype = i
-    lib.seq_bwd_launch.argtypes = ([p] * 3 + [i] * 2 + [p] + [i] * 2 + [p] * 13 + [lg]
+    lib.seq_bwd_launch.argtypes = ([p] * 3 + [i] * 2 + [p] + [i] * 2 + [p] * 14 + [lg]
                                    + [i] * 6 + [p])
     lib.seq_bwd_launch.restype = i
     lib.seq_error_string.argtypes = [i]
@@ -178,13 +187,15 @@ seq_lstm_fwd.launches = 0
 def launch_seq_bwd(lib, wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf, res_stride,
                    res_offset, xs_stride, xs_offset, stream: int):
     """Allocate the outputs and scratch and launch the backward kernels (no
-    device or support checks: :func:`seq_lstm_bwd_tm` makes them)."""
+    device or support checks: :func:`seq_lstm_bwd_tm` makes them). The f32
+    reverse kernel reads the weight's transpose; bf16 reads ``wcat``."""
     wdt = wcat.dtype
     L, B, H = dhs_t.shape
     I = xs_t.shape[-1]
     dev = dhs_t.device
     f32 = dict(dtype=torch.float32, device=dev)
-    wT = wcat.T.contiguous()
+    R = bwd_plan(H, wdt)
+    wT = wcat.T.contiguous() if R else None
     h0w = h0.to(wdt).contiguous()
     dgates = torch.empty((L, B, 4 * H), dtype=wdt, device=dev)
     dxs = torch.empty((L, B, I), **f32)
@@ -193,13 +204,13 @@ def launch_seq_bwd(lib, wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf, r
     dh0, dc0 = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
     scratch_elems = max(SCRATCH_ELEMS, (max(I, H) + 1) * 4 * H)
     scratch = torch.empty((scratch_elems,), **f32)
-    R = bwd_rows(_bwd_smem(H))
     rc = lib.seq_bwd_launch(
         gs_t.data_ptr(), cs_t.data_ptr(), hs_t.data_ptr(), res_stride, res_offset,
-        xs_t.data_ptr(), xs_stride, xs_offset, h0w.data_ptr(), c0.data_ptr(), wT.data_ptr(),
-        dhs_t.data_ptr(), dhf.data_ptr(), dcf.data_ptr(), dgates.data_ptr(), dxs.data_ptr(),
-        dwcat.data_ptr(), db.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), scratch.data_ptr(),
-        scratch_elems, B, L, I, H, int(wdt == torch.bfloat16), R, stream)
+        xs_t.data_ptr(), xs_stride, xs_offset, h0w.data_ptr(), c0.data_ptr(), wcat.data_ptr(),
+        wT.data_ptr() if R else None, dhs_t.data_ptr(), dhf.data_ptr(), dcf.data_ptr(),
+        dgates.data_ptr(), dxs.data_ptr(), dwcat.data_ptr(), db.data_ptr(), dh0.data_ptr(),
+        dc0.data_ptr(), scratch.data_ptr(), scratch_elems, B, L, I, H,
+        int(wdt == torch.bfloat16), R, stream)
     raise_if(rc, "seq_lstm backward", lib.seq_error_string)
     return dxs, dwcat, db, dh0, dc0
 

@@ -59,6 +59,26 @@ def test_tile_plan_picks_its_instances(case):
     assert fs.fused_seq_supported(I, H, torch.bfloat16)
 
 
+# (I, H, f32 reverse rows per block or None where one row does not fit)
+BWD_PLAN = [(128, 64, 8), (129, 200, 8), (1024, 1024, 8), (64, 2048, 4), (16, 4096, 2),
+            (16, 8192, 1), (16, 9000, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(BWD_PLAN)))
+def test_bwd_plan_and_support(case, dtype):
+    """A CPU check of the backward's support rule: the f32 reverse kernel
+    keeps one row's state in shared memory, the bf16 one (per-step GEMMs
+    through a fixed shared-memory ring) takes any width."""
+    I, H, rows = BWD_PLAN[case]
+    if dtype == "bfloat16":
+        assert fs.bwd_plan(H, torch.bfloat16) == 0
+        assert fs.fused_seq_supported(I, H, torch.bfloat16)
+    else:
+        assert fs.bwd_plan(H, torch.float32) == rows
+        assert fs.fused_seq_supported(I, H, torch.float32) == (rows is not None)
+
+
 @pytest.fixture()
 def dev():
     if not torch.cuda.is_available():
@@ -128,6 +148,45 @@ def test_seq_bwd_strided_matches_dense(dev, dtype, offsets):
                                  res_offset=ro, xs_stride=3, xs_offset=xo)
     torch.cuda.synchronize()
     for a, b in zip(strided, dense):
+        assert torch.equal(a, b)
+
+
+# the bf16 backward's ragged edges: I = 129 (the scaled decoder's layer 0:
+# unaligned input rows), I = H; B not a multiple of the 128-row tile; H = 200
+# (4H not a multiple of the 64-deep stage); odd H (no row 16-byte aligned)
+WGMMA_BWD = [(I, H, B) for H in (64, 200) for I in (128, 129, H) for B in (1000, 2048)]
+WGMMA_BWD.append((33, 37, 19))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("case", range(len(WGMMA_BWD)))
+def test_seq_bwd_bf16_matches_plain(dev, case, strided):
+    """The tensor-core backward against its plain version on every output
+    and gradient leaf, dense and with residuals and inputs addressed inside
+    layer-stacked arrays; two runs agree bit for bit."""
+    I, H, B = WGMMA_BWD[case]
+    L = 4
+    rs, ro, xst, xo = (3, 1, 2, 1) if strided else (1, 0, 1, 0)
+    wcat, bias, xs, h0, c0, (dhs, dhf, dcf) = _seq_inputs(I, H, B, L, "bfloat16", dev,
+                                                          stride=xst, seed=case)
+    res = fs.seq_lstm_fwd_reference(wcat, bias, xs[xo::xst].contiguous(), h0, c0)[:3]
+    if strided:
+        stk = []
+        for a in res:
+            big = torch.randn((L * rs,) + tuple(a.shape[1:]), device=dev).to(a.dtype)
+            big[ro::rs] = a
+            stk.append(big)
+        res = stk
+    kw = dict(res_stride=rs, res_offset=ro, xs_stride=xst, xs_offset=xo)
+    before = fs.seq_lstm_bwd_tm.launches
+    k1 = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res, dhs, dhf, dcf, **kw)
+    k2 = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res, dhs, dhf, dcf, **kw)
+    p = fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *res, dhs, dhf, dcf, **kw)
+    torch.cuda.synchronize()
+    assert fs.seq_lstm_bwd_tm.launches == before + 2
+    _close(k1, p, "bfloat16")
+    for a, b in zip(k1, k2):
         assert torch.equal(a, b)
 
 

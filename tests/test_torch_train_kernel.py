@@ -200,6 +200,39 @@ def test_decoder_kernels_match_plain(dev, shape, dtype, with_ce):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [1, 2, 6, 7])
+def test_bf16_weight_gradients_repeat_bit_for_bit(dev, shape):
+    """The tensor-core weight-gradient pass in all three row sources (the
+    embedding gathered by token, a dense input, the previous h with and
+    without h_init at t = 0) and with f32 dlogits (fc_out, rounded for the
+    product, summed unrounded into its bias): two runs of each backward
+    give the same bits, and they match the plain versions."""
+    cfg, enc, dec, tok, cond, h0, g = _setup(shape, "bfloat16", dev)
+    B, L = tok.shape
+    we = tc.prepare_stack_weights(enc, cfg, with_head=False)
+    wd = tc.prepare_stack_weights(dec, cfg, with_head=True)
+    pe = fe.encoder_fwd_reference(we, tok)
+    dh = torch.randn((B, cfg.hidden_dim), generator=g).to(dev)
+    tf = torch.ones((L,), dtype=torch.bool, device=dev)
+    pd = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False)
+    dlog = torch.randn((B, L, cfg.vocab_size), generator=g).to(dev)
+    runs = {
+        "encoder": (lambda: fe.encoder_bwd(we, tok, dh, *pe[1:]),
+                    lambda: fe.encoder_bwd_reference(we, tok, dh, *pe[1:])),
+        "decoder": (lambda: fd.decoder_bwd(wd, dlog, tok, pd[1], h0, cond, *pd[2:], False),
+                    lambda: fd.decoder_bwd_reference(wd, dlog, tok, pd[1], h0, cond, *pd[2:],
+                                                     False)),
+    }
+    for name, (kern, plain) in runs.items():
+        k1, k2, p = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        flat = [[*r[0], *r[1:]] for r in (k1, k2, p)]
+        _close(flat[0], flat[2], "bfloat16")
+        for a, b in zip(flat[0], flat[1]):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decoder_argmax_feedback_matches_plain(dev, dtype):
     """Teacher forcing 0.6 over a longer sequence: the fed tokens follow

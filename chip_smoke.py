@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-8 below
+    python3 chip_smoke.py            # phases 1-11 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -10,8 +10,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: one nvcc per source, all at once, builds every
-   ``mlx_vae_tpu_torch/csrc/*.cu`` (sm_90a): the sampler, the fused encoder
-   and the fused training decoder;
+   ``mlx_vae_tpu_torch/csrc/*.cu`` (sm_90a): the sampler, the fused encoder,
+   the fused training decoder, the sequence LSTM and the gate pair; the
+   build fails if ptxas serialized a ``wgmma`` chain (warning C7515);
 3. kernel vs plain: the fused sampler kernel against its plain PyTorch
    version on the card at the default model width (V=80, E=128, H=256,
    latent 128, 1 condition, 2 layers), at every serving tier B = 256, 2048,
@@ -24,7 +25,10 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
 4. the slice: a random-init checkpoint is served by the port's HTTP server
    (tiers 256,2048,8192, max_length 64, f32) and answers health, stochastic,
    repeated-seed, greedy, multi-pass and malformed requests; the kernel
-   launch counter, reset just before, must have risen;
+   launch counter, reset just before, must have risen, and /health names
+   the fused sampler. A V=600 checkpoint, which the sampler kernel refuses,
+   is then served through the scan sampler (as the JAX server serves it):
+   /health says "scan", same-seed requests repeat, no sampler launch;
 5. times: kernel vs plain sampler in mols/s at B = 256, 2048, 8192 (L=64,
    f32, T=0.8), CUDA events after a warm-up;
 6. train kernels vs plain: the fused encoder's and the fused training
@@ -34,8 +38,11 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    the plain forward's residuals, as its plain twin does. Teacher forcing
    all on: every output and gradient leaf within max |kernel - plain| /
    max |plain| <= 1e-4 (f32; the two sum in different orders) or 2e-2
-   (bf16; one ulp of a bf16 rounding is ~4e-3 of the value). Teacher
-   forcing 0.9: the fed-token rows agree on >= 97.0% and the first
+   (bf16; one ulp of a bf16 rounding is ~4e-3 of the value). In bf16 the
+   encoder forward (the tensor-core step kernel, layer by layer) runs twice
+   and must repeat bit for bit, and its backward also runs on the kernel
+   forward's residuals against its plain version on the same residuals.
+   Teacher forcing 0.9: the fed-token rows agree on >= 97.0% and the first
    argmax-fed step on >= 99.0% (an argmax can flip where two logits tie);
 7. the train slice: ``train_step`` at full width (default model, bf16,
    B=4096, L=64, fused route) takes 8 steps on a fixed synthetic batch; the
@@ -50,12 +57,16 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    widths (the yardstick only), and the whole step on the fused route
    against the plain route, at B=4096, L=64, bf16 (CUDA events after a
    warm-up), with tokens/s; one fused step under ``torch.profiler``:
-   device time by kernel name and the device's idle share;
+   device time by kernel name and the device's idle share; the bf16 step must
+   show the tensor-core forward step kernel (``seq_fwd_step_kernel``) and no
+   CUDA-core forward (``seq_fwd_kernel``, ``enc_fwd_kernel``);
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
    (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
    L=64, f32 and bf16, each backward also over residuals and inputs
    addressed inside layer-stacked arrays, and a second bf16 backward
-   bitwise equal to the first), the
+   bitwise equal to the first; the bf16 forward, the tensor-core step
+   kernel, also repeated bit for bit and with its input and residuals at
+   rows 2t + 1 of layer-stacked arrays, bitwise equal to the dense call), the
    fused training decoder's logits specialization at the scaled model
    (H=1024, 4 layers, B=2048, L=64, f32 and bf16, teacher forcing 1.0 and
    0.9) and the LSTM gate pair at [4096, 1024] and [2048, 4096] (f32),
@@ -75,7 +86,8 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    (``aten::_thnn_fused_lstm_cell``); the whole-stack kernels at the scaled
    shape through their ``launch_*`` functions (the route check); the
    scaled step on the fused route against the plain route, in tokens/s;
-   and one scaled fused step under ``torch.profiler`` (as in phase 8).
+   and one scaled fused step under ``torch.profiler`` (as in phase 8, with
+   the same check of the forward kernels' names).
 
 ``--sweep`` times the kernel with each rows-per-thread instance forced
 (1, 2, 4, 8) at B = 256, 1024, 2048, 8192, L=64, T=0.8, f32 and bf16:
@@ -95,6 +107,8 @@ Without CUDA the script exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -283,10 +297,12 @@ def phase_slice(tmp: str) -> int:
         fused_generate.launches = 0  # count only the main path's launches
         with urllib.request.urlopen(base + "/health", timeout=60) as r:
             health = json.loads(r.read())
-        if health["status"] != "ok" or health["batch_tiers"] != [256, 2048, 8192]:
+        if (health["status"] != "ok" or health["batch_tiers"] != [256, 2048, 8192]
+                or health["sampler"] != "fused"):
             raise AssertionError(f"bad /health: {health}")
         log(f"  /health: backend={health['backend']} device={health['device']} "
-            f"tiers={health['batch_tiers']} warm={health['warmup']['complete']}")
+            f"tiers={health['batch_tiers']} warm={health['warmup']['complete']} "
+            f"sampler={health['sampler']}")
         req = {"num_molecules": 200, "target": [90.0], "temperature": 0.8,
                "seed": 11, "return_tokens": True}
         _, a = post(base, req)
@@ -353,6 +369,59 @@ def phase_slice(tmp: str) -> int:
     return launches
 
 
+def phase_scan_served(tmp: str) -> None:
+    """A checkpoint the fused sampler refuses (V = 600) is served on the
+    card through the scan sampler, as the JAX server serves it: /health
+    names the sampler, requests return tokens and the sampler kernel is not
+    launched."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli.serve import build_parser, serve_forever
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.models.decoder import init_decoder_params
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+    from mlx_vae_tpu_torch.train.checkpoint import build_checkpoint_host, write_checkpoint
+
+    cfg = ModelConfig(vocab_size=600)
+    ck = f"{tmp}/checkpoint_v600.npz"
+    dec = init_decoder_params(torch.Generator().manual_seed(5), cfg)
+    write_checkpoint(ck, build_checkpoint_host(
+        0, {"encoder": {}, "decoder": dec}, {"encoder": {}, "decoder": {}}, {}))
+    args = build_parser().parse_args([
+        "--checkpoint", ck, "--port", "0", "--batch_sizes", "256", "--max_length", "64",
+        "--no_normalize", "--device", "cuda"])
+    ready = threading.Event()
+    thread = threading.Thread(target=serve_forever, args=(args, ready), daemon=True)
+    thread.start()
+    if not ready.wait(timeout=300):
+        raise AssertionError("server did not come up")
+    base = f"http://127.0.0.1:{ready.server.server_address[1]}"
+    try:
+        before = fused_generate.launches
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        if health["sampler"] != "scan" or health["model"]["vocab_size"] != 600:
+            raise AssertionError(f"bad /health for the V=600 model: {health}")
+        req = {"num_molecules": 300, "target": [0.0], "temperature": 0.8, "seed": 3,
+               "return_tokens": True}
+        _, a = post(base, req)
+        _, b = post(base, req)
+        toks = np.asarray(a["tokens"])
+        if toks.shape != (300, 64) or toks.min() < 0 or toks.max() >= 600:
+            raise AssertionError(f"V=600: bad token matrix {toks.shape}")
+        if a["tokens"] != b["tokens"] or fused_generate.launches != before:
+            raise AssertionError("V=600: tokens differ between same-seed requests, or the "
+                                 "sampler kernel was launched")
+        log(f"  V=600 checkpoint: /health sampler={health['sampler']}; 300 molecules in "
+            f"{a['passes']} passes at {a['mols_per_sec']:.1f} mols/s, same seed -> same "
+            f"tokens, sampler kernel launches 0")
+    finally:
+        ready.server.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+
+
 def time_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -398,6 +467,21 @@ def profile_step(what: str, fn, smi: str) -> dict:
         log(f"    {ms:10.3f} ms {ms / busy:7.2%}  {name}")
     return {"wall_ms": wall, "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
             "kernels": dict(top)}
+
+
+def check_forward_kernels(prof: dict, what: str) -> None:
+    """A bf16 step's profile must show the tensor-core forward step kernel
+    and neither CUDA-core forward."""
+    import re
+
+    names = list(prof["kernels"])
+    step = [n for n in names if re.search(r"\bseq_fwd_step_kernel\b", n)]
+    old = [n for n in names if re.search(r"\b(seq_fwd_kernel|enc_fwd_kernel)\b", n)]
+    if not step or old:
+        raise AssertionError(f"{what}: forward kernels in the profile: step {step}, CUDA-core "
+                             f"{old}")
+    log(f"  {what}: the forwards ran as {step[0]} ({prof['kernels'][step[0]]:.3f} ms), no "
+        f"CUDA-core forward")
 
 
 def phase_times(smi: str) -> dict:
@@ -451,7 +535,12 @@ def build_all() -> None:
                                        fused_seq_lstm, fused_train_decoder)
     from mlx_vae_tpu_torch.ops.build import compile_sources
 
-    compile_sources(SOURCES, verbose=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        compile_sources(SOURCES, verbose=True)
+    log(out.getvalue().rstrip())
+    if "C7515" in out.getvalue():  # ptxas serialized a wgmma chain
+        raise AssertionError("ptxas serialized wgmma (C7515): see the build log above")
     for mod in (fused_decoder, fused_encoder, fused_train_decoder, fused_seq_lstm, fused_lstm):
         mod.build_library()
 
@@ -531,6 +620,19 @@ def phase_train_kernels() -> dict:
             torch.cuda.synchronize()
             compare(f"{tag} encoder bwd [dW.., db, demb]", [*kb[0], *kb[1:]],
                     [*pb[0], *pb[1:]], dtype, worst["fused_encoder_bwd"])
+            if dtype == "bfloat16":
+                again = fe.encoder_fwd(we, tok)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(k, again)):
+                    raise AssertionError(f"{tag} encoder fwd: two runs differ")
+                log(f"  {tag} encoder fwd: a second run is bitwise equal")
+                # the backward on the tensor-core forward's own residuals
+                kb = fe.encoder_bwd(we, tok, dh, *k[1:])
+                pb = fe.encoder_bwd_reference(we, tok, dh, *k[1:])
+                torch.cuda.synchronize()
+                compare(f"{tag} encoder bwd on the kernel forward's residuals", [*kb[0], *kb[1:]],
+                        [*pb[0], *pb[1:]], dtype, worst["fused_encoder_bwd"])
+                del again
             del k, p, kb, pb
             tf_on = torch.ones((L,), dtype=torch.bool, device="cuda")
             for with_ce in (True, False):
@@ -691,6 +793,7 @@ def phase_train_times(smi: str) -> dict:
     out["profile"] = profile_step("default train step, fused route (B=4096 L=64 bf16)",
                                   lambda: train_step(p, o, cfg, tcfg, xs, conds, gen, 0.05, 0.9),
                                   smi)
+    check_forward_kernels(out["profile"], "default train step")
     return out
 
 
@@ -776,6 +879,23 @@ def phase_scaled_kernels() -> dict:
             p = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
             torch.cuda.synchronize()
             compare(f"{tag} seq fwd [hs, cs, gs, hf, cf]", k, p, dtype, worst["seq_lstm_fwd"])
+            if dtype == "bfloat16":  # one writer per element: the step kernel repeats
+                again = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+                xs2 = torch.zeros((2 * SL,) + tuple(xs.shape[1:]), dtype=xs.dtype, device="cuda")
+                xs2[1::2] = xs
+                out = tuple(torch.zeros((2 * SL,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                        device="cuda") for a in k[:3])
+                ks = fs.seq_lstm_fwd(wcat, bias, xs2, h0, c0, res_stride=2, res_offset=1,
+                                     xs_stride=2, xs_offset=1, out=out)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(k, again)):
+                    raise AssertionError(f"{tag} seq fwd: two runs differ")
+                if not (all(torch.equal(a[1::2], b) for a, b in zip(ks[:3], k[:3]))
+                        and torch.equal(ks[3], k[3]) and torch.equal(ks[4], k[4])):
+                    raise AssertionError(f"{tag} seq fwd, strided: differs from the dense call")
+                log(f"  {tag} seq fwd: a second run and a strided run (stride 2, offset 1) "
+                    f"are bitwise equal to the first")
+                del again, xs2, out, ks
             del k
             kb = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
             pb = fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
@@ -1016,6 +1136,9 @@ def phase_scaled_times(smi: str) -> dict:
             f"{lib[0]} ms, backward alone {lib[1]} ms [{smi}]")
         out[f"seq_lstm_fwd I={I}"] = (k_ms, p_ms, lib[0], *bound_ms(fl_ops, fwd_bytes, dt))
         out[f"seq_lstm_bwd I={I}"] = (kb_ms, pb_ms, lib[1], *bound_ms(2 * fl_ops, bwd_bytes, dt))
+        log(f"  I={I}: forward {fl_ops / 1e12:.4f} TFLOP, bound "
+            f"{out[f'seq_lstm_fwd I={I}'][3]:.4f} ms, {fl_ops / k_ms / 1e9:.1f} TFLOP/s; "
+            f"backward bound {out[f'seq_lstm_bwd I={I}'][3]:.4f} ms")
         del res, wcat, xs, dhs
         torch.cuda.empty_cache()
 
@@ -1096,6 +1219,7 @@ def phase_scaled_times(smi: str) -> dict:
     out["profile"] = profile_step(f"scaled train step, fused route (H=1024 n=4 B={SB} L={SL} "
                                   f"bf16)", lambda: train_step(p, o, c_, tcfg, xb, cb, gen, 0.05,
                                                                0.9), smi)
+    check_forward_kernels(out["profile"], "scaled train step")
     del p, o
     torch.cuda.empty_cache()
     return out
@@ -1171,8 +1295,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_all()
-    log(f"[2 build] csrc/fused_generate.cu, fused_encoder.cu, fused_train_decoder.cu "
-        f"built and loaded in {time.perf_counter() - t0:.2f}s")
+    log(f"[2 build] csrc/{'.cu, '.join(SOURCES)}.cu built and loaded in "
+        f"{time.perf_counter() - t0:.2f}s")
 
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
     if args.sweep:
@@ -1189,6 +1313,7 @@ def main() -> int:
     log("[4 slice] port server, tiers 256,2048,8192, max_length 64, f32")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
+        phase_scan_served(tmp)
 
     log(f"[5 times] kernel vs plain sampler, CUDA events [{smi}]")
     times = phase_times(smi)

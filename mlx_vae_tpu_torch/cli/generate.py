@@ -5,8 +5,10 @@
 ``python -m mlx_vae_tpu_torch.cli.generate --checkpoint ck.npz ...`` with the
 JAX CLI's flags, on one device. ``--device`` (default ``cuda``) picks the
 card, where the fused sampler kernel runs; ``--device cpu`` runs its plain
-version. ``--data`` and ``--data_parallel`` are not ported yet and exit
-with a message.
+version. A model the kernel does not take runs the scan sampler on either
+device, as the JAX CLI routes it; the CLI prints which sampler it uses.
+``--data`` and ``--data_parallel`` are not ported yet and exit with a
+message.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ def main(argv=None):
     from mlx_vae_tpu_torch.config import ModelConfig
     from mlx_vae_tpu_torch.data.metrics import uniqueness
     from mlx_vae_tpu_torch.data.prepare import decode_tokens, selfies_validity
-    from mlx_vae_tpu_torch.models.vae import vae_generate
+    from mlx_vae_tpu_torch.models.vae import generation_sampler, vae_generate
     from mlx_vae_tpu_torch.ops.fused_decoder import prepare_weights
     from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
     from mlx_vae_tpu_torch.utils.tree import params_from_numpy
@@ -132,7 +134,9 @@ def main(argv=None):
             raise SystemExit(
                 f"ERROR: --{name} {given} contradicts the checkpoint "
                 f"(parameter shapes imply {name}={inferred})")
-    mcfg = ModelConfig(compute_dtype=args.compute_dtype, **shape)
+    # the fused sampler where it takes the config, else the scan sampler (the
+    # JAX CLI's route on its support gate)
+    mcfg = ModelConfig(compute_dtype=args.compute_dtype, use_pallas=True, **shape)
 
     mean, std, alphabet, _ = resolve_property_stats(
         args.data, args.no_normalize, ckpt, mcfg.num_conditions)
@@ -146,9 +150,13 @@ def main(argv=None):
     target = normalized_targets(model_target, mean, std, mcfg.num_conditions)
 
     params = {"decoder": params_from_numpy(ckpt["params"]["decoder"], device)}
-    weights = prepare_weights(params["decoder"], mcfg, device)
-    if device.type == "cuda":
-        print("Using fused CUDA generation kernel")
+    weights = None
+    if generation_sampler(mcfg) == "fused":
+        weights = prepare_weights(params["decoder"], mcfg, device)
+        print("Using fused CUDA generation kernel" if device.type == "cuda"
+              else "Using the fused sampler's plain version")
+    else:
+        print("Using the scan sampler (the fused kernel does not take this model)")
     cond = torch.as_tensor(target, device=device).expand(
         args.batch_size, mcfg.num_conditions).contiguous()
     gen = torch.Generator(device=device)

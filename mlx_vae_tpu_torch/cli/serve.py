@@ -17,6 +17,10 @@ server's flags, endpoints, field names and 400/500/503 mapping:
 * **Per-pass streams**: pass ``p`` of a request draws its z, sampler seeds
   and temperatures from a ``torch.Generator`` seeded from (request seed,
   p), so a seeded request is reproducible on the same device.
+* **Sampler by config**: the fused sampler where the kernel takes the
+  model, else the scan sampler (``models/vae.py:generation_sampler``), as
+  the JAX server routes on its accelerator; ``/health`` reports it as
+  ``"sampler"``.
 * Request coalescing and background warm-up are not ported yet; ``/health``
   reports ``coalescing`` as false for every sampler config.
 
@@ -230,6 +234,7 @@ class GenerationService:
         from mlx_vae_tpu_torch.cli.common import resolve_device, resolve_property_stats
         from mlx_vae_tpu_torch.cli.generate import infer_model_shape, parse_calibration
         from mlx_vae_tpu_torch.config import ModelConfig
+        from mlx_vae_tpu_torch.models.vae import generation_sampler
         from mlx_vae_tpu_torch.ops.fused_decoder import block_rows, prepare_weights
         from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
         from mlx_vae_tpu_torch.utils.tree import params_from_numpy
@@ -261,7 +266,11 @@ class GenerationService:
         ckpt = load_checkpoint(args.checkpoint)
         dec = ckpt["params"]["decoder"]
         self.shape = infer_model_shape(dec)
-        self.cfg = ModelConfig(compute_dtype=args.compute_dtype, **self.shape)
+        # use_pallas as the JAX server sets it on its accelerator: the fused
+        # sampler where it takes the config, else the scan sampler
+        self.cfg = ModelConfig(compute_dtype=args.compute_dtype, use_pallas=True,
+                               **self.shape)
+        self.sampler = generation_sampler(self.cfg)
         self.mean, self.std, self.alphabet, _ = resolve_property_stats(
             args.data, args.no_normalize, ckpt, self.cfg.num_conditions)
         self.tiers = tiers
@@ -272,8 +281,8 @@ class GenerationService:
                       + [(False, tk, tp) for tk, tp in self.trunc_cfgs])
         self.chunk = block_rows(tiers[-1])
         self.params = {"decoder": params_from_numpy(dec, self.device)}
-        self.weights = prepare_weights(self.params["decoder"], self.cfg,
-                                       self.device)
+        self.weights = (prepare_weights(self.params["decoder"], self.cfg, self.device)
+                        if self.sampler == "fused" else None)
 
         self._pending = collections.deque()
         self._cv = threading.Condition()
@@ -495,6 +504,7 @@ class GenerationService:
                                   for tk, tp in self.trunc_cfgs},
                     "block_rows": self.chunk},
                 "stats": dict(self._stats),
+                "sampler": self.sampler,
                 "kernel_launches": fused_generate.launches,
                 "max_length": self.max_length,
                 "backend": self.device.type,

@@ -15,10 +15,20 @@
 // mlx_vae_tpu_torch/ops/fused_encoder.py, which also builds this file with
 // nvcc and binds it through ctypes (plain C interface below).
 //
-// Design (simple and right first; the recurrent kernels are CUDA-core FMA):
-//  * Forward: one thread block (256 threads) owns a tile of R rows for the
-//    whole time loop, as in fused_generate.cu. Shared memory holds the
-//    step's embedded input [R][E], h of every layer double-buffered and c.
+// Design:
+//  * Forward in bf16 (the tensor cores): the stack layer by layer, each layer
+//    train_common.cuh's seq_fwd_wgmma over the L steps, so n * L launches of
+//    seq_fwd_step_kernel, each one card-wide wgmma GEMM of one (step, layer)
+//    with the cell in its epilogue. Layer 0's input rows are the tokens'
+//    embedding rows (gathered by the kernel's loader); layer l > 0 reads the
+//    layer below's stored h (rows t * n + l - 1 of hs); each layer's state
+//    starts at zero and runs in one f32 [B, H] c buffer. Layer-major order
+//    gives the same values as the TPU's step-major wavefront: every cell sees
+//    the same operands.
+//  * Forward in f32 (CUDA-core FMA; tensor cores in f32 mean TF32): one
+//    thread block (256 threads) owns a tile of R rows for the whole time
+//    loop, as in fused_generate.cu. Shared memory holds the step's embedded
+//    input [R][E], h of every layer double-buffered and c.
 //  * Backward, reverse kernel (enc_bwd_kernel): a block owns R rows and
 //    walks t = L-1 .. 0 and the layers top down. Shared memory holds dh and
 //    dc of every layer, the cotangent from the layer above and the step's
@@ -32,15 +42,14 @@
 //    cores (wgmma); in f32 on CUDA cores.
 //
 // What bounds it: at the default model (E=128, H=256, n=2) and B=4096, L=64,
-// bf16, torch.profiler on an H100 80GB HBM3 (700 W) put the forward at
-// 28.3 ms, the reverse kernel at 49.6 ms and the encoder's weight-gradient
-// passes, then on CUDA cores, at ~51 ms (~9.4 TFLOP/s). The forward and the
-// reverse kernel are CUDA-core FMA (~0.48 TFLOP each) and stream every
-// weight from L2 at every step (as in fused_generate.cu, whose block step
-// time was found set by its serial weight stream); the reverse kernel reads
-// its dgates operand from shared memory for every FMA. Tensor cores for
-// those two are the next step; the residual streams (h, c, gates: ~0.8 GB
-// in bf16) are read once by the backward.
+// bf16, the forward and the reverse kernel are ~0.48 TFLOP of products
+// each, and the residual streams (h, c, gates) ~0.8 GB in bf16: the
+// operations bound both (0.49 ms at the tensor cores' bf16 rate). On the
+// CUDA cores, torch.profiler on an H100 80GB HBM3 (700 W) put the forward at
+// 28.2 ms and the reverse kernel at 49.4 ms: a row-tiled kernel streams every
+// weight from L2 at every step. The reverse kernel, which also reads its
+// dgates operand from shared memory for every FMA, is the next to move to
+// the tensor cores.
 
 #include "train_common.cuh"
 
@@ -199,6 +208,46 @@ cudaError_t launch_fwd_rpt(const FwdArgs& a, cudaStream_t st) {
   }
 }
 
+// bf16: layer by layer, L step launches each (train_common.cuh).
+cudaError_t launch_fwd_bf16(const FwdArgs& a, const __nv_bfloat16* wt, float* cbuf,
+                            cudaStream_t st) {
+  using bf16_t = __nv_bfloat16;
+  const int B = a.B, L = a.L, H = a.H, n = a.n;
+  const long hst = (long)n * B * H, gst = 4 * hst;
+  bf16_t* hs = static_cast<bf16_t*>(a.hs);
+  bf16_t* cs = static_cast<bf16_t*>(a.cs);
+  bf16_t* gs = static_cast<bf16_t*>(a.gs);
+  size_t woff = 0;
+  for (int l = 0; l < n; ++l) {
+    train::SeqFwdArgs s = {};
+    s.I = l == 0 ? a.E : H;
+    if (l == 0) {  // row b at step t: the embedding row of tokens[b, t]
+      s.xs = static_cast<const bf16_t*>(a.emb);
+      s.tok = a.tokens;
+      s.tok_st = 1;
+      s.tok_sb = L;
+      s.V = a.V;
+    } else {  // the layer below's h: rows t * n + l - 1
+      s.xs = hs + (size_t)(l - 1) * B * H;
+      s.x_st = hst;
+    }
+    s.w = wt + woff;
+    s.bias = a.bias + (size_t)l * 4 * H;
+    s.hs = hs + (size_t)l * B * H;
+    s.cs = cs + (size_t)l * B * H;
+    s.gs = gs + (size_t)l * B * 4 * H;
+    s.h_st = hst;
+    s.g_st = gst;
+    s.c = cbuf;
+    s.hf = l == n - 1 ? a.h_last : nullptr;
+    s.B = B; s.L = L; s.H = H;
+    const cudaError_t e = train::seq_fwd_wgmma(s, st);
+    if (e != cudaSuccess) return e;
+    woff += (size_t)train::fwd_np(H) * train::fwd_kp(s.I, H);
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int R>
 cudaError_t launch_bwd_kernel(const BwdArgs& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)2 * a.n * R * a.H + (size_t)R * a.H +
@@ -275,9 +324,14 @@ cudaError_t launch_bwd(const BwdArgs& a, int R, const int* tokens, const void* e
 extern "C" {
 
 // Each returns a cudaError_t as int: 0 when every launch was accepted.
-int enc_fwd_launch(const void* tokens, const void* emb, const void* wcat, const void* bias,
-                   void* h_last, void* hs, void* cs, void* gs, int B, int L, int V, int E, int H,
-                   int n, int bf16, int R, int TJ, int TR, void* stream) {
+// wcat: every layer's [K_l + H, 4H] weight back to back (f32); wt: every
+// layer's interleaved copy back to back, [fwd_np(H), fwd_kp(K_l, H)] each
+// (bf16, ops/train_common.py:interleave_weight), with cbuf [B, H] f32 its
+// running c.
+int enc_fwd_launch(const void* tokens, const void* emb, const void* wcat, const void* wt,
+                   const void* bias, void* h_last, void* hs, void* cs, void* gs, void* cbuf,
+                   int B, int L, int V, int E, int H, int n, int bf16, int R, int TJ, int TR,
+                   void* stream) {
   FwdArgs a;
   a.tokens = static_cast<const int*>(tokens);
   a.emb = emb;
@@ -288,9 +342,13 @@ int enc_fwd_launch(const void* tokens, const void* emb, const void* wcat, const 
   a.cs = cs;
   a.gs = gs;
   a.B = B; a.L = L; a.V = V; a.E = E; a.H = H; a.n = n; a.R = R; a.TJ = TJ; a.TR = TR;
-  if (B < 1 || L < 1 || TR < 1 || R % TR != 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_fwd_rpt<__nv_bfloat16>(a, s) : launch_fwd_rpt<float>(a, s));
+  if (bf16)
+    return (int)launch_fwd_bf16(a, static_cast<const __nv_bfloat16*>(wt),
+                                static_cast<float*>(cbuf), s);
+  if (TR < 1 || R % TR != 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd_rpt<float>(a, s);
 }
 
 int enc_bwd_launch(const void* tokens, const void* emb, const void* wT, const void* dh_last,

@@ -2,7 +2,7 @@
 // Hopper (sm_90a): forward and backward.
 //
 // Replaces the TPU kernels of mlx_vae_tpu/ops/pallas_seq_lstm.py:
-//   seq_fwd_kernel  <- _fwd_kernel / _fwd_kernel_blk (reached through _fwd,
+//   seq_fwd_launch  <- _fwd_kernel / _fwd_kernel_blk (reached through _fwd,
 //                      from lstm_sequence_pallas)
 //   seq_bwd_launch  <- _bwd_kernel / _bwd_kernel_blk (reached through
 //                      lstm_seq_bwd_pallas_tm, from the lstm_sequence_pallas
@@ -23,16 +23,23 @@
 // nvcc and binds it through ctypes (plain C interface below).
 //
 // What bounds it: at I = H = 1024, B = 2048, L = 64 each direction is ~2.2
-// TFLOP of matrix work per product (the forward's cell dots; the backward's
-// reverse dgates @ W^T and its weight gradient) against ~1.5 GB of residual
-// traffic, so the operations bound it: 4.4 TFLOP for the backward, 4.5 ms
-// at the tensor cores' bf16 rate.
+// TFLOP of matrix work per product (the forward's cell products; the
+// backward's reverse dgates @ W^T and its weight gradient) against ~1.5-2.7
+// GB of residual traffic, so the operations bound it: 2.2 ms for the
+// forward and 4.5 ms for the backward at the tensor cores' bf16 rate.
 //
-// Forward (simple and right first; CUDA-core FMA): one block (256 threads)
-// owns a tile of R rows for all L steps, with the step input [R][I], h
-// double-buffered and c in shared memory; the cell is train_common.cuh's
-// forward tile. The layer's weight ([I + H, 4H], 16.8 MB in bf16 at I = H =
-// 1024) is read by every block at every step: it stays in the 50 MB L2.
+// Forward in bf16 (the tensor cores): train_common.cuh's seq_fwd_wgmma, L
+// launches of seq_fwd_step_kernel, each one card-wide wgmma GEMM of the step
+// ([x_t, h_{t-1}] against a gate-interleaved copy of the weight) with the
+// cell in its epilogue. A kernel tiled over rows only (the CUDA-core forward
+// below, once bf16 too) streamed the layer's whole weight (16.8 MB at I = H =
+// 1024) from L2 at every step to serve a few rows.
+//
+// Forward in f32: CUDA-core FMA in full f32 (tensor cores in f32 mean TF32,
+// about three decimal digits; the f32 contract is 1e-4). seq_fwd_kernel: one
+// block (256 threads) owns a tile of R rows for all L steps, with the step
+// input [R][I], h double-buffered and c in shared memory; the cell is
+// train_common.cuh's forward tile, reading the weight from L2 at every step.
 //
 // Backward in bf16 (the tensor cores). A kernel tiled over rows only had to
 // stream the whole weight from L2 at every step to serve a handful of rows
@@ -57,8 +64,7 @@
 //    block into one VMEM accumulator across its sequential grid, blocks here
 //    run in parallel and in no order.
 //
-// Backward in f32: the same contract on CUDA cores (tensor cores in f32
-// mean TF32, about three decimal digits; the f32 contract is 1e-4).
+// Backward in f32: the same contract on CUDA cores.
 // seq_bwd_kernel: a block owns R rows and walks t = L-1 .. 0 with dh, dc,
 // the step's output cotangent and its dgates [R][4H] in shared memory
 // (train_common.cuh's reverse step), reading the transpose [4H, I + H];
@@ -71,33 +77,31 @@ namespace {
 using train::NT;
 using bf16_t = __nv_bfloat16;
 
+// f32: row t of xs at xs + t * x_st, of hs/cs at + t * h_st, of gs at
+// + t * g_st (elements).
 struct FwdArgs {
-  const void* xs;       // [L, B, I] T
+  const float* xs;      // [B, I] rows
   const float* h0;      // [B, H]
   const float* c0;      // [B, H]
-  const void* wcat;     // [I + H, 4H] T
+  const float* wcat;    // [I + H, 4H]
   const float* bias;    // [4H]
-  void* hs;             // [L, B, H] T
-  void* cs;             // [L, B, H] T
-  void* gs;             // [L, B, 4H] T
+  float* hs;            // [B, H] rows
+  float* cs;            // [B, H] rows
+  float* gs;            // [B, 4H] rows
+  long x_st, h_st, g_st;
   float* hf;            // [B, H]
   float* cf;            // [B, H]
   int B, L, I, H, R, TJ, TR;
 };
 
-template <typename T, int RPT>
+template <int RPT>
 __global__ void __launch_bounds__(NT) seq_fwd_kernel(const FwdArgs a) {
   extern __shared__ float smem[];
-  const int H = a.H, I = a.I, R = a.R, B = a.B, G = 4 * H;
+  const int H = a.H, I = a.I, R = a.R, B = a.B;
   float* xin = smem;               // [R][I]
   float* hbuf = xin + R * I;       // [2][R][H]
   float* cbuf = hbuf + 2 * R * H;  // [R][H]
   const int row0 = blockIdx.x * R;
-  const T* xs = static_cast<const T*>(a.xs);
-  const T* w = static_cast<const T*>(a.wcat);
-  T* hs = static_cast<T*>(a.hs);
-  T* cs = static_cast<T*>(a.cs);
-  T* gs = static_cast<T*>(a.gs);
 
   for (int idx = threadIdx.x; idx < R * H; idx += NT) {
     const int g = row0 + idx / H;
@@ -107,16 +111,15 @@ __global__ void __launch_bounds__(NT) seq_fwd_kernel(const FwdArgs a) {
   }
   int p = 0;  // hbuf[p] holds the previous step's h
   for (int t = 0; t < a.L; ++t) {
-    const T* xt = xs + (size_t)t * B * I;
+    const float* xt = a.xs + t * a.x_st;
     for (int idx = threadIdx.x; idx < R * I; idx += NT) {
       const int g = row0 + idx / I;
-      xin[idx] = g < B ? train::ld(xt + (size_t)g * I + idx % I) : 0.0f;
+      xin[idx] = g < B ? xt[(size_t)g * I + idx % I] : 0.0f;
     }
     __syncthreads();
-    const size_t slab = (size_t)t * B;
-    train::cell_fwd<T, RPT>(w, a.bias, I, H, xin, hbuf + (size_t)p * R * H,
-                            hbuf + (size_t)(p ^ 1) * R * H, cbuf, a.TJ, a.TR, row0, B,
-                            hs + slab * H, cs + slab * H, gs + slab * G);
+    train::cell_fwd<float, RPT>(a.wcat, a.bias, I, H, xin, hbuf + (size_t)p * R * H,
+                                hbuf + (size_t)(p ^ 1) * R * H, cbuf, a.TJ, a.TR, row0, B,
+                                a.hs + t * a.h_st, a.cs + t * a.h_st, a.gs + t * a.g_st);
     __syncthreads();
     p ^= 1;
   }
@@ -197,23 +200,22 @@ __global__ void __launch_bounds__(NT) seq_bwd_kernel(const BwdArgs a) {
   }
 }
 
-template <typename T, int RPT>
+template <int RPT>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)a.R * a.I + (size_t)3 * a.R * a.H);
-  cudaError_t e = cudaFuncSetAttribute(seq_fwd_kernel<T, RPT>,
+  cudaError_t e = cudaFuncSetAttribute(seq_fwd_kernel<RPT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  seq_fwd_kernel<T, RPT><<<(a.B + a.R - 1) / a.R, NT, smem, st>>>(a);
+  seq_fwd_kernel<RPT><<<(a.B + a.R - 1) / a.R, NT, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_fwd_rpt(const FwdArgs& a, cudaStream_t st) {
+cudaError_t launch_fwd_f32(const FwdArgs& a, cudaStream_t st) {
   switch (a.R / a.TR) {
-    case 1: return launch_fwd<T, 1>(a, st);
-    case 2: return launch_fwd<T, 2>(a, st);
-    case 4: return launch_fwd<T, 4>(a, st);
-    case 8: return launch_fwd<T, 8>(a, st);
+    case 1: return launch_fwd<1>(a, st);
+    case 2: return launch_fwd<2>(a, st);
+    case 4: return launch_fwd<4>(a, st);
+    case 8: return launch_fwd<8>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -282,9 +284,6 @@ struct StepArgs {
 // residuals are coalesced: columns k < I go to dxs[t], and each column I + j
 // (the cotangent of h_{t-1}) to the gate step of t - 1 at (row, j), or to
 // dh0 at t = 0. One thread per element, no atomics.
-constexpr int EPI_PITCH = wg::BN + 8;  // floats per staged row: float2 stores conflict-free
-static_assert(wg::BM * EPI_PITCH * 4 <= wg::STAGES * wg::STAGE, "staged tile exceeds the ring");
-
 __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
     seq_step_kernel(const StepArgs a) {
   extern __shared__ unsigned char smem_raw[];
@@ -305,19 +304,13 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
                  q + 8 * c, G, vec);
     }
   });
-  __syncthreads();  // both warpgroups' products are done with the ring
-  float* tile = reinterpret_cast<float*>(smem_raw + (ring - wg::smem_u32(smem_raw)));
-#pragma unroll
-  for (int j = 0; j < 64; j += 2)
-    *reinterpret_cast<float2*>(tile + wg::acc_row(j) * EPI_PITCH + wg::acc_col(j)) =
-        make_float2(acc[j], acc[j + 1]);
-  __syncthreads();
+  const float* tile = wg::stage_tile(acc, smem_raw, ring);
   const int I = a.I, H = K - I;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
     const int r = idx / wg::BN, cc = idx % wg::BN, row = m0 + r, col = n0 + cc;
     if (row >= B || col >= K) continue;
-    const float v = tile[r * EPI_PITCH + cc];
+    const float v = tile[r * wg::EPI_PITCH + cc];
     if (col < I) a.dx[(size_t)row * I + col] = v;
     else if (a.t == 0) a.dh0[(size_t)row * H + (col - I)] = v;
     else gate_step(a.gate, row, col - I, v);
@@ -427,25 +420,59 @@ cudaError_t launch_bwd_bf16(const BwdArgs& a, const GradArgs& o, cudaStream_t st
 extern "C" {
 
 // Each returns a cudaError_t as int: 0 when every launch was accepted.
-int seq_fwd_launch(const void* xs, const void* h0, const void* c0, const void* wcat,
-                   const void* bias, void* hs, void* cs, void* gs, void* hf, void* cf, int B,
+
+// xs: base of the [L * xs_stride, B, I] input array, hs/cs/gs of the
+// [L * res_stride, B, .] residual arrays; row t of this layer is row
+// t * stride + offset. bf16 reads wt, the interleaved copy of the weight
+// (ops/train_common.py:interleave_weight), and uses cf as its running c;
+// f32 reads wcat [I + H, 4H] (R, TJ, TR: its tile plan).
+int seq_fwd_launch(const void* xs, int xs_stride, int xs_offset, const void* h0,
+                   const void* c0, const void* wcat, const void* wt, const void* bias, void* hs,
+                   void* cs, void* gs, int res_stride, int res_offset, void* hf, void* cf, int B,
                    int L, int I, int H, int bf16, int R, int TJ, int TR, void* stream) {
+  if (B < 1 || L < 1 || I < 1 || H < 1 || res_stride < 1 || xs_stride < 1 ||
+      res_offset < 0 || res_offset >= res_stride || xs_offset < 0 || xs_offset >= xs_stride)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long G = 4L * H, x_st = (long)xs_stride * B * I;
+  const long h_st = (long)res_stride * B * H, g_st = (long)res_stride * B * G;
+  const size_t x0 = (size_t)xs_offset * B * I, h0r = (size_t)res_offset * B * H;
+  const size_t g0 = (size_t)res_offset * B * G;
+  if (bf16) {
+    train::SeqFwdArgs a = {};
+    a.xs = static_cast<const bf16_t*>(xs) + x0;
+    a.x_st = x_st;
+    a.h0 = static_cast<const float*>(h0);
+    a.c0 = static_cast<const float*>(c0);
+    a.w = static_cast<const bf16_t*>(wt);
+    a.bias = static_cast<const float*>(bias);
+    a.hs = static_cast<bf16_t*>(hs) + h0r;
+    a.cs = static_cast<bf16_t*>(cs) + h0r;
+    a.gs = static_cast<bf16_t*>(gs) + g0;
+    a.h_st = h_st;
+    a.g_st = g_st;
+    a.c = static_cast<float*>(cf);
+    a.hf = static_cast<float*>(hf);
+    a.B = B; a.L = L; a.I = I; a.H = H;
+    return (int)train::seq_fwd_wgmma(a, s);
+  }
+  if (TR < 1 || R % TR != 0) return (int)cudaErrorInvalidValue;
   FwdArgs a;
-  a.xs = xs;
+  a.xs = static_cast<const float*>(xs) + x0;
   a.h0 = static_cast<const float*>(h0);
   a.c0 = static_cast<const float*>(c0);
-  a.wcat = wcat;
+  a.wcat = static_cast<const float*>(wcat);
   a.bias = static_cast<const float*>(bias);
-  a.hs = hs;
-  a.cs = cs;
-  a.gs = gs;
+  a.hs = static_cast<float*>(hs) + h0r;
+  a.cs = static_cast<float*>(cs) + h0r;
+  a.gs = static_cast<float*>(gs) + g0;
+  a.x_st = x_st;
+  a.h_st = h_st;
+  a.g_st = g_st;
   a.hf = static_cast<float*>(hf);
   a.cf = static_cast<float*>(cf);
   a.B = B; a.L = L; a.I = I; a.H = H; a.R = R; a.TJ = TJ; a.TR = TR;
-  if (B < 1 || L < 1 || I < 1 || H < 1 || TR < 1 || R % TR != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_fwd_rpt<__nv_bfloat16>(a, s) : launch_fwd_rpt<float>(a, s));
+  return (int)launch_fwd_f32(a, s);
 }
 
 // gs, cs, hs: base of the [L * res_stride, B, .] residual arrays; xs: base

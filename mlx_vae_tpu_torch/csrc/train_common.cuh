@@ -539,4 +539,195 @@ cudaError_t demb(const T* dx, const int* tok, long tok_st, long tok_sb, int B, i
   return reduce(scratch, S, per, out, st);
 }
 
+// ------------------------------------------ bf16 forward on the tensor cores
+
+// The bf16 forward of one LSTM layer over L steps (the sequence forward of
+// fused_seq_lstm.cu, and layer by layer the whole-stack encoder forward of
+// fused_encoder.cu): L launches of seq_fwd_step_kernel, the kernel boundary
+// being the grid-wide barrier the recurrence needs. Step t is one
+// card-wide GEMM  gates_t [B, 4H] = A_t [B, Kp] W' [Kp, Np]  on wgmma
+// (wg::gemm: 128 x 128 tiles, 3-stage ring, two blocks an SM) with the cell
+// in its epilogue.
+//  * A_t's reduction columns come from two sources: k < I from the step's
+//    input row (a dense row, or the embedding row of the row's token, zeros
+//    for a token outside [0, V), as train_common.py:embed_rows), Ixp + j from
+//    h_{t-1}: the bf16 h the previous launch stored (the TPU kernel's
+//    h_scr.astype(x.dtype)), at t = 0 the f32 h0 rounded to nearest even
+//    (zeros where h0 is null). Ixp = I rounded up to BK, so that every
+//    64-deep stage reads from one source; the columns between are zeros.
+//  * W' is the wrapper's gate-interleaved, K-major copy of the layer's
+//    weight (ops/train_common.py:interleave_weight): row n = 128 T + 32 q + j
+//    holds the weight column of gate q of unit u = 32 T + j over Kp = Ixp +
+//    Hp reduction rows (Hp = H rounded up to BK); pad rows and the rows of
+//    units >= H are zeros. So one 128-wide output tile holds all four gates
+//    of 32 units, and its epilogue runs the whole cell.
+//  * Epilogue: the f32 tile goes through shared memory (wg::stage_tile).
+//    Each (row, unit) of the tile belongs to one thread, which adds the bias,
+//    applies the activations, reads c_{t-1} from the f32 running buffer (c0 at
+//    t = 0, zeros where null), writes c_t back and stores h, c and the
+//    activated gates of step t in bf16 (gate-major [i | f | g | o]: a warp
+//    writes four 64-byte runs of a row), and the f32 h at the last step. One
+//    writer per element and no atomics, so two runs are bitwise equal.
+// What bounds it: at I = H = 1024, B = 2048, L = 64 the products are 2.2
+// TFLOP against ~2.7 GB of operand and residual traffic, so the operations
+// bound it (2.2 ms at the tensor cores' bf16 rate).
+
+inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+inline int fwd_ixp(int I) { return round_up(I, wg::BK); }
+inline int fwd_kp(int I, int H) { return fwd_ixp(I) + round_up(H, wg::BK); }
+inline int fwd_np(int H) { return cdiv(H, 32) * wg::BN; }
+
+struct FwdStepArgs {
+  const __nv_bfloat16* x;  // [B, I] the step's input rows, or with tok the table [V, I]
+  const int* tok;          // the token of row b at tok[b * tok_sb], or null (dense)
+  long tok_sb;
+  int V;
+  const void* hprev;       // [B, H] h_{t-1}: bf16, or f32 where h_f32 (h0); null: zeros
+  const float* c_in;       // [B, H] c_{t-1}, or null: zeros
+  float* c_out;            // [B, H] c_t (may be c_in)
+  const __nv_bfloat16* w;  // [Np, Kp] interleave_weight
+  const float* bias;       // [4H]
+  __nv_bfloat16* hs;       // [B, H] step t's h
+  __nv_bfloat16* cs;       // [B, H] step t's c
+  __nv_bfloat16* gs;       // [B, 4H] step t's activated gates
+  float* hf;               // [B, H] f32 h, or null
+  int B, I, Ixp, H, Kp, h_f32, vec_x, vec_h;
+};
+
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
+    seq_fwd_step_kernel(const FwdStepArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  const int B = a.B, I = a.I, H = a.H, Ixp = a.Ixp, Kp = a.Kp;
+  // This thread stages 16-byte chunk c of tile rows r0 + 32 u (u = 0..3) of
+  // both operands: the chunks wg::chunk(u) of a 1024-chunk tile.
+  const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const __nv_bfloat16* xr[4];
+  const void* hr[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int row = m0 + r0 + 32 * u;
+    xr[u] = nullptr;
+    hr[u] = nullptr;
+    if (row < B) {
+      if (a.tok == nullptr) {
+        xr[u] = a.x + (size_t)row * I;
+      } else {
+        const int v = a.tok[row * a.tok_sb];
+        if (v >= 0 && v < a.V) xr[u] = a.x + (size_t)v * I;
+      }
+      if (a.hprev != nullptr)
+        hr[u] = a.h_f32 ? static_cast<const void*>(static_cast<const float*>(a.hprev) +
+                                                   (size_t)row * H)
+                        : static_cast<const void*>(static_cast<const __nv_bfloat16*>(a.hprev) +
+                                                   (size_t)row * H);
+    }
+  }
+  float acc[64];
+  wg::gemm<false>(acc, ring, Kp / wg::BK, [&](uint32_t dst, int kt) {
+    const int k0 = kt * wg::BK;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = r0 + 32 * u;
+      const uint32_t off = wg::swz(r, c);
+      if (k0 < Ixp)
+        wg::stage8(dst + off, xr[u], k0 + 8 * c, I, a.vec_x);
+      else if (a.h_f32)
+        wg::stage8(dst + off, static_cast<const float*>(hr[u]), k0 - Ixp + 8 * c, H, a.vec_h);
+      else
+        wg::stage8(dst + off, static_cast<const __nv_bfloat16*>(hr[u]), k0 - Ixp + 8 * c, H,
+                   a.vec_h);
+      wg::stage8(dst + wg::TILE + off, a.w + (size_t)(n0 + r) * Kp, k0 + 8 * c, Kp, true);
+    }
+  });
+  const float* tile = wg::stage_tile(acc, smem_raw, ring);
+  const int u0 = blockIdx.x * 32;
+  const size_t G = 4 * (size_t)H;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < wg::BM * 32; idx += wg::NTH) {
+    const int r = idx >> 5, j = idx & 31, row = m0 + r, u = u0 + j;
+    if (row >= B || u >= H) continue;
+    const float* g = tile + r * wg::EPI_PITCH + j;  // gate q at g[32 q]
+    const float ig = sigm(g[0] + a.bias[u]);
+    const float fg = sigm(g[32] + a.bias[H + u]);
+    const float gg = tanhf(g[64] + a.bias[2 * H + u]);
+    const float og = sigm(g[96] + a.bias[3 * H + u]);
+    const size_t bu = (size_t)row * H + u;
+    const float cn = fg * (a.c_in != nullptr ? a.c_in[bu] : 0.0f) + ig * gg;
+    const float hn = og * tanhf(cn);
+    a.c_out[bu] = cn;
+    st(a.hs + bu, hn);
+    st(a.cs + bu, cn);
+    __nv_bfloat16* gp = a.gs + row * G + u;
+    st(gp, ig);
+    st(gp + H, fg);
+    st(gp + 2 * H, gg);
+    st(gp + 3 * H, og);
+    if (a.hf != nullptr) a.hf[bu] = hn;
+  }
+}
+
+// One layer over L steps. Step t's input rows are xs + t * x_st ([B, I]);
+// with tok, row b reads table row tok[t * tok_st + b * tok_sb] of xs [V, I].
+// Residual row t at hs/cs + t * h_st, gs + t * g_st (elements).
+struct SeqFwdArgs {
+  const __nv_bfloat16* xs;
+  long x_st;
+  const int* tok;
+  long tok_st, tok_sb;
+  int V;
+  const float* h0;          // [B, H], or null: zeros
+  const float* c0;          // [B, H], or null: zeros
+  const __nv_bfloat16* w;   // [fwd_np(H), fwd_kp(I, H)] interleave_weight
+  const float* bias;        // [4H]
+  __nv_bfloat16* hs;
+  __nv_bfloat16* cs;
+  __nv_bfloat16* gs;
+  long h_st, g_st;
+  float* c;                 // [B, H] the running c; c_{L-1} at the end
+  float* hf;                // [B, H] h_{L-1} in f32, or null
+  int B, L, I, H;
+};
+
+inline cudaError_t seq_fwd_wgmma(const SeqFwdArgs& s, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(seq_fwd_step_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+  if (e != cudaSuccess) return e;
+  const int H = s.H, I = s.I;
+  FwdStepArgs a = {};
+  a.tok_sb = s.tok_sb;
+  a.V = s.V;
+  a.c_out = s.c;
+  a.w = s.w;
+  a.bias = s.bias;
+  a.B = s.B; a.I = I; a.H = H;
+  a.Ixp = fwd_ixp(I);
+  a.Kp = fwd_kp(I, H);
+  a.vec_x = I % 8 == 0 && aligned16(s.xs) && (s.tok != nullptr || s.x_st % 8 == 0);
+  const dim3 grid(fwd_np(H) / wg::BN, cdiv(s.B, wg::BM));
+  for (int t = 0; t < s.L; ++t) {
+    a.x = s.tok != nullptr ? s.xs : s.xs + t * s.x_st;
+    a.tok = s.tok != nullptr ? s.tok + t * s.tok_st : nullptr;
+    a.h_f32 = t == 0;
+    if (t == 0) {
+      a.hprev = s.h0;
+      a.vec_h = H % 4 == 0 && aligned16(s.h0);
+      a.c_in = s.c0;
+    } else {
+      a.hprev = s.hs + (t - 1) * s.h_st;
+      a.vec_h = H % 8 == 0 && aligned16(s.hs) && s.h_st % 8 == 0;
+      a.c_in = s.c;
+    }
+    a.hs = s.hs + t * s.h_st;
+    a.cs = s.cs + t * s.h_st;
+    a.gs = s.gs + t * s.g_st;
+    a.hf = t == s.L - 1 ? s.hf : nullptr;
+    seq_fwd_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace train

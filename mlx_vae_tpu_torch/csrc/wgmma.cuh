@@ -231,4 +231,25 @@ __device__ __forceinline__ int acc_col(int j) {
   return 8 * (j / 4) + 2 * (threadIdx.x % 4) + j % 2;
 }
 
+// Epilogues that walk the f32 tile row by row (so that their loads and
+// stores of residuals coalesce) stage it in the ring first, EPI_PITCH floats
+// a row: the float2 stores below are then free of bank conflicts.
+constexpr int EPI_PITCH = BN + 8;
+static_assert(BM * EPI_PITCH * 4 <= STAGES * STAGE, "staged tile exceeds the ring");
+
+// After gemm(): wait until both warpgroups are done with the ring, write
+// the accumulator to the ring as a [BM][EPI_PITCH] f32 tile and return it
+// once every thread's part is in.
+__device__ __forceinline__ const float* stage_tile(float (&acc)[64], unsigned char* smem_raw,
+                                                   uint32_t ring) {
+  __syncthreads();
+  float* tile = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw)));
+#pragma unroll
+  for (int j = 0; j < 64; j += 2)
+    *reinterpret_cast<float2*>(tile + acc_row(j) * EPI_PITCH + acc_col(j)) =
+        make_float2(acc[j], acc[j + 1]);
+  __syncthreads();
+  return tile;
+}
+
 }  // namespace wg

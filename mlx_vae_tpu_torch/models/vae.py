@@ -4,10 +4,12 @@
 ``vae_forward`` is encode -> reparameterize -> teacher-forced decode to
 logits; with ``cfg.use_pallas`` it runs the fused encoder and the logits
 specialization of the fused training decoder. ``vae_generate`` draws
-z ~ N(0, I) and decodes it with the fused sampler (``ops/fused_decoder.py``):
-on CUDA tensors that is the kernel, on CPU tensors its plain version; neither
-implements ``reference_zero_state`` (the plain scan sampler
-``models/sampling.py`` does). The ``ARCVAE`` facade waits for the eval slice.
+z ~ N(0, I) and decodes it with the sampler the config takes
+(:func:`generation_sampler`, as the JAX package routes): the fused sampler
+(``ops/fused_decoder.py``; on CUDA tensors the kernel, on CPU tensors its
+plain version) when ``cfg.use_pallas`` and the kernel takes the config,
+else the plain scan sampler (``models/sampling.py``), which also honours
+``reference_zero_state``. The ``ARCVAE`` facade waits for the eval slice.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import torch
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.models.decoder import decoder_apply, hidden_init_row
 from mlx_vae_tpu_torch.models.encoder import encoder_apply, reparameterize
+from mlx_vae_tpu_torch.models.sampling import generate_with_temperature
 from mlx_vae_tpu_torch.ops.fused_decoder import (FusedWeights, block_rows,
-                                                 fused_generate, prepare_weights)
+                                                 fused_generate, fused_generate_supported,
+                                                 prepare_weights)
 
 
 def vae_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -36,6 +40,13 @@ def vae_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return logits, mu, logvar, z
 
 
+def generation_sampler(cfg: ModelConfig) -> str:
+    """``"fused"`` where ``cfg.use_pallas`` holds and the fused sampler takes
+    the config (``fused_generate_supported``), else ``"scan"``: the route
+    ``vae_generate`` takes, decided from the config before any launch."""
+    return "fused" if cfg.use_pallas and fused_generate_supported(cfg) else "scan"
+
+
 @torch.no_grad()
 def vae_generate(params: dict, cfg: ModelConfig, conditions: torch.Tensor,
                  generator: torch.Generator, max_length: int = 80,
@@ -45,16 +56,21 @@ def vae_generate(params: dict, cfg: ModelConfig, conditions: torch.Tensor,
     """Sample ``[B, max_length]`` int32 tokens for ``conditions [B, C]``.
 
     ``params`` is the model tree (``{"decoder": ...}``) as tensors on the
-    conditions' device, and ``generator`` (on that device too) draws z, then
-    one sampler seed per ``block_rows(B)`` rows. ``weights`` are the
-    decoder's prepared kernel weights; pass them to reuse one preparation
-    across calls.
+    conditions' device, and ``generator`` (on that device too) draws z,
+    then, on the fused route, one sampler seed per ``block_rows(B)`` rows,
+    or on the scan route the sampling noise. ``weights`` are the decoder's
+    prepared kernel weights (fused route only); pass them to reuse one
+    preparation across calls.
     """
     dev = conditions.device
     B = conditions.shape[0]
     dec = params["decoder"]
     z = torch.randn((B, cfg.latent_dim), generator=generator, device=dev)
     cond = conditions.float().contiguous()
+    if generation_sampler(cfg) == "scan":
+        return generate_with_temperature(dec, cfg, z, cond, generator, max_length=max_length,
+                                         temperature=temperature, greedy=greedy,
+                                         top_k=top_k, top_p=top_p)
     nb = -(-B // block_rows(B))
     seeds = torch.randint(0, 2**31 - 1, (nb,), generator=generator,
                           device=dev, dtype=torch.int32)

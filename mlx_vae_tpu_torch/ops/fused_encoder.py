@@ -6,7 +6,12 @@ tokens ``[B, L]`` -> the top layer's h at the last step ``[B, H]`` f32,
 through the embedding and every LSTM layer from zero state, with gradients
 for every layer and the embedding table. The kernels are in
 ``csrc/fused_encoder.cu`` (CUDA C++ for ``sm_90a``); their design and what
-bounds them are noted at the top of that file.
+bounds them are noted at the top of that file. In bf16 the forward runs the
+stack layer by layer through ``csrc/train_common.cuh``'s tensor-core step
+kernel (n * L launches a call, gathering layer 0's input rows by token), on
+gate-interleaved copies of the layers' weights that the wrapper builds per
+call (``ops/train_common.py:interleave_weight``); in f32 it is one CUDA-core
+kernel over the whole stack.
 
 :func:`encoder_stack` is one ``torch.autograd.Function`` whose forward is
 :func:`encoder_fwd` and whose backward is :func:`encoder_bwd`. Each launches
@@ -31,9 +36,9 @@ from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
     MAX_V, SCRATCH_ELEMS, StackWeights, bwd_rows, cell_step_reference, check, embed_rows,
-    embedding_grad, fwd_tile, layer_grads, layer_leaves, prepare_stack_weights, raise_if,
-    rebuild_params, require_cuda, reverse_step_reference, scratch_fits, shifted, stream_of,
-    sum_outer)
+    embedding_grad, fwd_tile, interleave_weight, layer_grads, layer_leaves,
+    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_step_reference,
+    scratch_fits, shifted, stream_of, sum_outer)
 
 
 # ----------------------------------------------------------- plain version
@@ -120,8 +125,8 @@ def _bwd_smem(cfg: ModelConfig):
 
 def _unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     if cfg.bidirectional or cfg.apply_dropout:
-        return ("bidirectional / apply_dropout (they need per-layer sequences, whose "
-                "kernel is not ported yet)")
+        return ("bidirectional / apply_dropout (they need per-layer sequences: the "
+                "encoder runs them through the sequence kernels, ops/fused_seq_lstm.py)")
     if not 1 <= cfg.num_layers <= 8:
         return f"num_layers={cfg.num_layers} (kernels take 1..8)"
     if cfg.compute_dtype not in ("float32", "bfloat16"):
@@ -148,7 +153,7 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     declare its C interface."""
     lib = load_library("fused_encoder", verbose)
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.enc_fwd_launch.argtypes = [p] * 8 + [i] * 10 + [p]
+    lib.enc_fwd_launch.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.enc_fwd_launch.restype = i
     lib.enc_bwd_launch.argtypes = [p] * 13 + [lg] + [i] * 8 + [p]
     lib.enc_bwd_launch.restype = i
@@ -158,8 +163,9 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
 
 
 def launch_encoder_fwd(lib, w: StackWeights, tokens: torch.Tensor, stream: int):
-    """Allocate the outputs and launch the forward kernel (no device or
-    support checks: :func:`encoder_fwd` makes them)."""
+    """Allocate the outputs (and in bf16 the interleaved weights and the
+    running c) and launch the forward kernels (no device or support checks:
+    :func:`encoder_fwd` makes them)."""
     cfg = w.cfg
     B, L = tokens.shape
     H, n = cfg.hidden_dim, cfg.num_layers
@@ -168,20 +174,27 @@ def launch_encoder_fwd(lib, w: StackWeights, tokens: torch.Tensor, stream: int):
     hs = torch.empty((L, n, B, H), dtype=wdt, device=dev)
     cs = torch.empty_like(hs)
     gs = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
-    R, tj, tr = fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
+    bf16 = wdt == torch.bfloat16
+    wt = cbuf = None
+    if bf16:  # each layer's interleaved copy, back to back, and the running c
+        E = cfg.embedding_dim
+        wt = torch.cat([interleave_weight(m, E if l == 0 else H, H).reshape(-1)
+                        for l, m in enumerate(w.layers)])
+        cbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
+    R, tj, tr = (0, 0, 0) if bf16 else fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
     rc = lib.enc_fwd_launch(tokens.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(),
-                            w.bias.data_ptr(), h_last.data_ptr(), hs.data_ptr(),
-                            cs.data_ptr(), gs.data_ptr(), B, L, cfg.vocab_size,
-                            cfg.embedding_dim, H, n, int(wdt == torch.bfloat16), R, tj, tr,
-                            stream)
+                            wt.data_ptr() if bf16 else None, w.bias.data_ptr(),
+                            h_last.data_ptr(), hs.data_ptr(), cs.data_ptr(), gs.data_ptr(),
+                            cbuf.data_ptr() if bf16 else None, B, L, cfg.vocab_size,
+                            cfg.embedding_dim, H, n, int(bf16), R, tj, tr, stream)
     raise_if(rc, "encoder forward", lib.enc_error_string)
     return h_last, hs, cs, gs
 
 
 def encoder_fwd(w: StackWeights, tokens: torch.Tensor):
     """The forward (contract of :func:`encoder_fwd_reference`). CPU tensors
-    run the plain version; CUDA tensors launch the kernel, counted in
-    ``encoder_fwd.launches``."""
+    run the plain version; CUDA tensors launch the kernels, counted once per
+    call in ``encoder_fwd.launches``."""
     if tokens.device.type == "cpu":
         return encoder_fwd_reference(w, tokens)
     cfg = w.cfg

@@ -4,13 +4,17 @@ plain PyTorch versions.
 Counterpart of ``mlx_vae_tpu/ops/pallas_seq_lstm.py``: the forward of
 ``lstm_sequence_pallas`` and the time-major backward
 ``lstm_seq_bwd_pallas_tm``. The kernels are in ``csrc/fused_seq_lstm.cu``
-(CUDA C++ for ``sm_90a``; the bf16 backward runs on the tensor cores,
-``wgmma``, the f32 one on CUDA cores); their design and what bounds them are
-noted at the top of that file.
+(CUDA C++ for ``sm_90a``; in bf16 both run on the tensor cores, ``wgmma``,
+in f32 on CUDA cores); their design and what bounds them are noted at the
+top of that file. The bf16 forward is ``csrc/train_common.cuh``'s step
+kernel, which reads a gate-interleaved copy of the weight that the wrapper
+builds per call (``ops/train_common.py:interleave_weight``).
 
 * :func:`seq_lstm_fwd`: ``xs_t [L, B, I]`` (compute dtype), ``h0``/``c0``
   ``[B, H]`` f32 -> ``hs_t``, ``cs_t [L, B, H]`` and activated gates
-  ``gs_t [L, B, 4H]`` in the compute dtype, ``hf``/``cf [B, H]`` f32.
+  ``gs_t [L, B, 4H]`` in the compute dtype, ``hf``/``cf [B, H]`` f32. The
+  input and the residuals may be addressed inside layer-stacked arrays as
+  in the backward.
 * :func:`seq_lstm_bwd_tm`: the reverse pass from those residuals, with f32
   per-step output cotangents ``dhs_t [L, B, H]`` and final-state cotangents
   ``dhf``/``dcf`` -> ``(dxs_t [L, B, I], dwcat [I + H, 4H], db [4H], dh0,
@@ -38,32 +42,43 @@ import torch
 
 from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
-    MAX_SMEM, SCRATCH_ELEMS, bwd_rows, cell_step_reference, check, fwd_tile, raise_if,
-    require_cuda, reverse_step_reference, shifted, stream_of, sum_outer)
+    MAX_SMEM, SCRATCH_ELEMS, bwd_rows, cell_step_reference, check, fwd_tile, interleave_weight,
+    raise_if, require_cuda, reverse_step_reference, shifted, stream_of, sum_outer)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ----------------------------------------------------------- plain version
 
-def seq_lstm_fwd_reference(wcat: torch.Tensor, bias: torch.Tensor, xs_t: torch.Tensor,
-                           h0: torch.Tensor, c0: torch.Tensor):
-    """Plain twin of the forward kernel (contract of :func:`seq_lstm_fwd`)."""
-    wdt = wcat.dtype
-    L, B, _ = xs_t.shape
-    H = h0.shape[1]
-    hs = torch.empty((L, B, H), dtype=wdt, device=xs_t.device)
-    cs = torch.empty_like(hs)
-    gs = torch.empty((L, B, 4 * H), dtype=wdt, device=xs_t.device)
-    h, c = h0.float(), c0.float()
-    for t in range(L):
-        h, c, g = cell_step_reference(wcat, bias, xs_t[t].float(), h, c, wdt)
-        hs[t], cs[t], gs[t] = h, c, g
-    return hs, cs, gs, h, c
-
-
 def _rows(a: torch.Tensor, stride: int, offset: int, L: int) -> torch.Tensor:
     return a[offset::stride][:L]
+
+
+def _residuals(L: int, B: int, H: int, wdt, dev, out=None):
+    """``(hs, cs, gs)``: ``out``, or new ``[L, B, H]``, ``[L, B, H]`` and
+    ``[L, B, 4H]`` arrays in ``wdt``."""
+    if out is not None:
+        return out
+    hs = torch.empty((L, B, H), dtype=wdt, device=dev)
+    return hs, torch.empty_like(hs), torch.empty((L, B, 4 * H), dtype=wdt, device=dev)
+
+
+def seq_lstm_fwd_reference(wcat: torch.Tensor, bias: torch.Tensor, xs_t: torch.Tensor,
+                           h0: torch.Tensor, c0: torch.Tensor, res_stride: int = 1,
+                           res_offset: int = 0, xs_stride: int = 1, xs_offset: int = 0,
+                           out=None):
+    """Plain twin of the forward kernel (contract of :func:`seq_lstm_fwd`)."""
+    wdt = wcat.dtype
+    L = xs_t.shape[0] // xs_stride
+    xs = _rows(xs_t, xs_stride, xs_offset, L)
+    B, H = h0.shape
+    hs, cs, gs = _residuals(L * res_stride, B, H, wdt, xs_t.device, out)
+    h, c = h0.float(), c0.float()
+    for t in range(L):
+        h, c, g = cell_step_reference(wcat, bias, xs[t].float(), h, c, wdt)
+        r = t * res_stride + res_offset
+        hs[r], cs[r], gs[r] = h, c, g
+    return hs, cs, gs, h, c
 
 
 def seq_lstm_bwd_reference(wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf,
@@ -111,15 +126,17 @@ def bwd_plan(H: int, dtype) -> Optional[int]:
 def _unsupported_reason(I: int, H: int, dtype) -> Optional[str]:
     if dtype not in _DTYPES:
         return f"compute dtype {dtype}"
-    if fwd_tile(H, _fwd_smem(I, H)) is None or bwd_plan(H, dtype) is None:
+    if dtype == torch.float32 and (fwd_tile(H, _fwd_smem(I, H)) is None
+                                   or bwd_plan(H, dtype) is None):
         return f"shared-memory plan: one row of I={I}, H={H} > {MAX_SMEM} B"
     return None
 
 
 def fused_seq_supported(input_size: int, hidden: int, dtype) -> bool:
-    """Shapes the kernels take: f32 or bf16, one row's forward state
-    (input, h twice, c) within a block's shared memory and, in f32, one
-    row's reverse state (:func:`bwd_plan`). Any batch."""
+    """Shapes the kernels take: bf16 at any width (per-step GEMMs through a
+    fixed shared-memory ring, both ways); f32 where one row's forward state
+    (input, h twice, c) and one row's reverse state (:func:`bwd_plan`) fit a
+    block's shared memory. Any batch."""
     return _unsupported_reason(input_size, hidden, dtype) is None
 
 
@@ -128,7 +145,8 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     declare its C interface."""
     lib = load_library("fused_seq_lstm", verbose)
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.seq_fwd_launch.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.seq_fwd_launch.argtypes = ([p] + [i] * 2 + [p] * 8 + [i] * 2 + [p] * 2 + [i] * 8
+                                   + [p])
     lib.seq_fwd_launch.restype = i
     lib.seq_bwd_launch.argtypes = ([p] * 3 + [i] * 2 + [p] + [i] * 2 + [p] * 14 + [lg]
                                    + [i] * 6 + [p])
@@ -138,50 +156,72 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     return lib
 
 
-def launch_seq_fwd(lib, wcat, bias, xs_t, h0, c0, stream: int):
-    """Allocate the outputs and launch the forward kernel (no device or
-    support checks: :func:`seq_lstm_fwd` makes them)."""
+def launch_seq_fwd(lib, wcat, bias, xs_t, h0, c0, stream: int, res_stride: int = 1,
+                   res_offset: int = 0, xs_stride: int = 1, xs_offset: int = 0, out=None):
+    """Allocate the outputs (the residuals unless ``out`` holds them) and
+    launch the forward kernels (no device or support checks:
+    :func:`seq_lstm_fwd` makes them). bf16 reads the weight's interleaved
+    copy, built here; f32 reads ``wcat``."""
     wdt = wcat.dtype
-    L, B, I = xs_t.shape
+    B, I = xs_t.shape[1:]
     H = h0.shape[1]
-    dev = xs_t.device
-    hs = torch.empty((L, B, H), dtype=wdt, device=dev)
-    cs = torch.empty_like(hs)
-    gs = torch.empty((L, B, 4 * H), dtype=wdt, device=dev)
+    L = xs_t.shape[0] // xs_stride
+    hs, cs, gs = _residuals(L * res_stride, B, H, wdt, xs_t.device, out)
     hf, cf = torch.empty_like(h0), torch.empty_like(h0)
-    R, tj, tr = fwd_tile(H, _fwd_smem(I, H))
-    rc = lib.seq_fwd_launch(xs_t.data_ptr(), h0.data_ptr(), c0.data_ptr(), wcat.data_ptr(),
-                            bias.data_ptr(), hs.data_ptr(), cs.data_ptr(), gs.data_ptr(),
-                            hf.data_ptr(), cf.data_ptr(), B, L, I, H,
-                            int(wdt == torch.bfloat16), R, tj, tr, stream)
+    bf16 = wdt == torch.bfloat16
+    wt = interleave_weight(wcat, I, H) if bf16 else None
+    R, tj, tr = (0, 0, 0) if bf16 else fwd_tile(H, _fwd_smem(I, H))
+    rc = lib.seq_fwd_launch(xs_t.data_ptr(), xs_stride, xs_offset, h0.data_ptr(), c0.data_ptr(),
+                            wcat.data_ptr(), wt.data_ptr() if bf16 else None, bias.data_ptr(),
+                            hs.data_ptr(), cs.data_ptr(), gs.data_ptr(), res_stride, res_offset,
+                            hf.data_ptr(), cf.data_ptr(), B, L, I, H, int(bf16), R, tj, tr,
+                            stream)
     raise_if(rc, "seq_lstm forward", lib.seq_error_string)
     return hs, cs, gs, hf, cf
 
 
 def seq_lstm_fwd(wcat: torch.Tensor, bias: torch.Tensor, xs_t: torch.Tensor,
-                 h0: torch.Tensor, c0: torch.Tensor):
+                 h0: torch.Tensor, c0: torch.Tensor, res_stride: int = 1, res_offset: int = 0,
+                 xs_stride: int = 1, xs_offset: int = 0, out=None):
     """The forward. ``wcat [I + H, 4H]`` in the compute dtype (it sets the
-    dtype), ``bias [4H]`` f32. CPU tensors run the plain version; CUDA
-    tensors launch the kernel, counted in ``seq_lstm_fwd.launches``."""
+    dtype), ``bias [4H]`` f32. Row t of the input is row ``t * xs_stride +
+    xs_offset`` of ``xs_t [L * xs_stride, B, I]``; the residuals go to rows
+    ``t * res_stride + res_offset`` of ``out = (hs, cs, gs)`` (``[L *
+    res_stride, B, .]``, new arrays if None; their other rows are left as
+    they are). CPU tensors run the plain version; CUDA tensors launch the
+    kernels, counted once per call in ``seq_lstm_fwd.launches``."""
     if xs_t.device.type == "cpu":
-        return seq_lstm_fwd_reference(wcat, bias, xs_t, h0, c0)
-    L, B, I = xs_t.shape
-    H = h0.shape[1]
+        return seq_lstm_fwd_reference(wcat, bias, xs_t, h0, c0, res_stride, res_offset,
+                                      xs_stride, xs_offset, out)
+    I = xs_t.shape[-1]
+    B, H = h0.shape
+    L = xs_t.shape[0] // xs_stride
     wdt, dev = wcat.dtype, xs_t.device
     require_cuda(xs_t, "fused_seq_lstm forward", _unsupported_reason(I, H, wdt))
-    check(xs_t, "xs_t", (L, B, I), wdt, dev)
+    _check_offsets(res_stride, res_offset, xs_stride, xs_offset)
+    check(xs_t, "xs_t", (L * xs_stride, B, I), wdt, dev)
     check(wcat, "wcat", (I + H, 4 * H), wdt, dev)
     check(bias, "bias", (4 * H,), torch.float32, dev)
     check(h0, "h0", (B, H), torch.float32, dev)
     check(c0, "c0", (B, H), torch.float32, dev)
+    if out is not None:
+        for name, t, last in zip(("hs", "cs", "gs"), out, (H, H, 4 * H)):
+            check(t, name, (L * res_stride, B, last), wdt, dev)
     lib = build_library()
     with torch.cuda.device(dev):
-        res = launch_seq_fwd(lib, wcat, bias, xs_t, h0, c0, stream_of(dev))
+        res = launch_seq_fwd(lib, wcat, bias, xs_t, h0, c0, stream_of(dev), res_stride,
+                             res_offset, xs_stride, xs_offset, out)
     seq_lstm_fwd.launches += 1
     return res
 
 
 seq_lstm_fwd.launches = 0
+
+
+def _check_offsets(res_stride: int, res_offset: int, xs_stride: int, xs_offset: int) -> None:
+    if not (0 <= res_offset < res_stride and 0 <= xs_offset < xs_stride):
+        raise ValueError(f"offsets ({res_offset}, {xs_offset}) outside strides "
+                         f"({res_stride}, {xs_stride})")
 
 
 def launch_seq_bwd(lib, wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf, res_stride,
@@ -231,9 +271,7 @@ def seq_lstm_bwd_tm(wcat: torch.Tensor, xs_t: torch.Tensor, h0: torch.Tensor,
     I = xs_t.shape[-1]
     wdt, dev = wcat.dtype, dhs_t.device
     require_cuda(dhs_t, "fused_seq_lstm backward", _unsupported_reason(I, H, wdt))
-    if not (0 <= res_offset < res_stride and 0 <= xs_offset < xs_stride):
-        raise ValueError(f"offsets ({res_offset}, {xs_offset}) outside strides "
-                         f"({res_stride}, {xs_stride})")
+    _check_offsets(res_stride, res_offset, xs_stride, xs_offset)
     check(wcat, "wcat", (I + H, 4 * H), wdt, dev)
     check(xs_t, "xs_t", (L * xs_stride, B, I), wdt, dev)
     for name, t, last in (("hs_t", hs_t, H), ("cs_t", cs_t, H), ("gs_t", gs_t, 4 * H)):

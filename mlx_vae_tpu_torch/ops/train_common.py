@@ -12,6 +12,10 @@
   and the route rule (:func:`stack_fits_l2`).
 * The plain versions' shared steps (one LSTM cell, its reverse step from
   activated gates, the weight- and embedding-gradient sums).
+* The bf16 forward step kernel's layout (``csrc/train_common.cuh``:
+  ``seq_fwd_step_kernel``): :func:`fwd_step_plan`, the gate-interleaved
+  weight copy :func:`interleave_weight`, and the kernel's plain twin of one
+  step, :func:`seq_fwd_step_reference`.
 * The argument and device checks every wrapper makes before a launch.
 """
 
@@ -32,6 +36,8 @@ MAX_V = 512         # csrc: 32 lanes x 16 vocab entries per lane
 RPTS = (8, 4, 2, 1)  # forward rows per thread the kernels are built for
 RS = (8, 4, 2, 1)    # reverse-kernel rows per block the kernels are built for
 SCRATCH_ELEMS = 1 << 23  # f32 partial sums of the split reductions (32 MB)
+BK = 64              # csrc wg::BK: reduction depth of one wgmma stage
+UNITS = 32           # hidden units per 128-wide output tile of the forward step
 
 
 # ----------------------------------------------------------- weights
@@ -120,15 +126,101 @@ def embed_rows(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens.long().clamp(0, V - 1)] * ok.unsqueeze(-1).to(emb.dtype)
 
 
+def cell_from_gates(gates: torch.Tensor, c: torch.Tensor):
+    """The cell's tail from pre-activation ``gates [B, 4H]`` (f32, gate-major)
+    and ``c``: ``(h', c', activated gates [B, 4H])``, all f32."""
+    i, f, g, o = gate_activations(gates, c.shape[1])
+    c = f * c + i * g
+    return o * torch.tanh(c), c, torch.cat([i, f, g, o], dim=1)
+
+
 def cell_step_reference(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
                         h: torch.Tensor, c: torch.Tensor, wdt):
     """One LSTM cell: ``[x, h]`` rounded to ``wdt`` times the combined
     weight ``w`` in f32, plus ``bias``. Returns ``(h', c', activated gates
     [B, 4H])``, all f32."""
-    gates = torch.cat([x, h], dim=1).to(wdt).float() @ w.float() + bias
-    i, f, g, o = gate_activations(gates, h.shape[1])
-    c = f * c + i * g
-    return o * torch.tanh(c), c, torch.cat([i, f, g, o], dim=1)
+    return cell_from_gates(torch.cat([x, h], dim=1).to(wdt).float() @ w.float() + bias, c)
+
+
+# ----------------------------------------------------------- forward step
+
+def fwd_step_plan(I: int, H: int) -> Tuple[int, int, int]:
+    """``(Ixp, Kp, Np)`` of the forward step kernel for input width ``I`` and
+    hidden width ``H`` (csrc: ``fwd_ixp``, ``fwd_kp``, ``fwd_np``): the
+    input's reduction columns end at ``Ixp`` (``I`` rounded up to ``BK``),
+    the recurrent ones at ``Kp = Ixp + H`` rounded up to ``BK``; ``Np``
+    output columns, 128 for each 32 units."""
+    ixp = -(-I // BK) * BK
+    return ixp, ixp + -(-H // BK) * BK, -(-H // UNITS) * 4 * UNITS
+
+
+def gate_columns(H: int, device=None) -> torch.Tensor:
+    """``[4H]``: the forward step kernel's output column of gate-major
+    column ``q * H + u``: ``128 (u // 32) + 32 q + u % 32``."""
+    u = torch.arange(H, device=device)
+    return torch.cat([(u // UNITS) * 4 * UNITS + q * UNITS + u % UNITS for q in range(4)])
+
+
+def interleave_weight(w: torch.Tensor, I: int, H: int) -> torch.Tensor:
+    """The forward step kernel's weight: the combined ``w [I + H, 4H]``
+    (gate-major columns) as a K-major ``[Np, Kp]`` copy (:func:`fwd_step_plan`)
+    whose row :func:`gate_columns` ``[q * H + u]`` holds column ``q * H + u``
+    of ``w``: its input rows at ``k < I``, its recurrent rows at ``Ixp + j``.
+    The other entries are zeros. So one 128-wide output tile of the kernel
+    holds all four gates of 32 units."""
+    ixp, kp, np_ = fwd_step_plan(I, H)
+    with torch.no_grad():
+        out = w.new_zeros((np_, kp))
+        n = gate_columns(H, w.device)
+        out[n, :I] = w[:I].T
+        out[n, ixp:ixp + H] = w[I:].T
+    return out
+
+
+def seq_fwd_step_reference(wt: torch.Tensor, bias: torch.Tensor, t: int, xs: torch.Tensor,
+                           c: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
+                           gs: torch.Tensor, I: int, H: int, x_stride: int = 1,
+                           x_offset: int = 0, tokens: Optional[torch.Tensor] = None,
+                           h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None,
+                           res_stride: int = 1, res_offset: int = 0,
+                           hf: Optional[torch.Tensor] = None) -> None:
+    """Plain twin of one launch of the forward step kernel, step ``t`` of
+    one layer, in place.
+
+    A ``[B, Kp]``: columns ``k < I`` hold step t's input rows, row ``t *
+    x_stride + x_offset`` of ``xs [., B, I]``, or with ``tokens [B, L]`` the
+    rows ``tokens[:, t]`` of the table ``xs [V, I]`` (zeros outside [0, V));
+    columns ``Ixp + j`` hold h_{t-1}, residual row ``(t - 1) * res_stride +
+    res_offset`` of ``hs``, or at t = 0 ``h0`` f32 (zeros if None); both
+    rounded to ``wt``'s dtype. A times ``wt`` (:func:`interleave_weight`)
+    gives the gates in the kernel's column order; with the bias and c_{t-1}
+    (``c0`` at t = 0, zeros if None; else ``c [B, H]`` f32) the cell writes
+    ``c`` and residual row ``t * res_stride + res_offset`` of ``hs``, ``cs``
+    and ``gs`` (and ``hf`` if given). The padding's zero columns add nothing
+    to the kernel's sums; the product here runs over the columns that hold
+    weights, in the combined weight's order, so that in f32 its sums equal
+    :func:`cell_step_reference`'s bit for bit."""
+    wdt = wt.dtype
+    ixp, kp, _ = fwd_step_plan(I, H)
+    B = c.shape[0]
+    dev = c.device
+    x = embed_rows(xs, tokens[:, t]) if tokens is not None else xs[t * x_stride + x_offset]
+    if t > 0:
+        hp = hs[(t - 1) * res_stride + res_offset]
+    else:
+        hp = h0 if h0 is not None else torch.zeros((B, H), device=dev)
+    a = torch.zeros((B, kp), device=dev)
+    a[:, :I] = x.to(wdt).float()
+    a[:, ixp:ixp + H] = hp.to(wdt).float()
+    k = torch.cat([torch.arange(I, device=dev), ixp + torch.arange(H, device=dev)])
+    prod = a[:, k] @ wt[:, k].float().T.contiguous()
+    c_prev = c if t > 0 else (c0.float() if c0 is not None else torch.zeros_like(c))
+    h, c_new, g = cell_from_gates(prod[:, gate_columns(H, dev)] + bias, c_prev)
+    c.copy_(c_new)
+    row = t * res_stride + res_offset
+    hs[row], cs[row], gs[row] = h, c_new, g
+    if hf is not None:
+        hf.copy_(h)
 
 
 def reverse_step_reference(gs: torch.Tensor, c_t: torch.Tensor,

@@ -28,7 +28,7 @@ from mlx_vae_tpu.ops.pallas_decoder import pallas_generate
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.models.decoder import hidden_init_row
 from mlx_vae_tpu_torch.models.sampling import generate_with_temperature
-from mlx_vae_tpu_torch.models.vae import vae_generate
+from mlx_vae_tpu_torch.models.vae import generation_sampler, vae_generate
 from mlx_vae_tpu_torch.ops import fused_decoder as fd
 from mlx_vae_tpu_torch.ops import sampling as tsampling
 from mlx_vae_tpu_torch.ops.train_common import MAX_SMEM
@@ -37,9 +37,10 @@ from mlx_vae_tpu_torch.utils.tree import params_from_numpy
 AGREE_FIRST, AGREE_ROWS = 0.99, 0.97
 
 
-def _model(n=2, H=128, dtype="float32", C=1, seed=0):
+def _model(n=2, H=128, dtype="float32", C=1, seed=0, **extra):
     kw = dict(vocab_size=24, embedding_dim=16, hidden_dim=H, latent_dim=8,
               num_conditions=C, num_layers=n, compute_dtype=dtype)
+    kw.update(extra)
     jcfg, tcfg = JaxConfig(**kw), ModelConfig(**kw)
     jp = jdec.init_decoder_params(jax.random.PRNGKey(seed), jcfg)
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
@@ -346,3 +347,69 @@ def test_greedy_scan_sampler_zero_state_matches_jax():
                                     None, max_length=12, greedy=True).numpy()
     first, rows = _agreement(got, want)
     assert first >= AGREE_FIRST and rows >= AGREE_ROWS
+
+
+# ---- vae_generate's route by config (mlx_vae_tpu/models/vae.py:58-70) ----
+
+@pytest.mark.parametrize("extra", [dict(reference_zero_state=True), dict(vocab_size=600)])
+def test_vae_generate_takes_the_scan_sampler_where_the_kernel_refuses(extra):
+    """A config the fused sampler refuses (here with use_pallas on) goes to
+    the scan sampler, decided before any launch: its tokens equal the port's
+    scan sampler on the generator's first draw as z, and agree with the JAX
+    scan sampler on the same numpy z under the greedy contract."""
+    jcfg, tcfg, jp, tp = _model(n=2, H=32, **extra)
+    tcfg = tcfg.replace(use_pallas=True)
+    assert not fd.fused_generate_supported(tcfg) and generation_sampler(tcfg) == "scan"
+    B, L = 64, 12
+    _, cond = _inputs(tcfg, B)
+    ct = torch.from_numpy(cond)
+    before = fd.fused_generate.launches
+    got = vae_generate({"decoder": tp}, tcfg, ct, torch.Generator().manual_seed(3),
+                       max_length=L, greedy=True)
+    assert fd.fused_generate.launches == before
+    z = torch.randn((B, tcfg.latent_dim), generator=torch.Generator().manual_seed(3))
+    want = generate_with_temperature(tp, tcfg, z, ct, None, max_length=L, greedy=True)
+    assert got.shape == (B, L) and got.dtype == torch.int32 and torch.equal(got, want)
+    jtok = np.asarray(jgenerate(jp, jcfg, jnp.asarray(z.numpy()), jnp.asarray(cond),
+                                jax.random.PRNGKey(0), max_length=L, greedy=True))
+    first, rows = _agreement(got.numpy(), jtok)
+    assert first >= AGREE_FIRST and rows >= AGREE_ROWS, (first, rows)
+
+
+def test_vae_generate_keeps_the_fused_route_with_use_pallas():
+    """A config the kernel takes, with use_pallas, runs the fused sampler
+    (its plain version on CPU tensors, which launches nothing): stochastic
+    tokens equal the fused plain version on the generator's draws of z and
+    the block seeds."""
+    _, tcfg, _, tp = _model(n=2, H=32)
+    tcfg = tcfg.replace(use_pallas=True)
+    assert generation_sampler(tcfg) == "fused"
+    B, L = 40, 10
+    cond = torch.from_numpy(_inputs(tcfg, B)[1])
+    before = fd.fused_generate.launches
+    got = vae_generate({"decoder": tp}, tcfg, cond, torch.Generator().manual_seed(4),
+                       max_length=L, temperature=0.9)
+    assert fd.fused_generate.launches == before
+    gen = torch.Generator().manual_seed(4)
+    z = torch.randn((B, tcfg.latent_dim), generator=gen)
+    nb = -(-B // fd.block_rows(B))
+    seeds = torch.randint(0, 2**31 - 1, (nb,), generator=gen, dtype=torch.int32)
+    w = fd.prepare_weights(tp, tcfg, "cpu")
+    want = fd.fused_generate_reference(w, hidden_init_row(tp, tcfg, z, cond), cond, seeds,
+                                       torch.full((nb,), 0.9), L)
+    assert torch.equal(got, want)
+
+
+def test_vae_generate_without_use_pallas_takes_the_scan_sampler():
+    """use_pallas off: the scan sampler, drawing its noise from the same
+    generator after z (stochastic tokens equal the port's scan sampler)."""
+    _, tcfg, _, tp = _model(n=2, H=32)
+    assert not tcfg.use_pallas and generation_sampler(tcfg) == "scan"
+    B, L = 40, 10
+    cond = torch.from_numpy(_inputs(tcfg, B)[1])
+    got = vae_generate({"decoder": tp}, tcfg, cond, torch.Generator().manual_seed(4),
+                       max_length=L, temperature=0.9)
+    gen = torch.Generator().manual_seed(4)
+    z = torch.randn((B, tcfg.latent_dim), generator=gen)
+    want = generate_with_temperature(tp, tcfg, z, cond, gen, max_length=L, temperature=0.9)
+    assert torch.equal(got, want)

@@ -79,6 +79,26 @@ def test_bwd_plan_and_support(case, dtype):
         assert fs.fused_seq_supported(I, H, torch.float32) == (rows is not None)
 
 
+# (I, H): bf16 takes any width (the forward's and the backward's per-step
+# GEMMs go through a fixed shared-memory ring); f32 only where one row's
+# forward state and one row's reverse state fit a block's shared memory
+WIDE = [(50000, 8192), (16, 9000), (129, 100), (1024, 1024)]
+
+
+@pytest.mark.parametrize("case", range(len(WIDE)))
+def test_bf16_forward_takes_any_width(case):
+    """A CPU check of the forward's support rule and of the step kernel's
+    plan at each width."""
+    I, H = WIDE[case]
+    assert fs.fused_seq_supported(I, H, torch.bfloat16)
+    f32_fits = (tc.fwd_tile(H, fs._fwd_smem(I, H)) is not None
+                and fs.bwd_plan(H, torch.float32) is not None)
+    assert fs.fused_seq_supported(I, H, torch.float32) == f32_fits
+    ixp, kp, np_ = tc.fwd_step_plan(I, H)
+    assert (ixp % 64, kp % 64, np_ % 128) == (0, 0, 0)
+    assert I <= ixp < I + 64 and H <= kp - ixp < H + 64 and 4 * H <= np_ < 4 * H + 128
+
+
 @pytest.fixture()
 def dev():
     if not torch.cuda.is_available():
@@ -253,3 +273,32 @@ def test_fused_seq_refuses_on_the_card(dev):
         fs.seq_lstm_fwd(w, torch.zeros((4 * 9000,), device=dev),
                         torch.zeros((1, 1, 16), device=dev), torch.zeros((1, 9000), device=dev),
                         torch.zeros((1, 9000), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(SEQ)))
+def test_seq_fwd_strided_and_repeated(dev, case, dtype):
+    """The forward with its input at rows 2t + 1 of a [2L, B, I] array and
+    its residuals at rows 3t + 2 of [3L, B, .] arrays gives the dense call's
+    results bit for bit and leaves the other rows alone; a second dense run
+    repeats the first bit for bit (one writer per element, no atomics); the
+    launch counter rises once a call."""
+    _, _, I, H, B, L = SEQ[case]
+    wcat, bias, xs2, h0, c0, _ = _seq_inputs(I, H, B, L, dtype, dev, stride=2, seed=case)
+    xs = xs2[1::2].contiguous()
+    before = fs.seq_lstm_fwd.launches
+    d1 = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+    d2 = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+    out = tuple(torch.zeros((3 * L,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)
+                for a in d1[:3])
+    st = fs.seq_lstm_fwd(wcat, bias, xs2, h0, c0, res_stride=3, res_offset=2, xs_stride=2,
+                         xs_offset=1, out=out)
+    torch.cuda.synchronize()
+    assert fs.seq_lstm_fwd.launches == before + 3
+    for a, b in zip(d1, d2):
+        assert torch.equal(a, b)
+    for a, b in zip(d1[:3], st[:3]):
+        assert torch.equal(b[2::3], a)
+        assert not b[0::3].any() and not b[1::3].any()
+    assert torch.equal(st[3], d1[3]) and torch.equal(st[4], d1[4])

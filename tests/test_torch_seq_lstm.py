@@ -194,3 +194,96 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device meta"):
         fs.seq_lstm_bwd_tm(w, xs_t, h0, h0, xs_t, xs_t, torch.empty((L, B, 4 * H), **m), xs_t,
                            h0, h0)
+
+
+# ---- the bf16 forward's step kernel, through its plain twin ----
+
+from mlx_vae_tpu_torch.ops import train_common as tc  # noqa: E402
+
+
+@pytest.mark.parametrize("IH", [(129, 100), (128, 128), (16, 32), (200, 64)])
+def test_interleave_weight_layout(IH):
+    """The step kernel's weight copy: row 128 T + 32 q + j holds column
+    q * H + u (u = 32 T + j) of the combined weight, input rows at k < I and
+    recurrent rows from Ixp on; every other entry is zero."""
+    I_, H_ = IH
+    ixp, kp, np_ = tc.fwd_step_plan(I_, H_)
+    assert ixp % 64 == 0 and ixp - 64 < I_ <= ixp and kp % 64 == 0 and kp - ixp >= H_
+    assert np_ == 128 * -(-H_ // 32)
+    w = torch.randn((I_ + H_, 4 * H_))
+    wt = tc.interleave_weight(w, I_, H_)
+    assert wt.shape == (np_, kp)
+    n = tc.gate_columns(H_)
+    assert sorted(n.tolist()) == sorted(set(n.tolist()))
+    for q in range(4):
+        for u in (0, H_ // 2, H_ - 1):
+            row = 128 * (u // 32) + 32 * q + u % 32
+            assert int(n[q * H_ + u]) == row
+            assert torch.equal(wt[row, :I_], w[:I_, q * H_ + u])
+            assert torch.equal(wt[row, ixp:ixp + H_], w[I_:, q * H_ + u])
+    mask = torch.zeros_like(wt, dtype=torch.bool)
+    mask[n, :I_] = True
+    mask[n, ixp:ixp + H_] = True
+    assert not wt[~mask].any()
+
+
+# (I, H, B, L, input stride/offset, residual stride/offset)
+STEP_CASES = [(129, 100, 19, 5, (1, 0), (1, 0)), (128, 128, 16, 7, (2, 1), (3, 2)),
+              (16, 32, 8, 3, (3, 0), (2, 1))]
+
+
+def _compose_steps(wcat, bias, xs, h0, c0, I_, H_, L_, xst, res):
+    """The step twin over L steps; residuals at (stride, offset) ``res``."""
+    rs, ro = res
+    B_ = h0.shape[0]
+    wt = tc.interleave_weight(wcat, I_, H_)
+    hs = torch.zeros((L_ * rs, B_, H_), dtype=wcat.dtype)
+    cs, gs = torch.zeros_like(hs), torch.zeros((L_ * rs, B_, 4 * H_), dtype=wcat.dtype)
+    c, hf = torch.empty((B_, H_)), torch.empty((B_, H_))
+    for t in range(L_):
+        tc.seq_fwd_step_reference(wt, bias, t, xs, c, hs, cs, gs, I_, H_, x_stride=xst[0],
+                                  x_offset=xst[1], h0=h0, c0=c0, res_stride=rs,
+                                  res_offset=ro, hf=hf if t == L_ - 1 else None)
+    return hs, cs, gs, hf, c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(STEP_CASES)))
+def test_fwd_steps_compose_to_the_plain_forward(case, dtype):
+    """The step twin (input rows at a stride, residual rows at a stride, h0
+    at t = 0) composed over L equals seq_lstm_fwd_reference bit for bit
+    (also through seq_lstm_fwd's strided arguments on CPU tensors), and
+    matches lstm_sequence_pallas(interpret=True) within the file's
+    tolerances."""
+    I_, H_, B_, L_, xst, res = STEP_CASES[case]
+    jdt, tdt = DT[dtype]
+    params = jax.tree_util.tree_map(np.array,
+                                    jlstm.init_lstm_params(jax.random.PRNGKey(case), I_, H_))
+    rng = np.random.default_rng(case)
+    xs = rng.standard_normal((B_, L_, I_)).astype(np.float32)
+    h0 = (0.1 * rng.standard_normal((B_, H_))).astype(np.float32)
+    c0 = (0.1 * rng.standard_normal((B_, H_))).astype(np.float32)
+    wcat = torch.from_numpy(np.concatenate([params["Wx"].T, params["Wh"].T])).to(tdt)
+    bias = torch.from_numpy(params["bias"]).float()
+    xs_t = torch.from_numpy(np.ascontiguousarray(xs.swapaxes(0, 1))).to(tdt)
+    xs_big = torch.from_numpy(rng.standard_normal((L_ * xst[0], B_, I_)).astype(np.float32)
+                              ).to(tdt)
+    xs_big[xst[1]::xst[0]] = xs_t
+    th0, tc0 = torch.from_numpy(h0), torch.from_numpy(c0)
+    got = _compose_steps(wcat, bias, xs_big, th0, tc0, I_, H_, L_, xst, res)
+    want = fs.seq_lstm_fwd_reference(wcat, bias, xs_t, th0, tc0)
+    rs, ro = res
+    for g, w_ in zip(got[:3], want[:3]):
+        assert torch.equal(g[ro::rs], w_)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    out = tuple(torch.zeros_like(a) for a in got[:3])
+    strided = fs.seq_lstm_fwd(wcat, bias, xs_big, th0, tc0, res_stride=rs, res_offset=ro,
+                              xs_stride=xst[0], xs_offset=xst[1], out=out)
+    for g, s_ in zip(got, strided):
+        assert torch.equal(g, s_)
+    (_, (jhf, jcf)), jres = psl._fwd(jax.tree_util.tree_map(jnp.asarray, params),
+                                     jnp.asarray(xs), jnp.asarray(h0), jnp.asarray(c0), jdt,
+                                     True)
+    for g, jv, what in zip(got, (*jres[4:], jhf, jcf), ("hs", "cs", "gs", "hf", "cf")):
+        g = g[ro::rs] if g.dim() == 3 else g
+        _close(g, jv, dtype, what, 1e-5)

@@ -16,6 +16,7 @@ from mlx_vae_tpu_torch.cli import serve as tserve
 from mlx_vae_tpu_torch.cli.generate import main as generate_main
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.models.decoder import init_decoder_params
+from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
 from mlx_vae_tpu_torch.train.checkpoint import build_checkpoint_host, write_checkpoint
 
 MCFG = ModelConfig(vocab_size=24, embedding_dim=16, hidden_dim=16,
@@ -24,8 +25,8 @@ STATS = {"properties_mean": [60.0, 2.0], "properties_std": [25.0, 1.0],
          "alphabet": ["[C]", "[N]", "[O]"]}
 
 
-def _checkpoint(path, seed=0, stats=STATS):
-    dec = init_decoder_params(torch.Generator().manual_seed(seed), MCFG)
+def _checkpoint(path, seed=0, stats=STATS, cfg=MCFG):
+    dec = init_decoder_params(torch.Generator().manual_seed(seed), cfg)
     write_checkpoint(path, build_checkpoint_host(
         0, {"encoder": {}, "decoder": dec}, {"encoder": {}, "decoder": {}}, {},
         data_stats=stats))
@@ -89,6 +90,40 @@ def test_health(server):
     assert h["warmup"]["complete"] and h["warmup"]["warm_programs"] == 8
     assert h["backend"] == "cpu" and h["alphabet_size"] == 3
     assert h["kernel_launches"] >= 0
+
+
+def test_health_names_the_sampler(server):
+    """The served model takes the fused sampler (its plain version on the
+    CPU); /health says so."""
+    _, h = _get(server, "/health")
+    assert h["sampler"] == "fused"
+
+
+def test_refused_model_is_served_by_the_scan_sampler(tmp_path, capsys):
+    """V = 600: the fused sampler refuses the model, so the server and the
+    bulk CLI route it to the scan sampler, as the JAX CLIs do, instead of
+    raising; no kernel weights are prepared and nothing is launched."""
+    ck = _checkpoint(tmp_path / "ck.npz", stats=None, cfg=MCFG.replace(vocab_size=600))
+    args = tserve.build_parser().parse_args([
+        "--checkpoint", ck, "--port", "0", "--batch_size", "8", "--max_length", "8",
+        "--no_normalize", "--device", "cpu"])
+    before = fused_generate.launches
+    svc = tserve.GenerationService(args)
+    try:
+        assert svc.health()["sampler"] == "scan" and svc.weights is None
+        req = {"num_molecules": 5, "target": [0.0, 0.0], "seed": 2, "return_tokens": True}
+        a, b = svc.generate(req), svc.generate(req)
+        toks = np.asarray(a["tokens"])
+        assert toks.shape == (5, 8) and toks.min() >= 0 and toks.max() < 600
+        assert a["tokens"] == b["tokens"]
+    finally:
+        svc.close()
+    generate_main(["--checkpoint", ck, "--device", "cpu", "--num_molecules", "10",
+                   "--batch_size", "8", "--max_length", "6", "--no_normalize",
+                   "--target", "0", "0", "--output", str(tmp_path / "gen.json")])
+    assert "scan sampler" in capsys.readouterr().out
+    assert np.asarray(json.loads((tmp_path / "gen.json").read_text())["tokens"]).shape == (10, 6)
+    assert fused_generate.launches == before
 
 
 def test_generate_pads_and_loops_tiers(server):

@@ -312,3 +312,39 @@ def test_fused_route_raises_on_the_card(dev, case):
             decoder_apply(dec, cfg, z, cond, target_seq=x, tf_mask=tf)
         with pytest.raises(NotImplementedError, match="fused_train_decoder"):
             complete_mod.complete_vae_loss(enc, dec, None, cfg, x, cond, z, tf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(CONFIGS)))
+def test_encoder_bf16_forward_is_the_sequence_step_layer_by_layer(dev, shape):
+    """The bf16 whole-stack forward runs the sequence forward's step kernel
+    layer by layer, gathering layer 0's input rows by token and addressing
+    the residuals at rows t * n + l: its residuals and h_last equal, bit for
+    bit, per-layer sequence forwards on dense inputs (the embedded tokens,
+    then the layer below's h) from zero state, tokens outside [0, V)
+    included; a second run repeats the first bit for bit."""
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+
+    cfg, enc, _, tok, _, _, _ = _setup(shape, "bfloat16", dev)
+    B, L = tok.shape
+    tok = tok.clone()
+    tok[0, 0] = -1
+    if B > 1 and L > 1:
+        tok[1, 1] = cfg.vocab_size
+    w = tc.prepare_stack_weights(enc, cfg, with_head=False)
+    before = (fe.encoder_fwd.launches, fs.seq_lstm_fwd.launches)
+    k1 = fe.encoder_fwd(w, tok)
+    k2 = fe.encoder_fwd(w, tok)
+    H, n = cfg.hidden_dim, cfg.num_layers
+    zero = torch.zeros((B, H), device=dev)
+    x = tc.embed_rows(w.emb, tok.T).contiguous()
+    for l in range(n):
+        hs, cs, gs, hf, _ = fs.seq_lstm_fwd(w.layers[l], w.bias[l].contiguous(), x, zero, zero)
+        for a, b in zip((hs, cs, gs), k1[1:]):
+            assert torch.equal(a, b[:, l])
+        x = hs
+    torch.cuda.synchronize()
+    assert torch.equal(hf, k1[0])
+    for a, b in zip(k1, k2):
+        assert torch.equal(a, b)
+    assert (fe.encoder_fwd.launches, fs.seq_lstm_fwd.launches) == (before[0] + 2, before[1] + n)

@@ -42,6 +42,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    encoder forward (the tensor-core step kernel, layer by layer) runs twice
    and must repeat bit for bit, and its backward also runs on the kernel
    forward's residuals against its plain version on the same residuals.
+   The encoder backward's reverse chain is also held alone (dgates, dx0)
+   against ``encoder_reverse_reference``, in both dtypes, and in bf16 (the
+   tensor-core chain) a second backward must equal the first bit for bit.
    Teacher forcing 0.9: the fed-token rows agree on >= 97.0% and the first
    argmax-fed step on >= 99.0% (an argmax can flip where two logits tie);
 7. the train slice: ``train_step`` at full width (default model, bf16,
@@ -59,7 +62,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    warm-up), with tokens/s; one fused step under ``torch.profiler``:
    device time by kernel name and the device's idle share; the bf16 step must
    show the tensor-core forward step kernel (``seq_fwd_step_kernel``) and no
-   CUDA-core forward (``seq_fwd_kernel``, ``enc_fwd_kernel``);
+   CUDA-core forward (``seq_fwd_kernel``, ``enc_fwd_kernel``), and the
+   encoder's tensor-core reverse step kernel (``enc_step_kernel``) and no
+   ``enc_bwd_kernel``;
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
    (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
    L=64, f32 and bf16, each backward also over residuals and inputs
@@ -83,7 +88,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
 11. scaled times: each new kernel against its plain version and, for the
    sequence LSTM, against cuDNN's one-layer ``torch.nn.LSTM`` (forward;
    backward alone) and for the gate pair against PyTorch's fused LSTM cell
-   (``aten::_thnn_fused_lstm_cell``); the whole-stack kernels at the scaled
+   (``aten::_thnn_fused_lstm_cell``: the median device time of 200 launches
+   of each, in turns, each queued behind a spin kernel so that the host's
+   launch time stays outside its events); the whole-stack kernels at the scaled
    shape through their ``launch_*`` functions (the route check); the
    scaled step on the fused route against the plain route, in tokens/s;
    and one scaled fused step under ``torch.profiler`` (as in phase 8, with
@@ -434,6 +441,34 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+GATE_SAMPLES = 200  # launches of each call behind row 9's median
+SPIN_CYCLES = 2_000_000  # ~1 ms of device spin ahead of each timed launch
+
+
+def median_launch_ms(fns: dict, samples: int) -> dict:
+    """{name: median device ms of one call of fns[name]}, the calls taken in
+    turns ``samples`` times. Each call is bracketed by CUDA events and queued
+    behind a spin kernel (``torch.cuda._sleep``), so that the device is still
+    busy while the host enqueues it: the bracket holds the call's device time
+    and not the host's launch time."""
+    import statistics
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    marks = {k: [] for k in fns}
+    for _ in range(samples):
+        for k, fn in fns.items():
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            marks[k].append((start, end))
+    torch.cuda.synchronize()
+    return {k: statistics.median(s.elapsed_time(e) for s, e in v) for k, v in marks.items()}
+
+
 def profile_step(what: str, fn, smi: str) -> dict:
     """One call of ``fn`` under ``torch.profiler`` after a warm-up call: the
     device time of each kernel by name, and the device's idle share (1 -
@@ -469,19 +504,24 @@ def profile_step(what: str, fn, smi: str) -> dict:
             "kernels": dict(top)}
 
 
-def check_forward_kernels(prof: dict, what: str) -> None:
-    """A bf16 step's profile must show the tensor-core forward step kernel
-    and neither CUDA-core forward."""
+def check_kernels(prof: dict, what: str, role: str, step: str, old: tuple) -> None:
+    """A bf16 step's profile must show the tensor-core kernel ``step`` and
+    none of the CUDA-core kernels ``old`` that it replaced."""
     import re
 
     names = list(prof["kernels"])
-    step = [n for n in names if re.search(r"\bseq_fwd_step_kernel\b", n)]
-    old = [n for n in names if re.search(r"\b(seq_fwd_kernel|enc_fwd_kernel)\b", n)]
-    if not step or old:
-        raise AssertionError(f"{what}: forward kernels in the profile: step {step}, CUDA-core "
-                             f"{old}")
-    log(f"  {what}: the forwards ran as {step[0]} ({prof['kernels'][step[0]]:.3f} ms), no "
-        f"CUDA-core forward")
+    new = [n for n in names if re.search(rf"\b{step}\b", n)]
+    gone = [n for n in names if re.search(rf"\b({'|'.join(old)})\b", n)]
+    if not new or gone:
+        raise AssertionError(f"{what}: {role} kernels in the profile: tensor-core {new}, "
+                             f"CUDA-core {gone}")
+    log(f"  {what}: the {role} ran as {new[0]} ({prof['kernels'][new[0]]:.3f} ms), no "
+        f"{' or '.join(old)}")
+
+
+def check_forward_kernels(prof: dict, what: str) -> None:
+    check_kernels(prof, what, "forwards", "seq_fwd_step_kernel",
+                  ("seq_fwd_kernel", "enc_fwd_kernel"))
 
 
 def phase_times(smi: str) -> dict:
@@ -620,6 +660,23 @@ def phase_train_kernels() -> dict:
             torch.cuda.synchronize()
             compare(f"{tag} encoder bwd [dW.., db, demb]", [*kb[0], *kb[1:]],
                     [*pb[0], *pb[1:]], dtype, worst["fused_encoder_bwd"])
+            # the reverse chain alone (bf16: the tensor-core chain; f32: enc_bwd_kernel)
+            le, st = fe.build_library(), torch.cuda.current_stream().cuda_stream
+            kr = fe.launch_encoder_bwd(le, we, tok, dh, *p[1:], st, with_reverse=True)
+            pr = fe.encoder_reverse_reference(we, dh, *p[1:])
+            torch.cuda.synchronize()
+            compare(f"{tag} encoder reverse alone [dgates, dx0]", kr[3:], pr, dtype,
+                    worst["fused_encoder_bwd"])
+            if dtype == "bfloat16":  # one writer per element, fixed-order sums
+                again = fe.launch_encoder_bwd(le, we, tok, dh, *p[1:], st, with_reverse=True)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip([*kr[0], *kr[1:]],
+                                                             [*again[0], *again[1:]])):
+                    raise AssertionError(f"{tag} encoder bwd: two runs differ")
+                log(f"  {tag} encoder bwd: a second run is bitwise equal (dW, db, demb, "
+                    f"dgates, dx0)")
+                del again
+            del kr, pr
             if dtype == "bfloat16":
                 again = fe.encoder_fwd(we, tok)
                 torch.cuda.synchronize()
@@ -794,6 +851,8 @@ def phase_train_times(smi: str) -> dict:
                                   lambda: train_step(p, o, cfg, tcfg, xs, conds, gen, 0.05, 0.9),
                                   smi)
     check_forward_kernels(out["profile"], "default train step")
+    check_kernels(out["profile"], "default train step", "encoder reverse chain",
+                  "enc_step_kernel", ("enc_bwd_kernel",))
     return out
 
 
@@ -1193,13 +1252,21 @@ def phase_scaled_times(smi: str) -> dict:
                          lambda: fl.gates_bwd_reference(gates, c, dh, dc), smi, 50, 50)
     aten = torch.ops.aten
     hy, cy, ws = aten._thnn_fused_lstm_cell(gates, zero, c)
-    lf = time_ms(lambda: aten._thnn_fused_lstm_cell(gates, zero, c), 50)
-    lb = time_ms(lambda: aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, ws, False), 50)
-    log(f"  PyTorch's fused LSTM cell (aten::_thnn_fused_lstm_cell) [{Bg}, {Hg}] f32: forward "
-        f"{lf:.4f} ms, backward {lb:.4f} ms [{smi}]")
+    med = median_launch_ms({
+        "kernel fwd": lambda: fl.gates_fwd(gates, c),
+        "aten fwd": lambda: aten._thnn_fused_lstm_cell(gates, zero, c),
+        "kernel bwd": lambda: fl.gates_bwd(gates, c, dh, dc),
+        "aten bwd": lambda: aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, ws, False)},
+        GATE_SAMPLES)
+    log(f"  gate pair vs PyTorch's fused LSTM cell (aten::_thnn_fused_lstm_cell) [{Bg}, {Hg}] "
+        f"f32, median device ms of {GATE_SAMPLES} launches each, interleaved: forward kernel "
+        f"{med['kernel fwd']:.5f} / aten {med['aten fwd']:.5f}, backward kernel "
+        f"{med['kernel bwd']:.5f} / aten {med['aten bwd']:.5f} [{smi}]")
     units = Bg * Hg
-    out["lstm_gates_fwd"] = (k_ms, p_ms, lf, *bound_ms(40.0 * units, 28.0 * units, "float32"))
-    out["lstm_gates_bwd"] = (kb_ms, pb_ms, lb, *bound_ms(70.0 * units, 48.0 * units, "float32"))
+    out["lstm_gates_fwd"] = (med["kernel fwd"], p_ms, med["aten fwd"],
+                             *bound_ms(40.0 * units, 28.0 * units, "float32"))
+    out["lstm_gates_bwd"] = (med["kernel bwd"], pb_ms, med["aten bwd"],
+                             *bound_ms(70.0 * units, 48.0 * units, "float32"))
 
     # the scaled step, plain route against the fused route
     tcfg = TrainConfig(batch_size=SB)
@@ -1358,7 +1425,8 @@ def main() -> int:
             "replaces": TRAIN_REPLACES[kname], "launches": launches_train[kname],
             "max_abs_err": errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output (forward) or "
-                          f"gradient leaf (backward) at B=4096/1000, f32/bf16, teacher "
+                          f"gradient leaf (backward; the encoder's also its reverse chain's "
+                          f"dgates and dx0) at B=4096/1000, f32/bf16, teacher "
                           f"forcing on; largest max|diff|/max|plain| {errs[kname][1]:.3e} "
                           f"(tolerance 1e-4 f32, 2e-2 bf16)",
             "ms": train_times[kname][0], "plain_ms": train_times[kname][1],

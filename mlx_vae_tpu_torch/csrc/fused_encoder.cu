@@ -29,12 +29,25 @@
 //    thread block (256 threads) owns a tile of R rows for the whole time
 //    loop, as in fused_generate.cu. Shared memory holds the step's embedded
 //    input [R][E], h of every layer double-buffered and c.
-//  * Backward, reverse kernel (enc_bwd_kernel): a block owns R rows and
-//    walks t = L-1 .. 0 and the layers top down. Shared memory holds dh and
-//    dc of every layer, the cotangent from the layer above and the step's
-//    dgates [R][4H]. It writes dgates [L, n, B, 4H] and the embedding-input
-//    cotangent [L, B, E], both rounded to the compute dtype as the TPU
-//    rounds them before its products.
+//  * Backward, the reverse chain: it writes dgates [L, n, B, 4H] and the
+//    embedding-input cotangent dx0 [L, B, E], both rounded to the compute
+//    dtype as the TPU rounds them before its products.
+//    - bf16 (the tensor cores): 1 + n * L launches on one stream, the kernel
+//      boundary being the grid-wide barrier the recurrence needs.
+//      train_common.cuh's gate_kernel runs the gate step of (L-1, n-1) from
+//      dh_last; then for t = L-1 .. 0 and l = n-1 .. 0, enc_step_kernel is
+//      one card-wide wgmma GEMM dinp = dgates(t, l) W_l^T (seq_step_kernel's
+//      128 x 128 tile, wcat read as it lies) whose epilogue runs the gate
+//      step that the product unblocks: (t, l-1) from the input columns, or
+//      at the top layer (t-1, n-1) from the h columns. Each layer's running
+//      dc is an f32 [B, H] buffer and the h cotangent a layer hands to its
+//      next step another; launching top down within a step makes both
+//      cotangents of every gate step ready in one product's epilogue.
+//    - f32 (enc_bwd_kernel, CUDA-core FMA; tensor cores in f32 mean TF32):
+//      a block owns R rows and walks t = L-1 .. 0 and the layers top down.
+//      Shared memory holds dh and dc of every layer, the cotangent from the
+//      layer above and the step's dgates [R][4H]; the transposed weight
+//      streams from L2 at every step.
 //  * Backward, sums over rows (train_common.cuh): dW and db of each layer
 //    and d(embedding) are split reductions over the t*B rows with partials
 //    added in a fixed order, where the TPU kernel added into one VMEM
@@ -42,14 +55,14 @@
 //    cores (wgmma); in f32 on CUDA cores.
 //
 // What bounds it: at the default model (E=128, H=256, n=2) and B=4096, L=64,
-// bf16, the forward and the reverse kernel are ~0.48 TFLOP of products
+// bf16, the forward and the reverse chain are ~0.48 TFLOP of products
 // each, and the residual streams (h, c, gates) ~0.8 GB in bf16: the
-// operations bound both (0.49 ms at the tensor cores' bf16 rate). On the
-// CUDA cores, torch.profiler on an H100 80GB HBM3 (700 W) put the forward at
-// 28.2 ms and the reverse kernel at 49.4 ms: a row-tiled kernel streams every
-// weight from L2 at every step. The reverse kernel, which also reads its
-// dgates operand from shared memory for every FMA, is the next to move to
-// the tensor cores.
+// operations bound both (0.49 ms at the tensor cores' bf16 rate). A
+// row-tiled CUDA-core kernel streams every weight from L2 at every step to
+// serve a few rows: on an H100 80GB HBM3 (700 W) torch.profiler put such a
+// forward at 28.2 ms and such a reverse kernel at 49.9 ms. A reverse launch
+// here has 96 (layer 0) or 128 (layer 1) tiles at B = 4096, against 264
+// resident blocks: half the card.
 
 #include "train_common.cuh"
 
@@ -123,7 +136,10 @@ struct BwdArgs {
   const void* hs;        // [L, n, B, H] T (the weight-gradient pass reads it)
   const void* cs;
   const void* gs;        // [L, n, B, 4H] T
-  const void* wT;        // per layer [4H, (K_l + H)] T, back to back
+  const void* wcat;      // per layer [(K_l + H), 4H] T, back to back (bf16 reads it)
+  const void* wT;        // per layer [4H, (K_l + H)] T, back to back (f32 reads it)
+  float* dh;             // [n, B, H] zeros: the h cotangent handed down a step (bf16)
+  float* dc;             // [n, B, H] zeros: each layer's running dc (bf16)
   void* dgates;          // [L, n, B, 4H] T
   void* dx0;             // [L, B, E] T
   int B, L, E, H, n;
@@ -185,6 +201,131 @@ __global__ void __launch_bounds__(NT) enc_bwd_kernel(const BwdArgs a) {
       __syncthreads();
     }
   }
+}
+
+// bf16: one launch per (t, l), in the order (L-1, n-1), (L-1, n-2), ..., (0, 0).
+struct StepArgs {
+  const __nv_bfloat16* dg;  // [B, 4H] dgates at (t, l): the A operand
+  const __nv_bfloat16* w;   // [K_l + H, 4H] layer l's wcat: row k is column k of the product
+  __nv_bfloat16* dx;        // [B, E] dx0 at t (l = 0)
+  const float* dh_in;       // [B, H] dh of layer l - 1 from (t + 1, l - 1) (l > 0)
+  float* dh_out;            // [B, H] dh of layer l for (t - 1, l) (l < n - 1)
+  int B, Kx, N, G, H, vec;
+  int below;                // l > 0: input columns run the gate step of (t, l - 1)
+  int top;                  // l = n - 1: h columns run the gate step of (t - 1, l)
+  train::GateArgs gx;       // the gate step of (t, l - 1)
+  train::GateArgs gh;       // the gate step of (t - 1, n - 1)
+};
+
+// dinp [B, K_l + H] = dgates(t, l) [B, 4H] W_l^T on wgmma (seq_step_kernel's
+// GEMM: both operands K-major, wcat read as it lies), one 128 x 128 tile a
+// block over the first N columns (N = K_l at t = 0, whose h columns nothing
+// reads). The f32 tile goes through shared memory and the epilogue walks it
+// row by row, deciding per column (a tile may straddle K_l):
+//  * k < K_l, l > 0: the cotangent of layer l - 1's h at t; its thread runs
+//    the gate step of (t, l - 1) at unit k with dh_in + value;
+//  * k < K_l, l = 0: dx0 at t, rounded to bf16;
+//  * k = K_l + j, l = n - 1: the cotangent of the top layer's h at t - 1;
+//    nothing comes from above there, so its thread runs the gate step of
+//    (t - 1, n - 1) at unit j;
+//  * k = K_l + j, l < n - 1: stored to dh_out for the launch of (t - 1, l + 1).
+// One writer per element, no atomics.
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
+    enc_step_kernel(const StepArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  const int B = a.B, G = a.G, N = a.N;
+  const bool vec = a.vec;
+  float acc[64];
+  wg::gemm<false>(acc, ring, (G + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
+    const int q = kt * wg::BK;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = wg::chunk(u), r = idx >> 3, c = idx & 7;
+      const uint32_t off = wg::swz(r, c);
+      wg::stage8(dst + off, m0 + r < B ? a.dg + (size_t)(m0 + r) * G : nullptr, q + 8 * c, G,
+                 vec);
+      wg::stage8(dst + wg::TILE + off, n0 + r < N ? a.w + (size_t)(n0 + r) * G : nullptr,
+                 q + 8 * c, G, vec);
+    }
+  });
+  const float* tile = wg::stage_tile(acc, smem_raw, ring);
+  const int Kx = a.Kx, H = a.H;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
+    const int r = idx / wg::BN, cc = idx % wg::BN, row = m0 + r, col = n0 + cc;
+    if (row >= B || col >= N) continue;
+    const float v = tile[r * wg::EPI_PITCH + cc];
+    if (col < Kx) {
+      if (a.below) train::gate_step(a.gx, row, col, a.dh_in[(size_t)row * H + col] + v);
+      else train::st(a.dx + (size_t)row * Kx + col, v);
+    } else if (a.top) {
+      train::gate_step(a.gh, row, col - Kx, v);
+    } else {
+      a.dh_out[(size_t)row * H + (col - Kx)] = v;
+    }
+  }
+}
+
+// The bf16 reverse chain: 1 + n * L launches on one stream (the kernel
+// boundary is the grid-wide barrier). Launch (t, l) reads dh[l - 1], which
+// launch (t + 1, l - 1) wrote and launch (t, l - 1) overwrites after it.
+cudaError_t reverse_bf16(const BwdArgs& a, cudaStream_t st) {
+  using bf16_t = __nv_bfloat16;
+  const int B = a.B, L = a.L, H = a.H, E = a.E, n = a.n, G = 4 * H;
+  const bf16_t* gs = static_cast<const bf16_t*>(a.gs);
+  const bf16_t* cs = static_cast<const bf16_t*>(a.cs);
+  const bf16_t* wcat = static_cast<const bf16_t*>(a.wcat);
+  bf16_t* dgates = static_cast<bf16_t*>(a.dgates);
+  const size_t BH = (size_t)B * H;
+  // the gate step of (s, l): zero state before s = 0, no output cotangent
+  auto gate_at = [&](int s, int l) {
+    const size_t slab = ((size_t)s * n + l) * B;
+    train::GateArgs x = {};
+    x.gs = gs + slab * G;
+    x.cs = cs + slab * H;
+    x.cprev = s > 0 ? cs + (slab - (size_t)n * B) * H : nullptr;
+    x.dc_in = a.dc + l * BH;
+    x.dc = a.dc + l * BH;
+    x.dg = dgates + slab * G;
+    x.H = H;
+    return x;
+  };
+  train::gate_kernel<<<train::cdiv((long)B * H, 256), 256, 0, st>>>(gate_at(L - 1, n - 1),
+                                                                  a.dh_last, B * H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(enc_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           wg::SMEM);
+  if (e != cudaSuccess) return e;
+  size_t wend = 0;
+  for (int l = 0; l < n; ++l) wend += (size_t)((l == 0 ? E : H) + H) * G;
+  StepArgs s = {};
+  s.B = B; s.G = G; s.H = H;
+  s.vec = G % 8 == 0 && train::aligned16(a.wcat) && train::aligned16(a.dgates);
+  for (int t = L - 1; t >= 0; --t) {
+    size_t woff = wend;
+    for (int l = n - 1; l >= 0; --l) {
+      s.Kx = l == 0 ? E : H;
+      woff -= (size_t)(s.Kx + H) * G;
+      s.N = t > 0 ? s.Kx + H : s.Kx;
+      s.w = wcat + woff;
+      s.dg = dgates + ((size_t)t * n + l) * B * G;
+      s.dx = static_cast<bf16_t*>(a.dx0) + (size_t)t * B * E;
+      s.below = l > 0;
+      s.top = l == n - 1;
+      s.dh_in = l > 0 ? a.dh + (l - 1) * BH : nullptr;
+      s.dh_out = a.dh + l * BH;
+      if (l > 0) s.gx = gate_at(t, l - 1);
+      if (l == n - 1 && t > 0) s.gh = gate_at(t - 1, n - 1);
+      const dim3 grid(train::cdiv(s.N, wg::BN), train::cdiv(B, wg::BM));
+      enc_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(s);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
 }
 
 template <typename T, int RPT>
@@ -264,12 +405,16 @@ cudaError_t launch_bwd(const BwdArgs& a, int R, const int* tokens, const void* e
                        float* dW, float* db, float* demb, int V, float* scratch,
                        long scratch_elems, cudaStream_t st) {
   cudaError_t e;
-  switch (R) {
-    case 1: e = launch_bwd_kernel<T, 1>(a, st); break;
-    case 2: e = launch_bwd_kernel<T, 2>(a, st); break;
-    case 4: e = launch_bwd_kernel<T, 4>(a, st); break;
-    case 8: e = launch_bwd_kernel<T, 8>(a, st); break;
-    default: return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    e = reverse_bf16(a, st);
+  } else {
+    switch (R) {
+      case 1: e = launch_bwd_kernel<T, 1>(a, st); break;
+      case 2: e = launch_bwd_kernel<T, 2>(a, st); break;
+      case 4: e = launch_bwd_kernel<T, 4>(a, st); break;
+      case 8: e = launch_bwd_kernel<T, 8>(a, st); break;
+      default: return cudaErrorInvalidValue;
+    }
   }
   if (e != cudaSuccess) return e;
   const int B = a.B, L = a.L, H = a.H, E = a.E, n = a.n, G = 4 * H, M = B * L;
@@ -351,16 +496,24 @@ int enc_fwd_launch(const void* tokens, const void* emb, const void* wcat, const 
   return (int)launch_fwd_rpt<float>(a, s);
 }
 
-int enc_bwd_launch(const void* tokens, const void* emb, const void* wT, const void* dh_last,
-                   const void* hs, const void* cs, const void* gs, void* dgates, void* dx0,
-                   void* dW, void* db, void* demb, void* scratch, long scratch_elems, int B,
-                   int L, int V, int E, int H, int n, int bf16, int R, void* stream) {
+// wcat: every layer's [K_l + H, 4H] weight back to back, read by the bf16
+// reverse chain, with dh and dc its [n, B, H] f32 buffers (zeros on entry);
+// wT: every layer's transpose back to back, read by the f32 reverse kernel
+// (R: its rows per block).
+int enc_bwd_launch(const void* tokens, const void* emb, const void* wcat, const void* wT,
+                   const void* dh_last, const void* hs, const void* cs, const void* gs,
+                   void* dh, void* dc, void* dgates, void* dx0, void* dW, void* db, void* demb,
+                   void* scratch, long scratch_elems, int B, int L, int V, int E, int H, int n,
+                   int bf16, int R, void* stream) {
   BwdArgs a;
   a.dh_last = static_cast<const float*>(dh_last);
   a.hs = hs;
   a.cs = cs;
   a.gs = gs;
+  a.wcat = wcat;
   a.wT = wT;
+  a.dh = static_cast<float*>(dh);
+  a.dc = static_cast<float*>(dc);
   a.dgates = dgates;
   a.dx0 = dx0;
   a.B = B; a.L = L; a.E = E; a.H = H; a.n = n;

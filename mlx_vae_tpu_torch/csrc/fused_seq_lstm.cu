@@ -46,7 +46,8 @@
 // (~275 GB of L2 reads a call) on CUDA-core FMA. Here each step is one
 // card-wide GEMM, launched from the host: L + 1 launches, the kernel
 // boundary being the grid-wide barrier the recurrence needs.
-//  * seq_gate_kernel: the gate step of t = L - 1 from dhf, dcf and dhs[L-1].
+//  * train_common.cuh's gate_kernel: the gate step of t = L - 1 from dhf,
+//    dcf and dhs[L-1].
 //  * seq_step_kernel at t = L-1 .. 0: dinp_t = dgates_t [B, 4H] W^T on wgmma
 //    in 128 x 128 output tiles over [B, I + H] (wgmma.cuh), reading wcat
 //    [I + H, 4H] as it lies (K-major already: no transposed copy). The
@@ -231,42 +232,11 @@ cudaError_t launch_bwd_kernel(const BwdArgs& a, cudaStream_t st) {
 }
 
 // bf16: the reverse chain as L + 1 launches (the kernel boundary is the
-// grid-wide barrier between steps).
+// grid-wide barrier between steps): train_common.cuh's gate_kernel for the
+// gate step of t = L - 1 from dhf and dcf, then seq_step_kernel per step.
 
-// The reverse cell step of one step s, element by element.
-struct GateArgs {
-  const bf16_t* gs;     // [B, 4H] activated gates at s
-  const bf16_t* cs;     // [B, H] c at s
-  const bf16_t* cprev;  // [B, H] c at s - 1, or null: c0
-  const float* c0;      // [B, H]
-  const float* dhs;     // [B, H] output cotangent at s
-  const float* dc_in;   // [B, H] running dc (dcf at s = L - 1)
-  float* dc;            // [B, H] running dc out (dc0 after s = 0)
-  bf16_t* dg;           // [B, 4H] dgates at s
-  int H;
-};
-
-__device__ __forceinline__ void gate_step(const GateArgs& a, int b, int j, float dh) {
-  const int H = a.H;
-  const size_t G = 4 * (size_t)H, bj = (size_t)b * H + j;
-  const bf16_t* gp = a.gs + b * G + j;
-  float g4[4], d4[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) g4[q] = train::ld(gp + q * H);
-  const float cp = a.cprev != nullptr ? train::ld(a.cprev + bj) : a.c0[bj];
-  a.dc[bj] = train::gate_cot<bf16_t>(g4, train::ld(a.cs + bj), cp, dh + a.dhs[bj],
-                                     a.dc_in[bj], d4);
-  bf16_t* o = a.dg + b * G + j;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) train::st(o + q * H, d4[q]);
-}
-
-// The first launch: the gate step of t = L - 1 from dhf and dcf.
-__global__ void __launch_bounds__(256) seq_gate_kernel(const GateArgs a, const float* dhf,
-                                                      int count) {
-  const int idx = blockIdx.x * 256 + threadIdx.x;
-  if (idx < count) gate_step(a, idx / a.H, idx % a.H, dhf[idx]);
-}
+using train::GateArgs;
+using train::gate_step;
 
 struct StepArgs {
   const bf16_t* dg;     // [B, 4H] dgates at t: the A operand
@@ -391,7 +361,7 @@ cudaError_t launch_bwd_bf16(const BwdArgs& a, const GradArgs& o, cudaStream_t st
   };
   GateArgs first = gate_at(L - 1);
   first.dc_in = a.dcf;
-  seq_gate_kernel<<<train::cdiv((long)B * H, 256), 256, 0, st>>>(first, a.dhf, B * H);
+  train::gate_kernel<<<train::cdiv((long)B * H, 256), 256, 0, st>>>(first, a.dhf, B * H);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(seq_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -234,6 +234,46 @@ __device__ __forceinline__ void cell_bwd_dinp(const T* WT, const float* dg, int 
   }
 }
 
+// The bf16 reverse step of one layer at one step s, element by element: the
+// epilogue of the tensor-core reverse products (fused_seq_lstm.cu's
+// seq_step_kernel, fused_encoder.cu's enc_step_kernel) and the first launch
+// of their chains (gate_kernel).
+struct GateArgs {
+  const __nv_bfloat16* gs;     // [B, 4H] activated gates at s
+  const __nv_bfloat16* cs;     // [B, H] c at s
+  const __nv_bfloat16* cprev;  // [B, H] c at s - 1, or null: c0 (zeros if null too)
+  const float* c0;             // [B, H], or null
+  const float* dhs;            // [B, H] output cotangent at s, or null: none
+  const float* dc_in;          // [B, H] running dc
+  float* dc;                   // [B, H] running dc out (may be dc_in)
+  __nv_bfloat16* dg;           // [B, 4H] dgates at s, rounded to bf16
+  int H;
+};
+
+// Row b, unit j, with dh the h cotangent from the layers and steps after s
+// (the output cotangent dhs, where there is one, is added here).
+__device__ __forceinline__ void gate_step(const GateArgs& a, int b, int j, float dh) {
+  const int H = a.H;
+  const size_t G = 4 * (size_t)H, bj = (size_t)b * H + j;
+  const __nv_bfloat16* gp = a.gs + b * G + j;
+  float g4[4], d4[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) g4[q] = ld(gp + q * H);
+  const float cp = a.cprev != nullptr ? ld(a.cprev + bj) : (a.c0 != nullptr ? a.c0[bj] : 0.0f);
+  const float dht = a.dhs != nullptr ? dh + a.dhs[bj] : dh;
+  a.dc[bj] = gate_cot<__nv_bfloat16>(g4, ld(a.cs + bj), cp, dht, a.dc_in[bj], d4);
+  __nv_bfloat16* o = a.dg + b * G + j;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) st(o + q * H, d4[q]);
+}
+
+// The first launch of a bf16 reverse chain: the gate step of its last step
+// from the cotangent dh [B, H] (count = B * H elements).
+__global__ void __launch_bounds__(256) gate_kernel(const GateArgs a, const float* dh, int count) {
+  const int idx = blockIdx.x * 256 + threadIdx.x;
+  if (idx < count) gate_step(a, idx / a.H, idx % a.H, dh[idx]);
+}
+
 // ------------------------------------------------------- gradient sums
 
 // A(m, k) for m = t * B + b, one of three row sources:

@@ -6,23 +6,34 @@ tokens ``[B, L]`` -> the top layer's h at the last step ``[B, H]`` f32,
 through the embedding and every LSTM layer from zero state, with gradients
 for every layer and the embedding table. The kernels are in
 ``csrc/fused_encoder.cu`` (CUDA C++ for ``sm_90a``); their design and what
-bounds them are noted at the top of that file. In bf16 the forward runs the
-stack layer by layer through ``csrc/train_common.cuh``'s tensor-core step
-kernel (n * L launches a call, gathering layer 0's input rows by token), on
-gate-interleaved copies of the layers' weights that the wrapper builds per
-call (``ops/train_common.py:interleave_weight``); in f32 it is one CUDA-core
-kernel over the whole stack.
+bounds them are noted at the top of that file. The route is chosen by
+dtype before any launch:
+
+* bf16 (the tensor cores, ``wgmma``). The forward runs the stack layer by
+  layer through ``csrc/train_common.cuh``'s step kernel (n * L launches a
+  call, gathering layer 0's input rows by token), on gate-interleaved copies
+  of the layers' weights that the wrapper builds per call
+  (``ops/train_common.py:interleave_weight``). The backward's reverse chain
+  is 1 + n * L launches: a gate kernel for the top layer's last step, then
+  per (step, layer), top down, one GEMM ``dgates(t, l) W_l^T`` whose
+  epilogue runs the gate step that product unblocks
+  (:func:`encoder_reverse_step_reference` is the plain twin of one launch).
+* f32 (CUDA cores; tensor cores in f32 would mean TF32): one kernel over the
+  whole stack each way.
+
+Both then form dW, db and d(embedding) by split reductions over the rows.
 
 :func:`encoder_stack` is one ``torch.autograd.Function`` whose forward is
 :func:`encoder_fwd` and whose backward is :func:`encoder_bwd`. Each launches
-its kernel on CUDA tensors (counted in ``.launches``) and runs its plain
-version, :func:`encoder_fwd_reference` / :func:`encoder_bwd_reference`, on
-CPU tensors. The plain versions store the same residuals in the same dtype
-(h, c and ACTIVATED gates in the compute dtype; the backward's one
-cotangent is injected into the top layer at t = L-1), so the card holds each
-kernel against its plain version on identical inputs. Shapes outside
-:func:`fused_encoder_supported` raise ``NotImplementedError`` on CUDA; a
-failed build or launch raises ``RuntimeError``.
+its kernels on CUDA tensors (counted once per call in ``.launches``) and
+runs its plain version, :func:`encoder_fwd_reference` /
+:func:`encoder_bwd_reference`, on CPU tensors. The plain versions store the
+same residuals in the same dtype (h, c and ACTIVATED gates in the compute
+dtype; the backward's one cotangent is injected into the top layer at t =
+L-1), so the card holds each kernel against its plain version on identical
+inputs. Shapes outside :func:`fused_encoder_supported` raise
+``NotImplementedError`` on CUDA; a failed build or launch raises
+``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -67,7 +78,7 @@ def encoder_fwd_reference(w: StackWeights, tokens: torch.Tensor):
 
 def encoder_reverse_reference(w: StackWeights, dh_last: torch.Tensor, hs: torch.Tensor,
                               cs: torch.Tensor, gs: torch.Tensor):
-    """Plain twin of the reverse kernel: ``(dgates [L, n, B, 4H], dx0
+    """Plain twin of the reverse chain: ``(dgates [L, n, B, 4H], dx0
     [L, B, E])`` in the compute dtype."""
     cfg = w.cfg
     wdt, n, H, E = cfg.dtype, cfg.num_layers, cfg.hidden_dim, cfg.embedding_dim
@@ -95,13 +106,56 @@ def encoder_reverse_reference(w: StackWeights, dh_last: torch.Tensor, hs: torch.
     return dgates, dx0
 
 
-def encoder_bwd_reference(w: StackWeights, tokens: torch.Tensor, dh_last: torch.Tensor,
-                          hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor):
-    """Plain twin of the backward kernels: ``(dW, db, demb)`` with ``dW`` a
-    list of per-layer ``[K_l + H, 4H]``, ``db [n, 4H]``, ``demb [V, E]``,
-    all f32."""
+def encoder_reverse_gate_reference(cfg: ModelConfig, s: int, l: int, dh: torch.Tensor,
+                                   cs: torch.Tensor, gs: torch.Tensor, dgates: torch.Tensor,
+                                   dc: torch.Tensor) -> None:
+    """The bf16 chain's gate step of (step ``s``, layer ``l``) in place:
+    from the total h cotangent ``dh [B, H]`` f32 and the running ``dc[l]``
+    (``dc [n, B, H]`` f32; zero state before s = 0) it writes ``dgates[s,
+    l]`` and the new ``dc[l]``. The chain's first launch is this step at
+    ``(L-1, n-1)`` with ``dh = dh_last``."""
+    dg, dc[l] = reverse_step_reference(gs[s, l], cs[s, l], cs[s - 1, l] if s else None, dh,
+                                       dc[l], cfg.dtype)
+    dgates[s, l] = dg
+
+
+def encoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Tensor,
+                                   gs: torch.Tensor, dgates: torch.Tensor, dx0: torch.Tensor,
+                                   dh: torch.Tensor, dc: torch.Tensor) -> None:
+    """Plain twin of one ``enc_step_kernel`` launch, (step ``t``, layer
+    ``l``), in place.
+
+    ``dinp = dgates[t, l] W_l^T`` (f32 products of the rounded operands, over
+    the full 4H in the combined weight's order, so that composed in launch
+    order the steps equal :func:`encoder_reverse_reference` bit for bit),
+    then each column as the kernel's epilogue routes it: the input columns
+    ``k < K_l`` run the gate step of ``(t, l-1)`` with ``dh[l-1] + value``
+    (``l > 0``) or are ``dx0[t]`` (``l = 0``); the h columns at ``t > 0`` run
+    the gate step of ``(t-1, n-1)`` at the top layer, else go to ``dh[l]``.
+    ``dh``, ``dc``: the kernel's ``[n, B, H]`` f32 buffers, zeros before the
+    chain's first launch."""
     cfg = w.cfg
-    dgates, dx0 = encoder_reverse_reference(w, dh_last, hs, cs, gs)
+    n = cfg.num_layers
+    kx = cfg.embedding_dim if l == 0 else cfg.hidden_dim
+    dinp = dgates[t, l].float() @ w.layers[l].float().T
+    if l > 0:
+        encoder_reverse_gate_reference(cfg, t, l - 1, dh[l - 1] + dinp[:, :kx], cs, gs, dgates,
+                                       dc)
+    else:
+        dx0[t] = dinp[:, :kx]
+    if t > 0:
+        if l == n - 1:
+            encoder_reverse_gate_reference(cfg, t - 1, l, dinp[:, kx:], cs, gs, dgates, dc)
+        else:
+            dh[l] = dinp[:, kx:]
+
+
+def encoder_grads(w: StackWeights, tokens: torch.Tensor, hs: torch.Tensor,
+                  dgates: torch.Tensor, dx0: torch.Tensor):
+    """The weight-gradient sums from the reverse chain's outputs: ``(dW, db,
+    demb)`` with ``dW`` a list of per-layer ``[K_l + H, 4H]``, ``db [n,
+    4H]``, ``demb [V, E]``, all f32."""
+    cfg = w.cfg
     tok_lb = tokens.T
     dW = []
     for l in range(cfg.num_layers):
@@ -109,6 +163,13 @@ def encoder_bwd_reference(w: StackWeights, tokens: torch.Tensor, dh_last: torch.
         dW.append(sum_outer(torch.cat([x, shifted(hs[:, l], None)], dim=-1), dgates[:, l]))
     db = dgates.float().sum(dim=(0, 2))
     return dW, db, embedding_grad(dx0, tok_lb, cfg.vocab_size)
+
+
+def encoder_bwd_reference(w: StackWeights, tokens: torch.Tensor, dh_last: torch.Tensor,
+                          hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor):
+    """Plain twin of the backward kernels: :func:`encoder_grads` of
+    :func:`encoder_reverse_reference`."""
+    return encoder_grads(w, tokens, hs, *encoder_reverse_reference(w, dh_last, hs, cs, gs))
 
 
 # ------------------------------------------------------------------ kernels
@@ -155,7 +216,7 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.enc_fwd_launch.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.enc_fwd_launch.restype = i
-    lib.enc_bwd_launch.argtypes = [p] * 13 + [lg] + [i] * 8 + [p]
+    lib.enc_bwd_launch.argtypes = [p] * 16 + [lg] + [i] * 8 + [p]
     lib.enc_bwd_launch.restype = i
     lib.enc_error_string.argtypes = [i]
     lib.enc_error_string.restype = ctypes.c_char_p
@@ -210,13 +271,19 @@ def encoder_fwd(w: StackWeights, tokens: torch.Tensor):
 encoder_fwd.launches = 0
 
 
-def launch_encoder_bwd(lib, w: StackWeights, tokens, dh_last, hs, cs, gs, stream: int):
+def launch_encoder_bwd(lib, w: StackWeights, tokens, dh_last, hs, cs, gs, stream: int,
+                       with_reverse: bool = False):
     """Allocate the outputs and scratch and launch the backward kernels (no
-    device or support checks: :func:`encoder_bwd` makes them)."""
+    device or support checks: :func:`encoder_bwd` makes them). bf16 runs the
+    tensor-core reverse chain on ``wcat`` with zeroed ``[n, B, H]`` dh and
+    dc buffers; f32 the CUDA-core reverse kernel on ``wT``. Returns ``(dW,
+    db, demb)``, and with ``with_reverse`` also the chain's ``(dgates,
+    dx0)``."""
     cfg = w.cfg
     L, n, B, H = hs.shape
     E, V = cfg.embedding_dim, cfg.vocab_size
     dev, wdt = hs.device, cfg.dtype
+    bf16 = wdt == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=dev)
     dgates = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
     dx0 = torch.empty((L, B, E), dtype=wdt, device=dev)
@@ -225,19 +292,21 @@ def launch_encoder_bwd(lib, w: StackWeights, tokens, dh_last, hs, cs, gs, stream
     db = torch.empty((n, 4 * H), **f32)
     demb = torch.empty((V, E), **f32)
     scratch = torch.empty((SCRATCH_ELEMS,), **f32)
-    R = bwd_rows(_bwd_smem(cfg))
-    rc = lib.enc_bwd_launch(tokens.data_ptr(), w.emb.data_ptr(), w.wT.data_ptr(),
-                            dh_last.data_ptr(), hs.data_ptr(), cs.data_ptr(), gs.data_ptr(),
-                            dgates.data_ptr(), dx0.data_ptr(), dW_flat.data_ptr(),
-                            db.data_ptr(), demb.data_ptr(), scratch.data_ptr(),
-                            SCRATCH_ELEMS, B, L, V, E, H, n, int(wdt == torch.bfloat16), R,
+    dhc = torch.zeros((2, n, B, H), **f32) if bf16 else None  # dh, dc
+    R = 0 if bf16 else bwd_rows(_bwd_smem(cfg))
+    rc = lib.enc_bwd_launch(tokens.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(),
+                            w.wT.data_ptr(), dh_last.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                            gs.data_ptr(), dhc[0].data_ptr() if bf16 else None,
+                            dhc[1].data_ptr() if bf16 else None, dgates.data_ptr(), dx0.data_ptr(),
+                            dW_flat.data_ptr(), db.data_ptr(), demb.data_ptr(),
+                            scratch.data_ptr(), SCRATCH_ELEMS, B, L, V, E, H, n, int(bf16), R,
                             stream)
     raise_if(rc, "encoder backward", lib.enc_error_string)
     dW, off = [], 0
     for size in sizes:
         dW.append(dW_flat[off:off + size].view(size // (4 * H), 4 * H))
         off += size
-    return dW, db, demb
+    return (dW, db, demb, dgates, dx0) if with_reverse else (dW, db, demb)
 
 
 def encoder_bwd(w: StackWeights, tokens: torch.Tensor, dh_last: torch.Tensor,

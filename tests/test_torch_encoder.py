@@ -3,7 +3,9 @@
 ``encoder_apply`` (scan path, bidirectional and dropout included), the
 bounded heads, ``reparameterize``, and the fused encoder's plain path
 against ``encoder_stack_pallas`` in interpret mode (forward and every
-gradient leaf, n = 1, 2, 3, at the JAX kernel tests' shapes).
+gradient leaf, n = 1, 2, 3, at the JAX kernel tests' shapes). The bf16
+kernels' step twins (the forward's step, the backward's reverse-chain
+launch) composed in launch order equal the plain versions bit for bit.
 
 Tolerances: float32 forward values 1e-5 (the frameworks sum in different
 orders); float32 gradients 1e-4, the JAX package's own kernel-vs-autodiff
@@ -32,8 +34,8 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def _cfgs(n=2, dtype="float32", H=128, **kw):
-    kw = dict(vocab_size=24, embedding_dim=16, hidden_dim=H, latent_dim=8,
-              num_conditions=1, num_layers=n, compute_dtype=dtype, **kw)
+    kw = dict(dict(vocab_size=24, embedding_dim=16, hidden_dim=H, latent_dim=8,
+                   num_conditions=1, num_layers=n, compute_dtype=dtype), **kw)
     return JaxConfig(**kw), ModelConfig(**kw)
 
 
@@ -245,3 +247,70 @@ def test_fwd_steps_compose_to_the_encoder_reference(n, H, dtype):
         _close(got[0], jv, 1e-5)
     else:
         _scaled_close(got[0], jv, 2e-2, "h_last")
+
+
+# ---- the bf16 backward's reverse chain, launch by launch, through its plain twins ----
+
+def _reverse_by_steps(w, dh_last, cs, gs):
+    """The chain's launches in order: the gate step of (L-1, n-1) from
+    dh_last, then the step twin at (t, l) for t = L-1 .. 0, l = n-1 .. 0.
+    Returns (dgates, dx0)."""
+    cfg = w.cfg
+    L, n, B, H = cs.shape
+    dgates = torch.empty((L, n, B, 4 * H), dtype=cfg.dtype)
+    dx0 = torch.empty((L, B, cfg.embedding_dim), dtype=cfg.dtype)
+    dh, dc = torch.zeros((2, n, B, H))
+    fe.encoder_reverse_gate_reference(cfg, L - 1, n - 1, dh_last, cs, gs, dgates, dc)
+    for t in range(L - 1, -1, -1):
+        for l in range(n - 1, -1, -1):
+            fe.encoder_reverse_step_reference(w, t, l, cs, gs, dgates, dx0, dh, dc)
+    return dgates, dx0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,H,E", [(1, 32, 16), (2, 100, 20), (3, 128, 129)])
+def test_reverse_steps_compose_to_the_encoder_reference(n, H, E, dtype):
+    """The step twin composed in launch order (B = 19, H = 100 and E = 129
+    among the widths, tokens outside [0, V)) equals encoder_reverse_reference
+    bit for bit; its dW, db and demb match the VJP of
+    encoder_stack_pallas(interpret=True) within 1e-4 (f32) / 2e-2 of each
+    leaf's largest magnitude (bf16)."""
+    jcfg, tcfg = _cfgs(n, dtype, H=H, embedding_dim=E)
+    jp, npp, x, _ = _setup(jcfg, B=19, L=6, seed=n)
+    x[0, 0], x[1, 1], x[2, 5] = -1, jcfg.vocab_size, 999
+    w = tc.prepare_stack_weights(params_from_numpy(npp), tcfg, with_head=False)
+    tok = torch.from_numpy(x)
+    _, hs, cs, gs = fe.encoder_fwd_reference(w, tok)
+    dh_np = np.random.default_rng(n + 10).standard_normal((19, H)).astype(np.float32)
+    dh_last = torch.from_numpy(dh_np)
+    got = _reverse_by_steps(w, dh_last, cs, gs)
+    want = fe.encoder_reverse_reference(w, dh_last, hs, cs, gs)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    dW, db, demb = fe.encoder_grads(w, tok, hs, *got)
+    _, vjp = jax.vjp(lambda p: encoder_stack_pallas(p, jcfg, jnp.asarray(x), True), jp)
+    (jg,) = vjp(jnp.asarray(dh_np))
+    leaves = fe.layer_grads(dW, db, tcfg, E)
+    pairs = [("embedding.weight", demb, jg["embedding"]["weight"])]
+    pairs += [(f"lstm_layer_{l}.{k}", leaves[3 * l + i], jg[f"lstm_layer_{l}"][k])
+              for l in range(n) for i, k in enumerate(("Wx", "Wh", "bias"))]
+    for name, mine, ref in pairs:
+        if dtype == "float32":
+            _close(mine, ref, 1e-4)
+        else:
+            _scaled_close(mine, ref, 2e-2, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reverse_step_zero_state_is_explicit_zeros(dtype):
+    """c_prev=None (the encoder's step 0, which starts from zero state)
+    gives what an explicit zero c_prev gives, bit for bit."""
+    rng = np.random.default_rng(3)
+    B, H = 7, 12
+    gs = torch.from_numpy(rng.uniform(-1, 1, (B, 4 * H)).astype(np.float32)).to(dtype)
+    c_t = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32)).to(dtype)
+    dh, dc = (torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32)) for _ in range(2))
+    got = tc.reverse_step_reference(gs, c_t, None, dh, dc, dtype)
+    want = tc.reverse_step_reference(gs, c_t, torch.zeros((B, H), dtype=dtype), dh, dc, dtype)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)

@@ -348,3 +348,59 @@ def test_encoder_bf16_forward_is_the_sequence_step_layer_by_layer(dev, shape):
     for a, b in zip(k1, k2):
         assert torch.equal(a, b)
     assert (fe.encoder_fwd.launches, fs.seq_lstm_fwd.launches) == (before[0] + 2, before[1] + n)
+
+
+def _device_kernels(fn) -> list:
+    """Names of the kernels that ``fn`` ran on the card (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(CONFIGS)))
+def test_encoder_bf16_reverse_chain_matches_plain(dev, shape):
+    """The bf16 reverse chain alone (the gate kernel, then one tensor-core
+    product per (step, layer) with the gate step in its epilogue): dgates and
+    dx0 against encoder_reverse_reference on the same residuals, over
+    ragged batches, E from 16 to 4807 (tiles that straddle the input and h
+    columns) and H = 100; a second run repeats the first bit for bit."""
+    cfg, enc, _, tok, _, _, g = _setup(shape, "bfloat16", dev)
+    w = tc.prepare_stack_weights(enc, cfg, with_head=False)
+    _, hs, cs, gs = fe.encoder_fwd_reference(w, tok)
+    dh = torch.randn((tok.shape[0], cfg.hidden_dim), generator=g).to(dev)
+    lib = fe.build_library()
+    st = tc.stream_of(dev)
+    k1 = fe.launch_encoder_bwd(lib, w, tok, dh, hs, cs, gs, st, with_reverse=True)
+    k2 = fe.launch_encoder_bwd(lib, w, tok, dh, hs, cs, gs, st, with_reverse=True)
+    want = fe.encoder_reverse_reference(w, dh, hs, cs, gs)
+    torch.cuda.synchronize()
+    _close(k1[3:], want, "bfloat16")
+    for a, b in zip([*k1[0], *k1[1:]], [*k2[0], *k2[1:]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_backward_routes_by_dtype(dev, dtype):
+    """bf16: the reverse chain is 1 + n * L launches of hand-written
+    kernels (train::gate_kernel once, enc_step_kernel per (step, layer)) and
+    no enc_bwd_kernel; f32 still runs the CUDA-core enc_bwd_kernel, once."""
+    import re
+
+    cfg, enc, _, tok, _, _, g = _setup(2, dtype, dev)
+    w = tc.prepare_stack_weights(enc, cfg, with_head=False)
+    p = fe.encoder_fwd_reference(w, tok)
+    dh = torch.randn((tok.shape[0], cfg.hidden_dim), generator=g).to(dev)
+    names = _device_kernels(lambda: fe.encoder_bwd(w, tok, dh, *p[1:]))
+    count = {k: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
+             for k in ("gate_kernel", "enc_step_kernel", "enc_bwd_kernel")}
+    L, n = tok.shape[1], cfg.num_layers
+    want = ({"gate_kernel": 1, "enc_step_kernel": n * L, "enc_bwd_kernel": 0}
+            if dtype == "bfloat16" else
+            {"gate_kernel": 0, "enc_step_kernel": 0, "enc_bwd_kernel": 1})
+    assert count == want, names

@@ -45,8 +45,13 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    The encoder backward's reverse chain is also held alone (dgates, dx0)
    against ``encoder_reverse_reference``, in both dtypes, and in bf16 (the
    tensor-core chain) a second backward must equal the first bit for bit.
-   Teacher forcing 0.9: the fed-token rows agree on >= 97.0% and the first
-   argmax-fed step on >= 99.0% (an argmax can flip where two logits tie);
+   In bf16 the decoder forward (n*L tensor-core step launches and L
+   ``dec_head_kernel`` launches) must repeat bit for bit, and each head
+   launch alone, on the plain forward's residuals, is held against
+   ``decoder_head_step_reference`` (CE or logits within 2e-2, next tokens
+   on >= 99.0% of rows). Teacher forcing 0.9: the fed-token rows agree on
+   >= 97.0% and the first argmax-fed step on >= 99.0% (an argmax can flip
+   where two logits tie);
 7. the train slice: ``train_step`` at full width (default model, bf16,
    B=4096, L=64, fused route) takes 8 steps on a fixed synthetic batch; the
    losses stay finite, the total loss at step 8 is below step 1, and the
@@ -61,8 +66,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    against the plain route, at B=4096, L=64, bf16 (CUDA events after a
    warm-up), with tokens/s; one fused step under ``torch.profiler``:
    device time by kernel name and the device's idle share; the bf16 step must
-   show the tensor-core forward step kernel (``seq_fwd_step_kernel``) and no
-   CUDA-core forward (``seq_fwd_kernel``, ``enc_fwd_kernel``), and the
+   show the tensor-core forward step kernel (``seq_fwd_step_kernel``) and
+   the decoder's vocab head (``dec_head_kernel``) and no CUDA-core forward
+   (``seq_fwd_kernel``, ``enc_fwd_kernel``, ``dec_fwd_kernel``), and the
    encoder's tensor-core reverse step kernel (``enc_step_kernel``) and no
    ``enc_bwd_kernel``;
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
@@ -74,7 +80,8 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    rows 2t + 1 of layer-stacked arrays, bitwise equal to the dense call), the
    fused training decoder's logits specialization at the scaled model
    (H=1024, 4 layers, B=2048, L=64, f32 and bf16, teacher forcing 1.0 and
-   0.9) and the LSTM gate pair at [4096, 1024] and [2048, 4096] (f32),
+   0.9; in bf16 also phase 6's bitwise repeat and head-alone checks) and
+   the LSTM gate pair at [4096, 1024], [2048, 4096] and [4096, 256] (f32),
    each against its plain version, with phase 6's tolerances and
    agreement floors;
 10. the scaled slice: ``train_step`` at hidden 1024 / 4 layers / latent 512,
@@ -89,8 +96,10 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    sequence LSTM, against cuDNN's one-layer ``torch.nn.LSTM`` (forward;
    backward alone) and for the gate pair against PyTorch's fused LSTM cell
    (``aten::_thnn_fused_lstm_cell``: the median device time of 200 launches
-   of each, in turns, each queued behind a spin kernel so that the host's
-   launch time stays outside its events); the whole-stack kernels at the scaled
+   of each, in turns, each queued behind a 128 MB write that evicts the L2
+   and a spin kernel, so that every input comes from device memory and the
+   host's launch time stays outside its events;
+   ``mlx_vae_tpu_torch/bench_gates.py:median_ms``); the whole-stack kernels at the scaled
    shape through their ``launch_*`` functions (the route check); the
    scaled step on the fused route against the plain route, in tokens/s;
    and one scaled fused step under ``torch.profiler`` (as in phase 8, with
@@ -131,6 +140,8 @@ TRAIN_KERNELS = ("fused_encoder_fwd", "fused_encoder_bwd", "fused_train_decoder_
                  "fused_train_decoder_bwd")
 # max |kernel - plain| / max |plain| per output or gradient leaf
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# dec_head_kernel alone against its twin: the same rounded operands, f32 sums
+HEAD_TOL = 1e-4
 TRAIN_BATCHES = (4096, 1000)  # the bench batch and a ragged one
 AGREE_FIRST = 0.99  # share of first tokens that must agree, kernel vs plain
 AGREE_ROWS = 0.97   # share of whole rows that must agree
@@ -442,31 +453,6 @@ def time_ms(fn, reps: int) -> float:
 
 
 GATE_SAMPLES = 200  # launches of each call behind row 9's median
-SPIN_CYCLES = 2_000_000  # ~1 ms of device spin ahead of each timed launch
-
-
-def median_launch_ms(fns: dict, samples: int) -> dict:
-    """{name: median device ms of one call of fns[name]}, the calls taken in
-    turns ``samples`` times. Each call is bracketed by CUDA events and queued
-    behind a spin kernel (``torch.cuda._sleep``), so that the device is still
-    busy while the host enqueues it: the bracket holds the call's device time
-    and not the host's launch time."""
-    import statistics
-
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    marks = {k: [] for k in fns}
-    for _ in range(samples):
-        for k, fn in fns.items():
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda._sleep(SPIN_CYCLES)
-            start.record()
-            fn()
-            end.record()
-            marks[k].append((start, end))
-    torch.cuda.synchronize()
-    return {k: statistics.median(s.elapsed_time(e) for s, e in v) for k, v in marks.items()}
 
 
 def profile_step(what: str, fn, smi: str) -> dict:
@@ -520,8 +506,11 @@ def check_kernels(prof: dict, what: str, role: str, step: str, old: tuple) -> No
 
 
 def check_forward_kernels(prof: dict, what: str) -> None:
-    check_kernels(prof, what, "forwards", "seq_fwd_step_kernel",
-                  ("seq_fwd_kernel", "enc_fwd_kernel"))
+    """A bf16 step's forwards run on the tensor-core step kernel, and the
+    decoder's vocab projection on dec_head_kernel: no CUDA-core forward."""
+    old = ("seq_fwd_kernel", "enc_fwd_kernel", "dec_fwd_kernel")
+    check_kernels(prof, what, "forwards", "seq_fwd_step_kernel", old)
+    check_kernels(prof, what, "decoder's vocab head", "dec_head_kernel", old)
 
 
 def phase_times(smi: str) -> dict:
@@ -591,6 +580,11 @@ TRAIN_SOURCES = {
     "fused_train_decoder_fwd": "mlx_vae_tpu_torch/csrc/fused_train_decoder.cu",
     "fused_train_decoder_bwd": "mlx_vae_tpu_torch/csrc/fused_train_decoder.cu",
 }
+# the bf16 decoder forward is two kernels of csrc: the step kernel and the head
+DEC_FWD_NOTE = ("; bf16: n*L launches of train_common.cuh:seq_fwd_step_kernel and L of "
+                "fused_train_decoder.cu:dec_head_kernel, also each dec_head_kernel launch "
+                "alone against decoder_head_step_reference, each step's CE term or logits "
+                "within 1e-4, with targets outside [0, V)")
 TRAIN_REPLACES = {
     "fused_encoder_fwd": "mlx_vae_tpu/ops/pallas_encoder.py:119",
     "fused_encoder_bwd": "mlx_vae_tpu/ops/pallas_encoder.py:165",
@@ -616,9 +610,11 @@ def train_inputs(cfg, B: int, L: int, seed: int):
     return tok, cond, h0, g
 
 
-def compare(what: str, got, want, dtype: str, worst: list) -> None:
+def compare(what: str, got, want, dtype: str, worst: list, tol: float = None) -> None:
     """Hold each leaf of ``got`` against ``want``: max |diff| / max |plain|
-    within TRAIN_TOL[dtype]; ``worst`` keeps (max abs, max rel)."""
+    within ``tol`` (default TRAIN_TOL[dtype]); ``worst`` keeps (max abs, max
+    rel)."""
+    tol = TRAIN_TOL[dtype] if tol is None else tol
     line = []
     for i, (a, b) in enumerate(zip(got, want)):
         a, b = a.float(), b.float()
@@ -628,9 +624,9 @@ def compare(what: str, got, want, dtype: str, worst: list) -> None:
         rel = diff / max(b.abs().max().item(), 1e-30)
         worst[0], worst[1] = max(worst[0], diff), max(worst[1], rel)
         line.append(f"{rel:.2e}")
-        if not rel <= TRAIN_TOL[dtype]:
+        if not rel <= tol:
             raise AssertionError(f"{what}: leaf {i} differs by {diff:.3e} "
-                                 f"(rel {rel:.3e} > {TRAIN_TOL[dtype]})")
+                                 f"(rel {rel:.3e} > {tol})")
     log(f"  {what}: max|diff|/max|plain| per leaf [{', '.join(line)}]")
 
 
@@ -702,6 +698,9 @@ def phase_train_kernels() -> dict:
                                          f"under full teacher forcing")
                 compare(f"{tag} decoder fwd {spec} [out, hs, cs, gs]", (k[0], *k[2:]),
                         (p[0], *p[2:]), dtype, worst["fused_train_decoder_fwd"])
+                if dtype == "bfloat16":
+                    check_decoder_chain(wd, h0, cond, tok, tf_on, with_ce, k, p, tag,
+                                        worst["fused_train_decoder_fwd"])
                 din = (torch.randn((B,), generator=g, device="cuda") if with_ce else
                        torch.randn((B, L, cfg.vocab_size), generator=g, device="cuda") / (B * L))
                 kb = fd.decoder_bwd(wd, din, tok, p[1], h0, cond, *p[2:], with_ce)
@@ -716,15 +715,76 @@ def phase_train_kernels() -> dict:
             k = fd.decoder_fwd(wd, h0, cond, tok, tf, True)
             p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, True)
             torch.cuda.synchronize()
-            first = int(torch.nonzero(~tf)[0].item())
-            first_ok, rows_ok = agreement(k[1].T[:, first + 1:], p[1].T[:, first + 1:])
-            log(f"  {tag} decoder fwd ce, teacher forcing 0.9: fed-token rows agree "
-                f"{rows_ok:.4%}, first argmax-fed step (t={first + 1}) {first_ok:.4%}")
-            if first_ok < AGREE_FIRST or rows_ok < AGREE_ROWS:
-                raise AssertionError(f"{tag}: fed tokens agree below "
-                                     f"{AGREE_FIRST:.0%} / {AGREE_ROWS:.0%}")
+            check_fed_tokens(f"{tag} decoder fwd ce, teacher forcing 0.9", k, p, tf)
+            if dtype == "bfloat16":
+                check_decoder_chain(wd, h0, cond, tok, tf, True, k, p, tag,
+                                    worst["fused_train_decoder_fwd"])
             del k, p
     return {k: tuple(v) for k, v in worst.items()}
+
+
+def check_fed_tokens(what: str, k, p, tf) -> None:
+    """Fed tokens after the first argmax-fed step: >= AGREE_FIRST of the
+    first such step and >= AGREE_ROWS of rows agree, kernel vs plain."""
+    first = int(torch.nonzero(~tf)[0].item())
+    first_ok, rows_ok = agreement(k[1].T[:, first + 1:], p[1].T[:, first + 1:])
+    log(f"  {what}: fed-token rows agree {rows_ok:.4%}, first argmax-fed step "
+        f"(t={first + 1}) {first_ok:.4%}")
+    if first_ok < AGREE_FIRST or rows_ok < AGREE_ROWS:
+        raise AssertionError(f"{what}: fed tokens agree below "
+                             f"{AGREE_FIRST:.0%} / {AGREE_ROWS:.0%}")
+
+
+def check_decoder_chain(w, h0, cond, tok, tf, with_ce: bool, k, p, tag: str,
+                        worst: list) -> None:
+    """The bf16 decoder forward's chain: a second call equals the first
+    ``k`` bit for bit; and each step's ``dec_head_kernel`` alone, on the plain
+    forward's residuals ``p``, against ``decoder_head_step_reference`` on the
+    same inputs. Both read the same rounded operands, so each step's CE term
+    (from zero) or logits is held within HEAD_TOL; the head alone is fed
+    teacher forcing on even steps only, so that forced next tokens must equal
+    the target and argmax-fed ones agree on >= AGREE_FIRST of rows a step."""
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+
+    spec = "ce" if with_ce else "logits"
+    again = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k, again)):
+        raise AssertionError(f"{tag} decoder fwd {spec}: two runs differ")
+    del again
+    lib, st = fd.build_library(), torch.cuda.current_stream().cuda_stream
+    L = tok.shape[1]
+    tf_head = torch.arange(L, device="cuda") % 2 == 0
+    tgt = tok.clone()  # with targets outside [0, V), which add no CE term
+    for j, bad in enumerate((-1, w.cfg.vocab_size, 999)):
+        tgt[j::7, j::3] = bad
+    k_out, p_out = torch.zeros_like(p[0]), torch.zeros_like(p[0])
+    k_toks, p_toks = p[1].clone(), p[1].clone()
+    k_terms, p_terms = [], []
+    for t in range(L):
+        if with_ce:  # each step's CE term alone
+            k_out.zero_()
+            p_out.zero_()
+        fd.launch_decoder_head(lib, w, t, p[2], tgt, tf_head.to(torch.int32), k_toks, k_out,
+                               with_ce, st)
+        fd.decoder_head_step_reference(w, t, p[2], tgt, tf_head, p_toks, p_out, with_ce)
+        if with_ce:
+            k_terms.append(k_out.clone())
+            p_terms.append(p_out.clone())
+    torch.cuda.synchronize()
+    if with_ce:
+        k_out, p_out = torch.stack(k_terms), torch.stack(p_terms)
+    # toks[t + 1]: forced for even t (odd rows), argmax-fed for odd t (even rows from 2)
+    if not torch.equal(k_toks[1::2], p_toks[1::2]):
+        raise AssertionError(f"{tag} dec_head_kernel: a forced next token is not the target")
+    agree = (k_toks[2::2] == p_toks[2::2]).float().mean(dim=1).min().item()
+    log(f"  {tag} decoder fwd {spec}: a second run is bitwise equal; dec_head_kernel alone "
+        f"at all {L} steps: forced next tokens equal, argmax-fed ones agree on >= "
+        f"{agree:.4%} of rows a step")
+    compare(f"{tag} dec_head_kernel alone {spec} [out, each step]", [k_out], [p_out],
+            "bfloat16", worst, tol=HEAD_TOL)
+    if agree < AGREE_FIRST:
+        raise AssertionError(f"{tag} dec_head_kernel: next tokens agree on {agree:.4%}")
 
 
 def synthetic_batch(cfg, B: int, L: int):
@@ -995,19 +1055,19 @@ def phase_scaled_kernels() -> dict:
             raise AssertionError(f"{tag}: fed tokens differ under full teacher forcing")
         compare(f"{tag}, tf 1.0 [logits, hs, cs, gs]", (k[0], *k[2:]), (p[0], *p[2:]), dtype,
                 worst["fused_train_decoder_fwd_logits"])
+        if dtype == "bfloat16":
+            check_decoder_chain(wd, h0, cond, tok, tf_on, False, k, p, f"{tag}, tf 1.0",
+                                worst["fused_train_decoder_fwd_logits"])
         del k, p
         tf = torch.rand((SL,), generator=g, device="cuda") < 0.9
         tf[3] = False  # at least one argmax-fed step
         k = fd.decoder_fwd(wd, h0, cond, tok, tf, False)
         p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False)
         torch.cuda.synchronize()
-        first = int(torch.nonzero(~tf)[0].item())
-        first_ok, rows_ok = agreement(k[1].T[:, first + 1:], p[1].T[:, first + 1:])
-        log(f"  {tag}, tf 0.9: fed-token rows agree {rows_ok:.4%}, first argmax-fed step "
-            f"(t={first + 1}) {first_ok:.4%}")
-        if first_ok < AGREE_FIRST or rows_ok < AGREE_ROWS:
-            raise AssertionError(f"{tag}: fed tokens agree below "
-                                 f"{AGREE_FIRST:.0%} / {AGREE_ROWS:.0%}")
+        check_fed_tokens(f"{tag}, tf 0.9", k, p, tf)
+        if dtype == "bfloat16":
+            check_decoder_chain(wd, h0, cond, tok, tf, False, k, p, f"{tag}, tf 0.9",
+                                worst["fused_train_decoder_fwd_logits"])
         del k, p, wd, params
         torch.cuda.empty_cache()
     for B, Hg in ((4096, 1024), (2048, 4096), (4096, 256)):
@@ -1164,6 +1224,7 @@ def lstm_flops(B: int, L: int, widths) -> float:
 def phase_scaled_times(smi: str) -> dict:
     """{kernel: (kernel ms, plain ms, library ms, bound ms, bound by)}, the
     whole-stack kernels' times at the scaled shape, and the scaled step's."""
+    from mlx_vae_tpu_torch.bench_gates import l2_scrub, median_ms
     from mlx_vae_tpu_torch.config import TrainConfig
     from mlx_vae_tpu_torch.ops import fused_encoder as fe
     from mlx_vae_tpu_torch.ops import fused_lstm as fl
@@ -1252,14 +1313,15 @@ def phase_scaled_times(smi: str) -> dict:
                          lambda: fl.gates_bwd_reference(gates, c, dh, dc), smi, 50, 50)
     aten = torch.ops.aten
     hy, cy, ws = aten._thnn_fused_lstm_cell(gates, zero, c)
-    med = median_launch_ms({
+    med = median_ms({
         "kernel fwd": lambda: fl.gates_fwd(gates, c),
         "aten fwd": lambda: aten._thnn_fused_lstm_cell(gates, zero, c),
         "kernel bwd": lambda: fl.gates_bwd(gates, c, dh, dc),
         "aten bwd": lambda: aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, ws, False)},
-        GATE_SAMPLES)
+        GATE_SAMPLES, l2_scrub())
     log(f"  gate pair vs PyTorch's fused LSTM cell (aten::_thnn_fused_lstm_cell) [{Bg}, {Hg}] "
-        f"f32, median device ms of {GATE_SAMPLES} launches each, interleaved: forward kernel "
+        f"f32, median device ms of {GATE_SAMPLES} launches each, interleaved, each behind a "
+        f"128 MB write that evicts the L2: forward kernel "
         f"{med['kernel fwd']:.5f} / aten {med['aten fwd']:.5f}, backward kernel "
         f"{med['kernel bwd']:.5f} / aten {med['aten bwd']:.5f} [{smi}]")
     units = Bg * Hg
@@ -1427,7 +1489,8 @@ def main() -> int:
             "err_metric": f"largest |kernel - plain| over every output (forward) or "
                           f"gradient leaf (backward; the encoder's also its reverse chain's "
                           f"dgates and dx0) at B=4096/1000, f32/bf16, teacher "
-                          f"forcing on; largest max|diff|/max|plain| {errs[kname][1]:.3e} "
+                          f"forcing on{DEC_FWD_NOTE if kname == 'fused_train_decoder_fwd' else ''}"
+                          f"; largest max|diff|/max|plain| {errs[kname][1]:.3e} "
                           f"(tolerance 1e-4 f32, 2e-2 bf16)",
             "ms": train_times[kname][0], "plain_ms": train_times[kname][1],
             "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
@@ -1438,7 +1501,8 @@ def main() -> int:
             "replaces": f"mlx_vae_tpu/ops/{tpu}", "launches": launches_seq[kname],
             "max_abs_err": seq_errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output or gradient leaf "
-                          f"(phase 9); largest max|diff|/max|plain| {seq_errs[kname][1]:.3e} "
+                          f"(phase 9{DEC_FWD_NOTE if 'decoder' in kname else ''}); largest "
+                          f"max|diff|/max|plain| {seq_errs[kname][1]:.3e} "
                           f"(tolerance 1e-4 f32, 2e-2 bf16)",
             **dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), seq_times[row])),
             "timed_shape": shape}

@@ -13,13 +13,22 @@
 // mlx_vae_tpu_torch/ops/fused_lstm.py, which also builds this file with
 // nvcc and binds it through ctypes (plain C interface below).
 //
-// Design: one thread per (row, hidden unit) reads that unit's four gate
-// pre-activations (neighbouring threads, neighbouring addresses, in each of
-// the four gate slices) and c, and writes its outputs: one pass over the
-// data, nothing kept between threads. What bounds it: bytes. The forward
-// moves 28 bytes per unit for ~40 operations, the backward 48 bytes for
-// ~60, far below the ~20 operations per byte at which the card's f32 rate
-// would limit it.
+// Design: one pass over the data, nothing kept between threads. What bounds
+// both: bytes. The forward moves 28 bytes per unit for ~40 operations, the
+// backward 48 bytes for ~70, far below the ~20 operations per byte at which
+// the card's f32 rate would limit them.
+//  * Forward: one thread per (row, hidden unit) reads that unit's four gate
+//    pre-activations (neighbouring threads, neighbouring addresses, in each
+//    of the four gate slices) and c, and writes its outputs.
+//  * Backward: a 2-D grid of (row groups, unit chunks), one thread a chunk
+//    of one row, no division per element. Where H % 4 == 0 and every
+//    pointer is 16-byte aligned, a thread owns 4 consecutive units: one float4 load
+//    from each gate slice and from c, dh and dc, one float4 store to each
+//    dgates slice and to dc_prev (16 bytes a thread per access, a warp's
+//    accesses 512 contiguous bytes).
+//    Elsewhere a sibling instance owns 1 unit with scalar accesses. Loads go
+//    through the read-only path and stores are streaming (__ldg, __stcs):
+//    no byte is read twice or read back.
 
 #include "train_common.cuh"
 
@@ -41,29 +50,79 @@ __global__ void __launch_bounds__(256) gates_fwd_kernel(const float* gates, cons
   h_out[idx] = og * tanhf(cn);
 }
 
-__global__ void __launch_bounds__(256) gates_bwd_kernel(const float* gates, const float* c,
-                                                        const float* dh, const float* dc,
-                                                        float* dgates, float* dc_prev, long n,
+// U consecutive floats at p (U = 4: one 16-byte access; p 16-byte aligned).
+template <int U> struct Units;
+template <> struct Units<4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+template <> struct Units<1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { __stcs(p, v[0]); }
+};
+
+// Thread (x, y) of block (bx, by): units (by * blockDim.x + x) * U .. + U - 1
+// of row bx * blockDim.y + y.
+template <int U>
+__global__ void __launch_bounds__(256) gates_bwd_kernel(const float* __restrict__ gates,
+                                                        const float* __restrict__ c,
+                                                        const float* __restrict__ dh,
+                                                        const float* __restrict__ dc,
+                                                        float* __restrict__ dgates,
+                                                        float* __restrict__ dc_prev, int B,
                                                         int H) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const long b = idx / H;
-  const int j = (int)(idx % H);
-  const float* g = gates + b * 4 * H + j;
-  const float ig = sigm(g[0]), fg = sigm(g[H]), gg = tanhf(g[2 * H]), og = sigm(g[3 * H]);
-  const float cp = c[idx];
-  const float tc = tanhf(fg * cp + ig * gg);
-  const float d = dh[idx];
-  const float dct = dc[idx] + d * og * (1.0f - tc * tc);
-  float* o = dgates + b * 4 * H + j;
-  o[0] = dct * gg * ig * (1.0f - ig);
-  o[H] = dct * cp * fg * (1.0f - fg);
-  o[2 * H] = dct * ig * (1.0f - gg * gg);
-  o[3 * H] = d * tc * og * (1.0f - og);
-  dc_prev[idx] = dct * fg;
+  const int j = (blockIdx.y * blockDim.x + threadIdx.x) * U;
+  const int b = blockIdx.x * blockDim.y + threadIdx.y;
+  if (j >= H || b >= B) return;
+  const size_t g0 = (size_t)b * 4 * H + j, u0 = (size_t)b * H + j;
+  float gi[U], gf[U], gg[U], go[U], cp[U], d[U], dcv[U];
+  using V = Units<U>;
+  V::load(gates + g0, gi);
+  V::load(gates + g0 + H, gf);
+  V::load(gates + g0 + 2 * H, gg);
+  V::load(gates + g0 + 3 * H, go);
+  V::load(c + u0, cp);
+  V::load(dh + u0, d);
+  V::load(dc + u0, dcv);
+  float o0[U], o1[U], o2[U], o3[U], dcn[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const float ig = sigm(gi[k]), fg = sigm(gf[k]), g = tanhf(gg[k]), og = sigm(go[k]);
+    const float tc = tanhf(fg * cp[k] + ig * g);
+    const float dct = dcv[k] + d[k] * og * (1.0f - tc * tc);
+    o0[k] = dct * g * ig * (1.0f - ig);
+    o1[k] = dct * cp[k] * fg * (1.0f - fg);
+    o2[k] = dct * ig * (1.0f - g * g);
+    o3[k] = d[k] * tc * og * (1.0f - og);
+    dcn[k] = dct * fg;
+  }
+  V::store(dgates + g0, o0);
+  V::store(dgates + g0 + H, o1);
+  V::store(dgates + g0 + 2 * H, o2);
+  V::store(dgates + g0 + 3 * H, o3);
+  V::store(dc_prev + u0, dcn);
 }
 
 inline unsigned blocks(long n) { return (unsigned)((n + 255) / 256); }
+
+// A block of 256 threads: a row's chunks along x (a multiple of 32), rows
+// along y; the grid's x walks the row groups, its y the chunk blocks. With
+// every input read from device memory this ran as fast as the row-loop
+// grids that python -m mlx_vae_tpu_torch.bench_gates times beside it.
+template <int U>
+cudaError_t launch_bwd(const float* gates, const float* c, const float* dh, const float* dc,
+                       float* dgates, float* dc_prev, int B, int H, cudaStream_t st) {
+  const int chunks = (H + U - 1) / U;
+  const int tx = std::min(256, (chunks + 31) / 32 * 32), ty = 256 / tx;
+  const dim3 grid((B + ty - 1) / ty, (chunks + tx - 1) / tx);
+  gates_bwd_kernel<U><<<grid, dim3(tx, ty), 0, st>>>(gates, c, dh, dc, dgates, dc_prev, B, H);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -83,12 +142,18 @@ int gates_fwd_launch(const void* gates, const void* c, void* h_out, void* c_out,
 int gates_bwd_launch(const void* gates, const void* c, const void* dh, const void* dc,
                      void* dgates, void* dc_prev, int B, int H, void* stream) {
   if (B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  const long n = (long)B * H;
-  gates_bwd_kernel<<<blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gates), static_cast<const float*>(c),
-      static_cast<const float*>(dh), static_cast<const float*>(dc),
-      static_cast<float*>(dgates), static_cast<float*>(dc_prev), n, H);
-  return (int)cudaGetLastError();
+  const float* g = static_cast<const float*>(gates);
+  const float* cc = static_cast<const float*>(c);
+  const float* d = static_cast<const float*>(dh);
+  const float* dcc = static_cast<const float*>(dc);
+  float* dg = static_cast<float*>(dgates);
+  float* dcp = static_cast<float*>(dc_prev);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using train::aligned16;
+  const bool vec = H % 4 == 0 && aligned16(g) && aligned16(cc) && aligned16(d) &&
+                   aligned16(dcc) && aligned16(dg) && aligned16(dcp);
+  return (int)(vec ? launch_bwd<4>(g, cc, d, dcc, dg, dcp, B, H, s)
+                   : launch_bwd<1>(g, cc, d, dcc, dg, dcp, B, H, s));
 }
 
 const char* gates_error_string(int code) {

@@ -3,10 +3,11 @@
 // cross-entropy.
 //
 // Replaces the TPU kernels of mlx_vae_tpu/ops/pallas_train_decoder.py:
-//   dec_fwd_kernel  <- _fwd_kernel (reached through _run_fwd, from
+//   dec_fwd_bf16_launch, dec_fwd_f32_launch
+//                   <- _fwd_kernel (reached through _run_fwd, from
 //                      decoder_train_ce_pallas and decoder_train_pallas)
-//                      and, in its logits specialization, _fwd_kernel_blk
-//                      (reached through decoder_fwd_blk, the forward of
+//                      and, with logits out, _fwd_kernel_blk (reached
+//                      through decoder_fwd_blk, the forward of
 //                      ops/decoder_cv.py:decoder_train_cvp; its gate
 //                      blocking only worked around a TPU compiler limit)
 //   dec_bwd_launch  <- _bwd_kernel (reached through _run_bwd)
@@ -26,8 +27,22 @@
 // mlx_vae_tpu_torch/ops/fused_train_decoder.py, which also builds this
 // file with nvcc and binds it through ctypes (plain C interface below).
 //
-// Design (simple and right first; the recurrent kernels are CUDA-core FMA):
-//  * Forward: one block (256 threads) owns R rows for all L steps, as in
+// Design:
+//  * Forward in bf16 (the tensor cores): step-major, because step t + 1's
+//    layer-0 input is step t's argmax. Per call, a set-up kernel writes the
+//    start token and zeroes the CE sums; then for t = 0 .. L-1, one launch
+//    of train_common.cuh's seq_fwd_step_kernel per layer (a card-wide wgmma
+//    GEMM [x, cond, h_{t-1}] W' with the cell in its epilogue; layer 0
+//    gathers its embedding rows by the fed token and reads the f32
+//    conditions as a third operand segment, layer l > 0 reads the layer
+//    below's stored h; h_{-1} is the f32 h_init, each layer's c runs in an
+//    f32 [n, B, H] buffer), then one dec_head_kernel: the vocab projection
+//    (a wgmma GEMM over K = H, one 128-row tile a block looping over the
+//    vocab's 128-wide column tiles), with the CE or the logits, the argmax
+//    and the next token in its epilogue. n * L + L launches a call, the
+//    kernel boundary being the grid-wide barrier the recurrence needs.
+//  * Forward in f32 (dec_fwd_kernel, CUDA-core FMA; tensor cores in f32
+//    mean TF32): one block (256 threads) owns R rows for all L steps, as in
 //    fused_generate.cu: step input [R][E+C], h of every layer
 //    double-buffered, c, the token and the CE sum in shared memory; one warp
 //    per row does the vocab projection, the CE and the argmax over the V
@@ -47,12 +62,14 @@
 //    d(fc_out bias)); in f32 on CUDA cores.
 //
 // What bounds it: at the default model (E=128, C=1, H=256, n=2, V=80) and
-// B=4096, L=64, bf16, torch.profiler on an H100 80GB HBM3 (700 W) put the
-// forward at 31.1 ms, the reverse kernel at 57.6 ms and the decoder's
-// weight-gradient passes, then on CUDA cores, at ~51 ms (~9.4 TFLOP/s). The
-// forward and the reverse kernel are CUDA-core FMA (~0.49 TFLOP each) and
-// stream every weight from L2 at every step. Tensor cores for those two are
-// the next step.
+// B=4096, L=64, bf16, the forward is ~0.51 TFLOP of products against ~0.8
+// GB of residual stores, so the operations bound it (0.5 ms at the tensor
+// cores' bf16 rate); at hidden 1024 / 4 layers (B=2048) ~7.9 TFLOP. A
+// row-tiled CUDA-core forward streams every weight from L2 (or, past 50 MB
+// of weights, from device memory) at every step to serve a few rows; each
+// launch here touches one layer's weights. The reverse kernel is still
+// CUDA-core FMA: on an H100 80GB HBM3 (700 W) torch.profiler put it at
+// 56.7 ms of the default step.
 
 #include "train_common.cuh"
 
@@ -67,17 +84,40 @@ struct FwdArgs {
   const float* cond;   // [B, C]
   const float* h_init; // [B, H]
   const void* emb;     // [V, E] T
-  const void* wcat;    // per layer [(K_l + H), 4H] T, back to back (K_0 = E + C)
+  const void* wcat;    // f32 route: per layer [(K_l + H), 4H], back to back (K_0 = E + C)
   const float* bias;   // [n, 4H]
-  const void* wout;    // [H, V] T
+  const void* wout;    // f32 route: [H, V]
   const float* bout;   // [V]
   float* out;          // with_ce: ce [B]; else logits [B, L, V]
   int* toks;           // [L, B] fed tokens
   void* hs;            // [L, n, B, H] T
   void* cs;
   void* gs;            // [L, n, B, 4H] T
-  int B, L, V, E, C, H, n, R, TJ, TR, with_ce, start_token;
+  int B, L, V, E, C, H, n, R, TJ, TR, with_ce, start_token;  // R, TJ, TR: f32 route
 };
+
+// The arguments both routes read.
+FwdArgs fwd_args(const void* targets, const void* tf, const void* cond, const void* h_init,
+                 const void* emb, const void* bias, const void* bout, void* out, void* toks,
+                 void* hs, void* cs, void* gs, int B, int L, int V, int E, int C, int H, int n,
+                 int with_ce, int start_token) {
+  FwdArgs a = {};
+  a.targets = static_cast<const int*>(targets);
+  a.tf = static_cast<const int*>(tf);
+  a.cond = static_cast<const float*>(cond);
+  a.h_init = static_cast<const float*>(h_init);
+  a.emb = emb;
+  a.bias = static_cast<const float*>(bias);
+  a.bout = static_cast<const float*>(bout);
+  a.out = static_cast<float*>(out);
+  a.toks = static_cast<int*>(toks);
+  a.hs = hs;
+  a.cs = cs;
+  a.gs = gs;
+  a.B = B; a.L = L; a.V = V; a.E = E; a.C = C; a.H = H; a.n = n;
+  a.with_ce = with_ce; a.start_token = start_token;
+  return a;
+}
 
 template <typename T, int RPT, int VPL>
 __global__ void __launch_bounds__(NT) dec_fwd_kernel(const FwdArgs a) {
@@ -391,6 +431,227 @@ cudaError_t launch_fwd_vpl(const FwdArgs& a, cudaStream_t st) {
   return a.V <= 128 ? launch_fwd_rpt<T, 4>(a, st) : launch_fwd_rpt<T, 16>(a, st);
 }
 
+// ------------------------------------------------ bf16 forward on the tensor cores
+
+// Step t's vocab head: logits = h_top(t) [B, H] (bf16, hs row t * n + n - 1)
+// @ wout + bout on wgmma, B operand woutT [V, H] (K-major as it lies; rows
+// >= V read zeros). A block owns 128 rows and loops over the vocab's
+// 128-wide column tiles; a warp walks 16 rows of each staged f32 tile, a
+// lane 4 columns, and keeps each row's running max, sum of exponentials,
+// argmax (ties to the lowest index) and target logit in shared memory, so
+// that after the last tile it holds the whole vocabulary of its rows. The
+// rows' targets are read into shared memory before the first product, so
+// that no row of the epilogue waits on device memory.
+struct HeadArgs {
+  const __nv_bfloat16* h;      // [B, H]
+  const __nv_bfloat16* woutT;  // [V, H]
+  const float* bout;           // [V]
+  const int* targets;          // [B, L]
+  const int* tf;               // [L] 0/1
+  float* out;                  // with_ce: ce [B], added to; else logits [B, L, V]
+  int* toks;                   // [L, B]: row t + 1 is written where t + 1 < L
+  int B, L, V, H, t, with_ce, vec;
+};
+
+constexpr int HEAD_ROWS = wg::BM / NW;              // rows a warp walks in a tile
+constexpr int HEAD_STATE = 5 * wg::BM * 4;          // bytes of the per-row state
+constexpr int HEAD_SMEM = HEAD_STATE + wg::SMEM;
+
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM) dec_head_kernel(const HeadArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  float* run_max = reinterpret_cast<float*>(smem_raw);  // [BM] each
+  float* run_sum = run_max + wg::BM;
+  float* run_tl = run_sum + wg::BM;  // the target's logit, 0 where none (yet)
+  int* run_arg = reinterpret_cast<int*>(run_tl + wg::BM);
+  int* target = run_arg + wg::BM;
+  const uint32_t ring = (wg::smem_u32(smem_raw + HEAD_STATE) + 1023u) & ~1023u;
+  const int m0 = blockIdx.x * wg::BM, B = a.B, H = a.H, V = a.V, L = a.L, t = a.t;
+  const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x < wg::BM) {  // visible to the epilogue after gemm()'s barriers
+    const int row = m0 + threadIdx.x;
+    target[threadIdx.x] = row < B ? a.targets[(size_t)row * L + t] : -1;
+    run_tl[threadIdx.x] = 0.0f;
+  }
+  const bool forced = a.tf[t] != 0;
+  for (int n0 = 0; n0 < V; n0 += wg::BN) {
+    float acc[64];
+    wg::gemm<false>(acc, ring, (H + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
+      const int k = kt * wg::BK + 8 * c;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = r0 + 32 * u;
+        const uint32_t off = wg::swz(r, c);
+        wg::stage8(dst + off, m0 + r < B ? a.h + (size_t)(m0 + r) * H : nullptr, k, H, a.vec);
+        wg::stage8(dst + wg::TILE + off, n0 + r < V ? a.woutT + (size_t)(n0 + r) * H : nullptr,
+                   k, H, a.vec);
+      }
+    });
+    float bias[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = n0 + lane + 32 * q;
+      bias[q] = v < V ? a.bout[v] : 0.0f;
+    }
+    const float* tile = wg::stage_tile(acc, smem_raw, ring);
+    const bool last = n0 + wg::BN >= V;
+    for (int i = 0; i < HEAD_ROWS; ++i) {
+      const int r = warp * HEAD_ROWS + i, row = m0 + r;
+      if (row >= B) break;
+      float x[4], best = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = n0 + lane + 32 * q;
+        x[q] = v < V ? tile[r * wg::EPI_PITCH + lane + 32 * q] + bias[q] : -INFINITY;
+        if (!a.with_ce && v < V) a.out[((size_t)row * L + t) * V + v] = x[q];
+        best = fmaxf(best, x[q]);
+        if (v < V && v == target[r]) run_tl[r] = x[q];
+      }
+      best = train::warp_max(best);
+      // the lowest column holding the max: the first lane of the first q
+      int besti = 0;
+#pragma unroll
+      for (int q = 3; q >= 0; --q) {
+        const unsigned hit = __ballot_sync(0xffffffffu, x[q] == best);
+        if (hit) besti = n0 + 32 * q + __ffs(hit) - 1;
+      }
+      float e = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) e += x[q] > -INFINITY ? expf(x[q] - best) : 0.0f;
+      e = train::warp_sum(e);
+      __syncwarp();  // the target's lane wrote run_tl[r]
+      if (lane == 0) {
+        if (n0 == 0) {
+          run_max[r] = best; run_sum[r] = e; run_arg[r] = besti;
+        } else {
+          const float m = run_max[r], nm = fmaxf(m, best);
+          run_sum[r] = run_sum[r] * expf(m - nm) + e * expf(best - nm);
+          if (best > m) run_arg[r] = besti;
+          run_max[r] = nm;
+        }
+        if (last) {
+          if (a.with_ce) a.out[row] += (run_max[r] + logf(run_sum[r])) - run_tl[r];
+          if (t + 1 < L) a.toks[(size_t)(t + 1) * B + row] = forced ? target[r] : run_arg[r];
+        }
+      }
+    }
+    __syncthreads();  // the next column tile's copies reuse the ring
+  }
+}
+
+// The set-up of a bf16 forward: the start token in row 0 of toks and, with
+// CE, zero sums.
+__global__ void __launch_bounds__(256) dec_init_kernel(int* toks, int start_token, float* ce,
+                                                      int B) {
+  const int b = blockIdx.x * 256 + threadIdx.x;
+  if (b >= B) return;
+  toks[b] = start_token;
+  if (ce != nullptr) ce[b] = 0.0f;
+}
+
+HeadArgs head_args(const void* woutT, const float* bout, const int* targets, const int* tf,
+                   float* out, int* toks, int B, int L, int V, int H, int with_ce) {
+  HeadArgs h = {};
+  h.woutT = static_cast<const __nv_bfloat16*>(woutT);
+  h.bout = bout;
+  h.targets = targets;
+  h.tf = tf;
+  h.out = out;
+  h.toks = toks;
+  h.B = B; h.L = L; h.V = V; h.H = H; h.with_ce = with_ce;
+  return h;
+}
+
+cudaError_t launch_head(HeadArgs h, const __nv_bfloat16* htop, int t, cudaStream_t st) {
+  h.h = htop;
+  h.t = t;
+  h.vec = h.H % 8 == 0 && train::aligned16(htop) && train::aligned16(h.woutT);
+  dec_head_kernel<<<train::cdiv(h.B, wg::BM), wg::NTH, HEAD_SMEM, st>>>(h);
+  return cudaGetLastError();
+}
+
+// n * L step launches and L head launches, step-major (t outer, l inner),
+// after one set-up launch. wt: every layer's interleaved weight back to back
+// (layer 0 with the conditions' segment), woutT: the head's [V, H], cbuf:
+// [n, B, H] f32, each layer's running c (c_{-1} = 0 is read as a null c_in,
+// so it needs no zeroing).
+cudaError_t launch_fwd_bf16(const FwdArgs& a, const __nv_bfloat16* wt,
+                            const __nv_bfloat16* woutT, float* cbuf, cudaStream_t st) {
+  using bf16_t = __nv_bfloat16;
+  const int B = a.B, L = a.L, H = a.H, n = a.n, E = a.E, C = a.C;
+  const size_t BH = (size_t)B * H;
+  bf16_t* hs = static_cast<bf16_t*>(a.hs);
+  bf16_t* cs = static_cast<bf16_t*>(a.cs);
+  bf16_t* gs = static_cast<bf16_t*>(a.gs);
+  dec_init_kernel<<<train::cdiv(B, 256), 256, 0, st>>>(a.toks, a.start_token,
+                                                      a.with_ce ? a.out : nullptr, B);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(train::seq_fwd_step_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dec_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           HEAD_SMEM);
+  if (e != cudaSuccess) return e;
+  // each layer's fixed arguments
+  train::FwdStepArgs ls[8];
+  size_t woff = 0;
+  for (int l = 0; l < n; ++l) {
+    train::FwdStepArgs& s = ls[l];
+    s = {};
+    s.I = l == 0 ? E : H;
+    if (l == 0) {  // the fed token's embedding row, then the conditions
+      s.x = static_cast<const bf16_t*>(a.emb);
+      s.tok_sb = 1;
+      s.V = a.V;
+      s.cond = a.cond;
+      s.C = C;
+      s.Cxp = train::round_up(C, wg::BK);
+      s.vec_c = C % 4 == 0 && train::aligned16(a.cond);
+      s.vec_x = E % 8 == 0 && train::aligned16(a.emb);
+    } else {
+      s.vec_x = H % 8 == 0 && train::aligned16(hs);
+    }
+    s.Ixp = train::fwd_ixp(s.I, s.C);
+    s.Kp = train::fwd_kp(s.I, H, s.C);
+    s.w = wt + woff;
+    s.bias = a.bias + (size_t)l * 4 * H;
+    s.c_out = cbuf + l * BH;
+    s.B = B; s.H = H;
+    woff += (size_t)train::fwd_np(H) * s.Kp;
+  }
+  const HeadArgs head = head_args(woutT, a.bout, a.targets, a.tf, a.out, a.toks, B, L, a.V, H,
+                                  a.with_ce);
+  const dim3 grid(train::fwd_np(H) / wg::BN, train::cdiv(B, wg::BM));
+  for (int t = 0; t < L; ++t) {
+    for (int l = 0; l < n; ++l) {
+      train::FwdStepArgs& s = ls[l];
+      const size_t slab = (size_t)t * n + l;  // residual row of (t, l)
+      if (l == 0) s.tok = a.toks + (size_t)t * B;
+      else s.x = hs + (slab - 1) * BH;
+      s.h_f32 = t == 0;
+      if (t == 0) {
+        s.hprev = a.h_init;
+        s.vec_h = H % 4 == 0 && train::aligned16(a.h_init);
+        s.c_in = nullptr;
+      } else {
+        s.hprev = hs + (slab - n) * BH;
+        s.vec_h = H % 8 == 0 && train::aligned16(hs);
+        s.c_in = cbuf + l * BH;
+      }
+      s.hs = hs + slab * BH;
+      s.cs = cs + slab * BH;
+      s.gs = gs + slab * 4 * BH;
+      train::seq_fwd_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(s);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+    e = launch_head(head, hs + ((size_t)t * n + n - 1) * BH, t, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int R, int VPL>
 cudaError_t launch_bwd_kernel(const BwdArgs& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)2 * a.n * R * a.H + (size_t)R * a.H +
@@ -512,32 +773,55 @@ cudaError_t launch_bwd(const BwdArgs& a, int R, const GradOut& o, cudaStream_t s
 extern "C" {
 
 // Each returns a cudaError_t as int: 0 when every launch was accepted.
-int dec_fwd_launch(const void* targets, const void* tf, const void* cond, const void* h_init,
-                   const void* emb, const void* wcat, const void* bias, const void* wout,
-                   const void* bout, void* out, void* toks, void* hs, void* cs, void* gs, int B,
-                   int L, int V, int E, int C, int H, int n, int bf16, int R, int TJ, int TR,
-                   int with_ce, int start_token, void* stream) {
-  FwdArgs a;
-  a.targets = static_cast<const int*>(targets);
-  a.tf = static_cast<const int*>(tf);
-  a.cond = static_cast<const float*>(cond);
-  a.h_init = static_cast<const float*>(h_init);
-  a.emb = emb;
-  a.wcat = wcat;
-  a.bias = static_cast<const float*>(bias);
-  a.wout = wout;
-  a.bout = static_cast<const float*>(bout);
-  a.out = static_cast<float*>(out);
-  a.toks = static_cast<int*>(toks);
-  a.hs = hs;
-  a.cs = cs;
-  a.gs = gs;
-  a.B = B; a.L = L; a.V = V; a.E = E; a.C = C; a.H = H; a.n = n;
-  a.R = R; a.TJ = TJ; a.TR = TR; a.with_ce = with_ce; a.start_token = start_token;
-  if (B < 1 || L < 1 || V < 1 || V > 512 || TR < 1 || R % TR != 0)
+// The forward has one entry point a route. f32: wcat, every layer's
+// [K_l + H, 4H] weight back to back, and wout [H, V]; R, TJ, TR the
+// kernel's tile. bf16: wt, every layer's interleaved copy back to back,
+// [fwd_np(H), fwd_kp(K_l, H, C_l)] each (C_0 = C, else 0;
+// ops/train_common.py:interleave_weight), woutT [V, H], and cbuf [n, B, H]
+// f32 the layers' running c.
+int dec_fwd_f32_launch(const void* targets, const void* tf, const void* cond,
+                       const void* h_init, const void* emb, const void* wcat, const void* bias,
+                       const void* wout, const void* bout, void* out, void* toks, void* hs,
+                       void* cs, void* gs, int B, int L, int V, int E, int C, int H, int n, int R,
+                       int TJ, int TR, int with_ce, int start_token, void* stream) {
+  if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8 || TR < 1 || R % TR != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_fwd_vpl<__nv_bfloat16>(a, s) : launch_fwd_vpl<float>(a, s));
+  FwdArgs a = fwd_args(targets, tf, cond, h_init, emb, bias, bout, out, toks, hs, cs, gs, B, L,
+                       V, E, C, H, n, with_ce, start_token);
+  a.wcat = wcat;
+  a.wout = wout;
+  a.R = R; a.TJ = TJ; a.TR = TR;
+  return (int)launch_fwd_vpl<float>(a, static_cast<cudaStream_t>(stream));
+}
+
+int dec_fwd_bf16_launch(const void* targets, const void* tf, const void* cond,
+                        const void* h_init, const void* emb, const void* wt, const void* bias,
+                        const void* woutT, const void* bout, void* out, void* toks, void* hs,
+                        void* cs, void* gs, void* cbuf, int B, int L, int V, int E, int C, int H,
+                        int n, int with_ce, int start_token, void* stream) {
+  if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8) return (int)cudaErrorInvalidValue;
+  const FwdArgs a = fwd_args(targets, tf, cond, h_init, emb, bias, bout, out, toks, hs, cs, gs,
+                             B, L, V, E, C, H, n, with_ce, start_token);
+  return (int)launch_fwd_bf16(a, static_cast<const __nv_bfloat16*>(wt),
+                              static_cast<const __nv_bfloat16*>(woutT),
+                              static_cast<float*>(cbuf), static_cast<cudaStream_t>(stream));
+}
+
+// One dec_head_kernel launch, step t of a bf16 forward, alone: htop [B, H]
+// the top layer's h at t (a check of the kernel against its plain twin).
+int dec_head_launch(const void* htop, const void* woutT, const void* bout, const void* targets,
+                    const void* tf, void* out, void* toks, int B, int L, int V, int H, int t,
+                    int with_ce, void* stream) {
+  if (B < 1 || L < 1 || V < 1 || V > 512 || t < 0 || t >= L) return (int)cudaErrorInvalidValue;
+  const HeadArgs h = head_args(woutT, static_cast<const float*>(bout),
+                               static_cast<const int*>(targets), static_cast<const int*>(tf),
+                               static_cast<float*>(out), static_cast<int*>(toks), B, L, V, H,
+                               with_ce);
+  cudaError_t e = cudaFuncSetAttribute(dec_head_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_head(h, static_cast<const __nv_bfloat16*>(htop), t,
+                          static_cast<cudaStream_t>(stream));
 }
 
 int dec_bwd_launch(const void* din, const void* targets, const void* toks, const void* hs,

@@ -588,12 +588,14 @@ cudaError_t demb(const T* dx, const int* tok, long tok_st, long tok_sb, int B, i
 // card-wide GEMM  gates_t [B, 4H] = A_t [B, Kp] W' [Kp, Np]  on wgmma
 // (wg::gemm: 128 x 128 tiles, 3-stage ring, two blocks an SM) with the cell
 // in its epilogue.
-//  * A_t's reduction columns come from two sources: k < I from the step's
-//    input row (a dense row, or the embedding row of the row's token, zeros
-//    for a token outside [0, V), as train_common.py:embed_rows), Ixp + j from
-//    h_{t-1}: the bf16 h the previous launch stored (the TPU kernel's
+//  * A_t's reduction columns come from up to three sources: k < I from the
+//    step's input row (a dense row, or the embedding row of the row's token,
+//    zeros for a token outside [0, V), as train_common.py:embed_rows);
+//    optionally Ix + k for k < C from the row's f32 conditions rounded to
+//    nearest even (the decoder's layer 0: Ix = I rounded up to BK); Ixp + j
+//    from h_{t-1}: the bf16 h the previous launch stored (the TPU kernel's
 //    h_scr.astype(x.dtype)), at t = 0 the f32 h0 rounded to nearest even
-//    (zeros where h0 is null). Ixp = I rounded up to BK, so that every
+//    (zeros where h0 is null). Ixp = Ix + C rounded up to BK, so that every
 //    64-deep stage reads from one source; the columns between are zeros.
 //  * W' is the wrapper's gate-interleaved, K-major copy of the layer's
 //    weight (ops/train_common.py:interleave_weight): row n = 128 T + 32 q + j
@@ -613,8 +615,9 @@ cudaError_t demb(const T* dx, const int* tok, long tok_st, long tok_sb, int B, i
 // bound it (2.2 ms at the tensor cores' bf16 rate).
 
 inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
-inline int fwd_ixp(int I) { return round_up(I, wg::BK); }
-inline int fwd_kp(int I, int H) { return fwd_ixp(I) + round_up(H, wg::BK); }
+// where the h columns start: after the input's and the conditions' columns
+inline int fwd_ixp(int I, int C = 0) { return round_up(I, wg::BK) + round_up(C, wg::BK); }
+inline int fwd_kp(int I, int H, int C = 0) { return fwd_ixp(I, C) + round_up(H, wg::BK); }
 inline int fwd_np(int H) { return cdiv(H, 32) * wg::BN; }
 
 struct FwdStepArgs {
@@ -622,6 +625,8 @@ struct FwdStepArgs {
   const int* tok;          // the token of row b at tok[b * tok_sb], or null (dense)
   long tok_sb;
   int V;
+  const float* cond;       // [B, C] f32 conditions, columns Ixp - Cxp + k (Cxp = 0: none)
+  int C, Cxp, vec_c;
   const void* hprev;       // [B, H] h_{t-1}: bf16, or f32 where h_f32 (h0); null: zeros
   const float* c_in;       // [B, H] c_{t-1}, or null: zeros
   float* c_out;            // [B, H] c_t (may be c_in)
@@ -664,6 +669,7 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
                                                    (size_t)row * H);
     }
   }
+  const int Ix = Ixp - a.Cxp;  // where the conditions' columns start
   float acc[64];
   wg::gemm<false>(acc, ring, Kp / wg::BK, [&](uint32_t dst, int kt) {
     const int k0 = kt * wg::BK;
@@ -671,8 +677,11 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
     for (int u = 0; u < 4; ++u) {
       const int r = r0 + 32 * u;
       const uint32_t off = wg::swz(r, c);
-      if (k0 < Ixp)
+      if (k0 < Ix)
         wg::stage8(dst + off, xr[u], k0 + 8 * c, I, a.vec_x);
+      else if (k0 < Ixp)  // one or a few stages: the row pointer is formed here
+        wg::stage8(dst + off, m0 + r < B ? a.cond + (size_t)(m0 + r) * a.C : nullptr,
+                   k0 - Ix + 8 * c, a.C, a.vec_c);
       else if (a.h_f32)
         wg::stage8(dst + off, static_cast<const float*>(hr[u]), k0 - Ixp + 8 * c, H, a.vec_h);
       else

@@ -14,9 +14,14 @@ and what bounds them are noted at the top of that file.
 
 Both are one ``torch.autograd.Function`` whose forward is
 :func:`decoder_fwd` and whose backward is :func:`decoder_bwd`. Each of those
-launches its kernel on CUDA tensors (counted in ``.launches``) and runs its
-plain version, :func:`decoder_fwd_reference` / :func:`decoder_bwd_reference`,
-on CPU tensors. The plain versions store the same residuals in the same
+launches its kernels on CUDA tensors (counted once per call in
+``.launches``) and runs its plain version, :func:`decoder_fwd_reference` /
+:func:`decoder_bwd_reference`, on CPU tensors. The forward's route is chosen
+by dtype before any launch: in bf16 it is n * L launches of
+``csrc/train_common.cuh``'s tensor-core step kernel and L launches of the
+vocab head ``dec_head_kernel`` (:func:`decoder_fwd_steps_reference` is the
+plain twin launch by launch, :func:`decoder_head_step_reference` of one head
+launch); in f32 one CUDA-core kernel. The plain versions store the same residuals in the same
 dtype (h, c and ACTIVATED gates in the compute dtype) and the plain backward
 computes from them what the kernel's backward computes, so the card can hold
 each kernel against its plain version on identical inputs. Shapes outside
@@ -43,54 +48,103 @@ from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
     MAX_SMEM, MAX_V, SCRATCH_ELEMS, StackWeights, bwd_rows, cell_step_reference, check,
-    embed_rows, embedding_grad, fwd_tile, layer_grads, layer_leaves, prepare_stack_weights,
-    raise_if, rebuild_params, require_cuda, reverse_step_reference, scratch_fits, shifted,
-    stream_of, sum_outer)
+    embed_rows, embedding_grad, fwd_tile, interleave_weight, layer_grads, layer_leaves,
+    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_step_reference,
+    scratch_fits, seq_fwd_step_reference, shifted, stream_of, sum_outer)
 
 
 # ----------------------------------------------------------- plain version
 
+def _fwd_outputs(cfg: ModelConfig, B: int, L: int, dev, with_ce: bool):
+    """``(out, toks, hs, cs, gs)`` of a forward, with ``toks[0]`` the start
+    token and ``out`` zeros."""
+    n, H = cfg.num_layers, cfg.hidden_dim
+    hs = torch.empty((L, n, B, H), dtype=cfg.dtype, device=dev)
+    gs = torch.empty((L, n, B, 4 * H), dtype=cfg.dtype, device=dev)
+    toks = torch.empty((L, B), dtype=torch.int32, device=dev)
+    toks[0] = cfg.start_token
+    out = torch.zeros((B,) if with_ce else (B, L, cfg.vocab_size), dtype=torch.float32,
+                      device=dev)
+    return out, toks, hs, torch.empty_like(hs), gs
+
+
+def decoder_head_step_reference(w: StackWeights, t: int, hs: torch.Tensor,
+                                targets: torch.Tensor, tf: torch.Tensor, toks: torch.Tensor,
+                                out: torch.Tensor, with_ce: bool) -> None:
+    """Plain twin of one ``dec_head_kernel`` launch, step ``t``, in place:
+    the logits of the top layer's stored h ``hs[t, n-1]`` (f32 products of
+    the rounded operands); with CE, ``out [B] += logsumexp - logit[target]``
+    (0 for a target outside [0, V)), else ``out[:, t] = logits`` (``out [B,
+    L, V]``); and for ``t + 1 < L``, ``toks[t + 1]`` is the target where
+    ``tf[t]``, else the argmax (ties to the lowest index)."""
+    V = w.cfg.vocab_size
+    L, n = hs.shape[:2]
+    logits = hs[t, n - 1].float() @ w.wout.float() + w.bout
+    target = targets[:, t].int()
+    if with_ce:
+        m = logits.max(dim=1, keepdim=True).values
+        lse = m[:, 0] + torch.log(torch.exp(logits - m).sum(dim=1))
+        ok = (target >= 0) & (target < V)
+        tl = logits.gather(1, target.long().clamp(0, V - 1)[:, None])[:, 0]
+        out += lse - torch.where(ok, tl, torch.zeros_like(tl))
+    else:
+        out[:, t] = logits
+    if t + 1 < L:
+        toks[t + 1] = torch.where(tf[t], target, torch.argmax(logits, dim=1).int())
+
+
 def decoder_fwd_reference(w: StackWeights, h_init: torch.Tensor, cond: torch.Tensor,
                           targets: torch.Tensor, tf_mask: torch.Tensor, with_ce: bool):
-    """Plain twin of the forward kernel. Returns ``(out, toks, hs, cs, gs)``:
+    """Plain twin of the forward kernels. Returns ``(out, toks, hs, cs, gs)``:
     ``out`` the CE ``[B]`` (``with_ce``) or logits ``[B, L, V]``, f32;
     ``toks [L, B]`` int32 the fed tokens; ``hs``/``cs [L, n, B, H]`` and
     ``gs [L, n, B, 4H]`` in the compute dtype."""
     cfg = w.cfg
-    wdt, n, H = cfg.dtype, cfg.num_layers, cfg.hidden_dim
+    wdt, n = cfg.dtype, cfg.num_layers
     B, L = targets.shape
     dev = h_init.device
-    hs = torch.empty((L, n, B, H), dtype=wdt, device=dev)
-    cs = torch.empty_like(hs)
-    gs = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
-    toks = torch.empty((L, B), dtype=torch.int32, device=dev)
+    out, toks, hs, cs, gs = _fwd_outputs(cfg, B, L, dev, with_ce)
     h = [h_init.float()] * n
     c = [torch.zeros_like(h_init, dtype=torch.float32)] * n
     cond = cond.float()
-    tok = torch.full((B,), cfg.start_token, dtype=torch.int32, device=dev)
     tf = tf_mask.to(dev).bool()
-    wout, bout = w.wout.float(), w.bout
-    ce = torch.zeros((B,), dtype=torch.float32, device=dev)
-    logits_all = []
     for t in range(L):
-        toks[t] = tok
-        x = torch.cat([embed_rows(w.emb, tok).float(), cond], dim=1)
+        x = torch.cat([embed_rows(w.emb, toks[t]).float(), cond], dim=1)
         for l in range(n):
             h[l], c[l], g = cell_step_reference(w.layers[l], w.bias[l], x, h[l], c[l], wdt)
             hs[t, l], cs[t, l], gs[t, l] = h[l], c[l], g
             x = h[l]
-        logits = x.to(wdt).float() @ wout + bout
-        target = targets[:, t].int()
-        if with_ce:
-            m = logits.max(dim=1, keepdim=True).values
-            lse = m[:, 0] + torch.log(torch.exp(logits - m).sum(dim=1))
-            ok = (target >= 0) & (target < cfg.vocab_size)
-            tl = logits.gather(1, target.long().clamp(0, cfg.vocab_size - 1)[:, None])[:, 0]
-            ce = ce + (lse - torch.where(ok, tl, torch.zeros_like(tl)))
-        else:
-            logits_all.append(logits)
-        tok = torch.where(tf[t], target, torch.argmax(logits, dim=1).int())
-    out = ce if with_ce else torch.stack(logits_all, dim=1)
+        decoder_head_step_reference(w, t, hs, targets, tf, toks, out, with_ce)
+    return out, toks, hs, cs, gs
+
+
+def decoder_fwd_steps_reference(w: StackWeights, h_init: torch.Tensor, cond: torch.Tensor,
+                                targets: torch.Tensor, tf_mask: torch.Tensor, with_ce: bool):
+    """Plain twin of the bf16 forward, launch by launch (contract of
+    :func:`decoder_fwd_reference`, which it equals bit for bit): per step,
+    the step kernel's twin (``train_common.seq_fwd_step_reference``) per
+    layer, layer 0 over the fed tokens' embedding rows and the conditions,
+    layer l > 0 over the layer below's stored h, with residuals at rows
+    ``t * n + l``, h_{-1} = ``h_init`` and c_{-1} = 0; then
+    :func:`decoder_head_step_reference`."""
+    cfg = w.cfg
+    n, H, E, C = cfg.num_layers, cfg.hidden_dim, cfg.embedding_dim, cfg.num_conditions
+    B, L = targets.shape
+    dev = h_init.device
+    out, toks, hs, cs, gs = _fwd_outputs(cfg, B, L, dev, with_ce)
+    hs2, cs2, gs2 = (a.view(L * n, B, a.shape[-1]) for a in (hs, cs, gs))
+    wts = [interleave_weight(m, E if l == 0 else H, H, C if l == 0 else 0)
+           for l, m in enumerate(w.layers)]
+    c = torch.empty((n, B, H), dtype=torch.float32, device=dev)
+    cond, h_init = cond.float(), h_init.float()
+    tf = tf_mask.to(dev).bool()
+    for t in range(L):
+        for l in range(n):
+            kw = (dict(xs=w.emb, I=E, tokens=toks.T, cond=cond) if l == 0 else
+                  dict(xs=hs2, I=H, x_stride=n, x_offset=l - 1))
+            seq_fwd_step_reference(wts[l], w.bias[l], t, c=c[l], hs=hs2, cs=cs2, gs=gs2, H=H,
+                                   h0=h_init, res_stride=n, res_offset=l, **kw)
+        decoder_head_step_reference(w, t, hs, targets, tf, toks, out, with_ce)
     return out, toks, hs, cs, gs
 
 
@@ -223,8 +277,12 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     declare its C interface."""
     lib = load_library("fused_train_decoder", verbose)
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.dec_fwd_launch.argtypes = [p] * 14 + [i] * 13 + [p]
-    lib.dec_fwd_launch.restype = i
+    lib.dec_fwd_f32_launch.argtypes = [p] * 14 + [i] * 12 + [p]
+    lib.dec_fwd_f32_launch.restype = i
+    lib.dec_fwd_bf16_launch.argtypes = [p] * 15 + [i] * 9 + [p]
+    lib.dec_fwd_bf16_launch.restype = i
+    lib.dec_head_launch.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.dec_head_launch.restype = i
     lib.dec_bwd_launch.argtypes = [p] * 24 + [lg] + [i] * 10 + [p]
     lib.dec_bwd_launch.restype = i
     lib.dec_error_string.argtypes = [i]
@@ -234,32 +292,57 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
 
 def launch_decoder_fwd(lib, w: StackWeights, h_init, cond, targets, tf, with_ce: bool,
                        stream: int):
-    """Allocate the outputs and launch the forward kernel (no device or
-    support checks: :func:`decoder_fwd` makes them)."""
+    """Allocate the outputs (and in bf16 the interleaved weights and the
+    layers' running c) and launch the forward kernels (no device or support
+    checks: :func:`decoder_fwd` makes them)."""
     cfg = w.cfg
     B, L = targets.shape
-    H, n, V = cfg.hidden_dim, cfg.num_layers, cfg.vocab_size
+    H, n, V, E, C = (cfg.hidden_dim, cfg.num_layers, cfg.vocab_size, cfg.embedding_dim,
+                     cfg.num_conditions)
     dev, wdt = h_init.device, cfg.dtype
     out = torch.empty((B,) if with_ce else (B, L, V), dtype=torch.float32, device=dev)
     toks = torch.empty((L, B), dtype=torch.int32, device=dev)
     hs = torch.empty((L, n, B, H), dtype=wdt, device=dev)
     cs = torch.empty_like(hs)
     gs = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
-    R, tj, tr = fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
-    rc = lib.dec_fwd_launch(
-        targets.data_ptr(), tf.data_ptr(), cond.data_ptr(), h_init.data_ptr(),
-        w.emb.data_ptr(), w.wcat.data_ptr(), w.bias.data_ptr(), w.wout.data_ptr(),
-        w.bout.data_ptr(), out.data_ptr(), toks.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        gs.data_ptr(), B, L, V, cfg.embedding_dim, cfg.num_conditions, H, n,
-        int(wdt == torch.bfloat16), R, tj, tr, int(with_ce), cfg.start_token, stream)
+    ins = (targets.data_ptr(), tf.data_ptr(), cond.data_ptr(), h_init.data_ptr(),
+           w.emb.data_ptr())
+    outs = (w.bout.data_ptr(), out.data_ptr(), toks.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            gs.data_ptr())
+    if wdt == torch.bfloat16:  # each layer's interleaved copy, back to back, and the running c
+        wt = torch.cat([interleave_weight(m, E if l == 0 else H, H, C if l == 0 else 0).reshape(-1)
+                        for l, m in enumerate(w.layers)])
+        cbuf = torch.empty((n, B, H), dtype=torch.float32, device=dev)
+        rc = lib.dec_fwd_bf16_launch(
+            *ins, wt.data_ptr(), w.bias.data_ptr(), w.woutT.data_ptr(), *outs, cbuf.data_ptr(),
+            B, L, V, E, C, H, n, int(with_ce), cfg.start_token, stream)
+    else:
+        R, tj, tr = fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
+        rc = lib.dec_fwd_f32_launch(
+            *ins, w.wcat.data_ptr(), w.bias.data_ptr(), w.wout.data_ptr(), *outs,
+            B, L, V, E, C, H, n, R, tj, tr, int(with_ce), cfg.start_token, stream)
     raise_if(rc, "decoder forward", lib.dec_error_string)
     return out, toks, hs, cs, gs
+
+
+def launch_decoder_head(lib, w: StackWeights, t: int, hs, targets, tf, toks, out,
+                        with_ce: bool, stream: int) -> None:
+    """One ``dec_head_kernel`` launch alone, step ``t`` of a bf16 forward, in
+    place on ``toks`` and ``out`` (contract of
+    :func:`decoder_head_step_reference`; for holding the kernel against its
+    twin: no checks, no count)."""
+    L, n, B, H = hs.shape
+    rc = lib.dec_head_launch(hs[t, n - 1].data_ptr(), w.woutT.data_ptr(), w.bout.data_ptr(),
+                             targets.data_ptr(), tf.data_ptr(), out.data_ptr(), toks.data_ptr(),
+                             B, L, w.cfg.vocab_size, H, t, int(with_ce), stream)
+    raise_if(rc, "decoder head", lib.dec_error_string)
 
 
 def decoder_fwd(w: StackWeights, h_init: torch.Tensor, cond: torch.Tensor,
                 targets: torch.Tensor, tf_mask: torch.Tensor, with_ce: bool):
     """The forward (contract of :func:`decoder_fwd_reference`). CPU tensors
-    run the plain version; CUDA tensors launch the kernel, counted in
+    run the plain version; CUDA tensors launch the kernels (bf16: the step
+    and head chain; f32: ``dec_fwd_kernel``), counted once per call in
     ``decoder_fwd.launches`` (the CE specialization) or
     ``decoder_fwd.logits_launches`` (the logits one, which
     ``ops/decoder_cv.py:decoder_train_cvp`` also runs)."""

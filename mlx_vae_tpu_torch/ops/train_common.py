@@ -13,9 +13,10 @@
 * The plain versions' shared steps (one LSTM cell, its reverse step from
   activated gates, the weight- and embedding-gradient sums).
 * The bf16 forward step kernel's layout (``csrc/train_common.cuh``:
-  ``seq_fwd_step_kernel``): :func:`fwd_step_plan`, the gate-interleaved
-  weight copy :func:`interleave_weight`, and the kernel's plain twin of one
-  step, :func:`seq_fwd_step_reference`.
+  ``seq_fwd_step_kernel``): :func:`fwd_step_plan` and :func:`step_columns`
+  (input, optional conditions, h), the gate-interleaved weight copy
+  :func:`interleave_weight`, and the kernel's plain twin of one step,
+  :func:`seq_fwd_step_reference`.
 * The argument and device checks every wrapper makes before a launch.
 """
 
@@ -144,13 +145,15 @@ def cell_step_reference(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
 
 # ----------------------------------------------------------- forward step
 
-def fwd_step_plan(I: int, H: int) -> Tuple[int, int, int]:
-    """``(Ixp, Kp, Np)`` of the forward step kernel for input width ``I`` and
-    hidden width ``H`` (csrc: ``fwd_ixp``, ``fwd_kp``, ``fwd_np``): the
-    input's reduction columns end at ``Ixp`` (``I`` rounded up to ``BK``),
-    the recurrent ones at ``Kp = Ixp + H`` rounded up to ``BK``; ``Np``
-    output columns, 128 for each 32 units."""
-    ixp = -(-I // BK) * BK
+def fwd_step_plan(I: int, H: int, C: int = 0) -> Tuple[int, int, int]:
+    """``(Ixp, Kp, Np)`` of the forward step kernel for input width ``I``,
+    hidden width ``H`` and ``C`` condition columns (csrc: ``fwd_ixp``,
+    ``fwd_kp``, ``fwd_np``): the input's reduction columns run from 0, the
+    conditions' from ``I`` rounded up to ``BK``, and the recurrent ones from
+    ``Ixp`` (that plus ``C`` rounded up to ``BK``) to ``Kp = Ixp + H``
+    rounded up to ``BK``; ``Np`` output columns, 128 for each 32 units.
+    ``C = 0``: no condition segment."""
+    ixp = -(-I // BK) * BK + -(-C // BK) * BK
     return ixp, ixp + -(-H // BK) * BK, -(-H // UNITS) * 4 * UNITS
 
 
@@ -161,19 +164,26 @@ def gate_columns(H: int, device=None) -> torch.Tensor:
     return torch.cat([(u // UNITS) * 4 * UNITS + q * UNITS + u % UNITS for q in range(4)])
 
 
-def interleave_weight(w: torch.Tensor, I: int, H: int) -> torch.Tensor:
-    """The forward step kernel's weight: the combined ``w [I + H, 4H]``
+def step_columns(I: int, H: int, C: int = 0, device=None) -> torch.Tensor:
+    """The reduction columns of the forward step kernel that hold weights,
+    in the combined weight's row order: ``[input, conditions, h]``."""
+    ixp = fwd_step_plan(I, H, C)[0]
+    return torch.cat([torch.arange(I, device=device),
+                      -(-I // BK) * BK + torch.arange(C, device=device),
+                      ixp + torch.arange(H, device=device)])
+
+
+def interleave_weight(w: torch.Tensor, I: int, H: int, C: int = 0) -> torch.Tensor:
+    """The forward step kernel's weight: the combined ``w [I + C + H, 4H]``
     (gate-major columns) as a K-major ``[Np, Kp]`` copy (:func:`fwd_step_plan`)
     whose row :func:`gate_columns` ``[q * H + u]`` holds column ``q * H + u``
-    of ``w``: its input rows at ``k < I``, its recurrent rows at ``Ixp + j``.
-    The other entries are zeros. So one 128-wide output tile of the kernel
-    holds all four gates of 32 units."""
-    ixp, kp, np_ = fwd_step_plan(I, H)
+    of ``w``, each row of ``w`` at its reduction column
+    (:func:`step_columns`). The other entries are zeros. So one 128-wide
+    output tile of the kernel holds all four gates of 32 units."""
+    _, kp, np_ = fwd_step_plan(I, H, C)
     with torch.no_grad():
         out = w.new_zeros((np_, kp))
-        n = gate_columns(H, w.device)
-        out[n, :I] = w[:I].T
-        out[n, ixp:ixp + H] = w[I:].T
+        out[gate_columns(H, w.device)[:, None], step_columns(I, H, C, w.device)[None]] = w.T
     return out
 
 
@@ -183,15 +193,17 @@ def seq_fwd_step_reference(wt: torch.Tensor, bias: torch.Tensor, t: int, xs: tor
                            x_offset: int = 0, tokens: Optional[torch.Tensor] = None,
                            h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None,
                            res_stride: int = 1, res_offset: int = 0,
-                           hf: Optional[torch.Tensor] = None) -> None:
+                           hf: Optional[torch.Tensor] = None,
+                           cond: Optional[torch.Tensor] = None) -> None:
     """Plain twin of one launch of the forward step kernel, step ``t`` of
     one layer, in place.
 
     A ``[B, Kp]``: columns ``k < I`` hold step t's input rows, row ``t *
     x_stride + x_offset`` of ``xs [., B, I]``, or with ``tokens [B, L]`` the
     rows ``tokens[:, t]`` of the table ``xs [V, I]`` (zeros outside [0, V));
+    with ``cond [B, C]`` (f32) the next segment holds the conditions;
     columns ``Ixp + j`` hold h_{t-1}, residual row ``(t - 1) * res_stride +
-    res_offset`` of ``hs``, or at t = 0 ``h0`` f32 (zeros if None); both
+    res_offset`` of ``hs``, or at t = 0 ``h0`` f32 (zeros if None); all
     rounded to ``wt``'s dtype. A times ``wt`` (:func:`interleave_weight`)
     gives the gates in the kernel's column order; with the bias and c_{t-1}
     (``c0`` at t = 0, zeros if None; else ``c [B, H]`` f32) the cell writes
@@ -201,7 +213,7 @@ def seq_fwd_step_reference(wt: torch.Tensor, bias: torch.Tensor, t: int, xs: tor
     weights, in the combined weight's order, so that in f32 its sums equal
     :func:`cell_step_reference`'s bit for bit."""
     wdt = wt.dtype
-    ixp, kp, _ = fwd_step_plan(I, H)
+    C = cond.shape[1] if cond is not None else 0
     B = c.shape[0]
     dev = c.device
     x = embed_rows(xs, tokens[:, t]) if tokens is not None else xs[t * x_stride + x_offset]
@@ -209,11 +221,8 @@ def seq_fwd_step_reference(wt: torch.Tensor, bias: torch.Tensor, t: int, xs: tor
         hp = hs[(t - 1) * res_stride + res_offset]
     else:
         hp = h0 if h0 is not None else torch.zeros((B, H), device=dev)
-    a = torch.zeros((B, kp), device=dev)
-    a[:, :I] = x.to(wdt).float()
-    a[:, ixp:ixp + H] = hp.to(wdt).float()
-    k = torch.cat([torch.arange(I, device=dev), ixp + torch.arange(H, device=dev)])
-    prod = a[:, k] @ wt[:, k].float().T.contiguous()
+    a = torch.cat([x.to(wdt), *((cond.to(wdt),) if C else ()), hp.to(wdt)], dim=1).float()
+    prod = a @ wt[:, step_columns(I, H, C, dev)].float().T.contiguous()
     c_prev = c if t > 0 else (c0.float() if c0 is not None else torch.zeros_like(c))
     h, c_new, g = cell_from_gates(prod[:, gate_columns(H, dev)] + bias, c_prev)
     c.copy_(c_new)

@@ -1,7 +1,9 @@
 """The train step's CUDA kernels (fused encoder, fused training decoder:
-forward and backward each) against their plain PyTorch versions, on the
-card. Tests marked ``cuda`` skip without a CUDA device. This file imports
-no JAX, so it also runs on a GPU machine without it:
+forward and backward each; in bf16 the decoder forward's step and vocab-head
+chain, each head launch also alone; and the two instances of the gate
+pair's backward) against their plain PyTorch versions, on the card. Tests
+marked ``cuda`` skip without a CUDA device. This file imports no JAX, so it
+also runs on a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_train_kernel.py -q
 
@@ -404,3 +406,141 @@ def test_encoder_backward_routes_by_dtype(dev, dtype):
             if dtype == "bfloat16" else
             {"gate_kernel": 0, "enc_step_kernel": 0, "enc_bwd_kernel": 1})
     assert count == want, names
+
+
+# the bf16 decoder forward's chain: (n, E, C, H, V, B, L) over one row, ragged
+# batches, ragged E, C, H and V, and vocabularies of 1, 3 and 4 column tiles
+DEC_FWD = [
+    (1, 16, 1, 32, 80, 1, 5),
+    (2, 20, 3, 100, 200, 37, 6),
+    (3, 129, 1, 100, 80, 300, 4),
+    (2, 129, 3, 32, 300, 129, 3),
+    (2, 128, 1, 256, 80, 1000, 4),
+    (1, 16, 5, 1024, 512, 130, 2),
+]
+
+
+def _dec_case(case, dtype, dev):
+    n, E, C, H, V, B, L = DEC_FWD[case]
+    cfg = ModelConfig(latent_dim=8, compute_dtype=dtype, num_layers=n, hidden_dim=H,
+                      embedding_dim=E, num_conditions=C, vocab_size=V, use_pallas=True)
+    g = torch.Generator().manual_seed(case)
+    dec = {k: {m: t.to(dev) for m, t in v.items()} for k, v in init_decoder_params(g, cfg).items()}
+    tok = torch.randint(0, V, (B, L), generator=g, dtype=torch.int32)
+    for j, bad in enumerate((-1, V, 999)):  # no CE term; a zero embedding row where fed
+        tok[(7 * j) % B, j % L] = bad
+    cond = torch.randn((B, C), generator=g).to(dev)
+    h0 = (0.5 * torch.randn((B, H), generator=g)).to(dev)
+    return cfg, tc.prepare_stack_weights(dec, cfg, with_head=True), tok.to(dev), cond, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_bf16_forward_chain_matches_plain(dev, case, with_ce):
+    """The bf16 forward (n * L tensor-core step launches and L vocab-head
+    launches) against its plain twin, teacher forcing all on: the same fed
+    tokens, every output within 2e-2; a second call equals the first bit for
+    bit."""
+    cfg, w, tok, cond, h0 = _dec_case(case, "bfloat16", dev)
+    L = tok.shape[1]
+    tf = torch.ones((L,), dtype=torch.bool, device=dev)
+    k1 = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
+    k2 = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
+    p = fd.decoder_fwd_reference(w, h0, cond, tok, tf, with_ce)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[1], p[1])
+    _close((k1[0], *k1[2:]), (p[0], *p[2:]), "bfloat16")
+    for a, b in zip(k1, k2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_head_kernel_matches_plain(dev, case, with_ce):
+    """One dec_head_kernel launch at every step, alone, on the plain
+    forward's residuals against decoder_head_step_reference on the same
+    inputs (targets outside [0, V) included): both read the same rounded
+    operands, so each step's CE term (from zero) or logits is within 1e-4;
+    under teacher forcing 0.5, forced next tokens equal the target and
+    argmax-fed ones agree on >= 99.0% of rows at every step."""
+    cfg, w, tok, cond, h0 = _dec_case(case, "bfloat16", dev)
+    B, L = tok.shape
+    g = torch.Generator().manual_seed(case + 100)
+    tf = (torch.rand((L,), generator=g) < 0.5).to(dev)
+    _, toks, hs, _, _ = fd.decoder_fwd_reference(w, h0, cond, tok, tf, with_ce)
+    lib, st = fd.build_library(), tc.stream_of(dev)
+    out_shape = (B,) if with_ce else (B, L, cfg.vocab_size)
+    k_out = torch.randn(out_shape, generator=g).to(dev)
+    p_out = k_out.clone()
+    k_toks, p_toks = toks.clone(), toks.clone()
+    tf_i = tf.to(torch.int32)
+    for t in range(L):
+        if with_ce:
+            k_out.zero_()
+            p_out.zero_()
+        fd.launch_decoder_head(lib, w, t, hs, tok, tf_i, k_toks, k_out, with_ce, st)
+        fd.decoder_head_step_reference(w, t, hs, tok, tf, p_toks, p_out, with_ce)
+        torch.cuda.synchronize()
+        got, want = (k_out, p_out) if with_ce else (k_out[:, t], p_out[:, t])
+        assert torch.isfinite(got).all(), t
+        rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        assert rel <= 1e-4, (t, rel)
+        if t + 1 < L:
+            if tf[t]:
+                assert torch.equal(k_toks[t + 1], tok[:, t]), t
+            else:
+                assert (k_toks[t + 1] == p_toks[t + 1]).float().mean().item() >= 0.99, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_forward_routes_by_dtype(dev, dtype, with_ce):
+    """bf16: one set-up launch, then n * L launches of the tensor-core step
+    kernel (train_common.cuh:seq_fwd_step_kernel) and L of dec_head_kernel,
+    and no dec_fwd_kernel; f32 still runs the CUDA-core dec_fwd_kernel, once."""
+    import re
+
+    cfg, w, tok, cond, h0 = _dec_case(2, dtype, dev)
+    L, n = tok.shape[1], cfg.num_layers
+    tf = torch.ones((L,), dtype=torch.bool, device=dev)
+    names = _device_kernels(lambda: fd.decoder_fwd(w, h0, cond, tok, tf, with_ce))
+    kernels = ("dec_init_kernel", "seq_fwd_step_kernel", "dec_head_kernel", "dec_fwd_kernel")
+    count = {k: sum(bool(re.search(rf"\b{k}\b", m)) for m in names) for k in kernels}
+    want = (dict(zip(kernels, (1, n * L, L, 0))) if dtype == "bfloat16" else
+            dict(zip(kernels, (0, 0, 0, 1))))
+    assert count == want, names
+
+
+# (H, offset in floats of the gates' view, units a thread): the gate pair's
+# backward on its vector instance (H % 4 == 0, every pointer 16-byte
+# aligned) and its scalar one (odd or ragged H, and a view that breaks the
+# gates' 16-byte alignment)
+GATES_BWD = [(256, 0, 4), (1024, 0, 4), (1, 0, 1), (3, 0, 1), (102, 0, 1), (256, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(GATES_BWD)))
+def test_gates_bwd_vector_and_scalar_paths(dev, case):
+    """gates_bwd against gates_bwd_reference within 1e-5 of each output's
+    largest magnitude, on the instance the profiler names
+    (gates_bwd_kernel<4> or <1>)."""
+    import re
+
+    from mlx_vae_tpu_torch.ops import fused_lstm as fl
+
+    H, off, units = GATES_BWD[case]
+    B = 37
+    g = torch.Generator().manual_seed(case)
+    flat = (3 * torch.randn((off + B * 4 * H,), generator=g)).to(dev)
+    gates = flat[off:].view(B, 4 * H)
+    c, dh, dc = ((3 * torch.randn((B, H), generator=g)).to(dev) for _ in range(3))
+    got = []
+    names = _device_kernels(lambda: got.extend(fl.gates_bwd(gates, c, dh, dc)))
+    want = fl.gates_bwd_reference(gates, c, dh, dc)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1e-30)
+    ran = [m for m in names if re.search(r"\bgates_bwd_kernel\b", m)]
+    assert len(ran) == 1 and f"gates_bwd_kernel<{units}>" in ran[0], names

@@ -49,9 +49,15 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    ``dec_head_kernel`` launches) must repeat bit for bit, and each head
    launch alone, on the plain forward's residuals, is held against
    ``decoder_head_step_reference`` (CE or logits within 2e-2, next tokens
-   on >= 99.0% of rows). Teacher forcing 0.9: the fed-token rows agree on
-   >= 97.0% and the first argmax-fed step on >= 99.0% (an argmax can flip
-   where two logits tie);
+   on >= 99.0% of rows). The decoder backward's reverse alone (bf16: the
+   head pass over all L*B rows and the tensor-core chain; f32:
+   ``dec_bwd_kernel``) is held against ``decoder_reverse_steps_reference``
+   (dgates, dx0, dlog, d(h_init), d(cond)); in bf16 a second backward must
+   equal the first bit for bit, the head pass alone (targets -1, V and 999
+   mixed in) is held against ``decoder_head_bwd_reference`` within 1e-4,
+   and the backward also runs on the kernel forward's residuals. Teacher
+   forcing 0.9: the fed-token rows agree on >= 97.0% and the first
+   argmax-fed step on >= 99.0% (an argmax can flip where two logits tie);
 7. the train slice: ``train_step`` at full width (default model, bf16,
    B=4096, L=64, fused route) takes 8 steps on a fixed synthetic batch; the
    losses stay finite, the total loss at step 8 is below step 1, and the
@@ -64,13 +70,17 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    encoder pair, against cuDNN's two-layer ``torch.nn.LSTM`` at the same
    widths (the yardstick only), and the whole step on the fused route
    against the plain route, at B=4096, L=64, bf16 (CUDA events after a
-   warm-up), with tokens/s; one fused step under ``torch.profiler``:
-   device time by kernel name and the device's idle share; the bf16 step must
+   warm-up), with tokens/s; each reverse chain's mean step-kernel launch
+   per layer (``torch.profiler``); one fused step under ``torch.profiler``:
+   device time by kernel name and the device's idle share (against the
+   profiled wall time and against the wall time of unprofiled calls, since
+   the profiler adds host time to every launch); the bf16 step must
    show the tensor-core forward step kernel (``seq_fwd_step_kernel``) and
    the decoder's vocab head (``dec_head_kernel``) and no CUDA-core forward
    (``seq_fwd_kernel``, ``enc_fwd_kernel``, ``dec_fwd_kernel``), and the
-   encoder's tensor-core reverse step kernel (``enc_step_kernel``) and no
-   ``enc_bwd_kernel``;
+   tensor-core reverse step kernels of the encoder (``enc_step_kernel``)
+   and of the decoder (``dec_step_kernel``) and no ``enc_bwd_kernel`` or
+   ``dec_bwd_kernel``;
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
    (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
    L=64, f32 and bf16, each backward also over residuals and inputs
@@ -459,7 +469,9 @@ def profile_step(what: str, fn, smi: str) -> dict:
     """One call of ``fn`` under ``torch.profiler`` after a warm-up call: the
     device time of each kernel by name, and the device's idle share (1 -
     the summed device time over the call's wall time on CUDA events; the
-    port runs on one stream, so its kernels do not overlap)."""
+    port runs on one stream, so its kernels do not overlap), both against
+    the profiled call's wall time and against the mean of three calls
+    without the profiler (which adds host time to every launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -481,13 +493,37 @@ def profile_step(what: str, fn, smi: str) -> dict:
     if not by_name:
         log(f"  profile, {what}: the profiler recorded no device time [{smi}]")
         return {"wall_ms": wall, "device_ms": None, "idle_share": None, "kernels": {}}
+    plain_wall = time_ms(fn, 3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     log(f"  profile, {what}: {wall:.3f} ms wall, {busy:.3f} ms of device time, idle share "
-        f"{max(0.0, 1 - busy / wall):.4f} [{smi}]")
+        f"{max(0.0, 1 - busy / wall):.4f}; without the profiler {plain_wall:.3f} ms wall, "
+        f"idle share {max(0.0, 1 - busy / plain_wall):.4f} [{smi}]")
     for name, ms in top[:12]:
         log(f"    {ms:10.3f} ms {ms / busy:7.2%}  {name}")
     return {"wall_ms": wall, "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
-            "kernels": dict(top)}
+            "plain_wall_ms": plain_wall, "kernels": dict(top)}
+
+
+def chain_layer_us(fn, kernel: str, n: int) -> list:
+    """Mean device us of a reverse chain's step-kernel launches per layer in
+    one call of ``fn`` under ``torch.profiler``, after a warm-up call: the
+    chain launches top down, so its launch i runs layer n - 1 - i % n."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and re.search(rf"\b{kernel}\b", e.name)), key=lambda e: e.time_range.start)
+    us = [[] for _ in range(n)]
+    for i, e in enumerate(evs):
+        us[n - 1 - i % n].append(e.time_range.elapsed_us())
+    return [sum(u) / max(len(u), 1) for u in us]
 
 
 def check_kernels(prof: dict, what: str, role: str, step: str, old: tuple) -> None:
@@ -585,6 +621,14 @@ DEC_FWD_NOTE = ("; bf16: n*L launches of train_common.cuh:seq_fwd_step_kernel an
                 "fused_train_decoder.cu:dec_head_kernel, also each dec_head_kernel launch "
                 "alone against decoder_head_step_reference, each step's CE term or logits "
                 "within 1e-4, with targets outside [0, V)")
+# the bf16 decoder backward: the head pass and the chain's step kernel
+DEC_BWD_NOTE = ("; bf16: fused_train_decoder.cu:dec_head_bwd_kernel and dec_dtop_kernel "
+                "over all L*B rows, then train_common.cuh:gate_kernel and n*L launches of "
+                "fused_train_decoder.cu:dec_step_kernel; also the reverse alone against "
+                "decoder_reverse_steps_reference (dgates, dx0, dlog, dh_init, dcond) and the "
+                "head pass alone against decoder_head_bwd_reference within 1e-4, with targets "
+                "outside [0, V)")
+TRAIN_NOTES = {"fused_train_decoder_fwd": DEC_FWD_NOTE, "fused_train_decoder_bwd": DEC_BWD_NOTE}
 TRAIN_REPLACES = {
     "fused_encoder_fwd": "mlx_vae_tpu/ops/pallas_encoder.py:119",
     "fused_encoder_bwd": "mlx_vae_tpu/ops/pallas_encoder.py:165",
@@ -709,7 +753,10 @@ def phase_train_kernels() -> dict:
                 compare(f"{tag} decoder bwd {spec} [dW.., db, dwout, dbout, demb, "
                         f"dh_init, dcond]", [*kb[0], *kb[1:]], [*pb[0], *pb[1:]], dtype,
                         worst["fused_train_decoder_bwd"])
-                del k, p, kb, pb
+                del kb, pb
+                check_decoder_reverse(wd, din, tok, h0, cond, k, p, with_ce, tag, dtype,
+                                      worst["fused_train_decoder_bwd"])
+                del k, p
             tf = torch.rand((L,), generator=g, device="cuda") < 0.9
             tf[3] = False  # at least one argmax-fed step
             k = fd.decoder_fwd(wd, h0, cond, tok, tf, True)
@@ -785,6 +832,57 @@ def check_decoder_chain(w, h0, cond, tok, tf, with_ce: bool, k, p, tag: str,
             "bfloat16", worst, tol=HEAD_TOL)
     if agree < AGREE_FIRST:
         raise AssertionError(f"{tag} dec_head_kernel: next tokens agree on {agree:.4%}")
+
+
+def check_decoder_reverse(w, din, tok, h0, cond, k, p, with_ce: bool, tag: str, dtype: str,
+                          worst: list) -> None:
+    """The decoder backward's reverse alone (bf16: the head pass and the
+    tensor-core chain; f32: ``dec_bwd_kernel``) on the plain forward's
+    residuals ``p`` against ``decoder_reverse_steps_reference``, its plain
+    twin launch by launch: dgates, dx0, dlog, d(h_init), d(cond). In bf16
+    also: a second backward equals the first bit for bit; the head pass
+    alone, with targets -1, V and 999 mixed in, against
+    ``decoder_head_bwd_reference`` within HEAD_TOL (the same rounded
+    operands, f32 sums); and the whole backward on the kernel forward's own
+    residuals ``k`` against its plain version on the same residuals."""
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+
+    spec = "ce" if with_ce else "logits"
+    lib, st = fd.build_library(), torch.cuda.current_stream().cuda_stream
+
+    def run():
+        return fd.launch_decoder_bwd(lib, w, din, tok, p[1], h0, cond, *p[2:], with_ce, st,
+                                     with_reverse=True)
+
+    kr = run()
+    pr = fd.decoder_reverse_steps_reference(w, din, tok, *p[2:], with_ce)
+    torch.cuda.synchronize()
+    compare(f"{tag} decoder reverse alone {spec} [dgates, dx0, dlog, dh_init, dcond]", kr[7:],
+            pr, dtype, worst)
+    del pr
+    if dtype != "bfloat16":
+        return
+    again = run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip([*kr[0], *kr[1:]], [*again[0], *again[1:]])):
+        raise AssertionError(f"{tag} decoder bwd {spec}: two runs differ")
+    log(f"  {tag} decoder bwd {spec}: a second run is bitwise equal (dW, db, dwout, dbout, "
+        f"demb, dh_init, dcond, dgates, dx0, dlog)")
+    del kr, again
+    tgt = tok.clone()  # with targets outside [0, V), which add no one-hot
+    for j, bad in enumerate((-1, w.cfg.vocab_size, 999)):
+        tgt[j::7, j::3] = bad
+    kh = fd.launch_decoder_head_bwd(lib, w, din, tgt, p[2], with_ce, st)
+    ph = fd.decoder_head_bwd_reference(w, din, tgt, p[2], with_ce)
+    torch.cuda.synchronize()
+    compare(f"{tag} decoder head pass alone {spec}, targets -1/V/999 mixed in [dlog, dtop]",
+            kh, ph, dtype, worst, tol=HEAD_TOL)
+    del kh, ph
+    kb = fd.decoder_bwd(w, din, tok, k[1], h0, cond, *k[2:], with_ce)
+    pb = fd.decoder_bwd_reference(w, din, tok, k[1], h0, cond, *k[2:], with_ce)
+    torch.cuda.synchronize()
+    compare(f"{tag} decoder bwd {spec} on the kernel forward's residuals", [*kb[0], *kb[1:]],
+            [*pb[0], *pb[1:]], dtype, worst)
 
 
 def synthetic_batch(cfg, B: int, L: int):
@@ -888,6 +986,24 @@ def phase_train_times(smi: str) -> dict:
     out = {}
     for name, (kern, plain) in pairs.items():
         out[name] = turns(name, kern, plain, smi, 3, 2)
+    # the reverse chains' launches by layer (the decoder's layer 0 has N = E + C + H
+    # columns, the encoder's E + H)
+    st = torch.cuda.current_stream().cuda_stream
+    le, ld = fe.build_library(), fd.build_library()
+    per_layer = {
+        "enc_step_kernel": chain_layer_us(
+            lambda: fe.launch_encoder_bwd(le, we, tok, dh, *enc[1:], st), "enc_step_kernel",
+            cfg.num_layers),
+        "dec_step_kernel": chain_layer_us(
+            lambda: fd.launch_decoder_bwd(ld, wd, dce, tok, dec[1], h0, cond, *dec[2:], True,
+                                          st), "dec_step_kernel", cfg.num_layers)}
+    E, C, H = cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim
+    for name, us in per_layer.items():
+        k0 = E + C if name == "dec_step_kernel" else E
+        log(f"  {name} per launch by layer (layer 0: N = {k0 + H} columns, "
+            f"{-(-(k0 + H) // 128)} column tiles; layer l > 0: N = {2 * H}): "
+            f"{', '.join(f'layer {l} {u:.2f} us' for l, u in enumerate(us))} [{smi}]")
+    out["chain_layer_us"] = per_layer
     lib = cudnn_lstm_ms(cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers, B, L, "bfloat16")
     out["library"] = {"fused_encoder_fwd": lib[0], "fused_encoder_bwd": lib[1]}
     log(f"  cuDNN torch.nn.LSTM, {cfg.num_layers} layers, I={cfg.embedding_dim} "
@@ -913,6 +1029,11 @@ def phase_train_times(smi: str) -> dict:
     check_forward_kernels(out["profile"], "default train step")
     check_kernels(out["profile"], "default train step", "encoder reverse chain",
                   "enc_step_kernel", ("enc_bwd_kernel",))
+    check_kernels(out["profile"], "default train step", "decoder reverse chain",
+                  "dec_step_kernel", ("dec_bwd_kernel",))
+    heads = {k: v for k, v in out["profile"]["kernels"].items()
+             if k in ("dec_head_bwd_kernel", "dec_dtop_kernel")}
+    log(f"  default train step: the decoder backward's head pass {heads} (ms) [{smi}]")
     return out
 
 
@@ -1489,7 +1610,7 @@ def main() -> int:
             "err_metric": f"largest |kernel - plain| over every output (forward) or "
                           f"gradient leaf (backward; the encoder's also its reverse chain's "
                           f"dgates and dx0) at B=4096/1000, f32/bf16, teacher "
-                          f"forcing on{DEC_FWD_NOTE if kname == 'fused_train_decoder_fwd' else ''}"
+                          f"forcing on{TRAIN_NOTES.get(kname, '')}"
                           f"; largest max|diff|/max|plain| {errs[kname][1]:.3e} "
                           f"(tolerance 1e-4 f32, 2e-2 bf16)",
             "ms": train_times[kname][0], "plain_ms": train_times[kname][1],

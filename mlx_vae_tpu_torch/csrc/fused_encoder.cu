@@ -36,10 +36,10 @@
 //      boundary being the grid-wide barrier the recurrence needs.
 //      train_common.cuh's gate_kernel runs the gate step of (L-1, n-1) from
 //      dh_last; then for t = L-1 .. 0 and l = n-1 .. 0, enc_step_kernel is
-//      one card-wide wgmma GEMM dinp = dgates(t, l) W_l^T (seq_step_kernel's
-//      128 x 128 tile, wcat read as it lies) whose epilogue runs the gate
-//      step that the product unblocks: (t, l-1) from the input columns, or
-//      at the top layer (t-1, n-1) from the h columns. Each layer's running
+//      one card-wide wgmma GEMM dinp = dgates(t, l) W_l^T (train_common.cuh's
+//      dinp_tile: 128 x 128 tiles, wcat read as it lies) whose epilogue runs
+//      the gate step that the product unblocks: (t, l-1) from the input
+//      columns, or at the top layer (t-1, n-1) from the h columns. Each layer's running
 //      dc is an f32 [B, H] buffer and the h cotangent a layer hands to its
 //      next step another; launching top down within a step makes both
 //      cotangents of every gate step ready in one product's epilogue.
@@ -217,11 +217,11 @@ struct StepArgs {
   train::GateArgs gh;       // the gate step of (t - 1, n - 1)
 };
 
-// dinp [B, K_l + H] = dgates(t, l) [B, 4H] W_l^T on wgmma (seq_step_kernel's
-// GEMM: both operands K-major, wcat read as it lies), one 128 x 128 tile a
-// block over the first N columns (N = K_l at t = 0, whose h columns nothing
-// reads). The f32 tile goes through shared memory and the epilogue walks it
-// row by row, deciding per column (a tile may straddle K_l):
+// dinp [B, K_l + H] = dgates(t, l) [B, 4H] W_l^T on wgmma (train_common.cuh's
+// dinp_tile: wcat read as it lies), one 128 x 128 tile a block over the
+// first N columns (N = K_l at t = 0, whose h columns nothing reads). The
+// epilogue walks the staged f32 tile row by row, deciding per column (a tile
+// may straddle K_l):
 //  * k < K_l, l > 0: the cotangent of layer l - 1's h at t; its thread runs
 //    the gate step of (t, l - 1) at unit k with dh_in + value;
 //  * k < K_l, l = 0: dx0 at t, rounded to bf16;
@@ -233,24 +233,9 @@ struct StepArgs {
 __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
     enc_step_kernel(const StepArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
-  const int B = a.B, G = a.G, N = a.N;
-  const bool vec = a.vec;
-  float acc[64];
-  wg::gemm<false>(acc, ring, (G + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
-    const int q = kt * wg::BK;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = wg::chunk(u), r = idx >> 3, c = idx & 7;
-      const uint32_t off = wg::swz(r, c);
-      wg::stage8(dst + off, m0 + r < B ? a.dg + (size_t)(m0 + r) * G : nullptr, q + 8 * c, G,
-                 vec);
-      wg::stage8(dst + wg::TILE + off, n0 + r < N ? a.w + (size_t)(n0 + r) * G : nullptr,
-                 q + 8 * c, G, vec);
-    }
-  });
-  const float* tile = wg::stage_tile(acc, smem_raw, ring);
+  const int B = a.B, N = a.N;
+  const float* tile = train::dinp_tile(smem_raw, a.dg, a.w, B, N, a.G, a.vec);
   const int Kx = a.Kx, H = a.H;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {

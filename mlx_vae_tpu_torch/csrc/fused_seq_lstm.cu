@@ -248,33 +248,16 @@ struct StepArgs {
 };
 
 // dinp_t [B, I + H] = dgates_t [B, 4H] W^T, one 128 x 128 tile a block, on
-// wgmma (both operands K-major: the reduction over 4H runs along rows of
-// dgates and of wcat). The f32 tile then goes through shared memory, so
-// that the epilogue walks it row by row and its loads and stores of the
-// residuals are coalesced: columns k < I go to dxs[t], and each column I + j
-// (the cotangent of h_{t-1}) to the gate step of t - 1 at (row, j), or to
-// dh0 at t = 0. One thread per element, no atomics.
+// wgmma (train_common.cuh's dinp_tile: wcat read as it lies), staged in
+// shared memory for the epilogue: columns k < I go to dxs[t], and each
+// column I + j (the cotangent of h_{t-1}) to the gate step of t - 1 at
+// (row, j), or to dh0 at t = 0. One thread per element, no atomics.
 __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
     seq_step_kernel(const StepArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
-  const int B = a.B, G = a.G, K = a.K;
-  const bool vec = a.vec;
-  float acc[64];
-  wg::gemm<false>(acc, ring, (G + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
-    const int q = kt * wg::BK;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int idx = wg::chunk(u), r = idx >> 3, c = idx & 7;
-      const uint32_t off = wg::swz(r, c);
-      wg::stage8(dst + off, m0 + r < B ? a.dg + (size_t)(m0 + r) * G : nullptr, q + 8 * c, G,
-                 vec);
-      wg::stage8(dst + wg::TILE + off, n0 + r < K ? a.w + (size_t)(n0 + r) * G : nullptr,
-                 q + 8 * c, G, vec);
-    }
-  });
-  const float* tile = wg::stage_tile(acc, smem_raw, ring);
+  const int B = a.B, K = a.K;
+  const float* tile = train::dinp_tile(smem_raw, a.dg, a.w, B, K, a.G, a.vec);
   const int I = a.I, H = K - I;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {

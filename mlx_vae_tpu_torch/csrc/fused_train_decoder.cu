@@ -19,13 +19,14 @@
 // else the argmax (ties to the lowest index). The fed tokens [L, B] and h,
 // c and activated gates of every (t, layer) are stored for the backward.
 // Backward: per step, recompute the softmax from the stored top h and form
-// dlogits = (softmax - onehot(target)) * dce (with_ce), or read dlogits;
-// project it back through fc_out; run the n reverse chains down to the
-// input. Out: dW and db of every layer, d(fc_out), d(embedding), all f32,
-// d(h_init) [B, H] (the sum over layers at t = 0) and d(conditions) [B, C]
-// through the per-step input. The plain PyTorch version of both is in
-// mlx_vae_tpu_torch/ops/fused_train_decoder.py, which also builds this
-// file with nvcc and binds it through ctypes (plain C interface below).
+// dlogits = (softmax - onehot(target)) * dce (with_ce; a target outside
+// [0, V) adds no one-hot), or read dlogits; project it back through fc_out;
+// run the n reverse chains down to the input. Out: dW and db of every layer,
+// d(fc_out), d(embedding), all f32, d(h_init) [B, H] (the sum over layers at
+// t = 0) and d(conditions) [B, C] through the per-step input. The plain
+// PyTorch version of both is in mlx_vae_tpu_torch/ops/fused_train_decoder.py,
+// which also builds this file with nvcc and binds it through ctypes (plain C
+// interface below).
 //
 // Design:
 //  * Forward in bf16 (the tensor cores): step-major, because step t + 1's
@@ -47,12 +48,32 @@
 //    double-buffered, c, the token and the CE sum in shared memory; one warp
 //    per row does the vocab projection, the CE and the argmax over the V
 //    real lanes (the TPU pads V to 128 with a -1e9 bias instead).
-//  * Backward, reverse kernel (dec_bwd_kernel): a block owns R rows and
-//    walks t = L-1 .. 0: dlogits per row by one warp, its projection
+//  * Backward in bf16 (the tensor cores), before the sums: the head's
+//    cotangent of step t needs only forward residuals (the stored top h, the
+//    targets, dce), so it is formed for all L * B rows m = t * B + b at once,
+//    ahead of the recurrence: dec_head_bwd_kernel recomputes the logits on
+//    wgmma (dec_head_kernel's operands, 128 rows a block) and writes dlog =
+//    (softmax - onehot) * dce [L, B, V] f32 (for V > 128 a first pass over
+//    the column tiles finds each row's max and sum); dec_dtop_kernel forms
+//    dtop = bf16(dlog) fc_out^T [L, B, H] f32 on wgmma (JAX's from_above:
+//    dlogits rounded to the compute dtype, f32 sums). Then the reverse chain
+//    of fused_encoder.cu's frame: train_common.cuh's gate_kernel runs the
+//    gate step of (L-1, n-1) from dtop(L-1); for t = L-1 .. 0 and l = n-1 ..
+//    0, dec_step_kernel is one card-wide wgmma GEMM dinp = dgates(t, l)
+//    W_l^T (train_common.cuh's dinp_tile, wcat read as it lies) over all
+//    K_l + H columns, whose epilogue routes each column: the input columns
+//    run the gate step of (t, l-1) (l > 0), or are dx0 at t and the
+//    conditions' cotangent, added into d(cond) in the reference's t order
+//    (l = 0); the top layer's h columns run the gate step of (t-1, n-1) with
+//    dtop(t-1) added; the others hand dh[l] to the next launch of layer l,
+//    at t = 0 the cotangents of h_init, which reduce_kernel sums over layers
+//    (layer 0 first). 2 + 1 + n * L + 1 launches; one writer per element, so
+//    two runs are bitwise equal.
+//  * Backward in f32 (dec_bwd_kernel, CUDA-core FMA): a block owns R rows
+//    and walks t = L-1 .. 0: dlogits per row by one warp, its projection
 //    through fc_out, then the layers top down (train_common.cuh). It writes
-//    dgates [L, n, B, 4H] and the embedding-input cotangent [L, B, E] in the
-//    compute dtype and dlogits [L, B, V] in f32; d(h_init) and d(cond) are
-//    per-row sums and stay in the block.
+//    dgates and dx0 and dlogits [L, B, V]; d(h_init) and d(cond) are per-row
+//    sums and stay in the block.
 //  * Backward, sums over rows: dW and db of each layer, d(fc_out),
 //    d(fc_out bias) and d(embedding) are split reductions over the t*B rows
 //    with partials added in a fixed order (train_common.cuh), where the TPU
@@ -64,12 +85,15 @@
 // What bounds it: at the default model (E=128, C=1, H=256, n=2, V=80) and
 // B=4096, L=64, bf16, the forward is ~0.51 TFLOP of products against ~0.8
 // GB of residual stores, so the operations bound it (0.5 ms at the tensor
-// cores' bf16 rate); at hidden 1024 / 4 layers (B=2048) ~7.9 TFLOP. A
-// row-tiled CUDA-core forward streams every weight from L2 (or, past 50 MB
-// of weights, from device memory) at every step to serve a few rows; each
-// launch here touches one layer's weights. The reverse kernel is still
-// CUDA-core FMA: on an H100 80GB HBM3 (700 W) torch.profiler put it at
-// 56.7 ms of the default step.
+// cores' bf16 rate); at hidden 1024 / 4 layers (B=2048) ~7.9 TFLOP. The
+// backward is ~1 TFLOP (the chain's products, the recomputed logits,
+// from_above and the weight gradients): 1.0 ms. A row-tiled CUDA-core
+// kernel streams every weight from L2 (or, past 50 MB of weights, from
+// device memory) at every step to serve a few rows: on an H100 80GB HBM3
+// (700 W) torch.profiler put such a bf16 reverse kernel at 56.8 ms of the
+// default step. Here each launch touches one layer's weights. The chain's
+// layer-0 launches at the default model have N = E + C + H = 385 columns:
+// a fourth 128-wide column tile that holds one column.
 
 #include "train_common.cuh"
 
@@ -244,20 +268,26 @@ struct BwdArgs {
   const void* hs;        // [L, n, B, H] T
   const void* cs;
   const void* gs;        // [L, n, B, 4H] T
-  const void* wT;        // per layer [4H, (K_l + H)] T, back to back
+  const void* wcat;      // per layer [(K_l + H), 4H] T, back to back (bf16 reads it)
+  const void* wT;        // per layer [4H, (K_l + H)] T, back to back (f32 reads it)
   const void* wout;      // [H, V] T
   const void* woutT;     // [V, H] T
   const float* bout;     // [V]
+  float* dh;             // bf16: [n, B, H] zeros, the h cotangent handed down a step
+  float* dc;             // bf16: [n, B, H] zeros, each layer's running dc
+  float* dtop;           // bf16: [L, B, H] the head's cotangent of the top layer's h
   void* dgates;          // [L, n, B, 4H] T
   void* dx0;             // [L, B, E] T
   float* dlog;           // [L, B, V]
   float* dh_init;        // [B, H]
-  float* dcond;          // [B, C]
+  float* dcond;          // [B, C] (bf16: zeros on entry, added to)
   int B, L, V, E, C, H, n, with_ce;
 };
 
-template <typename T, int R, int VPL>
+// The f32 reverse kernel (bf16 runs the tensor-core chain below).
+template <int R, int VPL>
 __global__ void __launch_bounds__(NT) dec_bwd_kernel(const BwdArgs a) {
+  using T = float;
   extern __shared__ float smem[];
   const int H = a.H, E = a.E, C = a.C, n = a.n, L = a.L, B = a.B, V = a.V, G = 4 * H;
   const int K0 = E + C;
@@ -652,24 +682,347 @@ cudaError_t launch_fwd_bf16(const FwdArgs& a, const __nv_bfloat16* wt,
   return cudaSuccess;
 }
 
-template <typename T, int R, int VPL>
-cudaError_t launch_bwd_kernel(const BwdArgs& a, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)2 * a.n * R * a.H + (size_t)R * a.H +
-                                       (size_t)R * 4 * a.H + (size_t)R * a.V + (size_t)R * a.C);
-  cudaError_t e = cudaFuncSetAttribute(dec_bwd_kernel<T, R, VPL>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ------------------------------------------------ bf16 backward on the tensor cores
+
+// The head's backward for all L * B rows m = t * B + b at once, before the
+// chain (its cotangent of step t needs only forward residuals).
+//  * with_ce: the logits h_top(t) [B, H] @ wout + bout on wgmma, operands as
+//    dec_head_kernel stages them (woutT [V, H] K-major as it lies), one
+//    128-row tile a block over the vocab's 128-wide column tiles; dlog =
+//    (softmax - onehot(target)) * dce [L, B, V] f32, where a target outside
+//    [0, V) adds no one-hot (decoder_reverse_reference). A warp walks 16
+//    rows of each staged tile, a lane 4 columns. For V > 128 a first pass
+//    over the column tiles keeps each row's running max and sum of
+//    exponentials in shared memory and a second one recomputes each tile
+//    and writes dlog; at V <= 128 one tile holds the whole row.
+//  * else: dlog is the given dlogits [B, L, V], transposed to [L, B, V].
+struct HeadBwdArgs {
+  const __nv_bfloat16* hs;     // [L, n, B, H]: the top layer's h at rows t * n + n - 1
+  const __nv_bfloat16* woutT;  // [V, H]
+  const float* bout;           // [V]
+  const int* targets;          // [B, L]
+  const float* din;            // with_ce: dce [B]; else dlogits [B, L, V]
+  float* dlog;                 // [L, B, V]
+  int B, L, V, H, n, with_ce, vec;
+};
+
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
+    dec_head_bwd_kernel(const HeadBwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  float* run_max = reinterpret_cast<float*>(smem_raw);  // [BM] each
+  float* run_sum = run_max + wg::BM;
+  float* dce = run_sum + wg::BM;
+  int* target = reinterpret_cast<int*>(dce + wg::BM);
+  const uint32_t ring = (wg::smem_u32(smem_raw + HEAD_STATE) + 1023u) & ~1023u;
+  const int B = a.B, L = a.L, V = a.V, H = a.H, n = a.n;
+  const size_t M = (size_t)L * B, m0 = (size_t)blockIdx.x * wg::BM;
+  if (!a.with_ce) {
+    for (int idx = threadIdx.x; idx < wg::BM * V; idx += wg::NTH) {
+      const size_t m = m0 + idx / V;
+      const int v = idx % V;
+      if (m < M) a.dlog[m * V + v] = a.din[((m % B) * L + m / B) * V + v];
+    }
+    return;
+  }
+  const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const __nv_bfloat16* hr[4];  // the rows this thread stages
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const size_t m = m0 + r0 + 32 * u;
+    hr[u] = m < M ? a.hs + (((m / B) * n + n - 1) * B + m % B) * H : nullptr;
+  }
+  if (threadIdx.x < wg::BM) {  // visible to the epilogue after gemm()'s barriers
+    const size_t m = m0 + threadIdx.x;
+    target[threadIdx.x] = m < M ? a.targets[(m % B) * L + m / B] : -1;
+    dce[threadIdx.x] = m < M ? a.din[m % B] : 0.0f;
+  }
+  const int passes = V > wg::BN ? 2 : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    const bool final_pass = pass == passes - 1;
+    for (int n0 = 0; n0 < V; n0 += wg::BN) {
+      float acc[64];
+      wg::gemm<false>(acc, ring, (H + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
+        const int k = kt * wg::BK + 8 * c;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int r = r0 + 32 * u;
+          const uint32_t off = wg::swz(r, c);
+          wg::stage8(dst + off, hr[u], k, H, a.vec);
+          wg::stage8(dst + wg::TILE + off,
+                     n0 + r < V ? a.woutT + (size_t)(n0 + r) * H : nullptr, k, H, a.vec);
+        }
+      });
+      float bias[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int v = n0 + lane + 32 * q;
+        bias[q] = v < V ? a.bout[v] : 0.0f;
+      }
+      const float* tile = wg::stage_tile(acc, smem_raw, ring);
+      for (int i = 0; i < HEAD_ROWS; ++i) {
+        const int r = warp * HEAD_ROWS + i;
+        const size_t m = m0 + r;
+        if (m >= M) break;
+        float x[4], mx = -INFINITY, s = 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int v = n0 + lane + 32 * q;
+          x[q] = v < V ? tile[r * wg::EPI_PITCH + lane + 32 * q] + bias[q] : -INFINITY;
+          mx = fmaxf(mx, x[q]);
+        }
+        if (passes == 1 || !final_pass) {  // this tile's max and sum of exponentials
+          mx = train::warp_max(mx);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s += x[q] > -INFINITY ? expf(x[q] - mx) : 0.0f;
+          s = train::warp_sum(s);
+        }
+        if (!final_pass) {
+          if (lane == 0) {
+            if (n0 == 0) {
+              run_max[r] = mx; run_sum[r] = s;
+            } else {
+              const float m_old = run_max[r], nm = fmaxf(m_old, mx);
+              run_sum[r] = run_sum[r] * expf(m_old - nm) + s * expf(mx - nm);
+              run_max[r] = nm;
+            }
+          }
+          continue;
+        }
+        if (passes > 1) {  // the whole row's, from the first pass
+          mx = run_max[r];
+          s = run_sum[r];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int v = n0 + lane + 32 * q;
+          if (v < V)
+            a.dlog[m * V + v] = (expf(x[q] - mx) / s - (v == target[r] ? 1.0f : 0.0f)) * dce[r];
+        }
+      }
+      __syncthreads();  // the next column tile's copies reuse the ring
+    }
+  }
+}
+
+// dtop [M, H] f32 = bf16(dlog) [M, V] wout^T on wgmma, M = L * B: A the f32
+// dlog rows rounded to bf16 while staged, B wout [H, V] (row j is column j
+// of the product: K-major as it lies); one 128 x 128 tile a block, staged in
+// shared memory so that the rows are stored whole.
+struct DtopArgs {
+  const float* dlog;            // [M, V]
+  const __nv_bfloat16* wout;    // [H, V]
+  float* dtop;                  // [M, H]
+  size_t M;
+  int V, H, vec_a, vec_b;
+};
+
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM) dec_dtop_kernel(const DtopArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, V = a.V, H = a.H;
+  const size_t m0 = (size_t)blockIdx.y * wg::BM, M = a.M;
+  float acc[64];
+  wg::gemm<false>(acc, ring, (V + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
+    const int k = kt * wg::BK;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = wg::chunk(u), r = idx >> 3, c = idx & 7;
+      const uint32_t off = wg::swz(r, c);
+      wg::stage8(dst + off, m0 + r < M ? a.dlog + (m0 + r) * V : nullptr, k + 8 * c, V,
+                 a.vec_a);
+      wg::stage8(dst + wg::TILE + off, n0 + r < H ? a.wout + (size_t)(n0 + r) * V : nullptr,
+                 k + 8 * c, V, a.vec_b);
+    }
+  });
+  const float* tile = wg::stage_tile(acc, smem_raw, ring);
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
+    const int r = idx / wg::BN, cc = idx % wg::BN;
+    if (m0 + r < M && n0 + cc < H)
+      a.dtop[(m0 + r) * H + n0 + cc] = tile[r * wg::EPI_PITCH + cc];
+  }
+}
+
+// The head's backward: dec_head_bwd_kernel, then dec_dtop_kernel.
+cudaError_t head_bwd(const HeadBwdArgs& h, const __nv_bfloat16* wout, float* dtop,
+                     cudaStream_t st) {
+  const size_t M = (size_t)h.L * h.B;
+  const int tiles = train::cdiv((long)M, wg::BM);
+  cudaError_t e = cudaFuncSetAttribute(dec_head_bwd_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_SMEM);
   if (e != cudaSuccess) return e;
-  dec_bwd_kernel<T, R, VPL><<<(a.B + R - 1) / R, NT, smem, st>>>(a);
+  dec_head_bwd_kernel<<<tiles, wg::NTH, HEAD_SMEM, st>>>(h);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  DtopArgs d = {};
+  d.dlog = h.dlog;
+  d.wout = wout;
+  d.dtop = dtop;
+  d.M = M;
+  d.V = h.V;
+  d.H = h.H;
+  d.vec_a = h.V % 4 == 0 && train::aligned16(h.dlog);
+  d.vec_b = h.V % 8 == 0 && train::aligned16(wout);
+  e = cudaFuncSetAttribute(dec_dtop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           wg::SMEM);
+  if (e != cudaSuccess) return e;
+  dec_dtop_kernel<<<dim3(train::cdiv(h.H, wg::BN), tiles), wg::NTH, wg::SMEM, st>>>(d);
   return cudaGetLastError();
 }
 
-template <typename T, int VPL>
+HeadBwdArgs head_bwd_args(const BwdArgs& a) {
+  HeadBwdArgs h = {};
+  h.hs = static_cast<const __nv_bfloat16*>(a.hs);
+  h.woutT = static_cast<const __nv_bfloat16*>(a.woutT);
+  h.bout = a.bout;
+  h.targets = a.targets;
+  h.din = a.din;
+  h.dlog = a.dlog;
+  h.B = a.B; h.L = a.L; h.V = a.V; h.H = a.H; h.n = a.n; h.with_ce = a.with_ce;
+  h.vec = a.H % 8 == 0 && train::aligned16(a.hs) && train::aligned16(a.woutT);
+  return h;
+}
+
+// One chain launch, (t, l), in the order (L-1, n-1), (L-1, n-2), ..., (0, 0).
+struct StepArgs {
+  const __nv_bfloat16* dg;  // [B, 4H] dgates at (t, l): the A operand
+  const __nv_bfloat16* w;   // [K_l + H, 4H] layer l's wcat: row k is column k of the product
+  __nv_bfloat16* dx;        // [B, E] dx0 at t (l = 0)
+  float* dcond;             // [B, C] (l = 0), added to
+  const float* dh_in;       // [B, H] dh of layer l - 1 from (t + 1, l - 1) (l > 0)
+  float* dh_out;            // [B, H] dh of layer l for (t - 1, l), or of h_init at t = 0
+  int B, Kx, N, G, H, E, C, vec;
+  int below;                // l > 0: input columns run the gate step of (t, l - 1)
+  int top;                  // l = n - 1, t > 0: h columns run the gate step of (t - 1, l)
+  train::GateArgs gx;       // the gate step of (t, l - 1)
+  train::GateArgs gh;       // the gate step of (t - 1, n - 1), dtop(t - 1) added
+};
+
+// dinp [B, K_l + H] = dgates(t, l) W_l^T (train_common.cuh's dinp_tile), and
+// its epilogue, per column (a tile may straddle E, K_l = E + C at l = 0, or
+// K_l = H):
+//  * k < K_l, l > 0: the cotangent of layer l - 1's h at t; its thread runs
+//    the gate step of (t, l - 1) at unit k with dh_in + value;
+//  * l = 0, k < E: dx0 at t, rounded to bf16;
+//  * l = 0, E <= k < E + C: added to d(cond) (one writer per element a
+//    launch, launches in the reference's t-descending order);
+//  * k = K_l + j, top: the top layer's h cotangent at t - 1 from the step
+//    after; its thread runs the gate step of (t - 1, n - 1) at unit j, where
+//    the gate step adds the head's dtop(t - 1);
+//  * k = K_l + j, otherwise: stored to dh_out.
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
+    dec_step_kernel(const StepArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  const int B = a.B, N = a.N;
+  const float* tile = train::dinp_tile(smem_raw, a.dg, a.w, B, N, a.G, a.vec);
+  const int Kx = a.Kx, H = a.H, E = a.E;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
+    const int r = idx / wg::BN, cc = idx % wg::BN, row = m0 + r, col = n0 + cc;
+    if (row >= B || col >= N) continue;
+    const float v = tile[r * wg::EPI_PITCH + cc];
+    if (col < Kx) {
+      if (a.below) train::gate_step(a.gx, row, col, a.dh_in[(size_t)row * H + col] + v);
+      else if (col < E) train::st(a.dx + (size_t)row * E + col, v);
+      else a.dcond[(size_t)row * a.C + (col - E)] += v;
+    } else if (a.top) {
+      train::gate_step(a.gh, row, col - Kx, v);
+    } else {
+      a.dh_out[(size_t)row * H + (col - Kx)] = v;
+    }
+  }
+}
+
+// The bf16 reverse: the head's backward (2 launches), then the chain's
+// 1 + n * L launches on one stream (the kernel boundary is the grid-wide
+// barrier), then d(h_init) = sum over layers of dh (1 launch). Launch (t, l)
+// reads dh[l - 1], which launch (t + 1, l - 1) wrote and launch (t, l - 1)
+// overwrites after it; at t = 0 the h columns of every layer go to dh[l]
+// after launch (0, l + 1) has read it. dh, dc and dcond are zeros on entry.
+cudaError_t reverse_bf16(const BwdArgs& a, cudaStream_t st) {
+  using bf16_t = __nv_bfloat16;
+  const int B = a.B, L = a.L, H = a.H, E = a.E, C = a.C, n = a.n, G = 4 * H;
+  const bf16_t* gs = static_cast<const bf16_t*>(a.gs);
+  const bf16_t* cs = static_cast<const bf16_t*>(a.cs);
+  const bf16_t* wcat = static_cast<const bf16_t*>(a.wcat);
+  bf16_t* dgates = static_cast<bf16_t*>(a.dgates);
+  const size_t BH = (size_t)B * H;
+  cudaError_t e = head_bwd(head_bwd_args(a), static_cast<const bf16_t*>(a.wout), a.dtop, st);
+  if (e != cudaSuccess) return e;
+  // the gate step of (s, l): zero state before s = 0; the top layer's h
+  // also takes the head's cotangent dtop(s)
+  auto gate_at = [&](int s, int l) {
+    const size_t slab = ((size_t)s * n + l) * B;
+    train::GateArgs x = {};
+    x.gs = gs + slab * G;
+    x.cs = cs + slab * H;
+    x.cprev = s > 0 ? cs + (slab - (size_t)n * B) * H : nullptr;
+    x.dhs = l == n - 1 ? a.dtop + s * BH : nullptr;
+    x.dc_in = a.dc + l * BH;
+    x.dc = a.dc + l * BH;
+    x.dg = dgates + slab * G;
+    x.H = H;
+    return x;
+  };
+  // (L-1, n-1) from dh[n - 1] (zeros) + dtop(L - 1), as the reference adds them
+  train::gate_kernel<<<train::cdiv((long)B * H, 256), 256, 0, st>>>(
+      gate_at(L - 1, n - 1), a.dh + (n - 1) * BH, B * H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dec_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           wg::SMEM);
+  if (e != cudaSuccess) return e;
+  size_t wend = 0;
+  for (int l = 0; l < n; ++l) wend += (size_t)((l == 0 ? E + C : H) + H) * G;
+  StepArgs s = {};
+  s.B = B; s.G = G; s.H = H; s.E = E; s.C = C;
+  s.dcond = a.dcond;
+  s.vec = G % 8 == 0 && train::aligned16(a.wcat) && train::aligned16(a.dgates);
+  for (int t = L - 1; t >= 0; --t) {
+    size_t woff = wend;
+    for (int l = n - 1; l >= 0; --l) {
+      s.Kx = l == 0 ? E + C : H;
+      woff -= (size_t)(s.Kx + H) * G;
+      s.N = s.Kx + H;
+      s.w = wcat + woff;
+      s.dg = dgates + ((size_t)t * n + l) * B * G;
+      s.dx = static_cast<bf16_t*>(a.dx0) + (size_t)t * B * E;
+      s.below = l > 0;
+      s.top = l == n - 1 && t > 0;
+      s.dh_in = l > 0 ? a.dh + (l - 1) * BH : nullptr;
+      s.dh_out = a.dh + l * BH;
+      if (s.below) s.gx = gate_at(t, l - 1);
+      if (s.top) s.gh = gate_at(t - 1, n - 1);
+      const dim3 grid(train::cdiv(s.N, wg::BN), train::cdiv(B, wg::BM));
+      dec_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(s);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+    }
+  }
+  // every layer's h at t = 0 is the shared h_init
+  return train::reduce(a.dh, n, (long)BH, a.dh_init, st);
+}
+
+template <int R, int VPL>
+cudaError_t launch_bwd_kernel(const BwdArgs& a, cudaStream_t st) {
+  const size_t smem = sizeof(float) * ((size_t)2 * a.n * R * a.H + (size_t)R * a.H +
+                                       (size_t)R * 4 * a.H + (size_t)R * a.V + (size_t)R * a.C);
+  cudaError_t e = cudaFuncSetAttribute(dec_bwd_kernel<R, VPL>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dec_bwd_kernel<R, VPL><<<(a.B + R - 1) / R, NT, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int VPL>
 cudaError_t launch_bwd_r(const BwdArgs& a, int R, cudaStream_t st) {
   switch (R) {
-    case 1: return launch_bwd_kernel<T, 1, VPL>(a, st);
-    case 2: return launch_bwd_kernel<T, 2, VPL>(a, st);
-    case 4: return launch_bwd_kernel<T, 4, VPL>(a, st);
-    case 8: return launch_bwd_kernel<T, 8, VPL>(a, st);
+    case 1: return launch_bwd_kernel<1, VPL>(a, st);
+    case 2: return launch_bwd_kernel<2, VPL>(a, st);
+    case 4: return launch_bwd_kernel<4, VPL>(a, st);
+    case 8: return launch_bwd_kernel<8, VPL>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -690,7 +1043,9 @@ struct GradOut {
 
 template <typename T>
 cudaError_t launch_bwd(const BwdArgs& a, int R, const GradOut& o, cudaStream_t st) {
-  cudaError_t e = a.V <= 128 ? launch_bwd_r<T, 4>(a, R, st) : launch_bwd_r<T, 16>(a, R, st);
+  cudaError_t e;
+  if constexpr (sizeof(T) == 2) e = reverse_bf16(a, st);
+  else e = a.V <= 128 ? launch_bwd_r<4>(a, R, st) : launch_bwd_r<16>(a, R, st);
   if (e != cudaSuccess) return e;
   const int B = a.B, L = a.L, H = a.H, E = a.E, C = a.C, n = a.n, V = a.V, G = 4 * H,
             M = B * L;
@@ -824,23 +1179,33 @@ int dec_head_launch(const void* htop, const void* woutT, const void* bout, const
                           static_cast<cudaStream_t>(stream));
 }
 
+// The backward. bf16 reads wcat (every layer's [K_l + H, 4H] weight back to
+// back), wout [H, V] and woutT [V, H], with dh and dc its [n, B, H] f32
+// buffers and dcond zeros on entry, and dtop [L, B, H] f32 scratch; f32
+// reads wT (every layer's transpose back to back), wout and woutT, with R
+// its rows per block.
 int dec_bwd_launch(const void* din, const void* targets, const void* toks, const void* hs,
-                   const void* cs, const void* gs, const void* emb, const void* wT,
-                   const void* wout, const void* woutT, const void* bout, const void* h_init,
-                   const void* cond, void* dgates, void* dx0, void* dlog, void* dh_init,
-                   void* dcond, void* dW, void* db, void* dwout, void* dbout, void* demb,
-                   void* scratch, long scratch_elems, int B, int L, int V, int E, int C, int H,
-                   int n, int bf16, int R, int with_ce, void* stream) {
+                   const void* cs, const void* gs, const void* emb, const void* wcat,
+                   const void* wT, const void* wout, const void* woutT, const void* bout,
+                   const void* h_init, const void* cond, void* dh, void* dc, void* dtop,
+                   void* dgates, void* dx0, void* dlog, void* dh_init, void* dcond, void* dW,
+                   void* db, void* dwout, void* dbout, void* demb, void* scratch,
+                   long scratch_elems, int B, int L, int V, int E, int C, int H, int n, int bf16,
+                   int R, int with_ce, void* stream) {
   BwdArgs a;
   a.din = static_cast<const float*>(din);
   a.targets = static_cast<const int*>(targets);
   a.hs = hs;
   a.cs = cs;
   a.gs = gs;
+  a.wcat = wcat;
   a.wT = wT;
   a.wout = wout;
   a.woutT = woutT;
   a.bout = static_cast<const float*>(bout);
+  a.dh = static_cast<float*>(dh);
+  a.dc = static_cast<float*>(dc);
+  a.dtop = static_cast<float*>(dtop);
   a.dgates = dgates;
   a.dx0 = dx0;
   a.dlog = static_cast<float*>(dlog);
@@ -859,9 +1224,28 @@ int dec_bwd_launch(const void* din, const void* targets, const void* toks, const
   o.demb = static_cast<float*>(demb);
   o.scratch = static_cast<float*>(scratch);
   o.scratch_elems = scratch_elems;
-  if (B < 1 || L < 1 || V < 1 || V > 512) return (int)cudaErrorInvalidValue;
+  if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? launch_bwd<__nv_bfloat16>(a, R, o, s) : launch_bwd<float>(a, R, o, s));
+}
+
+// The bf16 backward's head pass alone (dec_head_bwd_kernel, dec_dtop_kernel):
+// dlog [L, B, V] and dtop [L, B, H] f32 from hs [L, n, B, H] (a check of the
+// kernels against their plain twin).
+int dec_head_bwd_launch(const void* hs, const void* woutT, const void* wout, const void* bout,
+                        const void* targets, const void* din, void* dlog, void* dtop, int B,
+                        int L, int V, int H, int n, int with_ce, void* stream) {
+  if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8) return (int)cudaErrorInvalidValue;
+  BwdArgs a = {};
+  a.hs = hs;
+  a.woutT = woutT;
+  a.bout = static_cast<const float*>(bout);
+  a.targets = static_cast<const int*>(targets);
+  a.din = static_cast<const float*>(din);
+  a.dlog = static_cast<float*>(dlog);
+  a.B = B; a.L = L; a.V = V; a.H = H; a.n = n; a.with_ce = with_ce;
+  return (int)head_bwd(head_bwd_args(a), static_cast<const __nv_bfloat16*>(wout),
+                       static_cast<float*>(dtop), static_cast<cudaStream_t>(stream));
 }
 
 const char* dec_error_string(int code) {

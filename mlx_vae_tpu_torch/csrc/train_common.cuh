@@ -235,9 +235,8 @@ __device__ __forceinline__ void cell_bwd_dinp(const T* WT, const float* dg, int 
 }
 
 // The bf16 reverse step of one layer at one step s, element by element: the
-// epilogue of the tensor-core reverse products (fused_seq_lstm.cu's
-// seq_step_kernel, fused_encoder.cu's enc_step_kernel) and the first launch
-// of their chains (gate_kernel).
+// epilogue of the tensor-core reverse products (dinp_tile below) and the
+// first launch of their chains (gate_kernel).
 struct GateArgs {
   const __nv_bfloat16* gs;     // [B, 4H] activated gates at s
   const __nv_bfloat16* cs;     // [B, H] c at s
@@ -272,6 +271,37 @@ __device__ __forceinline__ void gate_step(const GateArgs& a, int b, int j, float
 __global__ void __launch_bounds__(256) gate_kernel(const GateArgs a, const float* dh, int count) {
   const int idx = blockIdx.x * 256 + threadIdx.x;
   if (idx < count) gate_step(a, idx / a.H, idx % a.H, dh[idx]);
+}
+
+// The product of every bf16 reverse-chain launch (fused_seq_lstm.cu's
+// seq_step_kernel, fused_encoder.cu's enc_step_kernel, fused_train_decoder.cu's
+// dec_step_kernel): this block's 128 x 128 tile (rows blockIdx.y, columns
+// blockIdx.x) of dinp [B, N] = dg [B, G] w^T on wgmma. Both operands are
+// K-major as they lie: the reduction over G = 4H runs along the rows of
+// dgates and of the layer's combined weight w [N, G] (row k of w is column k
+// of dinp). Rows >= B and columns >= N read zeros; vec: every row 16-byte
+// aligned. Returns the f32 tile staged in shared memory ([BM][EPI_PITCH]),
+// so that the epilogue walks it row by row and its loads and stores of the
+// residuals coalesce.
+__device__ __forceinline__ const float* dinp_tile(unsigned char* smem_raw,
+                                                  const __nv_bfloat16* dg,
+                                                  const __nv_bfloat16* w, int B, int N, int G,
+                                                  bool vec) {
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  float acc[64];
+  wg::gemm<false>(acc, ring, (G + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
+    const int q = kt * wg::BK;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = wg::chunk(u), r = idx >> 3, c = idx & 7;
+      const uint32_t off = wg::swz(r, c);
+      wg::stage8(dst + off, m0 + r < B ? dg + (size_t)(m0 + r) * G : nullptr, q + 8 * c, G, vec);
+      wg::stage8(dst + wg::TILE + off, n0 + r < N ? w + (size_t)(n0 + r) * G : nullptr,
+                 q + 8 * c, G, vec);
+    }
+  });
+  return wg::stage_tile(acc, smem_raw, ring);
 }
 
 // ------------------------------------------------------- gradient sums

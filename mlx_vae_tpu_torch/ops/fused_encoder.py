@@ -48,8 +48,8 @@ from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
     MAX_V, SCRATCH_ELEMS, StackWeights, bwd_rows, cell_step_reference, check, embed_rows,
     embedding_grad, fwd_tile, interleave_weight, layer_grads, layer_leaves,
-    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_step_reference,
-    scratch_fits, shifted, stream_of, sum_outer)
+    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_gate_reference,
+    reverse_step_reference, scratch_fits, shifted, stream_of, sum_outer)
 
 
 # ----------------------------------------------------------- plain version
@@ -106,19 +106,6 @@ def encoder_reverse_reference(w: StackWeights, dh_last: torch.Tensor, hs: torch.
     return dgates, dx0
 
 
-def encoder_reverse_gate_reference(cfg: ModelConfig, s: int, l: int, dh: torch.Tensor,
-                                   cs: torch.Tensor, gs: torch.Tensor, dgates: torch.Tensor,
-                                   dc: torch.Tensor) -> None:
-    """The bf16 chain's gate step of (step ``s``, layer ``l``) in place:
-    from the total h cotangent ``dh [B, H]`` f32 and the running ``dc[l]``
-    (``dc [n, B, H]`` f32; zero state before s = 0) it writes ``dgates[s,
-    l]`` and the new ``dc[l]``. The chain's first launch is this step at
-    ``(L-1, n-1)`` with ``dh = dh_last``."""
-    dg, dc[l] = reverse_step_reference(gs[s, l], cs[s, l], cs[s - 1, l] if s else None, dh,
-                                       dc[l], cfg.dtype)
-    dgates[s, l] = dg
-
-
 def encoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Tensor,
                                    gs: torch.Tensor, dgates: torch.Tensor, dx0: torch.Tensor,
                                    dh: torch.Tensor, dc: torch.Tensor) -> None:
@@ -139,13 +126,12 @@ def encoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Te
     kx = cfg.embedding_dim if l == 0 else cfg.hidden_dim
     dinp = dgates[t, l].float() @ w.layers[l].float().T
     if l > 0:
-        encoder_reverse_gate_reference(cfg, t, l - 1, dh[l - 1] + dinp[:, :kx], cs, gs, dgates,
-                                       dc)
+        reverse_gate_reference(cfg, t, l - 1, dh[l - 1] + dinp[:, :kx], cs, gs, dgates, dc)
     else:
         dx0[t] = dinp[:, :kx]
     if t > 0:
         if l == n - 1:
-            encoder_reverse_gate_reference(cfg, t - 1, l, dinp[:, kx:], cs, gs, dgates, dc)
+            reverse_gate_reference(cfg, t - 1, l, dinp[:, kx:], cs, gs, dgates, dc)
         else:
             dh[l] = dinp[:, kx:]
 

@@ -21,10 +21,17 @@ by dtype before any launch: in bf16 it is n * L launches of
 ``csrc/train_common.cuh``'s tensor-core step kernel and L launches of the
 vocab head ``dec_head_kernel`` (:func:`decoder_fwd_steps_reference` is the
 plain twin launch by launch, :func:`decoder_head_step_reference` of one head
-launch); in f32 one CUDA-core kernel. The plain versions store the same residuals in the same
-dtype (h, c and ACTIVATED gates in the compute dtype) and the plain backward
-computes from them what the kernel's backward computes, so the card can hold
-each kernel against its plain version on identical inputs. Shapes outside
+launch); in f32 one CUDA-core kernel. So is the backward's: in bf16 a head
+pass over all L * B rows (two launches; :func:`decoder_head_bwd_reference`),
+then the reverse chain, 1 + n * L tensor-core launches
+(:func:`decoder_reverse_step_reference` is the plain twin of one,
+:func:`decoder_reverse_steps_reference` of the whole reverse launch by
+launch), and the sum of d(h_init); in f32 one CUDA-core kernel. Both then
+form the weight-gradient sums (:func:`decoder_grads`). The plain versions
+store the same residuals in the same dtype (h, c and ACTIVATED gates in the
+compute dtype) and the plain backward computes from them what the kernels'
+backward computes, so the card can hold each kernel against its plain
+version on identical inputs. Shapes outside
 :func:`fused_train_decoder_supported` raise ``NotImplementedError`` on CUDA;
 a failed build or launch raises ``RuntimeError``.
 
@@ -49,8 +56,8 @@ from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
     MAX_SMEM, MAX_V, SCRATCH_ELEMS, StackWeights, bwd_rows, cell_step_reference, check,
     embed_rows, embedding_grad, fwd_tile, interleave_weight, layer_grads, layer_leaves,
-    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_step_reference,
-    scratch_fits, seq_fwd_step_reference, shifted, stream_of, sum_outer)
+    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_gate_reference,
+    reverse_step_reference, scratch_fits, seq_fwd_step_reference, shifted, stream_of, sum_outer)
 
 
 # ----------------------------------------------------------- plain version
@@ -148,10 +155,33 @@ def decoder_fwd_steps_reference(w: StackWeights, h_init: torch.Tensor, cond: tor
     return out, toks, hs, cs, gs
 
 
+def _head_bwd_step(w: StackWeights, t: int, din: torch.Tensor, targets: torch.Tensor,
+                   hs: torch.Tensor, with_ce: bool):
+    """Step ``t`` of the vocab head's backward: ``(dlogits [B, V], the top
+    layer's h cotangent [B, H])``, both f32. With CE, dlogits is (softmax of
+    the logits recomputed from the stored top h - onehot(target)) * dce,
+    where a target outside [0, V) adds no one-hot; the cotangent is dlogits
+    rounded to the compute dtype times fc_out^T, f32 sums (JAX's
+    ``from_above``)."""
+    V, wdt = w.cfg.vocab_size, w.cfg.dtype
+    n = hs.shape[1]
+    wout = w.wout.float()
+    if with_ce:
+        logits = hs[t, n - 1].float() @ wout + w.bout
+        p = torch.softmax(logits, dim=1)
+        target = targets[:, t].long()
+        onehot = torch.nn.functional.one_hot(target.clamp(0, V - 1), V).float()
+        onehot = onehot * ((target >= 0) & (target < V)).float()[:, None]
+        dl = (p - onehot) * din.float()[:, None]
+    else:
+        dl = din[:, t].float()
+    return dl, dl.to(wdt).float() @ wout.T
+
+
 def decoder_reverse_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
                               hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor,
                               with_ce: bool):
-    """Plain twin of the reverse kernel: ``(dgates [L, n, B, 4H] and dx0
+    """Plain twin of the reverse kernels: ``(dgates [L, n, B, 4H] and dx0
     [L, B, E] in the compute dtype, dlog [L, B, V] f32, d(h_init) [B, H],
     d(cond) [B, C])``."""
     cfg = w.cfg
@@ -167,19 +197,8 @@ def decoder_reverse_reference(w: StackWeights, din: torch.Tensor, targets: torch
     dc = [torch.zeros((B, H), dtype=torch.float32, device=dev) for _ in range(n)]
     dcond = torch.zeros((B, C), dtype=torch.float32, device=dev)
     mats = [m.float() for m in w.layers]
-    wout = w.wout.float()
     for t in range(L - 1, -1, -1):
-        if with_ce:
-            logits = hs[t, n - 1].float() @ wout + w.bout
-            p = torch.softmax(logits, dim=1)
-            target = targets[:, t].long()
-            onehot = torch.nn.functional.one_hot(target.clamp(0, V - 1), V).float()
-            onehot = onehot * ((target >= 0) & (target < V)).float()[:, None]
-            dl = (p - onehot) * din.float()[:, None]
-        else:
-            dl = din[:, t].float()
-        dlog[t] = dl
-        fa = dl.to(wdt).float() @ wout.T
+        dlog[t], fa = _head_bwd_step(w, t, din, targets, hs, with_ce)
         for l in range(n - 1, -1, -1):
             dg, dc[l] = reverse_step_reference(gs[t, l], cs[t, l], cs[t - 1, l] if t else None,
                                                dh[l] + fa, dc[l], wdt)
@@ -194,20 +213,86 @@ def decoder_reverse_reference(w: StackWeights, din: torch.Tensor, targets: torch
     return dgates, dx0, dlog, sum(dh), dcond
 
 
-def decoder_bwd_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
-                          toks: torch.Tensor, h_init: torch.Tensor, cond: torch.Tensor,
-                          hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor,
-                          with_ce: bool):
-    """Plain twin of the backward kernels. ``din`` is ``dce [B]``
-    (``with_ce``) or ``dlogits [B, L, V]``. Returns ``(dW, db, dwout, dbout,
-    demb, dh_init, dcond)``: ``dW`` a list of per-layer ``[K_l + H, 4H]``,
+def decoder_head_bwd_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
+                               hs: torch.Tensor, with_ce: bool):
+    """Plain twin of the bf16 backward's head pass (``dec_head_bwd_kernel``
+    then ``dec_dtop_kernel``): ``(dlog [L, B, V], dtop [L, B, H])`` f32, the
+    head's backward of every step, each formed as
+    :func:`decoder_reverse_reference` forms it."""
+    L, _, B, H = hs.shape
+    f32 = dict(dtype=torch.float32, device=hs.device)
+    dlog = torch.empty((L, B, w.cfg.vocab_size), **f32)
+    dtop = torch.empty((L, B, H), **f32)
+    for t in range(L):
+        dlog[t], dtop[t] = _head_bwd_step(w, t, din, targets, hs, with_ce)
+    return dlog, dtop
+
+
+def decoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Tensor,
+                                   gs: torch.Tensor, dtop: torch.Tensor, dgates: torch.Tensor,
+                                   dx0: torch.Tensor, dcond: torch.Tensor, dh: torch.Tensor,
+                                   dc: torch.Tensor) -> None:
+    """Plain twin of one ``dec_step_kernel`` launch, (step ``t``, layer
+    ``l``), in place.
+
+    ``dinp = dgates[t, l] W_l^T`` (f32 products of the rounded operands, as
+    :func:`decoder_reverse_reference` forms them), then each column as the
+    kernel's epilogue routes it: the input columns run the gate step of
+    ``(t, l-1)`` with ``dh[l-1] + value`` (``l > 0``), or are ``dx0[t]``
+    (``k < E``) and added to ``dcond`` (``E <= k < E + C``) at ``l = 0``; the
+    top layer's h columns at ``t > 0`` run the gate step of ``(t-1, n-1)``
+    with ``value + dtop[t-1]``; the other h columns go to ``dh[l]``. ``dh``,
+    ``dc``: the kernels' ``[n, B, H]`` f32 buffers, and ``dcond [B, C]``,
+    zeros before the chain's first launch."""
+    cfg = w.cfg
+    n, E = cfg.num_layers, cfg.embedding_dim
+    kx = E + cfg.num_conditions if l == 0 else cfg.hidden_dim
+    dinp = dgates[t, l].float() @ w.layers[l].float().T
+    if l > 0:
+        reverse_gate_reference(cfg, t, l - 1, dh[l - 1] + dinp[:, :kx], cs, gs, dgates, dc)
+    else:
+        dx0[t] = dinp[:, :E]
+        dcond += dinp[:, E:kx]
+    if l == n - 1 and t > 0:
+        reverse_gate_reference(cfg, t - 1, l, dinp[:, kx:] + dtop[t - 1], cs, gs, dgates, dc)
+    else:
+        dh[l] = dinp[:, kx:]
+
+
+def decoder_reverse_steps_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
+                                    hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor,
+                                    with_ce: bool):
+    """Plain twin of the bf16 reverse, launch by launch (contract of
+    :func:`decoder_reverse_reference`, which it equals bit for bit): the
+    head pass (:func:`decoder_head_bwd_reference`); the gate step of (L-1,
+    n-1) from ``dh[n-1] + dtop[L-1]``; :func:`decoder_reverse_step_reference`
+    for t = L-1 .. 0, l = n-1 .. 0; then d(h_init), the sum of ``dh`` over
+    layers, layer 0 first."""
+    cfg = w.cfg
+    L, n, B, H = hs.shape
+    dev = hs.device
+    dgates = torch.empty((L, n, B, 4 * H), dtype=cfg.dtype, device=dev)
+    dx0 = torch.empty((L, B, cfg.embedding_dim), dtype=cfg.dtype, device=dev)
+    dcond = torch.zeros((B, cfg.num_conditions), dtype=torch.float32, device=dev)
+    dh, dc = torch.zeros((2, n, B, H), dtype=torch.float32, device=dev)
+    dlog, dtop = decoder_head_bwd_reference(w, din, targets, hs, with_ce)
+    reverse_gate_reference(cfg, L - 1, n - 1, dh[n - 1] + dtop[L - 1], cs, gs, dgates, dc)
+    for t in range(L - 1, -1, -1):
+        for l in range(n - 1, -1, -1):
+            decoder_reverse_step_reference(w, t, l, cs, gs, dtop, dgates, dx0, dcond, dh, dc)
+    return dgates, dx0, dlog, sum(dh), dcond
+
+
+def decoder_grads(w: StackWeights, toks: torch.Tensor, h_init: torch.Tensor,
+                  cond: torch.Tensor, hs: torch.Tensor, dgates: torch.Tensor,
+                  dx0: torch.Tensor, dlog: torch.Tensor):
+    """The weight-gradient sums from the reverse chain's outputs: ``(dW, db,
+    dwout, dbout, demb)``: ``dW`` a list of per-layer ``[K_l + H, 4H]``,
     ``db [n, 4H]``, ``dwout [H, V]``, ``dbout [V]``, ``demb [V, E]``, all
     f32."""
     cfg = w.cfg
     wdt, n = cfg.dtype, cfg.num_layers
-    dgates, dx0, dlog, dh_init, dcond = decoder_reverse_reference(
-        w, din, targets, hs, cs, gs, with_ce)
-    L, _, B, _ = hs.shape
+    L = hs.shape[0]
     h0 = h_init.to(wdt)
     dW = []
     for l in range(n):
@@ -220,7 +305,20 @@ def decoder_bwd_reference(w: StackWeights, din: torch.Tensor, targets: torch.Ten
     dwout = sum_outer(hs[:, n - 1], dlog.to(wdt))
     dbout = dlog.sum(dim=(0, 1))
     demb = embedding_grad(dx0, toks, cfg.vocab_size)
-    return dW, db, dwout, dbout, demb, dh_init, dcond
+    return dW, db, dwout, dbout, demb
+
+
+def decoder_bwd_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
+                          toks: torch.Tensor, h_init: torch.Tensor, cond: torch.Tensor,
+                          hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor,
+                          with_ce: bool):
+    """Plain twin of the backward kernels. ``din`` is ``dce [B]``
+    (``with_ce``) or ``dlogits [B, L, V]``. Returns ``(dW, db, dwout, dbout,
+    demb, dh_init, dcond)``: :func:`decoder_grads` of
+    :func:`decoder_reverse_reference`, then its d(h_init) and d(cond)."""
+    dgates, dx0, dlog, dh_init, dcond = decoder_reverse_reference(
+        w, din, targets, hs, cs, gs, with_ce)
+    return (*decoder_grads(w, toks, h_init, cond, hs, dgates, dx0, dlog), dh_init, dcond)
 
 
 # ------------------------------------------------------------------ kernels
@@ -283,8 +381,10 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     lib.dec_fwd_bf16_launch.restype = i
     lib.dec_head_launch.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.dec_head_launch.restype = i
-    lib.dec_bwd_launch.argtypes = [p] * 24 + [lg] + [i] * 10 + [p]
+    lib.dec_bwd_launch.argtypes = [p] * 28 + [lg] + [i] * 10 + [p]
     lib.dec_bwd_launch.restype = i
+    lib.dec_head_bwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.dec_head_bwd_launch.restype = i
     lib.dec_error_string.argtypes = [i]
     lib.dec_error_string.restype = ctypes.c_char_p
     return lib
@@ -372,20 +472,27 @@ decoder_fwd.logits_launches = 0
 
 
 def launch_decoder_bwd(lib, w: StackWeights, din, targets, toks, h_init, cond, hs, cs, gs,
-                       with_ce: bool, stream: int):
+                       with_ce: bool, stream: int, with_reverse: bool = False):
     """Allocate the outputs and scratch and launch the backward kernels (no
-    device or support checks: :func:`decoder_bwd` makes them)."""
+    device or support checks: :func:`decoder_bwd` makes them). bf16 runs the
+    head pass and the tensor-core reverse chain on ``wcat`` with zeroed
+    ``[n, B, H]`` dh and dc buffers and an ``[L, B, H]`` dtop; f32 the
+    CUDA-core reverse kernel on ``wT``. Returns ``(dW, db, dwout, dbout,
+    demb, dh_init, dcond)``, and with ``with_reverse`` also the reverse's
+    ``(dgates, dx0, dlog, dh_init, dcond)`` (the contract of
+    :func:`decoder_reverse_reference`)."""
     cfg = w.cfg
     L, n, B, H = hs.shape
     E, C, V = cfg.embedding_dim, cfg.num_conditions, cfg.vocab_size
     dev, wdt = hs.device, cfg.dtype
+    bf16 = wdt == torch.bfloat16
     K0 = E + C
     f32 = dict(dtype=torch.float32, device=dev)
     dgates = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
     dx0 = torch.empty((L, B, E), dtype=wdt, device=dev)
     dlog = torch.empty((L, B, V), **f32)
     dh_init = torch.empty((B, H), **f32)
-    dcond = torch.empty((B, C), **f32)
+    dcond = torch.zeros((B, C), **f32)
     sizes = [(K0 + H) * 4 * H] + [2 * H * 4 * H] * (n - 1)
     dW_flat = torch.empty((sum(sizes),), **f32)
     db = torch.empty((n, 4 * H), **f32)
@@ -393,31 +500,55 @@ def launch_decoder_bwd(lib, w: StackWeights, din, targets, toks, h_init, cond, h
     dbout = torch.empty((V,), **f32)
     demb = torch.empty((V, E), **f32)
     scratch = torch.empty((SCRATCH_ELEMS,), **f32)
+    dhc = torch.zeros((2, n, B, H), **f32) if bf16 else None  # dh, dc
+    dtop = torch.empty((L, B, H), **f32) if bf16 else None
     h0 = h_init.to(wdt).contiguous()
     cond_w = cond.to(wdt).contiguous()
-    R = bwd_rows(_bwd_smem(cfg))
+    R = 0 if bf16 else bwd_rows(_bwd_smem(cfg))
     rc = lib.dec_bwd_launch(
         din.data_ptr(), targets.data_ptr(), toks.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        gs.data_ptr(), w.emb.data_ptr(), w.wT.data_ptr(), w.wout.data_ptr(),
+        gs.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(), w.wT.data_ptr(), w.wout.data_ptr(),
         w.woutT.data_ptr(), w.bout.data_ptr(), h0.data_ptr(), cond_w.data_ptr(),
-        dgates.data_ptr(), dx0.data_ptr(), dlog.data_ptr(), dh_init.data_ptr(),
-        dcond.data_ptr(), dW_flat.data_ptr(), db.data_ptr(), dwout.data_ptr(),
-        dbout.data_ptr(), demb.data_ptr(), scratch.data_ptr(), SCRATCH_ELEMS,
-        B, L, V, E, C, H, n, int(wdt == torch.bfloat16), R, int(with_ce), stream)
+        dhc[0].data_ptr() if bf16 else None, dhc[1].data_ptr() if bf16 else None,
+        dtop.data_ptr() if bf16 else None, dgates.data_ptr(), dx0.data_ptr(), dlog.data_ptr(),
+        dh_init.data_ptr(), dcond.data_ptr(), dW_flat.data_ptr(), db.data_ptr(),
+        dwout.data_ptr(), dbout.data_ptr(), demb.data_ptr(), scratch.data_ptr(), SCRATCH_ELEMS,
+        B, L, V, E, C, H, n, int(bf16), R, int(with_ce), stream)
     raise_if(rc, "decoder backward", lib.dec_error_string)
     dW, off = [], 0
-    for l, size in enumerate(sizes):
+    for size in sizes:
         dW.append(dW_flat[off:off + size].view(size // (4 * H), 4 * H))
         off += size
-    return dW, db, dwout, dbout, demb, dh_init, dcond
+    res = (dW, db, dwout, dbout, demb, dh_init, dcond)
+    return res + (dgates, dx0, dlog, dh_init, dcond) if with_reverse else res
+
+
+def launch_decoder_head_bwd(lib, w: StackWeights, din, targets, hs, with_ce: bool,
+                            stream: int):
+    """The bf16 backward's head pass alone (``dec_head_bwd_kernel`` then
+    ``dec_dtop_kernel``): ``(dlog [L, B, V], dtop [L, B, H])`` f32, the
+    contract of :func:`decoder_head_bwd_reference` (for holding the kernels
+    against their twin: no checks, no count)."""
+    L, n, B, H = hs.shape
+    V = w.cfg.vocab_size
+    dlog = torch.empty((L, B, V), dtype=torch.float32, device=hs.device)
+    dtop = torch.empty((L, B, H), dtype=torch.float32, device=hs.device)
+    rc = lib.dec_head_bwd_launch(hs.data_ptr(), w.woutT.data_ptr(), w.wout.data_ptr(),
+                                 w.bout.data_ptr(), targets.data_ptr(), din.data_ptr(),
+                                 dlog.data_ptr(), dtop.data_ptr(), B, L, V, H, n,
+                                 int(with_ce), stream)
+    raise_if(rc, "decoder head backward", lib.dec_error_string)
+    return dlog, dtop
 
 
 def decoder_bwd(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
                 toks: torch.Tensor, h_init: torch.Tensor, cond: torch.Tensor,
                 hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor, with_ce: bool):
     """The backward (contract of :func:`decoder_bwd_reference`). CPU tensors
-    run the plain version; CUDA tensors launch the kernels, counted once per
-    call in ``decoder_bwd.launches``."""
+    run the plain version; CUDA tensors launch the kernels (bf16: the head
+    pass and the tensor-core reverse chain; f32: ``dec_bwd_kernel``), then
+    the weight-gradient sums, counted once per call in
+    ``decoder_bwd.launches``."""
     if hs.device.type == "cpu":
         return decoder_bwd_reference(w, din, targets, toks, h_init, cond, hs, cs, gs, with_ce)
     cfg = w.cfg

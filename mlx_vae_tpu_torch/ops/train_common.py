@@ -11,7 +11,8 @@
 * The tile rule (:func:`fwd_tile`, :func:`bwd_rows`, :func:`scratch_fits`)
   and the route rule (:func:`stack_fits_l2`).
 * The plain versions' shared steps (one LSTM cell, its reverse step from
-  activated gates, the weight- and embedding-gradient sums).
+  activated gates and the reverse chains' gate step, the weight- and
+  embedding-gradient sums).
 * The bf16 forward step kernel's layout (``csrc/train_common.cuh``:
   ``seq_fwd_step_kernel``): :func:`fwd_step_plan` and :func:`step_columns`
   (input, optional conditions, h), the gate-interleaved weight copy
@@ -246,6 +247,19 @@ def reverse_step_reference(gs: torch.Tensor, c_t: torch.Tensor,
     dg = torch.cat([dct * g * i * (1.0 - i), dct * cp * f * (1.0 - f),
                     dct * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=1)
     return dg.to(wdt).float(), dct * f
+
+
+def reverse_gate_reference(cfg: ModelConfig, s: int, l: int, dh: torch.Tensor,
+                           cs: torch.Tensor, gs: torch.Tensor, dgates: torch.Tensor,
+                           dc: torch.Tensor) -> None:
+    """A bf16 reverse chain's gate step of (step ``s``, layer ``l``) in
+    place (``csrc/train_common.cuh:gate_step``): from the total h cotangent
+    ``dh [B, H]`` f32 and the running ``dc[l]`` (``dc [n, B, H]`` f32; zero
+    state before s = 0) it writes ``dgates[s, l]`` and the new ``dc[l]``.
+    A chain's first launch is this step at ``(L-1, n-1)``."""
+    dg, dc[l] = reverse_step_reference(gs[s, l], cs[s, l], cs[s - 1, l] if s else None, dh,
+                                       dc[l], cfg.dtype)
+    dgates[s, l] = dg
 
 
 def shifted(h_t: torch.Tensor, h0: Optional[torch.Tensor]) -> torch.Tensor:

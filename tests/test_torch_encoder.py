@@ -260,7 +260,7 @@ def _reverse_by_steps(w, dh_last, cs, gs):
     dgates = torch.empty((L, n, B, 4 * H), dtype=cfg.dtype)
     dx0 = torch.empty((L, B, cfg.embedding_dim), dtype=cfg.dtype)
     dh, dc = torch.zeros((2, n, B, H))
-    fe.encoder_reverse_gate_reference(cfg, L - 1, n - 1, dh_last, cs, gs, dgates, dc)
+    tc.reverse_gate_reference(cfg, L - 1, n - 1, dh_last, cs, gs, dgates, dc)
     for t in range(L - 1, -1, -1):
         for l in range(n - 1, -1, -1):
             fe.encoder_reverse_step_reference(w, t, l, cs, gs, dgates, dx0, dh, dc)

@@ -1,7 +1,8 @@
 """The train step's CUDA kernels (fused encoder, fused training decoder:
 forward and backward each; in bf16 the decoder forward's step and vocab-head
-chain, each head launch also alone; and the two instances of the gate
-pair's backward) against their plain PyTorch versions, on the card. Tests
+chain, each head launch also alone, and the decoder backward's head pass and
+reverse chain, each also alone; and the two instances of the gate pair's
+backward) against their plain PyTorch versions, on the card. Tests
 marked ``cuda`` skip without a CUDA device. This file imports no JAX, so it
 also runs on a GPU machine without it:
 
@@ -511,6 +512,85 @@ def test_decoder_forward_routes_by_dtype(dev, dtype, with_ce):
     count = {k: sum(bool(re.search(rf"\b{k}\b", m)) for m in names) for k in kernels}
     want = (dict(zip(kernels, (1, n * L, L, 0))) if dtype == "bfloat16" else
             dict(zip(kernels, (0, 0, 0, 1))))
+    assert count == want, names
+
+
+def _dec_bwd_inputs(case, with_ce, dev):
+    """A DEC_FWD case's plain forward residuals (teacher forcing all on) and
+    a backward cotangent: (cfg, w, tok, cond, h0, (toks, hs, cs, gs), din)."""
+    cfg, w, tok, cond, h0 = _dec_case(case, "bfloat16", dev)
+    B, L = tok.shape
+    tf = torch.ones((L,), dtype=torch.bool, device=dev)
+    res = fd.decoder_fwd_reference(w, h0, cond, tok, tf, with_ce)[1:]
+    g = torch.Generator().manual_seed(case + 200)
+    din = (torch.randn((B,), generator=g) if with_ce
+           else torch.randn((B, L, cfg.vocab_size), generator=g)).to(dev)
+    return cfg, w, tok, cond, h0, res, din
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_bf16_reverse_chain_matches_plain(dev, case, with_ce):
+    """The bf16 backward's reverse alone (the head pass, the gate kernel, one
+    tensor-core product per (step, layer) with the gate step in its epilogue,
+    the d(h_init) sum): dgates, dx0, dlog, d(h_init) and d(cond) against
+    decoder_reverse_steps_reference on the same residuals within 2e-2, over
+    one row, ragged batches, ragged E, C, H and V, tiles that straddle E,
+    E + C and K_l, and targets outside [0, V); a second run repeats the first
+    bit for bit, gradient sums included."""
+    _, w, tok, cond, h0, (toks, hs, cs, gs), din = _dec_bwd_inputs(case, with_ce, dev)
+    lib, st = fd.build_library(), tc.stream_of(dev)
+    run = lambda: fd.launch_decoder_bwd(lib, w, din, tok, toks, h0, cond, hs, cs, gs,  # noqa: E731
+                                        with_ce, st, with_reverse=True)
+    k1, k2 = run(), run()
+    want = fd.decoder_reverse_steps_reference(w, din, tok, hs, cs, gs, with_ce)
+    torch.cuda.synchronize()
+    _close(k1[7:], want, "bfloat16")
+    for a, b in zip([*k1[0], *k1[1:]], [*k2[0], *k2[1:]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_head_bwd_matches_plain(dev, case, with_ce):
+    """The bf16 backward's head pass alone (dec_head_bwd_kernel, then
+    dec_dtop_kernel) against decoder_head_bwd_reference on the same stored
+    h: both read the same rounded operands, so dlog and dtop are within 1e-4
+    of their largest magnitude, over vocabularies of 1, 3 and 4 column tiles
+    and targets outside [0, V)."""
+    _, w, tok, _, _, (_, hs, _, _), din = _dec_bwd_inputs(case, with_ce, dev)
+    lib, st = fd.build_library(), tc.stream_of(dev)
+    got = fd.launch_decoder_head_bwd(lib, w, din, tok, hs, with_ce, st)
+    want = fd.decoder_head_bwd_reference(w, din, tok, hs, with_ce)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dlog", "dtop"), got, want):
+        assert torch.isfinite(a).all(), name
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_backward_routes_by_dtype(dev, dtype):
+    """bf16: the head pass (dec_head_bwd_kernel, dec_dtop_kernel), then
+    train::gate_kernel once and dec_step_kernel per (step, layer), and no
+    dec_bwd_kernel; f32 still runs the CUDA-core dec_bwd_kernel, once."""
+    import re
+
+    cfg, w, tok, cond, h0 = _dec_case(2, dtype, dev)
+    B, L = tok.shape
+    n = cfg.num_layers
+    p = fd.decoder_fwd_reference(w, h0, cond, tok, torch.ones((L,), dtype=torch.bool,
+                                                                device=dev), True)
+    dce = torch.randn((B,), device=dev)
+    names = _device_kernels(lambda: fd.decoder_bwd(w, dce, tok, p[1], h0, cond, *p[2:], True))
+    kernels = ("dec_head_bwd_kernel", "dec_dtop_kernel", "gate_kernel", "dec_step_kernel",
+               "dec_bwd_kernel")
+    count = {k: sum(bool(re.search(rf"\b{k}\b", m)) for m in names) for k in kernels}
+    want = (dict(zip(kernels, (1, 1, 1, n * L, 0))) if dtype == "bfloat16" else
+            dict(zip(kernels, (0, 0, 0, 0, 1))))
     assert count == want, names
 
 

@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py            # phases 1-11 below
-    python3 chip_smoke.py --sweep    # phases 1-2, then the tile sweep
+    python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. Phases (each prints one line or a few):
@@ -13,24 +13,32 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    ``mlx_vae_tpu_torch/csrc/*.cu`` (sm_90a): the sampler, the fused encoder,
    the fused training decoder, the sequence LSTM and the gate pair; the
    build fails if ptxas serialized a ``wgmma`` chain (warning C7515);
-3. kernel vs plain: the fused sampler kernel against its plain PyTorch
-   version on the card at the default model width (V=80, E=128, H=256,
-   latent 128, 1 condition, 2 layers), at every serving tier B = 256, 2048,
-   8192, L=64, f32 and bf16, greedy, stochastic (T=0.8) and truncated
-   (top-k=6 / top-p=0.8, T=0.8): tokens agree on >= 99.0% of first tokens
-   and >= 97.0% of rows; the first step's scaled logits agree within
-   1e-4 (f32) / 1e-2 (bf16) absolute; truncated first tokens lie in the
-   plain version's kept set; rows emit only pad after EOS; moving seed
-   blocks to other batch positions leaves their tokens bitwise unchanged;
+3. kernel vs plain: both fused sampler kernels, the tensor-core
+   ``gen_tc_kernel`` (the default model's route) and the CUDA-core
+   ``fused_generate_kernel`` (forced), against their plain PyTorch version
+   on the card at the default model width (V=80, E=128, H=256, latent 128,
+   1 condition, 2 layers), at every serving tier B = 256, 2048, 8192, L=64,
+   f32 and bf16, greedy, stochastic (T=0.8) and truncated (top-k=6 /
+   top-p=0.8, T=0.8): tokens agree on >= 99.0% of first tokens and >= 97.0%
+   of rows; the first step's scaled logits agree within 1e-4 (f32) / 1e-2
+   (bf16) absolute; truncated first tokens lie in the plain version's kept
+   set; rows emit only pad after EOS; moving seed blocks to other batch
+   positions, or running a block alone at B=256, leaves their tokens
+   bitwise unchanged;
 4. the slice: a random-init checkpoint is served by the port's HTTP server
    (tiers 256,2048,8192, max_length 64, f32) and answers health, stochastic,
-   repeated-seed, greedy, multi-pass and malformed requests; the kernel
-   launch counter, reset just before, must have risen, and /health names
-   the fused sampler. A V=600 checkpoint, which the sampler kernel refuses,
-   is then served through the scan sampler (as the JAX server serves it):
-   /health says "scan", same-seed requests repeat, no sampler launch;
-5. times: kernel vs plain sampler in mols/s at B = 256, 2048, 8192 (L=64,
-   f32, T=0.8), CUDA events after a warm-up;
+   repeated-seed, greedy, multi-pass and malformed requests; the sampler
+   launch counters, reset just before, must show tensor-core launches and
+   no CUDA-core one, and /health names the fused sampler. A V=600
+   checkpoint, which the sampler kernels refuse, is then served through the
+   scan sampler (as the JAX server serves it): /health says "scan", same-seed
+   requests repeat, no sampler launch. An H=48 checkpoint, which the
+   tensor-core kernel refuses, is served through the CUDA-core kernel
+   (routed by config, before any launch);
+5. times: the tensor-core and CUDA-core sampler kernels in turns, in mols/s,
+   at B = 256, 2048, 8192 (L=64, T=0.8, f32 and bf16), and the plain version
+   (every f32 tier, bf16 at B=8192), CUDA events after a warm-up; one B=8192
+   f32 pass under ``torch.profiler`` (kernel name and device time);
 6. train kernels vs plain: the fused encoder's and the fused training
    decoder's forward and backward kernels (both decoder specializations:
    CE and logits) against their plain PyTorch versions at the default
@@ -115,10 +123,11 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    and one scaled fused step under ``torch.profiler`` (as in phase 8, with
    the same check of the forward kernels' names).
 
-``--sweep`` times the kernel with each rows-per-thread instance forced
-(1, 2, 4, 8) at B = 256, 1024, 2048, 8192, L=64, T=0.8, f32 and bf16:
-three repeats of 5 launches each after a warm-up, CUDA events. It is the
-measurement behind the tile rule in ``ops/fused_decoder.py:_tile_rows``.
+``--sweep`` times the tensor-core kernel with each cluster size forced and
+the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
+at B = 256, 1024, 2048, 8192, L=64, T=0.8, f32 and bf16: three repeats of 5
+launches each after a warm-up, CUDA events. It is the measurement behind
+``ops/fused_decoder.py:tc_cluster_size`` and ``_tile_rows``.
 
 Any failed check raises, so the script exits non-zero before the last line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -162,6 +171,7 @@ TIERS = (256, 2048, 8192)
 # NVIDIA's published H100 SXM peaks (dense): bf16 tensor cores, f32 outside
 # the tensor cores, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12  # tensor cores, TF32 (dense): the f32 sampler's split-TF32 route
 PEAK_BYTES = 3.35e12
 SCALED = dict(hidden_dim=1024, num_layers=4, latent_dim=512)
 SB, SL = 2048, 64  # the scaled batch and length
@@ -217,15 +227,16 @@ def check_eos(toks: torch.Tensor, cfg) -> None:
         raise AssertionError(f"{bad} non-pad tokens after EOS")
 
 
-def phase_kernel_vs_plain() -> tuple:
-    """Returns (largest |kernel - plain| first-step logit, largest share of
-    rows that differed) over every run."""
+def phase_kernel_vs_plain() -> dict:
+    """Both sampler kernels (the tensor-core route and the CUDA-core kernel,
+    forced) against the plain version. Returns {kernel: (largest |kernel -
+    plain| first-step logit, largest share of rows that differed)}."""
     from mlx_vae_tpu_torch.ops.fused_decoder import (
         fused_generate, fused_generate_reference, prepare_weights)
     from mlx_vae_tpu_torch.ops.sampling import truncate_logits_bisect
 
     L = 64
-    worst_err, worst_rows = 0.0, 0.0
+    worst = {"tc": [0.0, 0.0], "cuda_core": [0.0, 0.0]}
     modes = (("greedy", 1.0, {"greedy": True}), ("T=0.8", 0.8, {}),
              ("top_k=6 top_p=0.8", 0.8, {"top_k": 6, "top_p": 0.8}))
     for dtype in ("float32", "bfloat16"):
@@ -234,51 +245,70 @@ def phase_kernel_vs_plain() -> tuple:
         for B in TIERS:
             for mode, temp, kw in modes:
                 h0, cond, seeds, temps = inputs(cfg, params, B, temp, seed=7)
-                lk = torch.empty((B, cfg.vocab_size), device="cuda")
-                lp = torch.empty_like(lk)
-                k = fused_generate(w, h0, cond, seeds, temps, L, logits_out=lk, **kw)
+                lp = torch.empty((B, cfg.vocab_size), device="cuda")
+                p = fused_generate_reference(w, h0, cond, seeds, temps, L, logits_out=lp, **kw)
                 torch.cuda.synchronize()
-                p = fused_generate_reference(w, h0, cond, seeds, temps, L,
-                                             logits_out=lp, **kw)
-                torch.cuda.synchronize()
-                first, rows = agreement(k, p)
-                err = (lk - lp).abs().max().item()
-                worst_err, worst_rows = max(worst_err, err), max(worst_rows, 1.0 - rows)
-                line = (f"  {dtype} B={B} {mode}: first tokens {first:.4%}, rows "
-                        f"{rows:.4%}, first-step logits max |diff| {err:.3e}")
-                if "top_k" in kw:
-                    kept = truncate_logits_bisect(lp, cfg.vocab_size, 6, 0.8) > -0.5e30
-                    inside = kept[torch.arange(B, device="cuda"),
-                                  k[:, 0].long()].float().mean().item()
-                    line += f", first tokens in the plain kept set {inside:.4%}"
-                    if inside < 1.0:
-                        raise AssertionError("a truncated first token lies outside "
-                                             "the kept set")
-                log(line)
-                if first < AGREE_FIRST or rows < AGREE_ROWS:
-                    raise AssertionError(f"{dtype} B={B} {mode}: agreement below "
-                                         f"{AGREE_FIRST:.0%} / {AGREE_ROWS:.0%}")
-                if not err <= LOGIT_ATOL[dtype]:
-                    raise AssertionError(f"{dtype} B={B} {mode}: logits differ by "
-                                         f"{err} > {LOGIT_ATOL[dtype]}")
-                if not ((k >= 0) & (k < cfg.vocab_size)).all():
-                    raise AssertionError("token id out of range")
-                check_eos(k, cfg)
-                if mode == "T=0.8" and B > 256:
-                    # seed blocks moved to other batch positions keep their tokens
-                    bb = 256
-                    nb = B // bb
-                    perm = torch.arange(nb - 1, -1, -1, device="cuda")
-                    moved = (perm[:, None] * bb + torch.arange(bb, device="cuda")).reshape(-1)
-                    kp = fused_generate(w, h0[moved].contiguous(), cond[moved].contiguous(),
-                                        seeds[perm].contiguous(), temps[perm].contiguous(), L)
+                for kernel in ("tc", "cuda_core"):
+                    lk = torch.empty_like(lp)
+                    k = fused_generate(w, h0, cond, seeds, temps, L, logits_out=lk,
+                                       kernel=kernel, **kw)
                     torch.cuda.synchronize()
-                    if not torch.equal(kp, k[moved]):
-                        raise AssertionError("seed-block tokens changed with batch position")
-                    log(f"  {dtype} B={B}: {nb} seed blocks reversed in the batch -> "
-                        f"tokens bitwise unchanged")
+                    first, rows = agreement(k, p)
+                    err = (lk - lp).abs().max().item()
+                    worst[kernel] = [max(worst[kernel][0], err),
+                                     max(worst[kernel][1], 1.0 - rows)]
+                    line = (f"  {kernel} {dtype} B={B} {mode}: first tokens {first:.4%}, rows "
+                            f"{rows:.4%}, first-step logits max |diff| {err:.3e}")
+                    if "top_k" in kw:
+                        kept = truncate_logits_bisect(lp, cfg.vocab_size, 6, 0.8) > -0.5e30
+                        inside = kept[torch.arange(B, device="cuda"),
+                                      k[:, 0].long()].float().mean().item()
+                        line += f", first tokens in the plain kept set {inside:.4%}"
+                        if inside < 1.0:
+                            raise AssertionError("a truncated first token lies outside "
+                                                 "the kept set")
+                    log(line)
+                    if first < AGREE_FIRST or rows < AGREE_ROWS:
+                        raise AssertionError(f"{kernel} {dtype} B={B} {mode}: agreement below "
+                                             f"{AGREE_FIRST:.0%} / {AGREE_ROWS:.0%}")
+                    if not err <= LOGIT_ATOL[dtype]:
+                        raise AssertionError(f"{kernel} {dtype} B={B} {mode}: logits differ by "
+                                             f"{err} > {LOGIT_ATOL[dtype]}")
+                    if not ((k >= 0) & (k < cfg.vocab_size)).all():
+                        raise AssertionError("token id out of range")
+                    check_eos(k, cfg)
+                    if mode == "T=0.8" and B > 256:
+                        check_seed_blocks(w, h0, cond, seeds, temps, k, kernel, f"{dtype} B={B}")
     log("  EOS rows emit only pad after EOS: ok")
-    return worst_err, worst_rows
+    return {k: tuple(v) for k, v in worst.items()}
+
+
+def check_seed_blocks(w, h0, cond, seeds, temps, k, kernel: str, what: str) -> None:
+    """Seed blocks keep their tokens bit for bit when moved to other batch
+    positions (all reversed) and when run alone at B=256 (its first, middle
+    and last block)."""
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+
+    bb, L = 256, k.shape[1]
+    nb = h0.shape[0] // bb
+    perm = torch.arange(nb - 1, -1, -1, device="cuda")
+    moved = (perm[:, None] * bb + torch.arange(bb, device="cuda")).reshape(-1)
+    kp = fused_generate(w, h0[moved].contiguous(), cond[moved].contiguous(),
+                        seeds[perm].contiguous(), temps[perm].contiguous(), L, kernel=kernel)
+    torch.cuda.synchronize()
+    if not torch.equal(kp, k[moved]):
+        raise AssertionError(f"{kernel} {what}: seed-block tokens changed with batch position")
+    for blk in (0, nb // 2, nb - 1):
+        rows = slice(bb * blk, bb * (blk + 1))
+        alone = fused_generate(w, h0[rows].contiguous(), cond[rows].contiguous(),
+                               seeds[blk:blk + 1].contiguous(), temps[blk:blk + 1].contiguous(),
+                               L, kernel=kernel)
+        torch.cuda.synchronize()
+        if not torch.equal(alone, k[rows]):
+            raise AssertionError(f"{kernel} {what}: seed block {blk} alone at B=256 gave other "
+                                 f"tokens")
+    log(f"  {kernel} {what}: {nb} seed blocks reversed in the batch, and blocks 0, {nb // 2}, "
+        f"{nb - 1} alone at B=256 -> tokens bitwise unchanged")
 
 
 def post(base, payload, path="/generate"):
@@ -289,8 +319,8 @@ def post(base, payload, path="/generate"):
 
 
 def phase_slice(tmp: str) -> int:
-    """Serve a random-init checkpoint; returns the kernel launches the
-    requests made."""
+    """Serve a random-init checkpoint; returns the tensor-core sampler
+    launches the requests made (they must make no CUDA-core launch)."""
     import numpy as np
 
     from mlx_vae_tpu_torch.cli.serve import build_parser, pass_seed, serve_forever
@@ -322,7 +352,8 @@ def phase_slice(tmp: str) -> int:
               "mols_per_sec", "passes", "coalesced", "validity", "uniqueness",
               "selfies"}
     try:
-        fused_generate.launches = 0  # count only the main path's launches
+        # count only the main path's launches
+        fused_generate.launches = fused_generate.tc_launches = fused_generate.core_launches = 0
         with urllib.request.urlopen(base + "/health", timeout=60) as r:
             health = json.loads(r.read())
         if (health["status"] != "ok" or health["batch_tiers"] != [256, 2048, 8192]
@@ -364,10 +395,13 @@ def phase_slice(tmp: str) -> int:
             if e.code != 400:
                 raise
         log("  same seed -> identical tokens; malformed request -> 400")
-        launches = fused_generate.launches
-        if launches < 1:
-            raise AssertionError("the served requests never launched the kernel")
-        log(f"  kernel launches during the requests: {launches}")
+        launches = fused_generate.tc_launches
+        if launches < 1 or fused_generate.core_launches or launches != fused_generate.launches:
+            raise AssertionError(f"the served requests launched {launches} tensor-core and "
+                                 f"{fused_generate.core_launches} CUDA-core sampler kernels: the "
+                                 f"default config must take the tensor-core route only")
+        log(f"  sampler launches during the requests: {launches} tensor-core "
+            f"(gen_tc_kernel), 0 CUDA-core")
 
         # The greedy response against the plain version on the same draws.
         service = ready.service
@@ -448,6 +482,59 @@ def phase_scan_served(tmp: str) -> None:
         thread.join(timeout=60)
     if thread.is_alive():
         raise AssertionError("server thread did not stop")
+
+
+def phase_core_served(tmp: str) -> int:
+    """A checkpoint the tensor-core sampler refuses (H = 48: no cluster size
+    fits) is served on the card through the CUDA-core kernel, by config
+    before any launch. Returns its CUDA-core launches."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli.serve import build_parser, serve_forever
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.models.decoder import init_decoder_params
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate, fused_generate_route
+    from mlx_vae_tpu_torch.train.checkpoint import build_checkpoint_host, write_checkpoint
+
+    cfg = ModelConfig(hidden_dim=48)
+    if fused_generate_route(cfg) != "cuda_core":
+        raise AssertionError("H=48 should take the CUDA-core sampler")
+    ck = f"{tmp}/checkpoint_h48.npz"
+    dec = init_decoder_params(torch.Generator().manual_seed(6), cfg)
+    write_checkpoint(ck, build_checkpoint_host(
+        0, {"encoder": {}, "decoder": dec}, {"encoder": {}, "decoder": {}}, {}))
+    args = build_parser().parse_args([
+        "--checkpoint", ck, "--port", "0", "--batch_sizes", "256", "--max_length", "64",
+        "--no_normalize", "--device", "cuda"])
+    ready = threading.Event()
+    thread = threading.Thread(target=serve_forever, args=(args, ready), daemon=True)
+    thread.start()
+    if not ready.wait(timeout=300):
+        raise AssertionError("server did not come up")
+    base = f"http://127.0.0.1:{ready.server.server_address[1]}"
+    try:
+        fused_generate.launches = fused_generate.tc_launches = fused_generate.core_launches = 0
+        req = {"num_molecules": 300, "target": [0.0], "temperature": 0.8, "seed": 4,
+               "return_tokens": True}
+        _, a = post(base, req)
+        _, b = post(base, req)
+        toks = np.asarray(a["tokens"])
+        if toks.shape != (300, 64) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"H=48: bad token matrix {toks.shape}")
+        core = fused_generate.core_launches
+        if a["tokens"] != b["tokens"] or core < 1 or fused_generate.tc_launches:
+            raise AssertionError(f"H=48: same-seed tokens differ, or the route launched "
+                                 f"{core} CUDA-core / {fused_generate.tc_launches} tensor-core "
+                                 f"kernels")
+        log(f"  H=48 checkpoint: 300 molecules in {a['passes']} passes at "
+            f"{a['mols_per_sec']:.1f} mols/s through the CUDA-core sampler ({core} launches, "
+            f"0 tensor-core), same seed -> same tokens")
+    finally:
+        ready.server.shutdown()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+    return core
 
 
 def time_ms(fn, reps: int) -> float:
@@ -550,25 +637,46 @@ def check_forward_kernels(prof: dict, what: str) -> None:
 
 
 def phase_times(smi: str) -> dict:
+    """Both sampler kernels in turns (CUDA-core, tensor-core, tensor-core,
+    CUDA-core) at every tier, f32 and bf16, L=64, T=0.8, and the plain
+    version at B=8192 (and every f32 tier); one B=8192 f32 tensor-core pass
+    under torch.profiler. Returns {(dtype, B): (tc ms, CUDA-core ms, plain ms
+    or None)} and the profile."""
     from mlx_vae_tpu_torch.ops.fused_decoder import (
         fused_generate, fused_generate_reference, prepare_weights)
 
-    cfg, params = default_model("float32")
-    w = prepare_weights(params, cfg, "cuda")
     out = {}
-    for B in (256, 2048, 8192):
-        h0, cond, seeds, temps = inputs(cfg, params, B, 0.8, seed=3)
-        k_ms = time_ms(lambda: fused_generate(w, h0, cond, seeds, temps, 64), 10)
-        p_ms = time_ms(lambda: fused_generate_reference(w, h0, cond, seeds, temps, 64), 3)
-        out[B] = (k_ms, p_ms)
-        log(f"  B={B} L=64 f32 T=0.8: kernel {k_ms:.3f} ms ({B / k_ms * 1e3:,.0f} mols/s), "
-            f"plain {p_ms:.3f} ms ({B / p_ms * 1e3:,.0f} mols/s) [{smi}]")
+    for dtype in ("float32", "bfloat16"):
+        cfg, params = default_model(dtype)
+        w = prepare_weights(params, cfg, "cuda")
+        for B in TIERS:
+            h0, cond, seeds, temps = inputs(cfg, params, B, 0.8, seed=3)
+            run = lambda kernel: fused_generate(w, h0, cond, seeds, temps, 64,  # noqa: E731
+                                                kernel=kernel)
+            t_ms, c_ms = turns(f"sampler {dtype} B={B} L=64 T=0.8", lambda: run("tc"),
+                               lambda: run("cuda_core"), smi, 10, 10, names=("tensor-core",
+                                                                              "CUDA-core"))
+            p_ms = None
+            if dtype == "float32" or B == 8192:
+                p_ms = time_ms(lambda: fused_generate_reference(w, h0, cond, seeds, temps, 64), 3)
+            out[(dtype, B)] = (t_ms, c_ms, p_ms)
+            log(f"  {dtype} B={B}: tensor-core {B / t_ms * 1e3:,.0f} mols/s, CUDA-core "
+                f"{B / c_ms * 1e3:,.0f} mols/s ({c_ms / t_ms:.2f}x)"
+                + (f", plain {p_ms:.3f} ms ({B / p_ms * 1e3:,.0f} mols/s)" if p_ms else "")
+                + f" [{smi}]")
+            if dtype == "float32" and B == 8192:
+                out["profile"] = profile_step("one B=8192 f32 sampler pass", lambda: run("tc"),
+                                              smi)
+                if not any("gen_tc_kernel" in k for k in out["profile"]["kernels"]):
+                    raise AssertionError("the profile shows no gen_tc_kernel")
     return out
 
 
 def phase_sweep(smi: str) -> list:
-    """Kernel ms with each rows-per-thread instance forced."""
-    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate, prepare_weights
+    """Sampler ms with each tensor-core cluster size and each CUDA-core
+    rows-per-thread instance forced."""
+    from mlx_vae_tpu_torch.ops.fused_decoder import (fused_generate, prepare_weights,
+                                                     tc_cluster_size, tc_clusters)
     from mlx_vae_tpu_torch.ops.train_common import RPTS
 
     out = []
@@ -578,15 +686,17 @@ def phase_sweep(smi: str) -> list:
         for B in (256, 1024, 2048, 8192):
             h0, cond, seeds, temps = inputs(cfg, params, B, 0.8, seed=3)
             cells = []
-            for rpt in sorted(RPTS):
+            forced = ([("tc", "cluster", S) for S in tc_clusters(cfg)]
+                      + [("cuda_core", "rows_per_thread", r) for r in sorted(RPTS)])
+            for kernel, arg, v in forced:
                 reps = [time_ms(lambda: fused_generate(w, h0, cond, seeds, temps, 64,
-                                                       rows_per_thread=rpt), 5)
+                                                       kernel=kernel, **{arg: v}), 5)
                         for _ in range(3)]
-                out.append({"dtype": dtype, "B": B, "rows_per_thread": rpt,
-                            "ms": reps})
-                cells.append(f"R={rpt} {min(reps):.3f}-{max(reps):.3f}")
-            log(f"  {dtype} B={B} L=64 T=0.8 kernel ms (3 repeats of 5): "
-                f"{'; '.join(cells)} [{smi}]")
+                out.append({"dtype": dtype, "B": B, "kernel": kernel, arg: v, "ms": reps})
+                cells.append(f"{'S' if kernel == 'tc' else 'R'}={v} {min(reps):.3f}-"
+                             f"{max(reps):.3f}")
+            log(f"  {dtype} B={B} L=64 T=0.8 ms (3 repeats of 5), tensor-core S (rule: "
+                f"{tc_cluster_size(cfg)}) and CUDA-core R: {'; '.join(cells)} [{smi}]")
     return out
 
 
@@ -1037,15 +1147,16 @@ def phase_train_times(smi: str) -> dict:
     return out
 
 
-def turns(name: str, kern, plain, smi: str, k_reps: int, p_reps: int) -> tuple:
+def turns(name: str, kern, plain, smi: str, k_reps: int, p_reps: int,
+          names=("kernel", "plain")) -> tuple:
     """(kernel ms, plain ms): the min of two runs each, in the order plain,
     kernel, kernel, plain."""
     p1 = time_ms(plain, p_reps)
     k1 = time_ms(kern, k_reps)
     k2 = time_ms(kern, k_reps)
     p2 = time_ms(plain, p_reps)
-    log(f"  {name}: kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms "
-        f"(plain, kernel, kernel, plain) [{smi}]")
+    log(f"  {name}: {names[0]} {k1:.3f} / {k2:.3f} ms, {names[1]} {p1:.3f} / {p2:.3f} ms "
+        f"({names[1]}, {names[0]}, {names[0]}, {names[1]}) [{smi}]")
     return min(k1, k2), min(p1, p2)
 
 
@@ -1477,7 +1588,9 @@ def phase_scaled_times(smi: str) -> dict:
 
 def default_bounds() -> dict:
     """{kernel: (bound ms, bound by)} of the sampler and the default-model
-    train kernels at the shapes phases 5 and 8 time them."""
+    train kernels at the shapes phases 5 and 8 time them; the sampler's by
+    route: CUDA-core f32 FMA (67 TFLOP/s), split-TF32 (3 x the operations at
+    495 TFLOP/s), bf16 (989 TFLOP/s)."""
     from mlx_vae_tpu_torch.config import ModelConfig
 
     cfg = ModelConfig()
@@ -1488,7 +1601,14 @@ def default_bounds() -> dict:
     M = B * L
     ops = lstm_flops(B, L, [(E + C, H)] + [(H, H)] * (n - 1)) + 2.0 * M * H * V
     w = ((E + C + H) * 4 * H + (n - 1) * 2 * H * 4 * H + H * V + V * E) * 4
-    out["fused_generate"] = bound_ms(ops, w + B * (H + C) * 4 + M * 4, "float32")
+    nbytes = w + B * (H + C) * 4 + M * 4
+    out["fused_generate"] = bound_ms(ops, nbytes, "float32")  # CUDA cores
+    # the tensor-core route: three TF32 products a product in f32, bf16 as is
+    t_bytes = nbytes / PEAK_BYTES
+    t_tf32 = 3 * ops / PEAK_TF32
+    out["fused_generate_tc"] = (max(t_tf32, t_bytes) * 1e3,
+                                "operations" if t_tf32 >= t_bytes else "bytes")
+    out["fused_generate_tc_bf16"] = bound_ms(ops, nbytes - w // 2, "bfloat16")
     B, L, es = 4096, 64, 2  # the train kernels, bf16
     M = B * L
     res = M * n * 6 * H * es
@@ -1530,7 +1650,8 @@ SEQ_RECORDS = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="time every rows-per-thread instance instead of phases 3-5")
+                    help="time every sampler cluster size and rows-per-thread instance "
+                         "instead of phases 3-11")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1550,22 +1671,23 @@ def main() -> int:
 
     device = {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
     if args.sweep:
-        log(f"[sweep] rows per thread forced, default model [{smi}]")
+        log(f"[sweep] cluster size and rows per thread forced, default model [{smi}]")
         sweep = phase_sweep(smi)
         log(smi)
         print(json.dumps({"tile_sweep": sweep}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
-    log("[3 kernel vs plain] default model, B=256/2048/8192, L=64")
-    worst_err, worst_rows = phase_kernel_vs_plain()
+    log("[3 kernel vs plain] both sampler kernels, default model, B=256/2048/8192, L=64")
+    worst = phase_kernel_vs_plain()
 
     log("[4 slice] port server, tiers 256,2048,8192, max_length 64, f32")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_slice(tmp)
         phase_scan_served(tmp)
+        core_launches = phase_core_served(tmp)
 
-    log(f"[5 times] kernel vs plain sampler, CUDA events [{smi}]")
+    log(f"[5 times] tensor-core vs CUDA-core vs plain sampler, CUDA events [{smi}]")
     times = phase_times(smi)
 
     log("[6 train kernels vs plain] default model, L=64, B=4096/1000, f32/bf16")
@@ -1588,19 +1710,37 @@ def main() -> int:
     seq_times = phase_scaled_times(smi)
 
     bounds = default_bounds()
-    k_ms, p_ms = times[8192]
+    t_ms, c_ms, p_ms = times[("float32", 8192)]
+    sampler_err = ("largest |kernel - plain| of the first step's scaled logits over "
+                   "B=256/2048/8192, f32/bf16, greedy/T=0.8/top-k+top-p (tolerance 1e-4 f32, "
+                   "1e-2 bf16)")
+    tiers = {f"{d} B={B}": {"tc_ms": v[0], "cuda_core_ms": v[1], "plain_ms": v[2]}
+             for (d, B), v in ((k, v) for k, v in times.items() if k != "profile")}
     log(smi)
     print(json.dumps({"kernels": [{
-        "name": "fused_generate", "route": "cuda",
-        "source": "mlx_vae_tpu_torch/csrc/fused_generate.cu",
+        "name": "fused_generate_tc", "route": "cuda",
+        "source": "mlx_vae_tpu_torch/csrc/fused_generate.cu (tc::gen_tc_kernel)",
         "replaces": "mlx_vae_tpu/ops/pallas_decoder.py:142",
         "launches": launches,
-        "max_abs_err": worst_err,
-        "err_metric": "largest |kernel - plain| of the first step's scaled logits "
-                      "over B=256/2048/8192, f32/bf16, greedy/T=0.8/top-k+top-p "
-                      "(tolerance 1e-4 f32, 1e-2 bf16)",
-        "max_row_disagreement": worst_rows,
-        "ms": k_ms, "plain_ms": p_ms,
+        "max_abs_err": worst["tc"][0], "err_metric": sampler_err,
+        "max_row_disagreement": worst["tc"][1],
+        "ms": t_ms, "plain_ms": p_ms,
+        "bound_ms": bounds["fused_generate_tc"][0], "bound_by": bounds["fused_generate_tc"][1],
+        "bound_note": "f32 as split-TF32: 3 x the operations over 495 TFLOP/s, or the bytes "
+                      "over 3.35 TB/s; bf16: bound_ms_bf16 (989 TFLOP/s)",
+        "bound_ms_bf16": bounds["fused_generate_tc_bf16"][0],
+        "bf16_ms": times[("bfloat16", 8192)][0], "tiers": tiers,
+        "library_ms": None,
+        "timed_shape": "B=8192 L=64 f32 T=0.8"}, {
+        "name": "fused_generate", "route": "cuda",
+        "source": "mlx_vae_tpu_torch/csrc/fused_generate.cu (fused_generate_kernel)",
+        "replaces": "mlx_vae_tpu/ops/pallas_decoder.py:142",
+        "launches": core_launches,
+        "launches_note": "phase 4's H=48 served run (a config the tensor-core sampler does "
+                         "not take); the default config's served run launches it 0 times",
+        "max_abs_err": worst["cuda_core"][0], "err_metric": sampler_err,
+        "max_row_disagreement": worst["cuda_core"][1],
+        "ms": c_ms, "plain_ms": p_ms,
         "bound_ms": bounds["fused_generate"][0], "bound_by": bounds["fused_generate"][1],
         "library_ms": None,
         "timed_shape": "B=8192 L=64 f32 T=0.8"}] + [{

@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-11 below
+    python3 chip_smoke.py            # phases 1-12 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -42,7 +42,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
 6. train kernels vs plain: the fused encoder's and the fused training
    decoder's forward and backward kernels (both decoder specializations:
    CE and logits) against their plain PyTorch versions at the default
-   model, L=64, B=4096 and B=1000, f32 and bf16; each backward kernel gets
+   model, L=64, B=4096, 2053, 2052, 1000, 64 and 34 (the bench batch, phase
+   12's eval batches, a ragged one, its monitor batch and its trailing
+   train batch), f32 and bf16; each backward kernel gets
    the plain forward's residuals, as its plain twin does. Teacher forcing
    all on: every output and gradient leaf within max |kernel - plain| /
    max |plain| <= 1e-4 (f32; the two sum in different orders) or 2e-2
@@ -65,7 +67,12 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    mixed in) is held against ``decoder_head_bwd_reference`` within 1e-4,
    and the backward also runs on the kernel forward's residuals. Teacher
    forcing 0.9: the fed-token rows agree on >= 97.0% and the first
-   argmax-fed step on >= 99.0% (an argmax can flip where two logits tie);
+   argmax-fed step on >= 99.0% (an argmax can flip where two logits tie).
+   Teacher forcing 0 (the eval passes): the logits forward's kernel against
+   its plain version fed the kernel's own argmax tokens by full teacher
+   forcing (so a flip near a tie does not part the two paths), every output
+   within the tolerances above, and in bf16 the bitwise repeat and
+   head-alone checks;
 7. the train slice: ``train_step`` at full width (default model, bf16,
    B=4096, L=64, fused route) takes 8 steps on a fixed synthetic batch; the
    losses stay finite, the total loss at step 8 is below step 1, and the
@@ -121,7 +128,34 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    shape through their ``launch_*`` functions (the route check); the
    scaled step on the fused route against the plain route, in tokens/s;
    and one scaled fused step under ``torch.profiler`` (as in phase 8, with
-   the same check of the forward kernels' names).
+   the same check of the forward kernels' names);
+12. the train CLI: the port's ``data.prepare``, ``cli.train`` and
+   ``cli.generate`` run in this process (``main(argv)``). A 20,523-molecule
+   synthetic corpus (split 16,418 / 2,052 / 2,053: four train batches of
+   4096 and one of 34 rows; eval batches of 2052 and 2053 rows; the 64-row
+   monitor batch; the native packer must build) trains for two epochs at
+   the default model's width, bf16, ``--use_pallas``, with ``--eval_test``:
+   the history has 2 finite epochs, ``train_recon`` falls, the epoch and
+   best checkpoints exist, and the four train-kernel counters, reset just
+   before, rose (printed per epoch). ``--resume --epochs 3`` then runs epoch
+   index 2 alone under ``--profile``: its trace must show the tensor-core
+   forward, head and reverse step kernels and none of the CUDA-core ones
+   (phase 8's check), and gives the device's idle share over the epoch. The
+   f32 train CLI on a 3,000-molecule corpus, B=256, one epoch, fused route
+   against plain route from the same seed: every history value within
+   ``CLI_F32_RTOL`` relative. ``cli.generate --data`` serves the trained
+   checkpoint (8192 molecules, L=64) on the tensor-core sampler (its
+   counter rose) and prints novelty. A 2,000-molecule drug-like SELFIES
+   corpus trains for one bf16 epoch at B=256; its checkpoint carries the
+   alphabet, and ``cli.generate`` on it prints validity and molecule-level
+   metrics. The f32 fused run must launch all four train kernels (their
+   counters reset just before) and the plain run none. Printed: epoch 2's
+   train pass per batch beside phase 8's step time, the trainer's
+   throughput line, the idle share, and the async checkpoint (the default)
+   against ``--sync_checkpoint``: three epochs each with a save every
+   epoch, in turns async, sync, sync, async, the wall time from the first
+   epoch's start to the last save's end, each train pass, and the main
+   thread's seconds in ``save_checkpoint``.
 
 ``--sweep`` times the tensor-core kernel with each cluster size forced and
 the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
@@ -145,6 +179,8 @@ import argparse
 import contextlib
 import io
 import json
+import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -161,7 +197,9 @@ TRAIN_KERNELS = ("fused_encoder_fwd", "fused_encoder_bwd", "fused_train_decoder_
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # dec_head_kernel alone against its twin: the same rounded operands, f32 sums
 HEAD_TOL = 1e-4
-TRAIN_BATCHES = (4096, 1000)  # the bench batch and a ragged one
+# the bench batch, phase 12's eval batches, a ragged one, phase 12's monitor
+# batch and its trailing train batch
+TRAIN_BATCHES = (4096, 2053, 2052, 1000, 64, 34)
 AGREE_FIRST = 0.99  # share of first tokens that must agree, kernel vs plain
 AGREE_ROWS = 0.97   # share of whole rows that must agree
 # |kernel - plain| of the first step's scaled logits; in bf16 an f32
@@ -730,7 +768,8 @@ TRAIN_SOURCES = {
 DEC_FWD_NOTE = ("; bf16: n*L launches of train_common.cuh:seq_fwd_step_kernel and L of "
                 "fused_train_decoder.cu:dec_head_kernel, also each dec_head_kernel launch "
                 "alone against decoder_head_step_reference, each step's CE term or logits "
-                "within 1e-4, with targets outside [0, V)")
+                "within 1e-4, with targets outside [0, V); teacher forcing 0: the logits "
+                "forward against its plain version fed the kernel's own argmax tokens")
 # the bf16 decoder backward: the head pass and the chain's step kernel
 DEC_BWD_NOTE = ("; bf16: fused_train_decoder.cu:dec_head_bwd_kernel and dec_dtop_kernel "
                 "over all L*B rows, then train_common.cuh:gate_kernel and n*L launches of "
@@ -875,6 +914,23 @@ def phase_train_kernels() -> dict:
             check_fed_tokens(f"{tag} decoder fwd ce, teacher forcing 0.9", k, p, tf)
             if dtype == "bfloat16":
                 check_decoder_chain(wd, h0, cond, tok, tf, True, k, p, tag,
+                                    worst["fused_train_decoder_fwd"])
+            del k, p
+            # teacher forcing 0, as in the eval passes: the plain version is fed
+            # the kernel's own argmax tokens by full teacher forcing
+            tf_off = torch.zeros((L,), dtype=torch.bool, device="cuda")
+            k = fd.decoder_fwd(wd, h0, cond, tok, tf_off, False)
+            fed = torch.cat([k[1][1:], tok.T[-1:]]).T.contiguous()  # fed[:, t] = k[1][t + 1]
+            p = fd.decoder_fwd_reference(wd, h0, cond, fed, tf_on, False)
+            torch.cuda.synchronize()
+            if not torch.equal(k[1], p[1]):
+                raise AssertionError(f"{tag} decoder fwd logits, teacher forcing 0: the plain "
+                                     f"version was not fed the kernel's tokens")
+            compare(f"{tag} decoder fwd logits, teacher forcing 0, plain fed the kernel's "
+                    f"tokens [out, hs, cs, gs]", (k[0], *k[2:]), (p[0], *p[2:]), dtype,
+                    worst["fused_train_decoder_fwd"])
+            if dtype == "bfloat16":
+                check_decoder_chain(wd, h0, cond, tok, tf_off, False, k, p, tag,
                                     worst["fused_train_decoder_fwd"])
             del k, p
     return {k: tuple(v) for k, v in worst.items()}
@@ -1630,6 +1686,253 @@ def default_bounds() -> dict:
     return out
 
 
+def run_main(main, argv: list) -> str:
+    """``main(argv)`` of a port CLI in this process, its standard output
+    captured and returned (its standard error, the progress bars, dropped);
+    its last lines are logged."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        main(argv)
+    text = out.getvalue()
+    for line in text.strip().splitlines()[-3:]:
+        log(f"    | {line}")
+    return text
+
+
+def read_history(ck: str) -> dict:
+    with open(f"{ck}/training_history.json") as f:
+        return json.load(f)
+
+
+def trace_profile(path: str) -> dict:
+    """Device time by kernel name, and the idle share (1 - the device's busy
+    time over the span of every event), from a ``torch.profiler`` Chrome
+    trace (the train CLI's ``--profile``)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    by_name, busy = {}, 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy += e["dur"] / 1e3
+            if e["cat"] == "kernel":
+                name = e["name"].replace("(anonymous namespace)::", "").split("(")[0][:80]
+                by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+    wall = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    return {"wall_ms": wall, "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
+            "kernels": by_name}
+
+
+def epoch_counts(counters: dict, seen: list):
+    """Patch ``ARCVAETrainer.train_epoch`` so that each epoch appends the
+    train-kernel launch counts so far to ``seen``; returns the undo."""
+    from mlx_vae_tpu_torch.train.trainer import ARCVAETrainer
+
+    real = ARCVAETrainer.train_epoch
+
+    def counted(self, *a, **kw):
+        out = real(self, *a, **kw)
+        seen.append(read_counts(counters))
+        return out
+
+    ARCVAETrainer.train_epoch = counted
+    return lambda: setattr(ARCVAETrainer, "train_epoch", real)
+
+
+def save_timing(rec: dict):
+    """Patch ``ARCVAETrainer`` so that ``rec`` gets the clock at each
+    epoch's start (``"epoch"``) and at the end of each ``join_saves``
+    (``"join"``), and the seconds the calling thread spends in
+    ``save_checkpoint`` (``"save_s"``); returns the undo."""
+    from mlx_vae_tpu_torch.train.trainer import ARCVAETrainer
+
+    real = {k: getattr(ARCVAETrainer, k) for k in ("train_epoch", "save_checkpoint",
+                                                   "join_saves")}
+    rec.update(epoch=[], join=[], save_s=0.0)
+
+    def train_epoch(self, *a, **kw):
+        rec["epoch"].append(time.perf_counter())
+        return real["train_epoch"](self, *a, **kw)
+
+    def save_checkpoint(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real["save_checkpoint"](self, *a, **kw)
+        finally:
+            rec["save_s"] += time.perf_counter() - t0
+
+    def join_saves(self):
+        try:
+            return real["join_saves"](self)
+        finally:
+            rec["join"].append(time.perf_counter())
+
+    for k, f in (("train_epoch", train_epoch), ("save_checkpoint", save_checkpoint),
+                 ("join_saves", join_saves)):
+        setattr(ARCVAETrainer, k, f)
+    return lambda: [setattr(ARCVAETrainer, k, f) for k, f in real.items()]
+
+
+TRAIN_PASS = re.compile(r"Throughput: ([\d,]+) tokens/sec \(([\d.]+)s train pass\)")
+# history values of the f32 train CLI, fused route against plain route: the
+# tolerance of the CPU parity test (tests/test_torch_trainer.py, the port against
+# JAX over 2 epochs, f32), whose worst measured error is 8.0e-7
+CLI_F32_RTOL = 1e-5
+
+
+def phase_train_cli(smi: str, step_ms: float) -> dict:
+    """The port's train and generate CLIs in this process at the default
+    model's width (phase 12 of the docstring); returns the train kernels'
+    launches over the two-epoch run and the sampler's over the served run,
+    and the times."""
+    import os
+
+    from mlx_vae_tpu_torch.cli import generate as cli_generate
+    from mlx_vae_tpu_torch.cli import train as cli_train
+    from mlx_vae_tpu_torch.data import packer, prepare
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+    from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        s, ck = f"{tmp}/s.json", f"{tmp}/ck"
+        run_main(prepare.main, ["--synthetic", "20523", "--output", s])
+        if packer._get_lib() is None:
+            raise AssertionError("native/packer.cpp did not build")
+        base = ["--data", s, "--batch_size", "4096", "--compute_dtype", "bfloat16",
+                "--use_pallas", "--checkpoint_freq", "1", "--checkpoint_dir", ck]
+
+        # two epochs: 4 batches of 4096 and one of 34, eval at 2052 and 2053 rows
+        counters = {k: v for k, v in kernel_counters().items() if k in TRAIN_KERNELS}
+        seen = []
+        undo = epoch_counts(counters, seen)
+        reset_counts(counters)
+        try:
+            text = run_main(cli_train.main, base + ["--epochs", "2", "--eval_test",
+                                                    "--verbose"])
+        finally:
+            undo()
+        launches = read_counts(counters)
+        for e, c in enumerate(seen):
+            log(f"  epoch {e + 1}: train-kernel launches so far {c}")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a train kernel was never launched: {launches}")
+        h = read_history(ck)
+        if h["epoch"] != [0, 1] or not all(math.isfinite(v) for k in h for v in h[k]):
+            raise AssertionError(f"history of the two-epoch run: {h}")
+        if not h["train_recon"][1] < h["train_recon"][0]:
+            raise AssertionError(f"train_recon did not fall: {h['train_recon']}")
+        for name in ("checkpoint_epoch_000.npz", "checkpoint_epoch_001.npz",
+                     "checkpoint_best.npz"):
+            if not os.path.exists(f"{ck}/{name}"):
+                raise AssertionError(f"{name} was not written")
+        if "Test set (2,053 samples)" not in text:
+            raise AssertionError("--eval_test printed no test line")
+        passes = TRAIN_PASS.findall(text)
+        out["batch_ms"] = float(passes[1][1]) * 1e3 / 5
+        out["throughput"] = passes[1][0]
+        log(f"  two epochs: train_recon {h['train_recon']}, val_loss {h['val_loss']}; "
+            f"train pass epoch 1 {passes[0][1]} s, epoch 2 {passes[1][1]} s over 5 batches "
+            f"= {out['batch_ms']:.3f} ms a batch (phase 8's fused step at B=4096: "
+            f"{step_ms:.3f} ms); Throughput {passes[1][0]} tokens/s [{smi}]")
+        # the async checkpoint (the default) against --sync_checkpoint: three
+        # epochs each, a checkpoint every epoch, in turns async, sync, sync,
+        # async; the epochs' wall time runs from the first epoch's start to the
+        # end of the last save (its join), so it holds every save
+        out["save"] = {"async": [], "sync": []}
+        for i, mode in enumerate(("async", "sync", "sync", "async")):
+            rec = {}
+            undo = save_timing(rec)
+            try:
+                text = run_main(cli_train.main, base[:-1] + [
+                    f"{tmp}/ck_{mode}_{i}", "--epochs", "3",
+                    *(["--sync_checkpoint"] if mode == "sync" else [])])
+            finally:
+                undo()
+            passes = [float(p[1]) for p in TRAIN_PASS.findall(text)]
+            row = {"epochs_wall_s": rec["join"][-1] - rec["epoch"][0],
+                   "train_pass_s": passes, "save_call_s": rec["save_s"]}
+            out["save"][mode].append(row)
+            log(f"  three epochs, {mode} checkpoint: epochs' wall {row['epochs_wall_s']:.4f} s "
+                f"(first epoch's start to the last save's end), train passes "
+                f"{', '.join(f'{p:.4f}' for p in passes)} s, the main thread in "
+                f"save_checkpoint {row['save_call_s']:.4f} s [{smi}]")
+
+        # resume for a third epoch, profiled: the kernels by name and the idle share
+        text = run_main(cli_train.main, base + ["--epochs", "3", "--resume",
+                                                "--profile", f"{tmp}/prof"])
+        if "Resuming from epoch 2" not in text or read_history(ck)["epoch"] != [0, 1, 2]:
+            raise AssertionError("--resume did not run epoch index 2 alone")
+        prof = trace_profile(f"{tmp}/prof/trace.json")
+        check_forward_kernels(prof, "train CLI epoch 3")
+        check_kernels(prof, "train CLI epoch 3", "encoder reverse chain", "enc_step_kernel",
+                      ("enc_bwd_kernel",))
+        check_kernels(prof, "train CLI epoch 3", "decoder reverse chain", "dec_step_kernel",
+                      ("dec_bwd_kernel",))
+        out["idle_share"] = prof["idle_share"]
+        log(f"  train CLI epoch 3 under torch.profiler: {prof['wall_ms']:.3f} ms wall, "
+            f"{prof['device_ms']:.3f} ms of device time, idle share {prof['idle_share']:.4f} "
+            f"[{smi}]")
+
+        # fused against plain in f32 from the same seed
+        f = f"{tmp}/f.json"
+        run_main(prepare.main, ["--synthetic", "3000", "--output", f])
+        hist = {}
+        for route, extra in (("fused", ["--use_pallas"]), ("plain", [])):
+            reset_counts(counters)
+            run_main(cli_train.main, ["--data", f, "--batch_size", "256", "--epochs", "1",
+                                      "--checkpoint_dir", f"{tmp}/{route}", *extra])
+            hist[route], f32_launches = read_history(f"{tmp}/{route}"), read_counts(counters)
+            log(f"  train CLI f32, {route} route: train-kernel launches {f32_launches}")
+            if route == "fused" and min(f32_launches.values()) < 1:
+                raise AssertionError(f"the f32 fused run left a train kernel unlaunched: "
+                                     f"{f32_launches}")
+            if route == "plain" and max(f32_launches.values()) > 0:
+                raise AssertionError(f"the plain route launched a train kernel: {f32_launches}")
+        worst = max(abs(a - b) / max(abs(b), 1e-6)
+                    for k in hist["plain"] if k != "epoch"
+                    for a, b in zip(hist["fused"][k], hist["plain"][k]))
+        log(f"  train CLI f32, fused route against plain, 1 epoch of 2400 rows at B=256: "
+            f"worst relative difference over the history {worst:.3e} "
+            f"(tolerance {CLI_F32_RTOL})")
+        if not worst <= CLI_F32_RTOL:
+            raise AssertionError(f"fused and plain histories differ: {hist}")
+        out["f32_worst"] = worst
+
+        # serve what was trained: the tensor-core sampler, novelty against --data
+        fused_generate.launches = fused_generate.tc_launches = 0
+        fused_generate.core_launches = 0
+        text = run_main(cli_generate.main, [
+            "--checkpoint", f"{ck}/checkpoint_best.npz", "--data", s,
+            "--num_molecules", "8192", "--batch_size", "8192", "--max_length", "64",
+            "--target", "90", "--output", f"{tmp}/gen.npz"])
+        out["sampler_launches"] = fused_generate.tc_launches
+        if fused_generate.tc_launches < 1 or "Novelty vs training set" not in text:
+            raise AssertionError(f"generate: {fused_generate.tc_launches} tensor-core "
+                                 f"launches; output {text[-500:]}")
+
+        # a real SELFIES corpus: one epoch, the alphabet in the checkpoint, validity
+        d, dk = f"{tmp}/d.json", f"{tmp}/dk"
+        run_main(prepare.main, ["--drug_like", "2000", "--output", d])
+        run_main(cli_train.main, ["--data", d, "--batch_size", "256", "--epochs", "1",
+                                  "--compute_dtype", "bfloat16", "--use_pallas",
+                                  "--checkpoint_dir", dk])
+        with open(d) as fh:
+            alphabet = json.load(fh)["alphabet"]
+        if load_checkpoint(f"{dk}/checkpoint_best.npz")["data_stats"]["alphabet"] != alphabet:
+            raise AssertionError("the checkpoint does not carry the corpus's alphabet")
+        text = run_main(cli_generate.main, [
+            "--checkpoint", f"{dk}/checkpoint_best.npz", "--num_molecules", "2048",
+            "--batch_size", "2048", "--max_length", "64", "--target", "90",
+            "--output", f"{tmp}/gen_d.json"])
+        valid = re.search(r"Validity: ([\d.]+)%", text)
+        if valid is None or "Molecule-level" not in text:
+            raise AssertionError(f"generate on the SELFIES checkpoint: {text[-500:]}")
+        log(f"  drug-like corpus, alphabet {len(alphabet)}: one epoch, then validity "
+            f"{valid.group(1)}% [{smi}]")
+    out["launches"] = launches
+    return out
+
+
 # kernel: (source, the TPU kernel it replaces, its row in phase 11's times,
 # the timed shape)
 SEQ_RECORDS = {
@@ -1690,7 +1993,8 @@ def main() -> int:
     log(f"[5 times] tensor-core vs CUDA-core vs plain sampler, CUDA events [{smi}]")
     times = phase_times(smi)
 
-    log("[6 train kernels vs plain] default model, L=64, B=4096/1000, f32/bf16")
+    log(f"[6 train kernels vs plain] default model, L=64, B={'/'.join(map(str, TRAIN_BATCHES))}, "
+        f"f32/bf16")
     errs = phase_train_kernels()
 
     log("[7 train slice] train_step, default model, bf16, B=4096, L=64, fused route")
@@ -1709,6 +2013,10 @@ def main() -> int:
     log(f"[11 scaled times] CUDA events [{smi}]")
     seq_times = phase_scaled_times(smi)
 
+    log("[12 train CLI] cli.train on a 20,523-molecule corpus, default model, bf16, "
+        "B=4096, fused route; resume; f32 fused vs plain; cli.generate with --data")
+    cli = phase_train_cli(smi, sum(train_times["step_fused"]) / len(train_times["step_fused"]))
+
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
     sampler_err = ("largest |kernel - plain| of the first step's scaled logits over "
@@ -1722,6 +2030,7 @@ def main() -> int:
         "source": "mlx_vae_tpu_torch/csrc/fused_generate.cu (tc::gen_tc_kernel)",
         "replaces": "mlx_vae_tpu/ops/pallas_decoder.py:142",
         "launches": launches,
+        "launches_train_cli": cli["sampler_launches"],
         "max_abs_err": worst["tc"][0], "err_metric": sampler_err,
         "max_row_disagreement": worst["tc"][1],
         "ms": t_ms, "plain_ms": p_ms,
@@ -1746,11 +2055,12 @@ def main() -> int:
         "timed_shape": "B=8192 L=64 f32 T=0.8"}] + [{
             "name": kname, "route": "cuda", "source": TRAIN_SOURCES[kname],
             "replaces": TRAIN_REPLACES[kname], "launches": launches_train[kname],
+            "launches_train_cli": cli["launches"][kname],
             "max_abs_err": errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output (forward) or "
                           f"gradient leaf (backward; the encoder's also its reverse chain's "
-                          f"dgates and dx0) at B=4096/1000, f32/bf16, teacher "
-                          f"forcing on{TRAIN_NOTES.get(kname, '')}"
+                          f"dgates and dx0) at B={'/'.join(map(str, TRAIN_BATCHES))}, "
+                          f"f32/bf16, teacher forcing on{TRAIN_NOTES.get(kname, '')}"
                           f"; largest max|diff|/max|plain| {errs[kname][1]:.3e} "
                           f"(tolerance 1e-4 f32, 2e-2 bf16)",
             "ms": train_times[kname][0], "plain_ms": train_times[kname][1],

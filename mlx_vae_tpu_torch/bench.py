@@ -34,11 +34,9 @@ import numpy as np
 import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
-from mlx_vae_tpu_torch.models.decoder import init_decoder_params
-from mlx_vae_tpu_torch.models.encoder import init_encoder_params
+from mlx_vae_tpu_torch.models.vae import ARCVAE
 from mlx_vae_tpu_torch.train.optim import adam_init
 from mlx_vae_tpu_torch.train.steps import train_step
-from mlx_vae_tpu_torch.utils.tree import params_from_numpy, params_to_numpy
 
 BASELINE_TOKENS_PER_SEC = 1.0e6
 
@@ -50,10 +48,7 @@ def log(*a) -> None:
 def init_train_params(cfg: ModelConfig, device, seed: int = 0) -> dict:
     """Random encoder + decoder params (f32 masters) from ``seed``, on
     ``device``."""
-    gen = torch.Generator().manual_seed(seed)
-    params = {"encoder": init_encoder_params(gen, cfg),
-              "decoder": init_decoder_params(gen, cfg)}
-    return params_from_numpy(params_to_numpy(params), device)
+    return ARCVAE(cfg, torch.Generator().manual_seed(seed), device=device).params
 
 
 def bench_train(batch: int = 4096, seq_len: int = 64, steps: int = 24, warmup: int = 2,

@@ -7,7 +7,8 @@ JAX CLI's flags, on one device. ``--device`` (default ``cuda``) picks the
 card, where the fused sampler kernel runs; ``--device cpu`` runs its plain
 version. A model the kernel does not take runs the scan sampler on either
 device, as the JAX CLI routes it; the CLI prints which sampler it uses.
-``--data`` and ``--data_parallel`` are not ported yet and exit with a
+``--data`` gives the train-split stats and alphabet, and novelty against
+the training split. ``--data_parallel`` is not ported yet and exits with a
 message.
 """
 
@@ -20,6 +21,8 @@ import time
 import numpy as np
 import torch
 
+from mlx_vae_tpu_torch.cli.common import add_cache_flags
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="Generate molecules from a trained AR-CVAE")
@@ -27,7 +30,7 @@ def build_parser():
                    help="Path to a .npz checkpoint (e.g. checkpoints/checkpoint_best.npz)")
     p.add_argument("--data", type=str, default=None,
                    help="Dataset JSON (for property normalization stats + "
-                        "alphabet); not yet ported")
+                        "alphabet, and novelty against its training split)")
     p.add_argument("--num_molecules", type=int, default=1000)
     p.add_argument("--batch_size", type=int, default=4096)
     p.add_argument("--max_length", type=int, default=80)
@@ -72,6 +75,7 @@ def build_parser():
     p.add_argument("--num_layers", type=int, default=None)
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
+    add_cache_flags(p)
     return p
 
 
@@ -100,8 +104,9 @@ def main(argv=None):
                                               resolve_device,
                                               resolve_property_stats)
     from mlx_vae_tpu_torch.config import ModelConfig
-    from mlx_vae_tpu_torch.data.metrics import uniqueness
-    from mlx_vae_tpu_torch.data.prepare import decode_tokens, selfies_validity
+    from mlx_vae_tpu_torch.data.metrics import molecule_metrics, novelty, uniqueness
+    from mlx_vae_tpu_torch.data.prepare import (chemistry_backend, decode_tokens,
+                                                selfies_validity)
     from mlx_vae_tpu_torch.models.vae import generation_sampler, vae_generate
     from mlx_vae_tpu_torch.ops.fused_decoder import prepare_weights
     from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
@@ -138,7 +143,7 @@ def main(argv=None):
     # JAX CLI's route on its support gate)
     mcfg = ModelConfig(compute_dtype=args.compute_dtype, use_pallas=True, **shape)
 
-    mean, std, alphabet, _ = resolve_property_stats(
+    mean, std, alphabet, train_ds = resolve_property_stats(
         args.data, args.no_normalize, ckpt, mcfg.num_conditions)
     model_target = list(args.target)
     if calib is not None:
@@ -184,8 +189,14 @@ def main(argv=None):
     print(f"Generated {len(tokens):,} molecules in {dt:.2f}s "
           f"({rate:,.0f} mols/sec on {device}, warm-up excluded)")
     print(f"Validity: {100 * validity:.1f}%")
+    # Sample-quality metrics (MOSES conventions; see data/metrics.py).
+    # Novelty needs the training token matrix, so it reports only with --data.
     uniq = uniqueness(tokens)
     print(f"Uniqueness: {100 * uniq:.1f}%")
+    nov = None
+    if train_ds is not None:
+        nov = novelty(tokens, train_ds.molecules)
+        print(f"Novelty vs training set: {100 * nov:.1f}%")
 
     meta = {
         "mols_per_sec": rate,
@@ -195,6 +206,22 @@ def main(argv=None):
         "target": args.target,
         "device": str(device),
     }
+    if nov is not None:
+        meta["novelty"] = nov
+
+    # Molecule-level metrics when a chemistry alphabet is present:
+    # canonical-SMILES uniqueness and decoded Ertl-TPSA fidelity against
+    # the first conditioning target.
+    mm = molecule_metrics(tokens, alphabet or [], target_tpsa=args.target[0])
+    if mm is not None:
+        meta["molecule_metrics"] = mm
+        meta["chemistry_backend"] = chemistry_backend()
+        print(f"Molecule-level (sample {mm['sampled']:,}, "
+              f"{chemistry_backend()} backend): "
+              f"unique {100 * mm['mol_uniqueness']:.1f}%"
+              + (f", TPSA {mm['tpsa_mean']:.1f}±{mm['tpsa_std']:.1f} "
+                 f"(target {mm['tpsa_target']:.0f}, "
+                 f"MAE {mm['tpsa_mae']:.1f})" if "tpsa_mae" in mm else ""))
     if args.top_k or args.top_p < 1.0:
         meta["top_k"], meta["top_p"] = args.top_k, args.top_p
     selfies = ([decode_tokens(t, alphabet) for t in tokens[:1000]]

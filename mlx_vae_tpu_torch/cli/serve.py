@@ -49,6 +49,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from mlx_vae_tpu_torch.cli.common import add_cache_flags
+
 
 # ---- pass planning (pure; copied from mlx_vae_tpu/cli/serve.py) ----
 
@@ -124,7 +126,7 @@ def build_parser():
     p.add_argument("--checkpoint", type=str, required=True)
     p.add_argument("--data", type=str, default=None,
                    help="Dataset JSON (stats + alphabet; else from "
-                        "checkpoint); not yet ported")
+                        "checkpoint)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--batch_size", type=int, default=4096,
@@ -157,6 +159,7 @@ def build_parser():
                         "tier is warmed before serving either way")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda[:N] (the kernel) or cpu (its plain version)")
+    add_cache_flags(p)
     return p
 
 

@@ -2,14 +2,18 @@
 
 ``as_token_matrix`` is copied from ``mlx_vae_tpu/data/postproc.py``. The
 native post-processor (``native/postproc.cpp`` through ctypes) is not ported
-yet: the three entry points the copied metrics call return None, which is
+yet: the four entry points the copied metrics call return None, which is
 the documented "library unavailable" answer, so every caller takes its numpy
 path (``tests/test_postproc.py`` holds both paths equal in the JAX package).
+Until it is ported, the native branches of the whole copies that call them
+(``data/prepare.py``'s validity count, ``data/metrics.py``'s ``uniqueness``
+and ``novelty``) are never taken; the stand-ins are listed in
+``tests/test_torch_import.py:PARTIAL``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -39,4 +43,10 @@ def canonicalize(tokens: np.ndarray, eos: int,
 
 def unique_count(canon: np.ndarray) -> Optional[int]:
     """Native distinct-row count: not ported, so always None."""
+    return None
+
+
+def novel_counts(gen_canon: np.ndarray,
+                 ref_canon: np.ndarray) -> Optional[Tuple[int, int]]:
+    """Native novel-row count: not ported, so always None."""
     return None

@@ -21,10 +21,9 @@ from mlx_vae_tpu_torch.losses.info import mutual_information, posterior_collapse
 from mlx_vae_tpu_torch.losses.kl import kl_divergence
 from mlx_vae_tpu_torch.losses.prop import property_prediction_loss
 from mlx_vae_tpu_torch.losses.recon import reconstruction_loss
-from mlx_vae_tpu_torch.models.decoder import decoder_apply, hidden_init_row
+from mlx_vae_tpu_torch.models.decoder import decoder_apply, hidden_init_row, train_decoder_route
 from mlx_vae_tpu_torch.models.encoder import encoder_apply, reparameterize
 from mlx_vae_tpu_torch.models.predictor import predictor_apply
-from mlx_vae_tpu_torch.ops.train_common import stack_fits_l2
 
 
 def complete_vae_loss(
@@ -51,16 +50,13 @@ def complete_vae_loss(
     z = reparameterize(eps, mu, logvar)
 
     recon_loss = None
-    if cfg.use_pallas and not cfg.reference_zero_state and stack_fits_l2(cfg):
+    if train_decoder_route(cfg, x.device) == "fused":
         # fused decoder + CE: logits never reach device memory
-        from mlx_vae_tpu_torch.ops.fused_train_decoder import (
-            decoder_train_ce, fused_train_decoder_supported)
-        # off the CPU the fused route launches its kernels or raises
-        if x.device.type != "cpu" or fused_train_decoder_supported(cfg):
-            cond_f = conditions.float()
-            h_init = hidden_init_row(decoder_params, cfg, z, cond_f)
-            ce = decoder_train_ce(decoder_params, cfg, h_init, cond_f, x, tf_mask)
-            recon_loss = ce.sum() / (x.shape[0] * x.shape[1])
+        from mlx_vae_tpu_torch.ops.fused_train_decoder import decoder_train_ce
+        cond_f = conditions.float()
+        h_init = hidden_init_row(decoder_params, cfg, z, cond_f)
+        ce = decoder_train_ce(decoder_params, cfg, h_init, cond_f, x, tf_mask)
+        recon_loss = ce.sum() / (x.shape[0] * x.shape[1])
     if recon_loss is None:
         logits = decoder_apply(decoder_params, cfg, z, conditions, target_seq=x,
                                tf_mask=tf_mask)

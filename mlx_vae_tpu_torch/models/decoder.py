@@ -77,6 +77,42 @@ def _stacked_cell(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, torch.stack(new_h), torch.stack(new_c)
 
 
+def train_decoder_route(cfg: ModelConfig, device) -> str:
+    """The teacher-forced decode's route on ``device`` (the module
+    docstring's list): ``"fused"``, ``"cvp"``, ``"cv"`` or ``"scan"``."""
+    on_cpu = torch.device(device).type == "cpu"
+    if cfg.reference_zero_state:
+        return "scan"
+    if cfg.use_pallas and stack_fits_l2(cfg):
+        from mlx_vae_tpu_torch.ops.fused_train_decoder import fused_train_decoder_supported
+        # off the CPU the fused route launches its kernels or raises
+        if not on_cpu or fused_train_decoder_supported(cfg):
+            return "fused"
+    if cfg.custom_vjp or cfg.hidden_dim >= 768:
+        from mlx_vae_tpu_torch.ops.decoder_cv import decoder_cvp_supported
+        return "cvp" if cfg.use_pallas and (not on_cpu or decoder_cvp_supported(cfg)) else "cv"
+    return "scan"
+
+
+def train_route_refusal(cfg: ModelConfig, device) -> Optional[str]:
+    """Why the kernels of :func:`train_decoder_route` on ``device`` would
+    refuse ``cfg`` (they raise ``NotImplementedError`` at their first
+    launch; the JAX package routes such a config to its scan instead), or
+    None. The CPU runs the plain versions and refuses nothing."""
+    route = train_decoder_route(cfg, device)
+    if torch.device(device).type == "cpu":
+        return None
+    if route == "fused":
+        from mlx_vae_tpu_torch.ops.fused_train_decoder import _unsupported_reason
+        reason = _unsupported_reason(cfg)
+        return None if reason is None else f"the fused training decoder does not take {reason}"
+    if route == "cvp":
+        from mlx_vae_tpu_torch.ops.decoder_cv import decoder_cvp_supported
+        if not decoder_cvp_supported(cfg):
+            return "the per-layer decoder kernels do not take this model"
+    return None
+
+
 def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
                   conditions: torch.Tensor, target_seq: Optional[torch.Tensor] = None,
                   max_length: int = 80, tf_mask: Optional[torch.Tensor] = None
@@ -97,20 +133,16 @@ def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
             raise ValueError("decoder_apply with target_seq requires tf_mask")
         targets = target_seq.to(torch.int32)
         tf_mask = tf_mask.to(dev).bool()
-        if cfg.use_pallas and not cfg.reference_zero_state and stack_fits_l2(cfg):
-            from mlx_vae_tpu_torch.ops.fused_train_decoder import (
-                decoder_train, fused_train_decoder_supported)
-            # off the CPU the fused route launches its kernels or raises
-            if dev.type != "cpu" or fused_train_decoder_supported(cfg):
-                h_init = hidden_init_row(params, cfg, z, cond_f)
-                return decoder_train(params, cfg, h_init, cond_f, targets, tf_mask)
-        if not cfg.reference_zero_state and (cfg.custom_vjp or cfg.hidden_dim >= 768):
-            from mlx_vae_tpu_torch.ops.decoder_cv import (
-                decoder_cvp_supported, decoder_train_cv, decoder_train_cvp)
+        route = train_decoder_route(cfg, dev)
+        if route == "fused":
+            from mlx_vae_tpu_torch.ops.fused_train_decoder import decoder_train
             h_init = hidden_init_row(params, cfg, z, cond_f)
-            if cfg.use_pallas and (dev.type != "cpu" or decoder_cvp_supported(cfg)):
-                return decoder_train_cvp(params, cfg, h_init, cond_f, targets, tf_mask)
-            return decoder_train_cv(params, cfg, h_init, cond_f, targets, tf_mask)
+            return decoder_train(params, cfg, h_init, cond_f, targets, tf_mask)
+        if route in ("cvp", "cv"):
+            from mlx_vae_tpu_torch.ops.decoder_cv import decoder_train_cv, decoder_train_cvp
+            h_init = hidden_init_row(params, cfg, z, cond_f)
+            run = decoder_train_cvp if route == "cvp" else decoder_train_cv
+            return run(params, cfg, h_init, cond_f, targets, tf_mask)
     else:
         L = max_length
         targets = torch.zeros((B, L), dtype=torch.int32, device=dev)

@@ -9,7 +9,13 @@ z ~ N(0, I) and decodes it with the sampler the config takes
 (``ops/fused_decoder.py``; on CUDA tensors the kernel, on CPU tensors its
 plain version) when ``cfg.use_pallas`` and the kernel takes the config,
 else the plain scan sampler (``models/sampling.py``), which also honours
-``reference_zero_state``. The ``ARCVAE`` facade waits for the eval slice.
+``reference_zero_state``.
+
+``ARCVAE`` is the facade (``mlx_vae_tpu/models/vae.py:ARCVAE``): one param
+tree with ``__call__`` and ``generate``. It draws its initial params from a
+``torch.Generator`` (encoder, decoder, then the predictor, in turn from one
+generator), where the JAX facade splits a threefry key three ways: the
+shapes, key names and uniform scales are the same, the draws are not.
 """
 
 from __future__ import annotations
@@ -19,12 +25,16 @@ from typing import Optional, Tuple
 import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
-from mlx_vae_tpu_torch.models.decoder import decoder_apply, hidden_init_row
-from mlx_vae_tpu_torch.models.encoder import encoder_apply, reparameterize
+from mlx_vae_tpu_torch.models.decoder import (decoder_apply, hidden_init_row,
+                                               init_decoder_params)
+from mlx_vae_tpu_torch.models.encoder import (encoder_apply, init_encoder_params,
+                                               reparameterize)
+from mlx_vae_tpu_torch.models.predictor import init_predictor_params
 from mlx_vae_tpu_torch.models.sampling import generate_with_temperature
 from mlx_vae_tpu_torch.ops.fused_decoder import (FusedWeights, block_rows,
                                                  fused_generate, fused_generate_supported,
                                                  prepare_weights)
+from mlx_vae_tpu_torch.utils.tree import params_from_numpy, params_to_numpy
 
 
 def vae_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -80,3 +90,46 @@ def vae_generate(params: dict, cfg: ModelConfig, conditions: torch.Tensor,
     h0 = hidden_init_row(dec, cfg, z, cond).contiguous()
     return fused_generate(weights, h0, cond, seeds, temps, max_length,
                           greedy=greedy, top_k=top_k, top_p=top_p)
+
+
+class ARCVAE:
+    """The model's params with its forward and sampler. ``generator`` (a CPU
+    ``torch.Generator``; seed 0 when None) draws the initial params, which
+    then live on ``device`` as float32 masters. ``device`` is the card
+    unless the caller asks for the CPU: without CUDA the default raises
+    rather than moving the model to the CPU."""
+
+    def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                 with_predictor: bool = False, device="cuda"):
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"ARCVAE(device={device!r}) but CUDA is not available; pass "
+                               "device='cpu' to run the plain PyTorch versions on the CPU")
+        self.cfg = cfg
+        self.latent_dim = cfg.latent_dim
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        params = {"encoder": init_encoder_params(gen, cfg),
+                  "decoder": init_decoder_params(gen, cfg)}
+        if with_predictor:
+            params["predictor"] = init_predictor_params(gen, cfg)
+        self.params = params_from_numpy(params_to_numpy(params), device)
+
+    def __call__(self, x: torch.Tensor, conditions: torch.Tensor, eps: torch.Tensor,
+                 tf_mask: torch.Tensor):
+        """``(logits, mu, logvar, z)``; ``eps`` and ``tf_mask`` as in
+        :func:`vae_forward`."""
+        return vae_forward(self.params, self.cfg, x, conditions, eps, tf_mask)
+
+    def generate(self, batch_size: int, conditions, generator: torch.Generator,
+                 max_length: int = 80, temperature: float = 1.0, greedy: bool = False,
+                 top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+        """``[batch_size, max_length]`` tokens for ``conditions [batch_size, C]``
+        (moved to the params' device), drawn from ``generator`` (on that
+        device)."""
+        dev = self.params["decoder"]["fc_out"]["weight"].device
+        conditions = torch.as_tensor(conditions, dtype=torch.float32, device=dev)
+        if conditions.shape[0] != batch_size:
+            raise ValueError(f"conditions has {conditions.shape[0]} rows, "
+                             f"batch_size is {batch_size}")
+        return vae_generate(self.params, self.cfg, conditions, generator,
+                            max_length=max_length, temperature=temperature,
+                            greedy=greedy, top_k=top_k, top_p=top_p)

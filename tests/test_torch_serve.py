@@ -289,11 +289,30 @@ def test_cuda_device_without_cuda_is_an_error(tmp_path, monkeypatch):
 
 
 def test_data_flag_not_yet_ported(tmp_path):
+    """``--data`` exited as not yet ported until the corpus feed was ported;
+    now a missing file is an error and a dataset gives the train split's
+    stats and alphabet, as in the JAX server."""
+    from mlx_vae_tpu.cli.common import resolve_property_stats as jax_resolve
+    from mlx_vae_tpu_torch.data.prepare import make_synthetic_dataset
+
+    ck = _checkpoint(tmp_path / "ck.npz")
     args = tserve.build_parser().parse_args([
-        "--checkpoint", _checkpoint(tmp_path / "ck.npz"), "--device", "cpu",
-        "--data", "train.json"])
-    with pytest.raises(SystemExit, match="not yet ported"):
+        "--checkpoint", ck, "--device", "cpu", "--data", str(tmp_path / "train.json")])
+    with pytest.raises(FileNotFoundError, match="does not exist"):
         tserve.GenerationService(args)
+    make_synthetic_dataset(n=60, vocab_size=24, max_length=12,
+                           path=str(tmp_path / "train.json"))
+    svc = tserve.GenerationService(tserve.build_parser().parse_args([
+        "--checkpoint", ck, "--device", "cpu", "--data", str(tmp_path / "train.json"),
+        "--batch_sizes", "8", "--max_length", "12"]))
+    try:
+        mean, std, alphabet, _ = jax_resolve(str(tmp_path / "train.json"), False, {},
+                                             MCFG.num_conditions)
+        np.testing.assert_array_equal(svc.mean, mean)
+        np.testing.assert_array_equal(svc.std, std)
+        assert svc.alphabet == alphabet and svc.alphabet != STATS["alphabet"]
+    finally:
+        svc.close()
 
 
 @pytest.mark.parametrize("suffix", ["json", "npz"])

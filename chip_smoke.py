@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-12 below
+    python3 chip_smoke.py            # phases 1-13 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -155,7 +155,32 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    against ``--sync_checkpoint``: three epochs each with a save every
    epoch, in turns async, sync, sync, async, the wall time from the first
    epoch's start to the last save's end, each train pass, and the main
-   thread's seconds in ``save_checkpoint``.
+   thread's seconds in ``save_checkpoint``;
+13. the eval CLIs, on phase 12's corpus and best checkpoint: first the
+   encoder forward at B = 2 and 5 and the greedy sampler at B = 5 and 9
+   (the shapes below that no earlier phase holds: a 2-row encoder grid, a
+   partial 64-row sampler tile) against their plain versions, f32 and bf16,
+   with phase 6's and phase 3's tolerances. Then, in this process, the
+   native post-processor must load, and ``cli.encode --split test
+   --batch_size 1024`` (2,053 rows: 1024, 1024 and 5 padded to 1024) runs
+   in f32 and in bf16, each held against the same functions on the plain
+   route (``use_pallas=False``) on the card: ``mu`` and ``logvar`` within
+   phase 6's tolerances, ``active_units`` equal, the TF=1 argmax agreeing
+   on >= 99.0% of tokens, the greedy rows from z = mu under the sampler
+   contract; the encoder-forward, decoder-logits and tensor-core sampler
+   counters, reset just before, must read 3 each after a fused run and 0
+   after a plain one. ``cli.interpolate --steps 9``: its endpoints equal
+   encode's ``mu`` of those rows, its tokens meet the contract against the
+   plain route. A predictor head (seeded) is added to the checkpoint, and
+   ``cli.optimize --num_molecules 1024 --opt_steps 300`` runs greedy and at
+   T=1.0: the objective falls, every |z| <= 3, the descent's objective
+   trajectory equals ``optimize_latent``'s on the CPU from the same z0
+   within 1e-4, z's coordinates agree within 1e-4 on no fewer (less 5
+   points) than the CPU's own run from z0 plus one ulp leaves (Adam's
+   near-sign steps make z chaotic at rounding level), and the sampler
+   launches once. Printed: encode's mols/s by
+   part (encode, TF=1 decode, greedy decode) on both routes, interpolate's
+   wall time, and the descent's seconds and ms a step.
 
 ``--sweep`` times the tensor-core kernel with each cluster size forced and
 the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
@@ -1686,17 +1711,22 @@ def default_bounds() -> dict:
     return out
 
 
-def run_main(main, argv: list) -> str:
-    """``main(argv)`` of a port CLI in this process, its standard output
-    captured and returned (its standard error, the progress bars, dropped);
-    its last lines are logged."""
+def run_cli(main, argv: list):
+    """``main(argv)`` of a port CLI in this process: its standard output
+    captured (its standard error, the progress bars, dropped) and its last
+    lines logged. Returns ``(output, main's return value)``."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
-        main(argv)
+        res = main(argv)
     text = out.getvalue()
     for line in text.strip().splitlines()[-3:]:
         log(f"    | {line}")
-    return text
+    return text, res
+
+
+def run_main(main, argv: list) -> str:
+    """:func:`run_cli`'s captured standard output alone."""
+    return run_cli(main, argv)[0]
 
 
 def read_history(ck: str) -> dict:
@@ -1779,11 +1809,12 @@ TRAIN_PASS = re.compile(r"Throughput: ([\d,]+) tokens/sec \(([\d.]+)s train pass
 CLI_F32_RTOL = 1e-5
 
 
-def phase_train_cli(smi: str, step_ms: float) -> dict:
+def phase_train_cli(smi: str, step_ms: float, tmp: str) -> dict:
     """The port's train and generate CLIs in this process at the default
-    model's width (phase 12 of the docstring); returns the train kernels'
-    launches over the two-epoch run and the sampler's over the served run,
-    and the times."""
+    model's width (phase 12 of the docstring), in ``tmp``, where the corpus
+    (``s.json``) and the two-epoch run's checkpoints (``ck/``) stay for
+    phase 13; returns the train kernels' launches over the two-epoch run and
+    the sampler's over the served run, and the times."""
     import os
 
     from mlx_vae_tpu_torch.cli import generate as cli_generate
@@ -1793,143 +1824,389 @@ def phase_train_cli(smi: str, step_ms: float) -> dict:
     from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        s, ck = f"{tmp}/s.json", f"{tmp}/ck"
-        run_main(prepare.main, ["--synthetic", "20523", "--output", s])
-        if packer._get_lib() is None:
-            raise AssertionError("native/packer.cpp did not build")
-        base = ["--data", s, "--batch_size", "4096", "--compute_dtype", "bfloat16",
-                "--use_pallas", "--checkpoint_freq", "1", "--checkpoint_dir", ck]
+    s, ck = f"{tmp}/s.json", f"{tmp}/ck"
+    run_main(prepare.main, ["--synthetic", "20523", "--output", s])
+    if packer._get_lib() is None:
+        raise AssertionError("native/packer.cpp did not build")
+    base = ["--data", s, "--batch_size", "4096", "--compute_dtype", "bfloat16",
+            "--use_pallas", "--checkpoint_freq", "1", "--checkpoint_dir", ck]
 
-        # two epochs: 4 batches of 4096 and one of 34, eval at 2052 and 2053 rows
-        counters = {k: v for k, v in kernel_counters().items() if k in TRAIN_KERNELS}
-        seen = []
-        undo = epoch_counts(counters, seen)
-        reset_counts(counters)
+    # two epochs: 4 batches of 4096 and one of 34, eval at 2052 and 2053 rows
+    counters = {k: v for k, v in kernel_counters().items() if k in TRAIN_KERNELS}
+    seen = []
+    undo = epoch_counts(counters, seen)
+    reset_counts(counters)
+    try:
+        text = run_main(cli_train.main, base + ["--epochs", "2", "--eval_test",
+                                                "--verbose"])
+    finally:
+        undo()
+    launches = read_counts(counters)
+    for e, c in enumerate(seen):
+        log(f"  epoch {e + 1}: train-kernel launches so far {c}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a train kernel was never launched: {launches}")
+    h = read_history(ck)
+    if h["epoch"] != [0, 1] or not all(math.isfinite(v) for k in h for v in h[k]):
+        raise AssertionError(f"history of the two-epoch run: {h}")
+    if not h["train_recon"][1] < h["train_recon"][0]:
+        raise AssertionError(f"train_recon did not fall: {h['train_recon']}")
+    for name in ("checkpoint_epoch_000.npz", "checkpoint_epoch_001.npz",
+                 "checkpoint_best.npz"):
+        if not os.path.exists(f"{ck}/{name}"):
+            raise AssertionError(f"{name} was not written")
+    if "Test set (2,053 samples)" not in text:
+        raise AssertionError("--eval_test printed no test line")
+    passes = TRAIN_PASS.findall(text)
+    out["batch_ms"] = float(passes[1][1]) * 1e3 / 5
+    out["throughput"] = passes[1][0]
+    log(f"  two epochs: train_recon {h['train_recon']}, val_loss {h['val_loss']}; "
+        f"train pass epoch 1 {passes[0][1]} s, epoch 2 {passes[1][1]} s over 5 batches "
+        f"= {out['batch_ms']:.3f} ms a batch (phase 8's fused step at B=4096: "
+        f"{step_ms:.3f} ms); Throughput {passes[1][0]} tokens/s [{smi}]")
+    # the async checkpoint (the default) against --sync_checkpoint: three
+    # epochs each, a checkpoint every epoch, in turns async, sync, sync,
+    # async; the epochs' wall time runs from the first epoch's start to the
+    # end of the last save (its join), so it holds every save
+    out["save"] = {"async": [], "sync": []}
+    for i, mode in enumerate(("async", "sync", "sync", "async")):
+        rec = {}
+        undo = save_timing(rec)
         try:
-            text = run_main(cli_train.main, base + ["--epochs", "2", "--eval_test",
-                                                    "--verbose"])
+            text = run_main(cli_train.main, base[:-1] + [
+                f"{tmp}/ck_{mode}_{i}", "--epochs", "3",
+                *(["--sync_checkpoint"] if mode == "sync" else [])])
         finally:
             undo()
-        launches = read_counts(counters)
-        for e, c in enumerate(seen):
-            log(f"  epoch {e + 1}: train-kernel launches so far {c}")
-        if min(launches.values()) < 1:
-            raise AssertionError(f"a train kernel was never launched: {launches}")
-        h = read_history(ck)
-        if h["epoch"] != [0, 1] or not all(math.isfinite(v) for k in h for v in h[k]):
-            raise AssertionError(f"history of the two-epoch run: {h}")
-        if not h["train_recon"][1] < h["train_recon"][0]:
-            raise AssertionError(f"train_recon did not fall: {h['train_recon']}")
-        for name in ("checkpoint_epoch_000.npz", "checkpoint_epoch_001.npz",
-                     "checkpoint_best.npz"):
-            if not os.path.exists(f"{ck}/{name}"):
-                raise AssertionError(f"{name} was not written")
-        if "Test set (2,053 samples)" not in text:
-            raise AssertionError("--eval_test printed no test line")
-        passes = TRAIN_PASS.findall(text)
-        out["batch_ms"] = float(passes[1][1]) * 1e3 / 5
-        out["throughput"] = passes[1][0]
-        log(f"  two epochs: train_recon {h['train_recon']}, val_loss {h['val_loss']}; "
-            f"train pass epoch 1 {passes[0][1]} s, epoch 2 {passes[1][1]} s over 5 batches "
-            f"= {out['batch_ms']:.3f} ms a batch (phase 8's fused step at B=4096: "
-            f"{step_ms:.3f} ms); Throughput {passes[1][0]} tokens/s [{smi}]")
-        # the async checkpoint (the default) against --sync_checkpoint: three
-        # epochs each, a checkpoint every epoch, in turns async, sync, sync,
-        # async; the epochs' wall time runs from the first epoch's start to the
-        # end of the last save (its join), so it holds every save
-        out["save"] = {"async": [], "sync": []}
-        for i, mode in enumerate(("async", "sync", "sync", "async")):
-            rec = {}
-            undo = save_timing(rec)
-            try:
-                text = run_main(cli_train.main, base[:-1] + [
-                    f"{tmp}/ck_{mode}_{i}", "--epochs", "3",
-                    *(["--sync_checkpoint"] if mode == "sync" else [])])
-            finally:
-                undo()
-            passes = [float(p[1]) for p in TRAIN_PASS.findall(text)]
-            row = {"epochs_wall_s": rec["join"][-1] - rec["epoch"][0],
-                   "train_pass_s": passes, "save_call_s": rec["save_s"]}
-            out["save"][mode].append(row)
-            log(f"  three epochs, {mode} checkpoint: epochs' wall {row['epochs_wall_s']:.4f} s "
-                f"(first epoch's start to the last save's end), train passes "
-                f"{', '.join(f'{p:.4f}' for p in passes)} s, the main thread in "
-                f"save_checkpoint {row['save_call_s']:.4f} s [{smi}]")
+        passes = [float(p[1]) for p in TRAIN_PASS.findall(text)]
+        row = {"epochs_wall_s": rec["join"][-1] - rec["epoch"][0],
+               "train_pass_s": passes, "save_call_s": rec["save_s"]}
+        out["save"][mode].append(row)
+        log(f"  three epochs, {mode} checkpoint: epochs' wall {row['epochs_wall_s']:.4f} s "
+            f"(first epoch's start to the last save's end), train passes "
+            f"{', '.join(f'{p:.4f}' for p in passes)} s, the main thread in "
+            f"save_checkpoint {row['save_call_s']:.4f} s [{smi}]")
 
-        # resume for a third epoch, profiled: the kernels by name and the idle share
-        text = run_main(cli_train.main, base + ["--epochs", "3", "--resume",
-                                                "--profile", f"{tmp}/prof"])
-        if "Resuming from epoch 2" not in text or read_history(ck)["epoch"] != [0, 1, 2]:
-            raise AssertionError("--resume did not run epoch index 2 alone")
-        prof = trace_profile(f"{tmp}/prof/trace.json")
-        check_forward_kernels(prof, "train CLI epoch 3")
-        check_kernels(prof, "train CLI epoch 3", "encoder reverse chain", "enc_step_kernel",
-                      ("enc_bwd_kernel",))
-        check_kernels(prof, "train CLI epoch 3", "decoder reverse chain", "dec_step_kernel",
-                      ("dec_bwd_kernel",))
-        out["idle_share"] = prof["idle_share"]
-        log(f"  train CLI epoch 3 under torch.profiler: {prof['wall_ms']:.3f} ms wall, "
-            f"{prof['device_ms']:.3f} ms of device time, idle share {prof['idle_share']:.4f} "
-            f"[{smi}]")
+    # resume for a third epoch, profiled: the kernels by name and the idle share
+    text = run_main(cli_train.main, base + ["--epochs", "3", "--resume",
+                                            "--profile", f"{tmp}/prof"])
+    if "Resuming from epoch 2" not in text or read_history(ck)["epoch"] != [0, 1, 2]:
+        raise AssertionError("--resume did not run epoch index 2 alone")
+    prof = trace_profile(f"{tmp}/prof/trace.json")
+    check_forward_kernels(prof, "train CLI epoch 3")
+    check_kernels(prof, "train CLI epoch 3", "encoder reverse chain", "enc_step_kernel",
+                  ("enc_bwd_kernel",))
+    check_kernels(prof, "train CLI epoch 3", "decoder reverse chain", "dec_step_kernel",
+                  ("dec_bwd_kernel",))
+    out["idle_share"] = prof["idle_share"]
+    log(f"  train CLI epoch 3 under torch.profiler: {prof['wall_ms']:.3f} ms wall, "
+        f"{prof['device_ms']:.3f} ms of device time, idle share {prof['idle_share']:.4f} "
+        f"[{smi}]")
 
-        # fused against plain in f32 from the same seed
-        f = f"{tmp}/f.json"
-        run_main(prepare.main, ["--synthetic", "3000", "--output", f])
-        hist = {}
-        for route, extra in (("fused", ["--use_pallas"]), ("plain", [])):
-            reset_counts(counters)
-            run_main(cli_train.main, ["--data", f, "--batch_size", "256", "--epochs", "1",
-                                      "--checkpoint_dir", f"{tmp}/{route}", *extra])
-            hist[route], f32_launches = read_history(f"{tmp}/{route}"), read_counts(counters)
-            log(f"  train CLI f32, {route} route: train-kernel launches {f32_launches}")
-            if route == "fused" and min(f32_launches.values()) < 1:
-                raise AssertionError(f"the f32 fused run left a train kernel unlaunched: "
-                                     f"{f32_launches}")
-            if route == "plain" and max(f32_launches.values()) > 0:
-                raise AssertionError(f"the plain route launched a train kernel: {f32_launches}")
-        worst = max(abs(a - b) / max(abs(b), 1e-6)
-                    for k in hist["plain"] if k != "epoch"
-                    for a, b in zip(hist["fused"][k], hist["plain"][k]))
-        log(f"  train CLI f32, fused route against plain, 1 epoch of 2400 rows at B=256: "
-            f"worst relative difference over the history {worst:.3e} "
-            f"(tolerance {CLI_F32_RTOL})")
-        if not worst <= CLI_F32_RTOL:
-            raise AssertionError(f"fused and plain histories differ: {hist}")
-        out["f32_worst"] = worst
+    # fused against plain in f32 from the same seed
+    f = f"{tmp}/f.json"
+    run_main(prepare.main, ["--synthetic", "3000", "--output", f])
+    hist = {}
+    for route, extra in (("fused", ["--use_pallas"]), ("plain", [])):
+        reset_counts(counters)
+        run_main(cli_train.main, ["--data", f, "--batch_size", "256", "--epochs", "1",
+                                  "--checkpoint_dir", f"{tmp}/{route}", *extra])
+        hist[route], f32_launches = read_history(f"{tmp}/{route}"), read_counts(counters)
+        log(f"  train CLI f32, {route} route: train-kernel launches {f32_launches}")
+        if route == "fused" and min(f32_launches.values()) < 1:
+            raise AssertionError(f"the f32 fused run left a train kernel unlaunched: "
+                                 f"{f32_launches}")
+        if route == "plain" and max(f32_launches.values()) > 0:
+            raise AssertionError(f"the plain route launched a train kernel: {f32_launches}")
+    worst = max(abs(a - b) / max(abs(b), 1e-6)
+                for k in hist["plain"] if k != "epoch"
+                for a, b in zip(hist["fused"][k], hist["plain"][k]))
+    log(f"  train CLI f32, fused route against plain, 1 epoch of 2400 rows at B=256: "
+        f"worst relative difference over the history {worst:.3e} "
+        f"(tolerance {CLI_F32_RTOL})")
+    if not worst <= CLI_F32_RTOL:
+        raise AssertionError(f"fused and plain histories differ: {hist}")
+    out["f32_worst"] = worst
 
-        # serve what was trained: the tensor-core sampler, novelty against --data
-        fused_generate.launches = fused_generate.tc_launches = 0
-        fused_generate.core_launches = 0
-        text = run_main(cli_generate.main, [
-            "--checkpoint", f"{ck}/checkpoint_best.npz", "--data", s,
-            "--num_molecules", "8192", "--batch_size", "8192", "--max_length", "64",
-            "--target", "90", "--output", f"{tmp}/gen.npz"])
-        out["sampler_launches"] = fused_generate.tc_launches
-        if fused_generate.tc_launches < 1 or "Novelty vs training set" not in text:
-            raise AssertionError(f"generate: {fused_generate.tc_launches} tensor-core "
-                                 f"launches; output {text[-500:]}")
+    # serve what was trained: the tensor-core sampler, novelty against --data
+    fused_generate.launches = fused_generate.tc_launches = 0
+    fused_generate.core_launches = 0
+    text = run_main(cli_generate.main, [
+        "--checkpoint", f"{ck}/checkpoint_best.npz", "--data", s,
+        "--num_molecules", "8192", "--batch_size", "8192", "--max_length", "64",
+        "--target", "90", "--output", f"{tmp}/gen.npz"])
+    out["sampler_launches"] = fused_generate.tc_launches
+    if fused_generate.tc_launches < 1 or "Novelty vs training set" not in text:
+        raise AssertionError(f"generate: {fused_generate.tc_launches} tensor-core "
+                             f"launches; output {text[-500:]}")
 
-        # a real SELFIES corpus: one epoch, the alphabet in the checkpoint, validity
-        d, dk = f"{tmp}/d.json", f"{tmp}/dk"
-        run_main(prepare.main, ["--drug_like", "2000", "--output", d])
-        run_main(cli_train.main, ["--data", d, "--batch_size", "256", "--epochs", "1",
-                                  "--compute_dtype", "bfloat16", "--use_pallas",
-                                  "--checkpoint_dir", dk])
-        with open(d) as fh:
-            alphabet = json.load(fh)["alphabet"]
-        if load_checkpoint(f"{dk}/checkpoint_best.npz")["data_stats"]["alphabet"] != alphabet:
-            raise AssertionError("the checkpoint does not carry the corpus's alphabet")
-        text = run_main(cli_generate.main, [
-            "--checkpoint", f"{dk}/checkpoint_best.npz", "--num_molecules", "2048",
-            "--batch_size", "2048", "--max_length", "64", "--target", "90",
-            "--output", f"{tmp}/gen_d.json"])
-        valid = re.search(r"Validity: ([\d.]+)%", text)
-        if valid is None or "Molecule-level" not in text:
-            raise AssertionError(f"generate on the SELFIES checkpoint: {text[-500:]}")
-        log(f"  drug-like corpus, alphabet {len(alphabet)}: one epoch, then validity "
-            f"{valid.group(1)}% [{smi}]")
+    # a real SELFIES corpus: one epoch, the alphabet in the checkpoint, validity
+    d, dk = f"{tmp}/d.json", f"{tmp}/dk"
+    run_main(prepare.main, ["--drug_like", "2000", "--output", d])
+    run_main(cli_train.main, ["--data", d, "--batch_size", "256", "--epochs", "1",
+                              "--compute_dtype", "bfloat16", "--use_pallas",
+                              "--checkpoint_dir", dk])
+    with open(d) as fh:
+        alphabet = json.load(fh)["alphabet"]
+    if load_checkpoint(f"{dk}/checkpoint_best.npz")["data_stats"]["alphabet"] != alphabet:
+        raise AssertionError("the checkpoint does not carry the corpus's alphabet")
+    text = run_main(cli_generate.main, [
+        "--checkpoint", f"{dk}/checkpoint_best.npz", "--num_molecules", "2048",
+        "--batch_size", "2048", "--max_length", "64", "--target", "90",
+        "--output", f"{tmp}/gen_d.json"])
+    valid = re.search(r"Validity: ([\d.]+)%", text)
+    if valid is None or "Molecule-level" not in text:
+        raise AssertionError(f"generate on the SELFIES checkpoint: {text[-500:]}")
+    log(f"  drug-like corpus, alphabet {len(alphabet)}: one epoch, then validity "
+        f"{valid.group(1)}% [{smi}]")
     out["launches"] = launches
+    return out
+
+
+# phase 13: the TF=1 argmax's agreement with the plain route; the latent
+# descent on the card against the CPU from the same z0 (300 Adam steps): its
+# objective trajectory within OPT_ATOL, and z's coordinates within OPT_ATOL
+# on no fewer (less OPT_Z_SLACK) than the CPU's own run from z0 moved up by
+# one ulp. z is not a function of z0 to within rounding: Adam's steps are
+# near lr * sign(g), so a coordinate whose gradient is at rounding level
+# moves +-lr either way (the one-ulp run leaves 74-99% of z within 1e-4,
+# by z0, while its objective trajectory agrees within 1e-7)
+TF_AGREE = 0.99
+OPT_ATOL = 1e-4
+OPT_Z_SLACK = 0.05
+EVAL_KERNELS = ("fused_encoder_fwd", "fused_train_decoder_fwd_logits", "fused_generate_tc")
+
+
+def eval_counters() -> dict:
+    """The counters of the kernels phase 13 drives: the encoder forward, the
+    training decoder's logits forward and the sampler (both its kernels)."""
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+
+    c = {k: v for k, v in kernel_counters().items() if k in EVAL_KERNELS}
+    c["fused_generate_tc"] = (fused_generate, "tc_launches")
+    c["fused_generate_core"] = (fused_generate, "core_launches")
+    return c
+
+
+def phase_eval_shapes() -> None:
+    """The encoder forward at B = 2 and 5 and the greedy sampler at B = 5
+    and 9 (``interpolate``'s and ``encode``'s new shapes: a 2-row encoder
+    grid, a partial 64-row sampler tile) against their plain versions, f32
+    and bf16, with phase 6's and phase 3's tolerances."""
+    from mlx_vae_tpu_torch.ops import fused_encoder as fe
+    from mlx_vae_tpu_torch.ops import train_common as tc
+    from mlx_vae_tpu_torch.ops.fused_decoder import (fused_generate, fused_generate_reference,
+                                                     prepare_weights)
+
+    L = 64
+    for dtype in ("float32", "bfloat16"):
+        cfg, params = train_model(dtype)
+        we = tc.prepare_stack_weights(params["encoder"], cfg, with_head=False)
+        for B in (2, 5):
+            tok = train_inputs(cfg, B, L, seed=B)[0]
+            k, p = fe.encoder_fwd(we, tok), fe.encoder_fwd_reference(we, tok)
+            torch.cuda.synchronize()
+            compare(f"{dtype} B={B} encoder fwd [h_last, hs, cs, gs]", k, p, dtype, [0.0, 0.0])
+        cfg, params = default_model(dtype)
+        w = prepare_weights(params, cfg, "cuda")
+        for B in (5, 9):
+            h0, cond, seeds, temps = inputs(cfg, params, B, 1.0, seed=B)
+            lp = torch.empty((B, cfg.vocab_size), device="cuda")
+            lk = torch.empty_like(lp)
+            p = fused_generate_reference(w, h0, cond, seeds, temps, L, greedy=True, logits_out=lp)
+            k = fused_generate(w, h0, cond, seeds, temps, L, greedy=True, logits_out=lk)
+            torch.cuda.synchronize()
+            first, rows = agreement(k, p)
+            err = (lk - lp).abs().max().item()
+            log(f"  sampler {dtype} B={B} greedy: first tokens {first:.4%}, rows {rows:.4%}, "
+                f"first-step logits max |diff| {err:.3e}")
+            if first < AGREE_FIRST or rows < AGREE_ROWS or not err <= LOGIT_ATOL[dtype]:
+                raise AssertionError(f"sampler {dtype} B={B}: kernel and plain version part")
+            check_eos(k, cfg)
+
+
+def predictor_checkpoint(ck: str, path: str) -> None:
+    """``ck`` with a predictor head (seeded init) added, written to ``path``
+    with the port's checkpoint writer."""
+    from mlx_vae_tpu_torch.cli.generate import infer_model_shape
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.models.predictor import init_predictor_params
+    from mlx_vae_tpu_torch.train.checkpoint import (build_checkpoint_host, load_checkpoint,
+                                                    write_checkpoint)
+    from mlx_vae_tpu_torch.train.optim import adam_init
+
+    ckpt = load_checkpoint(ck)
+    cfg = ModelConfig(**infer_model_shape(ckpt["params"]["decoder"]))
+    pred = init_predictor_params(torch.Generator().manual_seed(13), cfg)
+    params = {**ckpt["params"], "predictor": pred}
+    opt = {**ckpt["opt_states"], "predictor": adam_init(pred)}
+    write_checkpoint(path, build_checkpoint_host(ckpt["epoch"], params, opt, ckpt["history"],
+                                                 ckpt["best_val_loss"], ckpt["data_stats"]))
+
+
+def plain_setup(ck: str, dtype: str):
+    """The checkpoint's encoder and decoder on the card, and its config on
+    the plain route (``use_pallas=False``)."""
+    from mlx_vae_tpu_torch.cli.generate import infer_model_shape
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
+    from mlx_vae_tpu_torch.utils.tree import params_from_numpy
+
+    ckpt = load_checkpoint(ck)
+    params = {k: params_from_numpy(ckpt["params"][k], "cuda") for k in ("encoder", "decoder")}
+    cfg = ModelConfig(compute_dtype=dtype, use_pallas=False,
+                      **infer_model_shape(ckpt["params"]["decoder"]))
+    return params, cfg
+
+
+def expect_counts(what: str, got: dict, want: dict) -> None:
+    log(f"  {what}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def phase_eval_cli(smi: str, tmp: str) -> dict:
+    """The port's encode, interpolate and optimize CLIs in this process on
+    phase 12's corpus and best checkpoint (phase 13 of the docstring);
+    returns each eval kernel's launches over the CLI runs and the times."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli import encode as cli_encode
+    from mlx_vae_tpu_torch.cli import interpolate as cli_interpolate
+    from mlx_vae_tpu_torch.cli import optimize as cli_optimize
+    from mlx_vae_tpu_torch.cli.common import normalized_targets, resolve_property_stats
+    from mlx_vae_tpu_torch.cli.generate import make_generate_fn
+    from mlx_vae_tpu_torch.data import postproc
+    from mlx_vae_tpu_torch.data.split import load_and_split
+    from mlx_vae_tpu_torch.models.latent_eval import latent_statistics
+    from mlx_vae_tpu_torch.models.latent_opt import optimize_latent
+    from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
+    from mlx_vae_tpu_torch.utils.tree import params_from_numpy
+
+    if postproc._lib() is None:
+        raise AssertionError("native/postproc.cpp did not build: the metrics would run numpy")
+    s, ck, ckp = f"{tmp}/s.json", f"{tmp}/ck/checkpoint_best.npz", f"{tmp}/ck_pred.npz"
+    predictor_checkpoint(ck, ckp)
+    test = load_and_split(s, property_keys=("tpsa",))[2]
+    tokens, cond = test.molecules, test.properties_normalized
+    n = tokens.shape[0]
+    counters = eval_counters()
+    total = dict.fromkeys(EVAL_KERNELS, 0)
+    out = {"encode": {}}
+
+    def count(what: str, want: dict):
+        got = read_counts(counters)
+        expect_counts(what, got, {k: want.get(k, 0) for k in counters})
+        for k in total:
+            total[k] += got[k]
+
+    mu32 = None
+    for dtype in ("float32", "bfloat16"):
+        reset_counts(counters)
+        text, res = run_cli(cli_encode.main, [
+            "--checkpoint", ck, "--data", s, "--split", "test", "--batch_size", "1024",
+            "--compute_dtype", dtype, "--device", "cuda", "--output", f"{tmp}/lat_{dtype}.npz",
+            "--report", f"{tmp}/rep_{dtype}.json"])
+        nb = -(-n // 1024)
+        count(f"encode {dtype}, {n} rows in {nb} batches of 1024",
+              {"fused_encoder_fwd": nb, "fused_train_decoder_fwd_logits": nb,
+               "fused_generate_tc": nb})
+        params, cfg = plain_setup(ck, dtype)
+        reset_counts(counters)
+        plain = cli_encode.encode_split(params, cfg, torch.device("cuda"), tokens, cond, 1024)
+        count(f"encode {dtype}, plain route", {})
+        compare(f"encode {dtype} vs plain route [mu, logvar]",
+                [torch.from_numpy(res["mu"]), torch.from_numpy(res["logvar"])],
+                [torch.from_numpy(plain["mu"]), torch.from_numpy(plain["logvar"])], dtype,
+                [0.0, 0.0])
+        au = (latent_statistics(res["mu"], res["logvar"])["active_units"],
+              latent_statistics(plain["mu"], plain["logvar"])["active_units"])
+        tf = float((res["next_tokens"] == plain["next_tokens"]).mean())
+        first, rows = agreement(torch.from_numpy(res["decoded"]),
+                                torch.from_numpy(plain["decoded"]))
+        log(f"  encode {dtype}: active units {au[0]} (plain {au[1]}); TF=1 argmax agrees on "
+            f"{tf:.4%} of tokens; greedy from z=mu: first tokens {first:.4%}, rows {rows:.4%}")
+        if au[0] != au[1] or tf < TF_AGREE or first < AGREE_FIRST or rows < AGREE_ROWS:
+            raise AssertionError(f"encode {dtype}: the fused route parts from the plain route")
+        if "first call loads" in text:
+            raise AssertionError(f"encode {dtype}: a kernel build fell inside the timed parts")
+        parts = {part: n / sec for part, sec in res["seconds"].items()}
+        plain_parts = {part: n / sec for part, sec in plain["seconds"].items()}
+        out["encode"][dtype] = {"mols_per_s": parts, "plain_mols_per_s": plain_parts,
+                                "seconds": res["seconds"], "plain_seconds": plain["seconds"]}
+        log(f"  encode {dtype}, {n} rows, mols/s by part (fused route; plain route): "
+            + ", ".join(f"{k} {parts[k]:,.0f} ({plain_parts[k]:,.0f})" for k in parts)
+            + f" [{smi}]")
+        if dtype == "float32":
+            mu32 = res["mu"]
+        del params, plain, res
+        torch.cuda.empty_cache()
+
+    # interpolate: two endpoints encoded at B=2, nine waypoints decoded at B=9
+    params, cfg = plain_setup(ck, "float32")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    _, doc = run_cli(cli_interpolate.main, [
+        "--checkpoint", ck, "--data", s, "--steps", "9", "--device", "cuda",
+        "--output", f"{tmp}/interp.json"])
+    out["interpolate_s"] = time.perf_counter() - t0
+    count("interpolate --steps 9", {"fused_encoder_fwd": 1, "fused_generate_tc": 1})
+    z_path = np.asarray(doc["z_path"], np.float32)
+    compare("interpolate z_path[0], z_path[-1] vs encode's mu of test rows 0 and 1",
+            [torch.from_numpy(z_path[[0, -1]])], [torch.from_numpy(mu32[:2])], "float32",
+            [0.0, 0.0])
+    t = np.linspace(0.0, 1.0, 9)[:, None].astype(np.float32)
+    cond_path = (1 - t) * cond[0] + t * cond[1]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    want = make_generate_fn(cfg, params["decoder"], tokens.shape[1], 1.0, greedy=True)(
+        torch.from_numpy(z_path).cuda(), torch.from_numpy(cond_path).cuda(), g)
+    first, rows = agreement(torch.tensor(doc["tokens"], device="cuda"), want)
+    log(f"  interpolate: {out['interpolate_s']:.4f} s wall (CLI in process, checkpoint load "
+        f"included); tokens vs plain route: first {first:.4%}, rows {rows:.4%} [{smi}]")
+    if first < AGREE_FIRST or rows < AGREE_ROWS:
+        raise AssertionError("interpolate: the fused route parts from the plain route")
+    del params
+
+    # optimize: 1024 candidates, 300 Adam steps, greedy and T=1.0
+    ckpt = load_checkpoint(ckp)
+    mean, std, _, _ = resolve_property_stats(s, False, ckpt, 1)
+    target = torch.from_numpy(normalized_targets([90.0], mean, std, 1))
+    pp = {"predictor": params_from_numpy(ckpt["params"]["predictor"], "cpu")}
+    out["optimize"] = {}
+    witness = None
+    for mode, extra in (("greedy", ["--greedy"]), ("T=1.0", ["--temperature", "1.0"])):
+        reset_counts(counters)
+        _, doc = run_cli(cli_optimize.main, [
+            "--checkpoint", ckp, "--data", s, "--target", "90", "--num_molecules", "1024",
+            "--opt_steps", "300", "--max_length", "64", "--device", "cuda",
+            "--output", f"{tmp}/opt.json", *extra])
+        count(f"optimize {mode}", {"fused_generate_tc": 1})
+        z = np.asarray(doc["z_optimized"], np.float32)
+        zc, info = optimize_latent(pp, cfg, torch.from_numpy(doc["z0"]), target, steps=300)
+        zc = zc.numpy()
+        if witness is None:  # the CPU against itself, z0 moved up by one ulp
+            zu = optimize_latent(pp, cfg, torch.from_numpy(np.nextafter(doc["z0"], np.inf)),
+                                 target, steps=300)[0].numpy()
+            witness = float((np.abs(zu - zc) <= OPT_ATOL).mean())
+        dz = float(np.abs(z - zc).max())
+        share = float((np.abs(z - zc) <= OPT_ATOL).mean())
+        dobj = float(np.abs(doc["objective"] - info["objective"].numpy()).max())
+        sec = doc["opt_seconds"]
+        out["optimize"][mode] = {"seconds": sec, "ms_per_step": 1e3 * sec / 300, "dz": dz,
+                                 "z_share": share, "ulp_witness_share": witness,
+                                 "dobj": dobj}
+        log(f"  optimize {mode}: objective {doc['objective_first']:.6f} -> "
+            f"{doc['objective_final']:.6f}, max |z| {np.abs(z).max():.4f}; card vs CPU from "
+            f"the same z0: max |d objective| {dobj:.3e} (tolerance {OPT_ATOL}), z within "
+            f"{OPT_ATOL} on {share:.4%} of coordinates (the CPU against itself from z0 + 1 "
+            f"ulp: {witness:.4%}; floor that less {OPT_Z_SLACK}), max |dz| {dz:.3e}; validity "
+            f"{doc['validity']:.4f}, "
+            f"uniqueness {doc['uniqueness']:.4f}; loop {sec:.4f} s, {1e3 * sec / 300:.3f} ms "
+            f"a step [{smi}]")
+        if not (doc["objective_final"] < doc["objective_first"] and np.abs(z).max() <= 3.0
+                and dobj <= OPT_ATOL and share >= witness - OPT_Z_SLACK):
+            raise AssertionError(f"optimize {mode}: descent check failed")
+    out["launches"] = total
     return out
 
 
@@ -2015,7 +2292,15 @@ def main() -> int:
 
     log("[12 train CLI] cli.train on a 20,523-molecule corpus, default model, bf16, "
         "B=4096, fused route; resume; f32 fused vs plain; cli.generate with --data")
-    cli = phase_train_cli(smi, sum(train_times["step_fused"]) / len(train_times["step_fused"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_train_cli(smi, sum(train_times["step_fused"]) / len(train_times["step_fused"]),
+                              tmp)
+
+        log("[13 eval CLIs] cli.encode (f32, bf16), cli.interpolate, cli.optimize on phase 12's "
+            "corpus and checkpoint, fused route against plain route; the encoder at B=2/5 and "
+            "the greedy sampler at B=5/9 against their plain versions")
+        phase_eval_shapes()
+        ev = phase_eval_cli(smi, tmp)["launches"]
 
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
@@ -2031,6 +2316,7 @@ def main() -> int:
         "replaces": "mlx_vae_tpu/ops/pallas_decoder.py:142",
         "launches": launches,
         "launches_train_cli": cli["sampler_launches"],
+        "launches_eval_cli": ev["fused_generate_tc"],
         "max_abs_err": worst["tc"][0], "err_metric": sampler_err,
         "max_row_disagreement": worst["tc"][1],
         "ms": t_ms, "plain_ms": p_ms,
@@ -2056,6 +2342,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": TRAIN_SOURCES[kname],
             "replaces": TRAIN_REPLACES[kname], "launches": launches_train[kname],
             "launches_train_cli": cli["launches"][kname],
+            **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
             "max_abs_err": errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output (forward) or "
                           f"gradient leaf (backward; the encoder's also its reverse chain's "
@@ -2070,6 +2357,7 @@ def main() -> int:
             for kname in TRAIN_KERNELS] + [{
             "name": kname, "route": "cuda", "source": f"mlx_vae_tpu_torch/csrc/{src}",
             "replaces": f"mlx_vae_tpu/ops/{tpu}", "launches": launches_seq[kname],
+            **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
             "max_abs_err": seq_errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output or gradient leaf "
                           f"(phase 9{DEC_FWD_NOTE if 'decoder' in kname else ''}); largest "

@@ -91,6 +91,29 @@ def infer_model_shape(dec_params: dict) -> dict:
             "latent_dim": latent, "num_conditions": C, "num_layers": n}
 
 
+def make_generate_fn(mcfg, dec_params: dict, max_length: int, temperature: float,
+                     greedy: bool, top_k: int = 0, top_p: float = 1.0):
+    """Batch decoder ``(z, cond, generator) -> tokens [B, max_length]``
+    (``models/vae.py:decode_latents``) on the device of ``dec_params``, the
+    decoder tree as tensors; the fused sampler's weights are prepared once
+    here. The counterpart of ``mlx_vae_tpu/cli/generate.py:make_generate_fn``
+    on one device, the route chosen by ``generation_sampler(mcfg)``."""
+    from mlx_vae_tpu_torch.models.vae import decode_latents, generation_sampler
+    from mlx_vae_tpu_torch.ops.fused_decoder import prepare_weights
+
+    params = {"decoder": dec_params}
+    weights = None
+    if generation_sampler(mcfg) == "fused":
+        weights = prepare_weights(dec_params, mcfg, dec_params["fc_out"]["weight"].device)
+
+    def generate(z, cond, generator):
+        return decode_latents(params, mcfg, z, cond, generator, max_length=max_length,
+                              temperature=temperature, greedy=greedy, top_k=top_k,
+                              top_p=top_p, weights=weights)
+
+    return generate
+
+
 def parse_calibration(spec):
     """``"A,B"`` -> (A, B) floats with B != 0; ValueError otherwise."""
     ca, cb = (float(v) for v in spec.split(","))

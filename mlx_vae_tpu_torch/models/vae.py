@@ -3,13 +3,14 @@
 
 ``vae_forward`` is encode -> reparameterize -> teacher-forced decode to
 logits; with ``cfg.use_pallas`` it runs the fused encoder and the logits
-specialization of the fused training decoder. ``vae_generate`` draws
-z ~ N(0, I) and decodes it with the sampler the config takes
+specialization of the fused training decoder. ``decode_latents`` decodes
+given latents with the sampler the config takes
 (:func:`generation_sampler`, as the JAX package routes): the fused sampler
 (``ops/fused_decoder.py``; on CUDA tensors the kernel, on CPU tensors its
 plain version) when ``cfg.use_pallas`` and the kernel takes the config,
 else the plain scan sampler (``models/sampling.py``), which also honours
-``reference_zero_state``.
+``reference_zero_state``; ``vae_generate`` draws z ~ N(0, I) and decodes
+it so.
 
 ``ARCVAE`` is the facade (``mlx_vae_tpu/models/vae.py:ARCVAE``): one param
 tree with ``__call__`` and ``generate``. It draws its initial params from a
@@ -58,24 +59,26 @@ def generation_sampler(cfg: ModelConfig) -> str:
 
 
 @torch.no_grad()
-def vae_generate(params: dict, cfg: ModelConfig, conditions: torch.Tensor,
-                 generator: torch.Generator, max_length: int = 80,
-                 temperature: float = 1.0, greedy: bool = False,
-                 top_k: int = 0, top_p: float = 1.0,
-                 weights: Optional[FusedWeights] = None) -> torch.Tensor:
-    """Sample ``[B, max_length]`` int32 tokens for ``conditions [B, C]``.
+def decode_latents(params: dict, cfg: ModelConfig, z: torch.Tensor, conditions: torch.Tensor,
+                   generator: torch.Generator, max_length: int = 80,
+                   temperature: float = 1.0, greedy: bool = False, top_k: int = 0,
+                   top_p: float = 1.0, weights: Optional[FusedWeights] = None
+                   ) -> torch.Tensor:
+    """Decode given latents ``z [B, latent]`` under ``conditions [B, C]`` to
+    ``[B, max_length]`` int32 tokens with the sampler the config takes
+    (:func:`generation_sampler`).
 
     ``params`` is the model tree (``{"decoder": ...}``) as tensors on the
-    conditions' device, and ``generator`` (on that device too) draws z,
-    then, on the fused route, one sampler seed per ``block_rows(B)`` rows,
-    or on the scan route the sampling noise. ``weights`` are the decoder's
-    prepared kernel weights (fused route only); pass them to reuse one
-    preparation across calls.
+    latents' device, and ``generator`` (on that device too) draws, on the
+    fused route, one sampler seed per ``block_rows(B)`` rows, or on the
+    scan route the sampling noise. ``weights`` are the decoder's prepared
+    kernel weights (fused route only); pass them to reuse one preparation
+    across calls.
     """
-    dev = conditions.device
-    B = conditions.shape[0]
+    dev = z.device
+    B = z.shape[0]
     dec = params["decoder"]
-    z = torch.randn((B, cfg.latent_dim), generator=generator, device=dev)
+    z = z.float().contiguous()
     cond = conditions.float().contiguous()
     if generation_sampler(cfg) == "scan":
         return generate_with_temperature(dec, cfg, z, cond, generator, max_length=max_length,
@@ -90,6 +93,23 @@ def vae_generate(params: dict, cfg: ModelConfig, conditions: torch.Tensor,
     h0 = hidden_init_row(dec, cfg, z, cond).contiguous()
     return fused_generate(weights, h0, cond, seeds, temps, max_length,
                           greedy=greedy, top_k=top_k, top_p=top_p)
+
+
+@torch.no_grad()
+def vae_generate(params: dict, cfg: ModelConfig, conditions: torch.Tensor,
+                 generator: torch.Generator, max_length: int = 80,
+                 temperature: float = 1.0, greedy: bool = False,
+                 top_k: int = 0, top_p: float = 1.0,
+                 weights: Optional[FusedWeights] = None) -> torch.Tensor:
+    """Sample ``[B, max_length]`` int32 tokens for ``conditions [B, C]``:
+    z ~ N(0, I) drawn from ``generator`` first, then
+    :func:`decode_latents` (whose draws follow z's from the same
+    generator)."""
+    z = torch.randn((conditions.shape[0], cfg.latent_dim), generator=generator,
+                    device=conditions.device)
+    return decode_latents(params, cfg, z, conditions, generator, max_length=max_length,
+                          temperature=temperature, greedy=greedy, top_k=top_k, top_p=top_p,
+                          weights=weights)
 
 
 class ARCVAE:

@@ -88,3 +88,9 @@ def load_library(name: str, verbose: bool = False) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(compile_sources([name], verbose)[name]))
         return _libs[name]
+
+
+def is_loaded(name: str) -> bool:
+    """Whether ``csrc/<name>.cu``'s library is loaded in this process (a
+    first call then builds and loads nothing)."""
+    return name in _libs

@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-13 below
+    python3 chip_smoke.py            # phases 1-14 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -24,15 +24,25 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    (bf16) absolute; truncated first tokens lie in the plain version's kept
    set; rows emit only pad after EOS; moving seed blocks to other batch
    positions, or running a block alone at B=256, leaves their tokens
-   bitwise unchanged;
+   bitwise unchanged; one B=2048 launch laid out as a coalesced serving
+   pass (six request blocks at T=0.5/0.8/1.2 with their own seeds and
+   conditions, two padding blocks) gives each request block the tokens of
+   its own B=256 launch, bit for bit;
 4. the slice: a random-init checkpoint is served by the port's HTTP server
-   (tiers 256,2048,8192, max_length 64, f32) and answers health, stochastic,
-   repeated-seed, greedy, multi-pass and malformed requests; the sampler
-   launch counters, reset just before, must show tensor-core launches and
-   no CUDA-core one, and /health names the fused sampler. A V=600
-   checkpoint, which the sampler kernels refuse, is then served through the
-   scan sampler (as the JAX server serves it): /health says "scan", same-seed
-   requests repeat, no sampler launch. An H=48 checkpoint, which the
+   (tiers 256,2048,8192, max_length 64, f32; background warm-up, waited
+   for and free of errors before the counters are reset) and answers
+   health, stochastic, repeated-seed, greedy, multi-pass and malformed
+   requests; the sampler launch counters, reset just before, must show
+   tensor-core launches and no CUDA-core one, and /health names the fused
+   sampler and its coalescing; the greedy response agrees with the plain
+   version on the same block streams and h0. A V=600 checkpoint, which the
+   sampler kernels refuse, is then served through the scan sampler (as the
+   JAX server serves it, tiers 256,2048): /health says "scan", same-seed
+   requests repeat, no sampler launch; ten greedy jobs coalesced into one
+   2048-row pass are held against each alone (the share of equal rows is
+   printed; the server may coalesce scan greedy only if they hold bit for
+   bit), and ten concurrent greedy
+   requests equal their serial reruns. An H=48 checkpoint, which the
    tensor-core kernel refuses, is served through the CUDA-core kernel
    (routed by config, before any launch);
 5. times: the tensor-core and CUDA-core sampler kernels in turns, in mols/s,
@@ -180,7 +190,20 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    near-sign steps make z chaotic at rounding level), and the sampler
    launches once. Printed: encode's mols/s by
    part (encode, TF=1 decode, greedy decode) on both routes, interpolate's
-   wall time, and the descent's seconds and ms a step.
+   wall time, and the descent's seconds and ms a step;
+14. serving under concurrent load, default model, f32, tiers
+    256,2048,8192, L=64, T=0.8: (a) seconds to a bound server with the
+    background warm-up against ``--sync_warmup`` (min of two each, in
+    turns); (b) ``_run_coalesced`` on 16 jobs of 200 molecules at mixed
+    temperatures and seeds: each bitwise equal to itself alone, every launch
+    tensor-core, one job against the plain version on its block streams
+    under the greedy contract's floors; (c) over HTTP, 16 and 64 concurrent
+    clients of 200 molecules, then the same requests one at a time:
+    aggregate served mols/s (molecules over the wall time from the first
+    send to the last response), p50 and max latency, device passes; (d)
+    every concurrent response bitwise equal to its serial rerun, and some
+    coalesced. One JSON line ``{"serve_concurrent": ...}`` holds the
+    numbers (printed, not gated).
 
 ``--sweep`` times the tensor-core kernel with each cluster size forced and
 the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
@@ -342,6 +365,8 @@ def phase_kernel_vs_plain() -> dict:
                     check_eos(k, cfg)
                     if mode == "T=0.8" and B > 256:
                         check_seed_blocks(w, h0, cond, seeds, temps, k, kernel, f"{dtype} B={B}")
+        for kernel in ("tc", "cuda_core"):
+            check_mixed_blocks(w, params, cfg, kernel, dtype)
     log("  EOS rows emit only pad after EOS: ok")
     return {k: tuple(v) for k, v in worst.items()}
 
@@ -374,6 +399,41 @@ def check_seed_blocks(w, h0, cond, seeds, temps, k, kernel: str, what: str) -> N
         f"{nb - 1} alone at B=256 -> tokens bitwise unchanged")
 
 
+def check_mixed_blocks(w, params, cfg, kernel: str, dtype: str) -> None:
+    """One B=2048 launch laid out as a coalesced serving pass: six 256-row
+    blocks of requests, each with its own seed, condition and temperature
+    (0.5 / 0.8 / 1.2), then two blocks of padding (zero h0 and conditions,
+    seed 0, temperature 1.0). Each request block's tokens equal its own
+    B=256 launch bit for bit."""
+    from mlx_vae_tpu_torch.models.decoder import hidden_init_row
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+
+    bb, B, L, real = 256, 2048, 64, 6
+    g = torch.Generator(device="cuda").manual_seed(21)
+    z = torch.randn((B, cfg.latent_dim), generator=g, device="cuda")
+    cond = torch.randn((B // bb, cfg.num_conditions), generator=g,
+                       device="cuda").repeat_interleave(bb, 0)
+    seeds = torch.randint(0, 2**31 - 1, (B // bb,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    temps = torch.tensor([0.5, 0.8, 1.2, 1.2, 0.8, 0.5, 1.0, 1.0], device="cuda")
+    h0 = hidden_init_row(params, cfg, z, cond).contiguous()
+    h0[real * bb:] = 0.0
+    cond[real * bb:] = 0.0
+    seeds[real:] = 0
+    k = fused_generate(w, h0, cond, seeds, temps, L, kernel=kernel)
+    for blk in range(real):
+        rows = slice(bb * blk, bb * (blk + 1))
+        alone = fused_generate(w, h0[rows].contiguous(), cond[rows].contiguous(),
+                               seeds[blk:blk + 1].contiguous(), temps[blk:blk + 1].contiguous(),
+                               L, kernel=kernel)
+        if not torch.equal(alone, k[rows]):
+            raise AssertionError(f"{kernel} {dtype}: request block {blk} (T={temps[blk]:.1f}) of a "
+                                 f"mixed B=2048 launch differs from its own B=256 launch")
+    log(f"  {kernel} {dtype}: one B=2048 launch of {real} request blocks (T=0.5/0.8/1.2, own "
+        f"seeds and conditions) and 2 padding blocks -> each request block bitwise equal to "
+        f"its own B=256 launch")
+
+
 def post(base, payload, path="/generate"):
     req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -381,50 +441,80 @@ def post(base, payload, path="/generate"):
         return r.status, json.loads(r.read())
 
 
-def phase_slice(tmp: str) -> int:
-    """Serve a random-init checkpoint; returns the tensor-core sampler
-    launches the requests made (they must make no CUDA-core launch)."""
-    import numpy as np
+def start_server(argv: list):
+    """``cli.serve``'s server in a thread: ``(ready, thread, base url,
+    seconds from start to bound)``."""
+    from mlx_vae_tpu_torch.cli.serve import build_parser, serve_forever
 
-    from mlx_vae_tpu_torch.cli.serve import build_parser, pass_seed, serve_forever
-    from mlx_vae_tpu_torch.data.prepare import make_synthetic_dataset
-    from mlx_vae_tpu_torch.models.decoder import hidden_init_row
-    from mlx_vae_tpu_torch.ops.fused_decoder import (block_rows, fused_generate,
-                                                     fused_generate_reference)
-    from mlx_vae_tpu_torch.train.checkpoint import build_checkpoint_host, write_checkpoint
-
-    cfg, params = default_model("float32")
-    alphabet = make_synthetic_dataset(n=4, vocab_size=cfg.vocab_size)["alphabet"]
-    ck = f"{tmp}/checkpoint_best.npz"
-    write_checkpoint(ck, build_checkpoint_host(
-        0, {"encoder": {}, "decoder": params}, {"encoder": {}, "decoder": {}}, {},
-        data_stats={"properties_mean": [60.0], "properties_std": [25.0],
-                    "alphabet": alphabet}))
-    args = build_parser().parse_args([
-        "--checkpoint", ck, "--port", "0", "--batch_sizes", "256,2048,8192",
-        "--max_length", "64", "--device", "cuda"])
+    args = build_parser().parse_args(["--port", "0", "--device", "cuda", *argv])
     ready = threading.Event()
     thread = threading.Thread(target=serve_forever, args=(args, ready), daemon=True)
     t0 = time.perf_counter()
     thread.start()
     if not ready.wait(timeout=300):
         raise AssertionError("server did not come up")
-    log(f"  server up with every tier warm in {time.perf_counter() - t0:.2f}s")
-    base = f"http://127.0.0.1:{ready.server.server_address[1]}"
+    up = time.perf_counter() - t0
+    return ready, thread, f"http://127.0.0.1:{ready.server.server_address[1]}", up
+
+
+def wait_warm(ready) -> dict:
+    """Wait for the background warm-up; fail on a warm-up error. Returns
+    /health's warmup block."""
+    if not ready.service.wait_warm(300):
+        raise AssertionError("warm-up did not end")
+    warm = ready.service.health()["warmup"]
+    if warm["error"] is not None or not warm["complete"]:
+        raise AssertionError(f"warm-up failed: {warm}")
+    return warm
+
+
+def stop_server(ready, thread) -> None:
+    ready.server.shutdown()
+    thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+
+
+def reset_sampler_counts() -> None:
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+
+    fused_generate.launches = fused_generate.tc_launches = fused_generate.core_launches = 0
+
+
+def phase_slice(tmp: str) -> int:
+    """Serve a random-init checkpoint; returns the tensor-core sampler
+    launches the requests made (they must make no CUDA-core launch)."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli.serve import block_streams
+    from mlx_vae_tpu_torch.models.decoder import hidden_init_row
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate, fused_generate_reference
+
+    cfg, ck = default_checkpoint(f"{tmp}/checkpoint_best.npz")
+    ready, thread, base, up = start_server([
+        "--checkpoint", ck, "--batch_sizes", "256,2048,8192", "--max_length", "64"])
     fields = {"num_molecules", "target", "temperature", "greedy", "top_k", "top_p",
               "mols_per_sec", "passes", "coalesced", "validity", "uniqueness",
               "selfies"}
     try:
+        t0 = time.perf_counter()
+        warm = wait_warm(ready)
+        log(f"  server up in {up:.2f}s with the 256-row tier warm; the rest of the ladder "
+            f"warm {time.perf_counter() - t0:.2f}s later ({warm['warm_programs']} programs, "
+            f"no warm-up error)")
         # count only the main path's launches
-        fused_generate.launches = fused_generate.tc_launches = fused_generate.core_launches = 0
+        reset_sampler_counts()
         with urllib.request.urlopen(base + "/health", timeout=60) as r:
             health = json.loads(r.read())
         if (health["status"] != "ok" or health["batch_tiers"] != [256, 2048, 8192]
-                or health["sampler"] != "fused"):
+                or health["sampler"] != "fused" or not health["warmup"]["complete"]
+                or health["warmup"]["error"] is not None
+                or health["coalescing"] != {"stochastic": True, "greedy": True,
+                                            "truncated": {}, "block_rows": 256}):
             raise AssertionError(f"bad /health: {health}")
         log(f"  /health: backend={health['backend']} device={health['device']} "
             f"tiers={health['batch_tiers']} warm={health['warmup']['complete']} "
-            f"sampler={health['sampler']}")
+            f"sampler={health['sampler']} coalescing={health['coalescing']}")
         req = {"num_molecules": 200, "target": [90.0], "temperature": 0.8,
                "seed": 11, "return_tokens": True}
         _, a = post(base, req)
@@ -466,31 +556,29 @@ def phase_slice(tmp: str) -> int:
         log(f"  sampler launches during the requests: {launches} tensor-core "
             f"(gen_tc_kernel), 0 CUDA-core")
 
-        # The greedy response against the plain version on the same draws.
+        # The greedy response (one 256-row block on the coalesced path)
+        # against the plain version on the same block streams and h0.
         service = ready.service
-        gen = torch.Generator(device="cuda").manual_seed(pass_seed(11, 0))
-        tier = service.plan_passes(200)[0]
-        tn = torch.as_tensor(service.mean, device="cuda")
-        cond = ((torch.full((tier, 1), 90.0, device="cuda") - tn)
+        if g["passes"] != 1 or g["coalesced"]:
+            raise AssertionError(f"the greedy request should run alone in one pass: {g['passes']}, "
+                                 f"coalesced={g['coalesced']}")
+        z, seeds = block_streams(11, 0, 1, service.chunk, cfg.latent_dim, "cuda")
+        cond = ((torch.full((service.chunk, 1), 90.0, device="cuda")
+                 - torch.as_tensor(service.mean, device="cuda"))
                 / torch.as_tensor(service.std, device="cuda")).contiguous()
-        z = torch.randn((tier, cfg.latent_dim), generator=gen, device="cuda")
-        nb = -(-tier // block_rows(tier))
-        seeds = torch.randint(0, 2**31 - 1, (nb,), generator=gen, device="cuda",
-                              dtype=torch.int32)
         h0 = hidden_init_row(service.params["decoder"], cfg, z, cond).contiguous()
         plain = fused_generate_reference(service.weights, h0, cond, seeds,
-                                         torch.full((nb,), 0.8, device="cuda"),
+                                         torch.full((1,), 0.8, device="cuda"),
                                          64, greedy=True)[:200].cpu().numpy()
         served = np.asarray(g["tokens"])
+        first = float((plain[:, 0] == served[:, 0]).mean())
         rows = float((plain == served).all(1).mean())
-        log(f"  served greedy rows equal to the plain version: {rows:.4%}")
-        if rows < AGREE_ROWS:
+        log(f"  served greedy tokens against the plain version on the same block streams: "
+            f"first tokens {first:.4%}, rows {rows:.4%}")
+        if first < AGREE_FIRST or rows < AGREE_ROWS:
             raise AssertionError("served greedy tokens disagree with the plain version")
     finally:
-        ready.server.shutdown()
-        thread.join(timeout=60)
-    if thread.is_alive():
-        raise AssertionError("server thread did not stop")
+        stop_server(ready, thread)
     return launches
 
 
@@ -498,10 +586,14 @@ def phase_scan_served(tmp: str) -> None:
     """A checkpoint the fused sampler refuses (V = 600) is served on the
     card through the scan sampler, as the JAX server serves it: /health
     names the sampler, requests return tokens and the sampler kernel is not
-    launched."""
+    launched. Greedy coalescing on this route: ten 200-row greedy jobs in
+    one 2048-row pass against each alone in a 256-row pass (the share of
+    equal rows is printed); the server may declare greedy coalescing only
+    if every row holds bit for bit, and concurrent greedy requests equal
+    their serial reruns."""
     import numpy as np
 
-    from mlx_vae_tpu_torch.cli.serve import build_parser, serve_forever
+    from mlx_vae_tpu_torch.cli.serve import _Job
     from mlx_vae_tpu_torch.config import ModelConfig
     from mlx_vae_tpu_torch.models.decoder import init_decoder_params
     from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
@@ -512,16 +604,11 @@ def phase_scan_served(tmp: str) -> None:
     dec = init_decoder_params(torch.Generator().manual_seed(5), cfg)
     write_checkpoint(ck, build_checkpoint_host(
         0, {"encoder": {}, "decoder": dec}, {"encoder": {}, "decoder": {}}, {}))
-    args = build_parser().parse_args([
-        "--checkpoint", ck, "--port", "0", "--batch_sizes", "256", "--max_length", "64",
-        "--no_normalize", "--device", "cuda"])
-    ready = threading.Event()
-    thread = threading.Thread(target=serve_forever, args=(args, ready), daemon=True)
-    thread.start()
-    if not ready.wait(timeout=300):
-        raise AssertionError("server did not come up")
-    base = f"http://127.0.0.1:{ready.server.server_address[1]}"
+    ready, thread, base, _ = start_server([
+        "--checkpoint", ck, "--batch_sizes", "256,2048", "--max_length", "64",
+        "--no_normalize"])
     try:
+        wait_warm(ready)
         before = fused_generate.launches
         with urllib.request.urlopen(base + "/health", timeout=60) as r:
             health = json.loads(r.read())
@@ -540,11 +627,48 @@ def phase_scan_served(tmp: str) -> None:
         log(f"  V=600 checkpoint: /health sampler={health['sampler']}; 300 molecules in "
             f"{a['passes']} passes at {a['mols_per_sec']:.1f} mols/s, same seed -> same "
             f"tokens, sampler kernel launches 0")
+
+        svc = ready.service
+
+        def jobs():
+            return [_Job(200, True, 1.0, np.asarray([[0.2 * i - 1.0]], np.float32), 100 + i)
+                    for i in range(10)]
+
+        solo, co = jobs(), jobs()
+        for j in solo:
+            svc._run_coalesced([j])
+        svc._run_coalesced(co)
+        a_, b_ = np.concatenate([j.tokens for j in solo]), np.concatenate([j.tokens for j in co])
+        first = float((a_[:, 0] == b_[:, 0]).mean())
+        rows = float((a_ == b_).all(1).mean())
+        declared = health["coalescing"]["greedy"]
+        log(f"  V=600 greedy, 10 x 200 rows in one {co[0].passes}-pass group (2048 rows) against "
+            f"each alone ({solo[0].passes} pass of 256): first tokens {first:.4%}, rows "
+            f"{rows:.4%} equal; the server coalesces scan greedy: {declared}")
+        if declared and rows < 1.0:
+            raise AssertionError("V=600 greedy rows change when coalesced, yet the server "
+                                 "coalesces them")
+        out, before = {}, dict(svc._stats)
+        greq = [{"num_molecules": 200, "target": [0.2 * i - 1.0], "greedy": True, "seed": 100 + i,
+                 "return_tokens": True} for i in range(10)]
+
+        def hit(i):
+            out[i] = post(base, greq[i])[1]["tokens"]
+
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(10)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        coalesced = svc._stats["coalesced_jobs"] - before["coalesced_jobs"]
+        if any(post(base, greq[i])[1]["tokens"] != out.get(i) for i in range(10)):
+            raise AssertionError("V=600: a concurrent greedy response differs from its serial rerun")
+        if not declared and coalesced:
+            raise AssertionError("V=600: greedy jobs were coalesced on the scan route")
+        log(f"  V=600: 10 concurrent greedy requests each equal their serial rerun; "
+            f"{coalesced} coalesced")
     finally:
-        ready.server.shutdown()
-        thread.join(timeout=60)
-    if thread.is_alive():
-        raise AssertionError("server thread did not stop")
+        stop_server(ready, thread)
 
 
 def phase_core_served(tmp: str) -> int:
@@ -553,7 +677,6 @@ def phase_core_served(tmp: str) -> int:
     before any launch. Returns its CUDA-core launches."""
     import numpy as np
 
-    from mlx_vae_tpu_torch.cli.serve import build_parser, serve_forever
     from mlx_vae_tpu_torch.config import ModelConfig
     from mlx_vae_tpu_torch.models.decoder import init_decoder_params
     from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate, fused_generate_route
@@ -566,17 +689,11 @@ def phase_core_served(tmp: str) -> int:
     dec = init_decoder_params(torch.Generator().manual_seed(6), cfg)
     write_checkpoint(ck, build_checkpoint_host(
         0, {"encoder": {}, "decoder": dec}, {"encoder": {}, "decoder": {}}, {}))
-    args = build_parser().parse_args([
-        "--checkpoint", ck, "--port", "0", "--batch_sizes", "256", "--max_length", "64",
-        "--no_normalize", "--device", "cuda"])
-    ready = threading.Event()
-    thread = threading.Thread(target=serve_forever, args=(args, ready), daemon=True)
-    thread.start()
-    if not ready.wait(timeout=300):
-        raise AssertionError("server did not come up")
-    base = f"http://127.0.0.1:{ready.server.server_address[1]}"
+    ready, thread, base, _ = start_server([
+        "--checkpoint", ck, "--batch_sizes", "256", "--max_length", "64", "--no_normalize"])
     try:
-        fused_generate.launches = fused_generate.tc_launches = fused_generate.core_launches = 0
+        wait_warm(ready)
+        reset_sampler_counts()
         req = {"num_molecules": 300, "target": [0.0], "temperature": 0.8, "seed": 4,
                "return_tokens": True}
         _, a = post(base, req)
@@ -593,11 +710,175 @@ def phase_core_served(tmp: str) -> int:
             f"{a['mols_per_sec']:.1f} mols/s through the CUDA-core sampler ({core} launches, "
             f"0 tensor-core), same seed -> same tokens")
     finally:
-        ready.server.shutdown()
-        thread.join(timeout=60)
-    if thread.is_alive():
-        raise AssertionError("server thread did not stop")
+        stop_server(ready, thread)
     return core
+
+
+def default_checkpoint(path: str):
+    """A random-init default-model checkpoint (f32) with stats and an
+    alphabet, as phase 4 serves it: ``(cfg, path)``."""
+    from mlx_vae_tpu_torch.data.prepare import make_synthetic_dataset
+    from mlx_vae_tpu_torch.train.checkpoint import build_checkpoint_host, write_checkpoint
+
+    cfg, params = default_model("float32")
+    alphabet = make_synthetic_dataset(n=4, vocab_size=cfg.vocab_size)["alphabet"]
+    write_checkpoint(path, build_checkpoint_host(
+        0, {"encoder": {}, "decoder": params}, {"encoder": {}, "decoder": {}}, {},
+        data_stats={"properties_mean": [60.0], "properties_std": [25.0],
+                    "alphabet": alphabet}))
+    return cfg, path
+
+
+def burst(base: str, reqs: list, concurrent: bool):
+    """Send ``reqs`` all at once (a thread each) or one at a time: the
+    responses, each one's latency in s, and the wall time from the first
+    send to the last response."""
+    out, lat = [None] * len(reqs), [None] * len(reqs)
+
+    def hit(i):
+        t = time.perf_counter()
+        out[i] = post(base, reqs[i])[1]
+        lat[i] = time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    if concurrent:
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+    else:
+        for i in range(len(reqs)):
+            hit(i)
+    wall = time.perf_counter() - t0
+    if any(o is None for o in out):
+        raise AssertionError("a request got no response")
+    return out, lat, wall
+
+
+def phase_serve_concurrent(tmp: str, smi: str) -> dict:
+    """Phase 14: serving under concurrent load at the default model (f32,
+    tiers 256,2048,8192, L=64, T=0.8). Returns the record and the
+    tensor-core launches of the concurrent HTTP runs."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli.serve import _Job, block_streams
+    from mlx_vae_tpu_torch.models.decoder import hidden_init_row
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate, fused_generate_reference
+
+    cfg, ck = default_checkpoint(f"{tmp}/checkpoint_serve.npz")
+    argv = ["--checkpoint", ck, "--batch_sizes", "256,2048,8192", "--max_length", "64"]
+    rec = {"card": smi}
+    # (a) seconds to a bound server: background warm-up against --sync_warmup, in turns
+    ups = {"background": [], "sync": []}
+    for mode in ("background", "sync", "sync", "background"):
+        ready, thread, _, up = start_server(argv + (["--sync_warmup"] if mode == "sync" else []))
+        t0 = time.perf_counter()
+        wait_warm(ready)
+        ups[mode].append((up, time.perf_counter() - t0))
+        stop_server(ready, thread)
+    rec["ready_s"] = {m: min(u for u, _ in v) for m, v in ups.items()}
+    rec["background_rest_warm_s"] = min(r for _, r in ups["background"])
+    log(f"  (a) ready in {rec['ready_s']['background']:.4f} s with background warm-up (the rest "
+        f"of the ladder warm {rec['background_rest_warm_s']:.4f} s later) against "
+        f"{rec['ready_s']['sync']:.4f} s with --sync_warmup (min of two each, in turns)")
+
+    ready, thread, base, _ = start_server(argv)
+    try:
+        wait_warm(ready)
+        svc = ready.service
+        temps = (0.5, 0.8, 1.2, 1.0)
+
+        def jobs():
+            return [_Job(200, False, temps[i % 4],
+                         (np.asarray([[60.0 + 5 * i]], np.float32) - svc.mean) / svc.std,
+                         1000 + i) for i in range(16)]
+
+        # (b) one group of 16 jobs against each job alone, bit for bit
+        reset_sampler_counts()
+        solo, co = jobs(), jobs()
+        for j in solo:
+            svc._run_coalesced([j])
+        svc._run_coalesced(co)
+        if (fused_generate.tc_launches != len(solo) + co[0].passes
+                or fused_generate.core_launches):
+            raise AssertionError(f"(b) launched {fused_generate.tc_launches} tensor-core and "
+                                 f"{fused_generate.core_launches} CUDA-core sampler kernels")
+        for i, (a, b) in enumerate(zip(solo, co)):
+            if not np.array_equal(a.tokens, b.tokens):
+                raise AssertionError(f"(b) job {i} coalesced differs from the job alone")
+        j = co[5]
+        z, seeds = block_streams(j.seed, 0, 1, svc.chunk, cfg.latent_dim, "cuda")
+        cond = torch.as_tensor(j.target_norm, device="cuda").expand(svc.chunk, 1).contiguous()
+        h0 = hidden_init_row(svc.params["decoder"], cfg, z, cond).contiguous()
+        plain = fused_generate_reference(svc.weights, h0, cond, seeds,
+                                         torch.full((1,), j.temperature, device="cuda"),
+                                         64)[:200].cpu().numpy()
+        first = float((plain[:, 0] == j.tokens[:, 0]).mean())
+        rows = float((plain == j.tokens).all(1).mean())
+        log(f"  (b) 16 jobs x 200 molecules (T=0.5/0.8/1.2/1.0, own seeds and targets) in one "
+            f"group of {co[0].passes} passes: every job bitwise equal to itself alone (1 pass "
+            f"of 256); {fused_generate.tc_launches} launches, all tensor-core; job 5 against "
+            f"the plain version on its block streams: first tokens {first:.4%}, rows {rows:.4%}")
+        if first < AGREE_FIRST or rows < AGREE_ROWS:
+            raise AssertionError("(b) the coalesced job disagrees with the plain version")
+        # Why a block's h0 is one product of the block's shape: the share of
+        # rows whose h0 bits change when the product spans the pass instead
+        x, xc = svc._block_inputs(co)[:2]
+        zs = torch.cat([block_streams(j.seed, 0, 1, svc.chunk, cfg.latent_dim, "cuda")[0]
+                        for j in co])
+        dec = svc.params["decoder"]
+        h0_changed = {
+            "pass_4096": (hidden_init_row(dec, cfg, zs, xc) != x).any(1).float().mean().item(),
+            "rows_8": (hidden_init_row(dec, cfg, zs[:8], xc[:8]) != x[:8]).any(1)
+            .float().mean().item()}
+        log(f"  (b) h0 rows whose bits change against per-block products: one 4096-row product "
+            f"{h0_changed['pass_4096']:.4%}, an 8-row product {h0_changed['rows_8']:.4%}")
+        rec["group_of_16"] = {"passes": co[0].passes, "plain_first": first, "plain_rows": rows,
+                              "h0_rows_changed": h0_changed}
+
+        # (c), (d) over HTTP: concurrent clients, then the same requests one at a time
+        launches = 0
+        for n in (16, 64):
+            reqs = [{"num_molecules": 200, "target": [60.0 + i % 40], "temperature": 0.8,
+                     "seed": 5000 + i, "return_tokens": True} for i in range(n)]
+            runs = {}
+            for mode in ("concurrent", "serial"):
+                before = dict(svc._stats)
+                reset_sampler_counts()
+                out, lat, wall = burst(base, reqs, mode == "concurrent")
+                if fused_generate.core_launches or fused_generate.tc_launches < 1:
+                    raise AssertionError(f"(c) {mode}: {fused_generate.tc_launches} tensor-core "
+                                         f"and {fused_generate.core_launches} CUDA-core launches")
+                if mode == "concurrent":
+                    launches += fused_generate.tc_launches
+                lat_ms = sorted(1e3 * v for v in lat)
+                runs[mode] = {
+                    "mols_per_s": 200 * n / wall, "wall_s": wall,
+                    "p50_ms": float(np.median(lat_ms)), "max_ms": lat_ms[-1],
+                    "device_passes": svc._stats["device_passes"] - before["device_passes"],
+                    "coalesced_jobs": svc._stats["coalesced_jobs"] - before["coalesced_jobs"],
+                    "tc_launches": fused_generate.tc_launches, "tokens": out}
+                log(f"  (c) {n} {mode}: {runs[mode]['mols_per_s']:.1f} mols/s served "
+                    f"({200 * n} molecules in {wall:.4f} s), latency p50 "
+                    f"{runs[mode]['p50_ms']:.2f} ms, max {runs[mode]['max_ms']:.2f} ms, "
+                    f"device_passes {runs[mode]['device_passes']}, coalesced_jobs "
+                    f"{runs[mode]['coalesced_jobs']} [{smi}]")
+            diff = [i for i in range(n) if runs["concurrent"]["tokens"][i]["tokens"]
+                    != runs["serial"]["tokens"][i]["tokens"]]
+            if diff:
+                raise AssertionError(f"(d) {n} clients: responses {diff[:5]} differ from their "
+                                     f"serial reruns")
+            if runs["concurrent"]["coalesced_jobs"] < 1:
+                raise AssertionError(f"(d) {n} concurrent clients: nothing was coalesced")
+            log(f"  (d) {n} clients: every concurrent response bitwise equal to its serial rerun")
+            for r in runs.values():
+                del r["tokens"]
+            rec[f"clients_{n}"] = runs
+    finally:
+        stop_server(ready, thread)
+    print(json.dumps({"serve_concurrent": rec}), flush=True)
+    return {"record": rec, "launches": launches}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -2231,7 +2512,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
                     help="time every sampler cluster size and rows-per-thread instance "
-                         "instead of phases 3-11")
+                         "instead of phases 3-14")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -2302,6 +2583,10 @@ def main() -> int:
         phase_eval_shapes()
         ev = phase_eval_cli(smi, tmp)["launches"]
 
+    log(f"[14 serve concurrent] default model, f32, tiers 256,2048,8192, L=64, T=0.8 [{smi}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = phase_serve_concurrent(tmp, smi)
+
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
     sampler_err = ("largest |kernel - plain| of the first step's scaled logits over "
@@ -2317,6 +2602,7 @@ def main() -> int:
         "launches": launches,
         "launches_train_cli": cli["sampler_launches"],
         "launches_eval_cli": ev["fused_generate_tc"],
+        "launches_serve_concurrent": serve["launches"],
         "max_abs_err": worst["tc"][0], "err_metric": sampler_err,
         "max_row_disagreement": worst["tc"][1],
         "ms": t_ms, "plain_ms": p_ms,

@@ -7,22 +7,41 @@ server's flags, endpoints, field names and 400/500/503 mapping:
 
 * **Size tiers**: requests route to the smallest tier of the ladder
   (``--batch_sizes``, e.g. ``256,2048,8192``) that fits; larger requests
-  decompose into several passes (``plan_cover``). Every (tier, sampler
-  config) pair runs once at startup, which builds the kernel and warms the
-  device; there is no compile to hide, so ``--sync_warmup`` is accepted and
-  changes nothing.
+  decompose into several passes (``plan_cover``).
+* **Background warm-up**: every (tier, sampler config) pair runs once
+  before it serves (the first run builds the kernel). The constructor warms
+  the smallest tier, then the server binds, and a daemon thread warms the
+  rest smallest tier first, then the block streams. Meanwhile requests plan
+  over warm tiers only; a config with no warm tier, or a request whose
+  warm-tier plan needs more than ``WARM_PLAN_FACTOR`` times the passes of
+  the full ladder's plan, gets a 503 with Retry-After. A failed warm-up run
+  leaves its tier cold, ends the warm-up and shows in ``/health`` as
+  ``warmup["error"]``. ``--sync_warmup`` warms the whole ladder before the
+  server binds.
 * **One device, one dispatcher**: a single dispatcher thread owns the
   device; handler threads enqueue jobs and wait, so health checks never
   queue behind generation.
-* **Per-pass streams**: pass ``p`` of a request draws its z, sampler seeds
-  and temperatures from a ``torch.Generator`` seeded from (request seed,
-  p), so a seeded request is reproducible on the same device.
+* **Request coalescing**: once the ladder is warm, jobs already waiting in
+  the queue with the same sampler config join one group, up to the largest
+  coalescible tier (no artificial wait), whose blocks of ``block_rows``
+  rows are laid end to end and cut into shared passes. Block ``b`` of a
+  request draws its z and its sampler seed as a pure function of (request
+  seed, b) (:func:`block_streams`), its ``h0`` by one product of fixed
+  shape, and carries its own temperature and conditions; the kernel
+  computes each block from its own inputs alone. So a request's tokens are
+  the same whether it runs alone or coalesced, in whichever pass and
+  position. Stochastic and truncated configs coalesce only on the fused
+  sampler (the scan sampler's draws depend on batch position); greedy ones
+  wherever greedy rows are row-independent (:func:`greedy_row_independent`).
+  A job that cannot coalesce runs solo, its pass ``p`` drawing from a
+  ``torch.Generator`` seeded from (request seed, p).
 * **Sampler by config**: the fused sampler where the kernel takes the
   model, else the scan sampler (``models/vae.py:generation_sampler``), as
   the JAX server routes on its accelerator; ``/health`` reports it as
   ``"sampler"``.
-* Request coalescing and background warm-up are not ported yet; ``/health``
-  reports ``coalescing`` as false for every sampler config.
+
+Seeded streams are reproducible on one device; they are not the JAX
+server's threefry draws, and the CPU and the card give different bits.
 
 Endpoints::
 
@@ -121,6 +140,14 @@ def plan_cover_blocks(nblocks: int, co_tiers: tuple, chunk: int) -> tuple:
     return tuple(plan)
 
 
+# A request planned over the warm tiers alone may take at most this many
+# times the passes of its plan over the whole ladder; beyond it, a 503 until
+# the warm-up completes. 20 rows over a warm 8-row tier of (8, 32) still
+# plan as [8, 8, 8] (the whole ladder's plan too); 1,000,000 rows need
+# 125,000 passes there against 31,250.
+WARM_PLAN_FACTOR = 2
+
+
 def build_parser():
     p = argparse.ArgumentParser(description="Serve molecule generation over HTTP")
     p.add_argument("--checkpoint", type=str, required=True)
@@ -155,8 +182,10 @@ def build_parser():
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--sync_warmup", action="store_true",
-                   help="Accepted for the JAX server's flag surface: every "
-                        "tier is warmed before serving either way")
+                   help="Warm every (tier, sampler config) pair before the "
+                        "server binds. Default: warm the smallest tier, bind, "
+                        "and warm the rest on a background thread; requests "
+                        "plan over warm tiers until it completes")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda[:N] (the kernel) or cpu (its plain version)")
     add_cache_flags(p)
@@ -194,6 +223,11 @@ class _ColdLadderError(RuntimeError):
     with Retry-After, not a 500: the request is valid."""
 
 
+def _pkey_name(pk) -> str:
+    """``/health``'s name of a sampler config (greedy, top_k, top_p)."""
+    return f"greedy={pk[0]},top_k={pk[1]},top_p={pk[2]}"
+
+
 class _Job:
     """One /generate request in flight through the dispatcher."""
 
@@ -224,10 +258,71 @@ class _Job:
 
 
 def pass_seed(seed: int, pass_index: int) -> int:
-    """The torch.Generator seed of one pass: a hash of (request seed, pass
-    index), so passes of one request draw independent streams."""
+    """The torch.Generator seed of one solo pass: a hash of (request seed,
+    pass index), so passes of one request draw independent streams."""
     return int(np.random.SeedSequence([seed % 2**64, pass_index])
                .generate_state(1, np.uint64)[0])
+
+
+# ---- the coalesced path's block streams ----
+
+_SEED_TAG = 0x2545F491  # keys a block's sampler seed apart from its z draws
+
+
+def _block_keys(seeds, blocks) -> torch.Tensor:
+    """``[nb]`` int64 (CPU) stream keys, one per (request seed, block index)
+    pair: ``mix(mix(mix(lo) ^ hi) ^ b)`` with ``lo``/``hi`` the 32-bit
+    halves of the seed mod 2**64 and ``mix`` the sampler's lowbias32 hash."""
+    from mlx_vae_tpu_torch.ops.fused_decoder import _mix
+
+    s = np.asarray([int(v) % 2**64 for v in seeds], np.uint64)
+    lo = torch.from_numpy((s & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    hi = torch.from_numpy((s >> np.uint64(32)).astype(np.int64))
+    return _mix(_mix(_mix(lo) ^ hi) ^ torch.as_tensor(np.asarray(blocks, np.int64)))
+
+
+def _draw_blocks(keys: torch.Tensor, chunk: int, latent_dim: int):
+    """``(z [nb * chunk, latent_dim] f32, seeds [nb] int32)`` for block keys
+    ``[nb]`` on their device: each z element is Box-Muller (in float64) of
+    two uniforms hashed from (key, row in block, dim); each seed a hash of
+    the key in ``[0, 2**31 - 1)``. Every value depends on its own block's
+    key alone."""
+    from mlx_vae_tpu_torch.ops.fused_decoder import _mix
+
+    dev = keys.device
+    seeds = (_mix(_mix(keys ^ _SEED_TAG)) % (2**31 - 1)).to(torch.int32)
+    kr = _mix(keys[:, None] ^ torch.arange(chunk, dtype=torch.int64, device=dev))
+    d2 = 2 * torch.arange(latent_dim, dtype=torch.int64, device=dev)
+    u1 = (_mix(_mix(kr[..., None] ^ d2)).double() + 1.0) * 2.0**-32  # (0, 1]
+    u2 = _mix(_mix(kr[..., None] ^ (d2 + 1))).double() * 2.0**-32   # [0, 1)
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return z.float().reshape(-1, latent_dim), seeds
+
+
+def block_streams(seed: int, first_block: int, nblocks: int, chunk: int,
+                  latent_dim: int, device):
+    """Blocks ``[first_block, first_block + nblocks)`` of a request's
+    canonical streams: ``(z [nblocks * chunk, latent_dim] float32, seeds
+    [nblocks] int32)``. Block ``b``'s z rows and sampler seed are a pure
+    function of (``seed``, ``b``), drawn for all blocks in one vectorized
+    call; the same on every call on one device (not the JAX server's
+    threefry draws, and not the same bits on the CPU and the card)."""
+    blocks = np.arange(first_block, first_block + nblocks)
+    keys = _block_keys([seed] * nblocks, blocks).to(device)
+    return _draw_blocks(keys, chunk, latent_dim)
+
+
+def greedy_row_independent(sampler: str, device: torch.device) -> bool:
+    """Whether a greedy row's tokens depend on its own inputs alone, not on
+    the pass it runs in: what greedy coalescing needs. The fused sampler
+    computes each row alone (and the coalesced path gives it an ``h0`` of a
+    fixed-shape product: on an H100 cuBLAS gives other bits at 8 rows than
+    at 256). The scan sampler runs each step's products over the whole
+    pass. The CPU tests hold its greedy rows coalesced against solo, and
+    the JAX server coalesces them too; on an H100 a 2048-row pass changes
+    rows against 256-row passes (ROADMAP "Contract differences"), so on
+    CUDA they do not coalesce."""
+    return sampler == "fused" or device.type != "cuda"
 
 
 class GenerationService:
@@ -282,26 +377,53 @@ class GenerationService:
         self.max_molecules = args.max_molecules
         self.pkeys = ([(False, 0, 1.0), (True, 0, 1.0)]
                       + [(False, tk, tp) for tk, tp in self.trunc_cfgs])
-        self.chunk = block_rows(tiers[-1])
+
+        # The route is the config's at every tier, so one flag says whether
+        # a pass runs the fused sampler. Coalescing works in blocks of the
+        # fused sampler's seed block (8 rows on the scan route); the
+        # coalesced passes run only at tiers made of whole blocks.
+        fused = self.sampler == "fused"
+        self.chunk = block_rows(tiers[-1]) if fused else 8
+        self.co_tiers = [t for t in tiers if t % self.chunk == 0]
+        greedy_ok = greedy_row_independent(self.sampler, self.device)
+        self._can_coalesce = {pk: bool(self.co_tiers) and (greedy_ok if pk[0] else fused)
+                              for pk in self.pkeys}
         self.params = {"decoder": params_from_numpy(dec, self.device)}
         self.weights = (prepare_weights(self.params["decoder"], self.cfg, self.device)
-                        if self.sampler == "fused" else None)
+                        if fused else None)
 
         self._pending = collections.deque()
         self._cv = threading.Condition()
         self._closed = False
         self._stats = {"device_passes": 0, "jobs": 0, "coalesced_jobs": 0}
-        self._warm = set()
-        t0 = time.perf_counter()
-        for t in self.tiers:
-            for pk in self.pkeys:
-                self._warm_one(t, pk)
-        print(f"Warmed {len(self._warm)} (tier, sampler) pairs (tiers "
-              f"{self.tiers}) on {self.device} in "
-              f"{time.perf_counter() - t0:.1f}s")
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
                                             daemon=True)
         self._dispatcher.start()
+
+        # Every (tier, sampler config) pair runs once before it serves. The
+        # smallest tier warms here; the rest of the ladder (and the block
+        # streams) on a daemon thread, or here too under --sync_warmup.
+        self._warm = set()
+        self._warm_done = threading.Event()
+        self._warm_error = None
+        self._co_warm = False  # the block streams ran once
+        self._warmer = None
+        t0 = time.perf_counter()
+        for pk in self.pkeys:
+            self._warm_one(self.tiers[0], pk)
+        if args.sync_warmup:
+            self._warm_rest()
+            print(f"Warmed {len(self._warm)} (tier, sampler) pairs (tiers "
+                  f"{self.tiers}, --sync_warmup) on {self.device} in "
+                  f"{time.perf_counter() - t0:.1f}s")
+        else:
+            self._warmer = threading.Thread(target=self._warm_rest, daemon=True)
+            self._warmer.start()
+            print(f"Serving after warming the {self.tiers[0]}-row tier on "
+                  f"{self.device} in {time.perf_counter() - t0:.1f}s; warming the "
+                  f"rest of tiers {self.tiers} in the background")
+
+    # ---- warm-up ----
 
     def _warm_one(self, tier, pk):
         """Run (tier, sampler config) once and mark it warm."""
@@ -311,26 +433,92 @@ class GenerationService:
         self._run_solo(job, forced_tier=tier, count_stats=False)
         self._warm.add((tier,) + pk)
 
+    def _warm_rest(self):
+        """Warm the remaining pairs smallest tier first, then the block
+        streams. A failure is recorded (``/health`` ``warmup.error``) and
+        leaves its pair cold; the warm-up ends either way."""
+        try:
+            for t in self.tiers:
+                for pk in self.pkeys:
+                    if self._closed:
+                        return
+                    if (t,) + pk not in self._warm:
+                        try:
+                            self._warm_one(t, pk)
+                        except Exception as e:
+                            self._warm_failed(f"tier {t} {_pkey_name(pk)}", e)
+            if self.co_tiers and not self._closed:
+                try:
+                    x = self._block_inputs([_Job(1, False, 1.0, np.zeros(
+                        (1, self.cfg.num_conditions), np.float32), 0)])[0]
+                    x.sum().item()
+                    self._co_warm = True
+                except Exception as e:
+                    self._warm_failed("block streams", e)
+        finally:
+            self._warm_done.set()
+
+    def _warm_failed(self, what: str, e: Exception):
+        msg = f"{what}: {type(e).__name__}: {e}"
+        print(f"WARNING: warm-up failed, {msg}", flush=True)
+        if self._warm_error is None:
+            self._warm_error = msg
+
+    def wait_warm(self, timeout=None) -> bool:
+        """Block until the warm-up has ended (the whole ladder and the block
+        streams warm, unless ``/health`` shows an error)."""
+        return self._warm_done.wait(timeout)
+
     # ---- planning ----
 
+    def _padded(self, n: int) -> int:
+        return -(-n // self.chunk) * self.chunk
+
     def plan_passes(self, n: int) -> list[int]:
-        """Pass decomposition for n molecules over the ladder."""
+        """Pass decomposition for n molecules over the whole ladder."""
         return list(plan_cover(n, tuple(self.tiers)))
 
     def _plan_warm(self, job) -> list[int]:
-        """Pass plan over the tiers warm for this job's sampler config."""
+        """Pass plan over the tiers warm for this job's sampler config
+        (``plan_passes`` once the ladder is warm). A 503 where no tier is
+        warm, or where the plan needs more than ``WARM_PLAN_FACTOR`` times
+        the passes of the full ladder's: such a job would hold the one
+        dispatcher while the tier it needs warms."""
         warm = tuple(t for t in self.tiers if (t,) + job.pkey in self._warm)
         if not warm:
             raise _ColdLadderError(
                 f"no warm tier for sampler config greedy={job.pkey[0]} "
-                f"top_k={job.pkey[1]} top_p={job.pkey[2]}")
-        return list(plan_cover(job.n, warm))
+                f"top_k={job.pkey[1]} top_p={job.pkey[2]} yet "
+                f"(background warm-up running)")
+        plan = list(plan_cover(job.n, warm))
+        full = len(plan_cover(job.n, tuple(self.tiers)))
+        if len(plan) > WARM_PLAN_FACTOR * full:
+            raise _ColdLadderError(
+                f"{job.n} molecules need {len(plan)} passes over the warm tiers "
+                f"{list(warm)} against {full} over the whole ladder; retry once "
+                f"warm-up completes")
+        return plan
+
+    def _plan_blocks(self, nblocks: int) -> list[int]:
+        """Coalescible-tier pass plan for nblocks chunk-blocks."""
+        return list(plan_cover_blocks(nblocks, tuple(self.co_tiers), self.chunk))
 
     # ---- dispatcher ----
 
+    def _eligible(self, job) -> bool:
+        """Can this job run on the block-canonical coalesced path? Only once
+        the warm-up has ended with every coalescible tier of its config and
+        the block streams warm; before that every job runs solo over warm
+        tiers."""
+        return (self._warm_done.is_set() and self._co_warm
+                and self._can_coalesce[job.pkey]
+                and self._padded(job.n) <= self.co_tiers[-1]
+                and all((t,) + job.pkey in self._warm for t in self.co_tiers))
+
     def close(self, timeout: float = 30.0):
-        """Stop the dispatcher thread. Queued-but-unstarted jobs fail with
-        an error (their clients unblock) rather than hanging."""
+        """Stop the dispatcher and the warm-up threads. Queued-but-unstarted
+        jobs fail with an error (their clients unblock) rather than
+        hanging."""
         with self._cv:
             if self._closed:
                 return
@@ -341,8 +529,9 @@ class GenerationService:
         for j in drained:
             j.error = RuntimeError("service closed")
             j.done.set()
-        if self._dispatcher is not threading.current_thread():
-            self._dispatcher.join(timeout)
+        for t in (self._dispatcher, self._warmer):
+            if t is not None and t is not threading.current_thread():
+                t.join(timeout)
 
     def _dispatch_loop(self):
         while True:
@@ -352,12 +541,36 @@ class GenerationService:
                 if self._closed:
                     return
                 job = self._pending.popleft()
+                group = [job]
+                coalesce = self._eligible(job)
+                if coalesce:
+                    # pull every already-waiting job of the same config
+                    # while the group fits the largest coalescible tier (no
+                    # artificial wait: batch what is queued)
+                    cap = self.co_tiers[-1]
+                    rows = self._padded(job.n)
+                    keep = collections.deque()
+                    while self._pending:
+                        nxt = self._pending.popleft()
+                        nrows = self._padded(nxt.n)
+                        if (nxt.pkey == job.pkey and self._eligible(nxt)
+                                and nrows <= cap - rows):
+                            group.append(nxt)
+                            rows += nrows
+                        else:
+                            keep.append(nxt)
+                    self._pending.extendleft(reversed(keep))
             try:
-                self._run_solo(job)
-            except Exception as e:  # surface to the waiting client
-                job.error = e
+                if coalesce:
+                    self._run_coalesced(group)
+                else:
+                    self._run_solo(job)
+            except Exception as e:  # surface to every waiting client
+                for j in group:
+                    j.error = e
             finally:
-                job.done.set()
+                for j in group:
+                    j.done.set()
 
     def _run_solo(self, job, forced_tier=None, count_stats=True):
         """Serial tiered passes for one job (also runs the warm-up)."""
@@ -390,6 +603,82 @@ class GenerationService:
         if count_stats:  # warm-up runs don't count as served jobs
             self._stats["device_passes"] += len(passes)
             self._stats["jobs"] += 1
+
+    def _block_inputs(self, group):
+        """The group's blocks end to end on the device: ``(x, cond, seeds,
+        temps, nbs)``, ``x`` each block's ``h0`` (fused sampler) or ``z``
+        (scan sampler) ``[rows, *]``, ``cond [rows, C]``, ``seeds`` and
+        ``temps [blocks]``, ``nbs`` the blocks of each job. A block's ``h0``
+        is one product of the fixed shape ``[chunk, latent]``, so its bits
+        do not depend on the pass or the group it runs in."""
+        from mlx_vae_tpu_torch.models.decoder import hidden_init_row
+
+        C, ch, dev = self.cfg.num_conditions, self.chunk, self.device
+        nbs = [-(-j.n // ch) for j in group]
+        keys = _block_keys([j.seed for j, nb in zip(group, nbs) for _ in range(nb)],
+                           np.concatenate([np.arange(nb) for nb in nbs]))
+        z, seeds = _draw_blocks(keys.to(dev), ch, self.cfg.latent_dim)
+        cond = torch.as_tensor(np.repeat(
+            np.stack([np.asarray(j.target_norm, np.float32).reshape(-1)[:C] for j in group]),
+            np.asarray(nbs) * ch, axis=0), device=dev)
+        temps = torch.as_tensor(np.repeat(
+            np.asarray([j.temperature for j in group], np.float32), nbs), device=dev)
+        if self.sampler == "fused":
+            dec = self.params["decoder"]
+            z = torch.cat([hidden_init_row(dec, self.cfg, zb, cb)
+                           for zb, cb in zip(z.split(ch), cond.split(ch))])
+        return z, cond, seeds, temps, nbs
+
+    def _run_coalesced(self, group):
+        """Serve every job of ``group`` (one sampler config) through shared
+        passes: the jobs' blocks laid end to end, cut into coalescible-tier
+        passes (``plan_cover_blocks``), a partial pass padded with zero rows
+        (zero ``h0`` or ``z``, zero conditions), seed 0 and temperature 1.0,
+        the rows reassembled per job. Each job's ``dt`` is its row share of
+        the group's wall clock, so per-request ``mols_per_sec`` sums to the
+        device rate. The scan sampler only ever gets greedy groups here."""
+        from mlx_vae_tpu_torch.models.sampling import generate_with_temperature
+        from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+
+        t0 = time.perf_counter()
+        greedy, top_k, top_p = group[0].pkey
+        ch = self.chunk
+        x, cond, seeds, temps, nbs = self._block_inputs(group)
+        nblocks = sum(nbs)
+        plan = self._plan_blocks(nblocks)
+        outs, boff = [], 0
+        for tier in plan:
+            cap = tier // ch
+            nsel = min(cap, nblocks - boff)
+            r0, rows = boff * ch, nsel * ch
+            xp = torch.nn.functional.pad(x[r0:r0 + rows], (0, 0, 0, tier - rows))
+            cp = torch.nn.functional.pad(cond[r0:r0 + rows], (0, 0, 0, tier - rows))
+            if self.sampler == "fused":
+                sp = torch.nn.functional.pad(seeds[boff:boff + nsel], (0, cap - nsel))
+                tp = torch.nn.functional.pad(temps[boff:boff + nsel], (0, cap - nsel),
+                                             value=1.0)
+                toks = fused_generate(self.weights, xp, cp, sp, tp, self.max_length,
+                                      greedy=greedy, top_k=top_k, top_p=top_p)
+            else:
+                toks = generate_with_temperature(self.params["decoder"], self.cfg, xp, cp,
+                                                 max_length=self.max_length, greedy=True)
+            if self.cfg.vocab_size < 256:
+                toks = toks.to(torch.uint8)
+            outs.append(toks[:rows])
+            boff += nsel
+        rows_all = torch.cat(outs).cpu().numpy()
+        dt = time.perf_counter() - t0
+        off = 0
+        for job, nb in zip(group, nbs):
+            job.tokens = rows_all[off:off + job.n]
+            off += nb * ch
+            job.dt = dt * nb / nblocks
+            job.passes = len(plan)
+            job.coalesced = len(group) > 1
+        self._stats["device_passes"] += len(plan)
+        self._stats["jobs"] += len(group)
+        if len(group) > 1:
+            self._stats["coalesced_jobs"] += len(group)
 
     # ---- request surface ----
 
@@ -489,21 +778,21 @@ class GenerationService:
         total = len(self.tiers) * len(self.pkeys)
         return {"status": "ok", "model": self.shape,
                 "warmup": {
-                    "complete": len(self._warm) == total,
+                    "complete": self._warm_done.is_set() and len(self._warm) == total,
                     "warm_programs": len(self._warm),
                     "total_programs": total,
                     "warm_tiers": {
-                        f"greedy={pk[0]},top_k={pk[1]},top_p={pk[2]}":
-                        [t for t in self.tiers if (t,) + pk in self._warm]
-                        for pk in self.pkeys}},
+                        _pkey_name(pk): [t for t in self.tiers if (t,) + pk in self._warm]
+                        for pk in self.pkeys},
+                    "error": self._warm_error},
                 "batch_size": self.batch, "batch_tiers": self.tiers,
                 "calibrate_response": list(self.calib) if self.calib
                 else None,
                 "truncation_configs": [list(c) for c in self.trunc_cfgs],
                 "coalescing": {
-                    "stochastic": False,
-                    "greedy": False,
-                    "truncated": {f"top_k={tk},top_p={tp}": False
+                    "stochastic": self._can_coalesce[(False, 0, 1.0)],
+                    "greedy": self._can_coalesce[(True, 0, 1.0)],
+                    "truncated": {f"top_k={tk},top_p={tp}": self._can_coalesce[(False, tk, tp)]
                                   for tk, tp in self.trunc_cfgs},
                     "block_rows": self.chunk},
                 "stats": dict(self._stats),
@@ -568,13 +857,21 @@ def make_handler(service: GenerationService):
     return Handler
 
 
+class _Server(ThreadingHTTPServer):
+    """The stdlib threading server with a listen backlog of 128 (not 5), so
+    a burst of concurrent clients, which coalescing batches, queues instead
+    of being refused."""
+
+    request_queue_size = 128
+
+
 def serve_forever(args, ready_event=None):
     """Build the service, bind, and serve. ``ready_event`` (tests, smoke
-    runs) is set once the socket is bound and every tier is warm; the bound
-    server and the service are stashed on it for shutdown."""
+    runs) is set once the socket is bound (the smallest tier warm, or every
+    tier under ``--sync_warmup``); the bound server and the service are
+    stashed on it for shutdown."""
     service = GenerationService(args)
-    server = ThreadingHTTPServer((args.host, args.port),
-                                 make_handler(service))
+    server = _Server((args.host, args.port), make_handler(service))
     if ready_event is not None:
         ready_event.server = server
         ready_event.service = service

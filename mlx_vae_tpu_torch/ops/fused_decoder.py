@@ -39,6 +39,7 @@ stochastic comparisons are distributional.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -671,14 +672,16 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"fused_generate ({route}) launch failed: "
                            f"{lib.fused_generate_error_string(rc).decode()} ({rc})")
-    fused_generate.launches += 1
-    if route == "tc":
-        fused_generate.tc_launches += 1
-    else:
-        fused_generate.core_launches += 1
+    with _count_lock:  # a server's warm-up thread and dispatcher both launch
+        fused_generate.launches += 1
+        if route == "tc":
+            fused_generate.tc_launches += 1
+        else:
+            fused_generate.core_launches += 1
     return out
 
 
+_count_lock = threading.Lock()
 fused_generate.launches = 0       # every launch
 fused_generate.tc_launches = 0    # gen_tc_kernel
 fused_generate.core_launches = 0  # fused_generate_kernel

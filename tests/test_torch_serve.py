@@ -50,6 +50,7 @@ def _srv(tmp_path_factory):
         "--checkpoint", ck, "--port", "0", "--batch_sizes", "8,32",
         "--max_length", "12", "--device", "cpu",
         "--truncation", "top_k=3", "--truncation", "top_k=6,top_p=0.8"])
+    assert ready.service.wait_warm(timeout=120), "warm-up stalled"
     yield base, ready.service
     ready.server.shutdown()
     thread.join(timeout=30)
@@ -77,17 +78,22 @@ def _get(base, path):
         return r.status, json.loads(r.read())
 
 
-def test_health(server):
+def test_health(server, service):
+    """The fused sampler (its plain version here) coalesces every config in
+    blocks of 32 rows, the largest tier's seed block; /health says so, and
+    after ``wait_warm`` the whole ladder is warm without error."""
+    assert service.wait_warm(timeout=120)
     code, h = _get(server, "/health")
     assert code == 200 and h["status"] == "ok"
     assert h["model"]["latent_dim"] == 8
     assert h["batch_size"] == 32 and h["batch_tiers"] == [8, 32]
-    assert h["coalescing"] == {"stochastic": False, "greedy": False,
-                               "truncated": {"top_k=3,top_p=1.0": False,
-                                             "top_k=6,top_p=0.8": False},
+    assert h["coalescing"] == {"stochastic": True, "greedy": True,
+                               "truncated": {"top_k=3,top_p=1.0": True,
+                                             "top_k=6,top_p=0.8": True},
                                "block_rows": 32}
     assert h["truncation_configs"] == [[3, 1.0], [6, 0.8]]
     assert h["warmup"]["complete"] and h["warmup"]["warm_programs"] == 8
+    assert h["warmup"]["total_programs"] == 8 and h["warmup"]["error"] is None
     assert h["backend"] == "cpu" and h["alphabet_size"] == 3
     assert h["kernel_launches"] >= 0
 
@@ -211,19 +217,19 @@ def test_parse_truncation():
 
 @pytest.mark.parametrize("exc", [ValueError, RuntimeError])
 def test_dispatcher_error_is_json_500(server, service, exc):
-    orig = service._run_solo
+    orig_solo, orig_co = service._run_solo, service._run_coalesced
 
     def boom(*a, **k):
         raise exc("bad shapes inside the device pass")
 
-    service._run_solo = boom
+    service._run_solo = service._run_coalesced = boom
     try:
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(server, {"num_molecules": 3, "target": [60.0, 1.0]})
         assert e.value.code == 500
         assert exc.__name__ in json.loads(e.value.read())["error"]
     finally:
-        service._run_solo = orig
+        service._run_solo, service._run_coalesced = orig_solo, orig_co
 
 
 def test_cold_sampler_config_is_503(server, service):
@@ -288,7 +294,7 @@ def test_cuda_device_without_cuda_is_an_error(tmp_path, monkeypatch):
         tserve.GenerationService(args)
 
 
-def test_data_flag_not_yet_ported(tmp_path):
+def test_data_flag_gives_train_split_stats(tmp_path):
     """``--data`` exited as not yet ported until the corpus feed was ported;
     now a missing file is an error and a dataset gives the train split's
     stats and alphabet, as in the JAX server."""

@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-14 below
+    python3 chip_smoke.py            # phases 1-15 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -203,7 +203,38 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
     send to the last response), p50 and max latency, device passes; (d)
     every concurrent response bitwise equal to its serial rerun, and some
     coalesced. One JSON line ``{"serve_concurrent": ...}`` holds the
-    numbers (printed, not gated).
+    numbers (printed, not gated);
+15. multi-device, on phases 12 and 13's corpus and checkpoint, ranks started
+    by ``parallel/launch.py:spawn``: (a) NCCL, world size 1, on cuda:0:
+    ``make_dp_train_step`` at the default model (bf16, B=4096, L=64, fused
+    route) equals ``train_step`` on the same params and noise bit for bit.
+    (b) Two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card):
+    one DP step at full width, 2048 rows a rank, raises each rank's four
+    train-kernel counters, and a DP eval step (TF 0) the two forwards'; the
+    post-Adam params are bitwise equal across the ranks and agree with a
+    one-process reference (each half's loss and gradients on the card,
+    averaged, clipped, Adam) to within 4 ulp, the loss and grad_norm within
+    1e-6 relative (the same kernels at the same shapes). ``cli.train
+    --data_parallel`` for one bf16 ``--use_pallas`` epoch at B=1024 (512
+    rows a rank; 16 train batches, 2 of validation): a finite history,
+    one set of checkpoints (rank 0's), which a one-rank ``--resume`` loads.
+    ``cli.generate --data_parallel`` (8192 greedy molecules): tensor-core
+    sampler launches on each rank and none of the CUDA-core kernel, its rows
+    against the one-rank run under the greedy contract (>= 99.0% first
+    tokens, >= 97.0% rows; the share of equal rows is printed).
+    ``cli.encode --data_parallel`` (each rank's encoder and TF=1 logits
+    forward counters rise): ``mu`` and ``logvar`` within phase 6's
+    tolerances of the one-rank run. (c) ``--model_parallel 2`` over the two
+    ranks, default width, f32, scan route, B=256: 3 steps within 1e-4 of
+    the one-rank plain route (loss scalars relative, params absolute); the
+    gathered checkpoint has the one-rank layout key for key. (d) The dry
+    run (``parallel/dryrun.py``) on four gloo ranks sharing cuda:0: its
+    line, and on every rank a launch in each data-parallel part (the tiny
+    tier's four train kernels, the scaled tier's sequence-LSTM pair).
+    Printed, not gated: the DP step's ms on the two ranks sharing the card
+    beside the one-rank step, and the gloo all-reduce of the gradient
+    tree's bytes (the cost of the code path on one shared card, not a
+    scaling figure). Rows 1-8 of the kernels line gain ``launches_dp``.
 
 ``--sweep`` times the tensor-core kernel with each cluster size forced and
 the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
@@ -228,6 +259,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2491,6 +2523,372 @@ def phase_eval_cli(smi: str, tmp: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 15
+# Multi-device on one card: the rank workers below run in processes that
+# ``parallel/launch.py:spawn`` starts (they import this file again, under the
+# name ``__mp_main__``, so nothing at its top level may start work).
+
+DP_B, DP_L = 4096, 64      # the DP step's global batch: 2048 rows a rank
+TP_B, TP_STEPS = 256, 3    # the tensor-parallel steps (f32, scan route)
+# cli.train --data_parallel's batch: the 2,052-row validation split holds two
+# (a split smaller than one batch evaluates to the +inf sentinel under DP)
+DP_CLI_B = 1024
+TP_TOL = 1e-4
+DP_REL = 1e-6  # 15(b): the DP step's loss and grad_norm against the reference
+DP_ULPS = 4    # 15(b): its post-Adam params, in units of the last place
+DRYRUN_N = 4   # 15(d): the dry run's ranks, sharing cuda:0 ((2, 2) and (4, 1) meshes)
+
+
+def dp_noise(cfg, rank: int, rows: int):
+    """Data rank ``rank``'s noise for its ``rows`` rows (its own generator,
+    seeded per rank as the trainer seeds it)."""
+    from mlx_vae_tpu_torch.parallel.mesh import fold_seed
+    from mlx_vae_tpu_torch.train.steps import draw_noise
+
+    g = torch.Generator(device="cuda").manual_seed(fold_seed(7, rank))
+    return draw_noise(g, cfg, rows, DP_L, 0.9)
+
+
+def to_numpy(tree):
+    from mlx_vae_tpu_torch.utils.tree import params_to_numpy
+    return params_to_numpy(tree)
+
+
+def rank_nccl_one(rank: int) -> dict:
+    """15(a): ``make_dp_train_step`` on a one-rank NCCL mesh against
+    ``train_step``, same params and noise: the mean over one rank is exact,
+    so the two must agree bit for bit."""
+    import torch.distributed as dist
+
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.parallel.mesh import make_mesh
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import make_dp_train_step, train_step
+    from mlx_vae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg, params = train_model("bfloat16")
+    x, cond = synthetic_batch(cfg, DP_B, DP_L)
+    tcfg = TrainConfig(batch_size=DP_B)
+    noise = dp_noise(cfg, 0, DP_B)
+    mesh = make_mesh(1)
+    pa, pb = tree_map(torch.clone, params), tree_map(torch.clone, params)
+    oa, ob = ({n: adam_init(v) for n, v in p.items()} for p in (pa, pb))
+    _, _, ma = make_dp_train_step(mesh, cfg, tcfg)(pa, oa, x, cond, None, 0.05, 0.9, noise)
+    _, _, mb = train_step(pb, ob, cfg, tcfg, x, cond, None, 0.05, 0.9, noise=noise)
+    leaves = zip(tree_leaves(pa) + tree_leaves(oa), tree_leaves(pb) + tree_leaves(ob))
+    diff = max(float((a.detach().float() - b.detach().float()).abs().max())
+               for a, b in leaves)
+    return {"backend": dist.get_backend(), "max_diff": diff,
+            "metrics_equal": all(bool(torch.equal(ma[k], mb[k])) for k in mb),
+            "loss": float(ma["total_loss"])}
+
+
+def quiet(fn, *a):
+    """``fn(*a)`` with its standard output captured; returns (result, the
+    output's last lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        res = fn(*a)
+    return res, out.getvalue().strip().splitlines()[-3:]
+
+
+def rank_two(rank: int, tmp: str, corpus: str, ck: str) -> dict:
+    """15(b) and (c) on one of two gloo ranks sharing the card."""
+    import torch.distributed as dist
+
+    from mlx_vae_tpu_torch.cli import encode as cli_encode
+    from mlx_vae_tpu_torch.cli import generate as cli_generate
+    from mlx_vae_tpu_torch.cli import train as cli_train
+    from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+    from mlx_vae_tpu_torch.parallel.comm import grad_mean_
+    from mlx_vae_tpu_torch.parallel.mesh import (gather_params, make_mesh, param_layout,
+                                                 shard_params)
+    from mlx_vae_tpu_torch.train import checkpoint as ckpt_io
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import make_dp_eval_step, make_dp_train_step
+    from mlx_vae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    out = {}
+    # (b) one DP step at full width through the train kernels
+    cfg, params = train_model("bfloat16")
+    x, cond = synthetic_batch(cfg, DP_B, DP_L)
+    tcfg = TrainConfig(batch_size=DP_B)
+    mesh = make_mesh(1)
+    opt = {n: adam_init(v) for n, v in params.items()}
+    step = make_dp_train_step(mesh, cfg, tcfg)
+    counters = kernel_counters()
+    reset_counts(counters)
+    _, _, m = step(params, opt, x, cond, None, 0.05, 0.9, dp_noise(cfg, rank, DP_B // 2))
+    torch.cuda.synchronize()
+    out["step_launches"] = read_counts(counters)
+    out["step_metrics"] = {k: float(v) for k, v in m.items()}
+    out["step_params"] = to_numpy(params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    reset_counts(counters)
+    make_dp_eval_step(mesh, cfg, tcfg)(params, x, cond, gen, 0.05, 0.0)
+    torch.cuda.synchronize()
+    out["eval_launches"] = read_counts(counters)
+
+    # printed: the DP step on two ranks sharing the card, and the gradient
+    # mean's gloo all-reduce alone at the gradient tree's bytes
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    out["step_ms"] = timed(lambda: step(params, opt, x, cond, gen, 0.05, 0.9), 5)
+    grads = (tree_map(torch.zeros_like, params),)
+    out["grad_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(grads[0]))
+    out["allreduce_ms"] = timed(lambda: grad_mean_(grads, mesh.data_group), 10)
+    del params, opt, grads
+
+    # the CLIs with --data_parallel, each in this rank's process group
+    ck_dp = f"{tmp}/ck_dp"
+    _, out["train_tail"] = quiet(cli_train.main, [
+        "--data", corpus, "--batch_size", str(DP_CLI_B), "--compute_dtype", "bfloat16",
+        "--use_pallas", "--epochs", "1", "--checkpoint_freq", "1", "--checkpoint_dir", ck_dp,
+        "--data_parallel"])
+    reset_sampler_counts()
+    _, out["generate_tail"] = quiet(cli_generate.main, [
+        "--checkpoint", ck, "--num_molecules", "8192", "--max_length", "64", "--greedy",
+        "--output", f"{tmp}/gen_dp.npz", "--data_parallel"])
+    out["sampler"] = {"tc": fused_generate.tc_launches, "core": fused_generate.core_launches}
+    reset_counts(counters)
+    res, out["encode_tail"] = quiet(cli_encode.main, [
+        "--checkpoint", ck, "--data", corpus, "--split", "test", "--batch_size", "1024",
+        "--output", f"{tmp}/lat_dp.npz", "--report", f"{tmp}/rep_dp.json", "--data_parallel"])
+    out["encode"] = {k: res[k] for k in ("mu", "logvar")}
+    out["encode_launches"] = read_counts(counters)
+
+    # (c) tensor parallelism over the two ranks: a (1, 2) mesh, f32, scan route
+    cfg_tp = ModelConfig(compute_dtype="float32")
+    full = init_tp_params(cfg_tp)
+    tp = make_mesh(2)
+    layouts = param_layout(full, 2)
+    params = shard_params(tp, full, layouts)
+    opt = {n: adam_init(v) for n, v in params.items()}
+    xt, ct = synthetic_batch(cfg_tp, TP_B, DP_L)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    step = make_dp_train_step(tp, cfg_tp, TrainConfig(batch_size=TP_B), layouts)
+    out["tp_metrics"] = []
+    for _ in range(TP_STEPS):
+        _, _, m = step(params, opt, xt, ct, gen, 0.05, 0.9)
+        out["tp_metrics"].append({k: float(v) for k, v in m.items()})
+    opt_layouts = {n: {"step": False, "m": lay, "v": lay} for n, lay in layouts.items()}
+    full_p, full_o = gather_params(tp, params, layouts), gather_params(tp, opt, opt_layouts)
+    if rank == 0:
+        ckpt_io.write_checkpoint(f"{tmp}/tp_ck.npz", ckpt_io.build_checkpoint_host(
+            TP_STEPS - 1, full_p, full_o, {}))
+        out["tp_params"] = to_numpy(full_p)
+    out["tp_mesh"] = tp.shape
+    return out
+
+
+def init_tp_params(cfg):
+    from mlx_vae_tpu_torch.bench import init_train_params
+    return init_train_params(cfg, "cuda", 5)
+
+
+def dp_reference(cfg, params, x, cond) -> tuple:
+    """15(b)'s one-process reference: each half's loss and gradients on the
+    card (its rank's noise), averaged, clipped, Adam."""
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.train.optim import adam_init, adam_update, clip_by_global_norm
+    from mlx_vae_tpu_torch.train.steps import _loss
+    from mlx_vae_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    tcfg = TrainConfig(batch_size=DP_B)
+    names = ["encoder", "decoder"]
+    leaves = tree_leaves({n: params[n] for n in names})
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    half, grads, totals = DP_B // 2, None, []
+    for r in range(2):
+        d = _loss(params, cfg, tcfg, x[r * half:(r + 1) * half],
+                  cond[r * half:(r + 1) * half], dp_noise(cfg, r, half), 0.05)
+        g = torch.autograd.grad(d["total_loss"], leaves)
+        grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+        totals.append(float(d["total_loss"].detach()))
+    flat = iter([g / 2 for g in grads])
+    trees = tuple(tree_map(lambda _: next(flat), params[n]) for n in names)
+    trees, norm = clip_by_global_norm(trees, tcfg.grad_clip)
+    for n, g in zip(names, trees):
+        adam_update(params[n], g, adam_init(params[n]), tcfg.learning_rate,
+                    b1=tcfg.adam_b1, b2=tcfg.adam_b2, eps=tcfg.adam_eps,
+                    bias_correction=tcfg.adam_bias_correction)
+    return params, sum(totals) / 2, float(norm)
+
+
+def phase_multi_device(smi: str, step_ms: float, tmp: str) -> dict:
+    """Phase 15 (the docstring); ``tmp`` holds phase 12's corpus and
+    checkpoints. Returns the launches of rows 1-6 per rank."""
+    import math
+
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli import encode as cli_encode
+    from mlx_vae_tpu_torch.cli import generate as cli_generate
+    from mlx_vae_tpu_torch.cli import train as cli_train
+    from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
+    from mlx_vae_tpu_torch.parallel.dryrun import dryrun
+    from mlx_vae_tpu_torch.parallel.launch import spawn
+    from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import draw_noise, train_step
+    from mlx_vae_tpu_torch.utils.tree import tree_leaves
+
+    corpus, ck = f"{tmp}/s.json", f"{tmp}/ck/checkpoint_best.npz"
+
+    # (a) NCCL, one rank
+    a = spawn(rank_nccl_one, 1, "cuda", "nccl", timeout=300)[0]
+    log(f"  (a) {a['backend']}, world 1: make_dp_train_step vs train_step, default model bf16 "
+        f"B={DP_B}: max |diff| over params and Adam states {a['max_diff']}, metrics equal "
+        f"{a['metrics_equal']}, loss {a['loss']:.6f}")
+    if a["backend"] != "nccl" or a["max_diff"] != 0.0 or not a["metrics_equal"]:
+        raise AssertionError(f"15(a): the one-rank NCCL step is not bitwise train_step: {a}")
+
+    # (b), (c) two gloo ranks sharing cuda:0
+    t0 = time.perf_counter()
+    r = spawn(rank_two, 2, "cuda", "gloo", args=(tmp, corpus, ck), timeout=900)
+    log(f"  (b, c) two gloo ranks on cuda:0 done in {time.perf_counter() - t0:.1f}s")
+    for i, ri in enumerate(r):
+        log(f"  rank {i}: launches in the DP step {ri['step_launches']}; in the DP eval step "
+            f"{ri['eval_launches']}; in cli.encode --data_parallel {ri['encode_launches']}")
+        if min(ri["step_launches"][k] for k in TRAIN_KERNELS) < 1:
+            raise AssertionError(f"15(b) rank {i}: a train kernel was not launched")
+        if min(ri["eval_launches"][k] for k in TRAIN_KERNELS if "fwd" in k) < 1:
+            raise AssertionError(f"15(b) rank {i}: the DP eval launched no forward kernel")
+        if min(ri["encode_launches"][k] for k in ("fused_encoder_fwd",
+                                                  "fused_train_decoder_fwd_logits")) < 1:
+            raise AssertionError(f"15(b) rank {i}: encode launched no encoder or logits kernel")
+    la = tree_leaves(r[0]["step_params"])
+    if not all(np.array_equal(p, q) for p, q in zip(la, tree_leaves(r[1]["step_params"]))):
+        raise AssertionError("15(b): the post-Adam params differ between the ranks")
+    cfg, params = train_model("bfloat16")
+    x, cond = synthetic_batch(cfg, DP_B, DP_L)
+    ref, total, norm = dp_reference(cfg, params, x, cond)
+    m = r[0]["step_metrics"]
+    rel = max(abs(m["total_loss"] - total) / abs(total), abs(m["grad_norm"] - norm) / norm)
+    # the same kernels at the same 2048-row shapes, and a mean of two that is
+    # exact: the step must match to the last bits (a rank fed the other's rows
+    # or noise moves the loss, and flips ~lr-sized Adam steps)
+    ulps = max(float((np.abs(p - q) / np.spacing(np.abs(q))).max())
+               for p, q in zip(la, tree_leaves(to_numpy(ref))))
+    log(f"  (b) DP step vs the one-process reference: total {m['total_loss']:.6f} vs "
+        f"{total:.6f}, grad_norm {m['grad_norm']:.6f} vs {norm:.6f} (worst rel {rel:.3e}, "
+        f"tol {DP_REL}); post-Adam params: largest |diff| {ulps:g} ulp (tol {DP_ULPS})")
+    if not (rel <= DP_REL and ulps <= DP_ULPS):
+        raise AssertionError("15(b): the DP step parts from the one-process reference")
+    del ref, params
+    grad_mb = r[0]["grad_bytes"] / 2**20
+    log(f"  (b) printed, not gated (the cost of the code path on one shared card, not a "
+        f"scaling figure): DP step {r[0]['step_ms']:.2f} / {r[1]['step_ms']:.2f} ms on ranks "
+        f"0 / 1 (2048 rows each) vs the one-rank step {step_ms:.2f} ms (4096 rows, phase 8); "
+        f"gloo all_reduce of the {grad_mb:.2f} MiB gradient tree "
+        f"{r[0]['allreduce_ms']:.2f} / {r[1]['allreduce_ms']:.2f} ms [{smi}]")
+
+    # cli.train --data_parallel: one epoch; rank 0's checkpoints; a one-rank --resume
+    ck_dp = f"{tmp}/ck_dp"
+    h = read_history(ck_dp)
+    files = sorted(f for f in os.listdir(ck_dp) if f.endswith(".npz"))
+    log(f"  (b) cli.train --data_parallel: history {h['train_loss']} / {h['val_loss']}; "
+        f"files {files}; rank 0: {r[0]['train_tail']}")
+    if not (h["epoch"] == [0] and all(map(math.isfinite, h["train_loss"] + h["val_loss"]))):
+        raise AssertionError(f"15(b): cli.train --data_parallel history {h}")
+    if files != ["checkpoint_best.npz", "checkpoint_epoch_000.npz"]:
+        raise AssertionError(f"15(b): checkpoints {files}")
+    text = run_main(cli_train.main, [
+        "--data", corpus, "--batch_size", str(DP_CLI_B), "--compute_dtype", "bfloat16",
+        "--use_pallas", "--epochs", "2", "--checkpoint_freq", "1", "--checkpoint_dir", ck_dp,
+        "--resume"])
+    if "Resuming from epoch 1" not in text or read_history(ck_dp)["epoch"] != [0, 1]:
+        raise AssertionError("15(b): the one-rank --resume did not load rank 0's checkpoint")
+
+    # cli.generate --data_parallel: tensor-core sampler on each rank, greedy contract
+    for i, ri in enumerate(r):
+        if ri["sampler"]["tc"] < 1 or ri["sampler"]["core"] != 0:
+            raise AssertionError(f"15(b) rank {i}: sampler launches {ri['sampler']}")
+    run_main(cli_generate.main, ["--checkpoint", ck, "--num_molecules", "8192",
+                                 "--max_length", "64", "--greedy", "--output",
+                                 f"{tmp}/gen_one.npz"])
+    two = torch.from_numpy(np.load(f"{tmp}/gen_dp.npz")["tokens"].astype(np.int64))
+    one = torch.from_numpy(np.load(f"{tmp}/gen_one.npz")["tokens"].astype(np.int64))
+    first, rows = agreement(two, one)
+    log(f"  (b) cli.generate --data_parallel, 8192 greedy rows (2048 a rank a batch): sampler "
+        f"launches per rank {[ri['sampler'] for ri in r]}; against the one-rank run first "
+        f"tokens {first:.4%}, rows {rows:.4%} equal")
+    if two.shape != one.shape or first < AGREE_FIRST or rows < AGREE_ROWS:
+        raise AssertionError("15(b): data-parallel greedy parts from the one-rank run")
+
+    # cli.encode --data_parallel against the one-rank run
+    _, res = run_cli(cli_encode.main, [
+        "--checkpoint", ck, "--data", corpus, "--split", "test", "--batch_size", "1024",
+        "--output", f"{tmp}/lat_one.npz", "--report", f"{tmp}/rep_one.json"])
+    compare("(b) cli.encode --data_parallel vs one rank [mu, logvar]",
+            [torch.from_numpy(r[0]["encode"][k]) for k in ("mu", "logvar")],
+            [torch.from_numpy(res[k]) for k in ("mu", "logvar")], "float32", [0.0, 0.0])
+
+    # (c) against the one-rank plain route from the same params and noise
+    tp_cfg = ModelConfig(compute_dtype="float32")
+    params = init_tp_params(tp_cfg)
+    opt = {n: adam_init(v) for n, v in params.items()}
+    xt, ct = synthetic_batch(tp_cfg, TP_B, DP_L)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    for s, mt in enumerate(r[0]["tp_metrics"]):
+        noise = draw_noise(gen, tp_cfg, TP_B, DP_L, 0.9)
+        _, _, mo = train_step(params, opt, tp_cfg, TrainConfig(batch_size=TP_B), xt, ct, None,
+                              0.05, 0.9, noise=noise)
+        worst = max([worst] + [abs(mt[k] - float(mo[k])) / max(abs(float(mo[k])), 1e-6)
+                               for k in mo])
+    pd = max(float(np.abs(p - q.detach().cpu().numpy()).max())
+             for p, q in zip(tree_leaves(r[0]["tp_params"]), tree_leaves(params)))
+    got = load_checkpoint(f"{tmp}/tp_ck.npz")
+    keys = sorted((k, tuple(v.shape)) for k, v in _flat(got["params"]))
+    want = sorted((k, tuple(v.shape)) for k, v in _flat(params))
+    log(f"  (c) --model_parallel 2 ({r[0]['tp_mesh']}), f32 scan route, B={TP_B}, {TP_STEPS} "
+        f"steps vs the one-rank plain route: worst rel diff over the scalars {worst:.3e}, "
+        f"params max |diff| {pd:.3e} (tol {TP_TOL}); gathered checkpoint keys "
+        f"{'equal' if keys == want else 'DIFFER'} ({len(keys)} leaves)")
+    if not (worst <= TP_TOL and pd <= TP_TOL and keys == want):
+        raise AssertionError("15(c): tensor parallelism parts from the one-rank route")
+
+    # (d) the dry run on the card: four gloo ranks sharing cuda:0
+    t0 = time.perf_counter()
+    dry = dryrun(DRYRUN_N, "cuda", timeout=600)
+    log(f"  (d) {dry[0]['line']} ({time.perf_counter() - t0:.1f}s)")
+    for i, ri in enumerate(dry):
+        got = ri["launches"]
+        log(f"  (d) rank {i}: " + "; ".join(
+            f"{tier} {part} {{{', '.join(f'{k}: {v}' for k, v in n.items() if v)}}}"
+            for tier, parts in got.items() for part, n in parts.items()))
+        silent = [f"{tier} {part}" for tier, parts in got.items()
+                  for part, n in parts.items() if not any(n.values())]
+        if silent or min(got["tiny"]["train"][k] for k in TRAIN_KERNELS) < 1 or min(
+                got["scaled"]["train"][k] for k in ("seq_lstm_fwd", "seq_lstm_bwd")) < 1:
+            raise AssertionError(f"15(d) rank {i}: a kernel of the dry run's path was not "
+                                 f"launched (no launch in: {silent}): {got}")
+    sampler = [ri["sampler"]["tc"] for ri in r]
+    scaled = dry[0]["launches"]["scaled"]["train"]
+    return {"fused_generate_tc": sampler[0], "fused_generate": r[0]["sampler"]["core"],
+            "seq_lstm_fwd": scaled["seq_lstm_fwd"], "seq_lstm_bwd": scaled["seq_lstm_bwd"],
+            **{k: r[0]["step_launches"][k] for k in TRAIN_KERNELS},
+            "fused_train_decoder_fwd_logits": r[0]["encode_launches"][
+                "fused_train_decoder_fwd_logits"]}
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _flat(v, prefix + (k,))]
+    return [(prefix, tree)]
+
+
 # kernel: (source, the TPU kernel it replaces, its row in phase 11's times,
 # the timed shape)
 SEQ_RECORDS = {
@@ -2573,19 +2971,26 @@ def main() -> int:
 
     log("[12 train CLI] cli.train on a 20,523-molecule corpus, default model, bf16, "
         "B=4096, fused route; resume; f32 fused vs plain; cli.generate with --data")
-    with tempfile.TemporaryDirectory() as tmp:
-        cli = phase_train_cli(smi, sum(train_times["step_fused"]) / len(train_times["step_fused"]),
-                              tmp)
+    step_ms = sum(train_times["step_fused"]) / len(train_times["step_fused"])
+    with tempfile.TemporaryDirectory() as tmp12:  # phases 12, 13 and 15
+        cli = phase_train_cli(smi, step_ms, tmp12)
 
         log("[13 eval CLIs] cli.encode (f32, bf16), cli.interpolate, cli.optimize on phase 12's "
             "corpus and checkpoint, fused route against plain route; the encoder at B=2/5 and "
             "the greedy sampler at B=5/9 against their plain versions")
         phase_eval_shapes()
-        ev = phase_eval_cli(smi, tmp)["launches"]
+        ev = phase_eval_cli(smi, tmp12)["launches"]
 
-    log(f"[14 serve concurrent] default model, f32, tiers 256,2048,8192, L=64, T=0.8 [{smi}]")
-    with tempfile.TemporaryDirectory() as tmp:
-        serve = phase_serve_concurrent(tmp, smi)
+        log(f"[14 serve concurrent] default model, f32, tiers 256,2048,8192, L=64, T=0.8 "
+            f"[{smi}]")
+        with tempfile.TemporaryDirectory() as tmp:
+            serve = phase_serve_concurrent(tmp, smi)
+
+        log("[15 multi-device] (a) NCCL, one rank: the DP step vs train_step; (b) two gloo "
+            "ranks on cuda:0: a DP step at full width, cli.train / generate / encode "
+            "--data_parallel; (c) --model_parallel 2, f32 scan route; (d) the dry run, "
+            f"{DRYRUN_N} gloo ranks on cuda:0")
+        dp = phase_multi_device(smi, step_ms, tmp12)
 
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
@@ -2611,7 +3016,9 @@ def main() -> int:
                       "over 3.35 TB/s; bf16: bound_ms_bf16 (989 TFLOP/s)",
         "bound_ms_bf16": bounds["fused_generate_tc_bf16"][0],
         "bf16_ms": times[("bfloat16", 8192)][0], "tiers": tiers,
-        "library_ms": None,
+        "library_ms": None, "launches_dp": dp["fused_generate_tc"],
+        "launches_dp_note": "phase 15(b): cli.generate --data_parallel, 8192 greedy rows, rank "
+                            "0 (2048 rows a rank a batch, a warm-up batch and 2)",
         "timed_shape": "B=8192 L=64 f32 T=0.8"}, {
         "name": "fused_generate", "route": "cuda",
         "source": "mlx_vae_tpu_torch/csrc/fused_generate.cu (fused_generate_kernel)",
@@ -2620,14 +3027,15 @@ def main() -> int:
         "launches_note": "phase 4's H=48 served run (a config the tensor-core sampler does "
                          "not take); the default config's served run launches it 0 times",
         "max_abs_err": worst["cuda_core"][0], "err_metric": sampler_err,
-        "max_row_disagreement": worst["cuda_core"][1],
+        "max_row_disagreement": worst["cuda_core"][1], "launches_dp": dp["fused_generate"],
         "ms": c_ms, "plain_ms": p_ms,
         "bound_ms": bounds["fused_generate"][0], "bound_by": bounds["fused_generate"][1],
         "library_ms": None,
         "timed_shape": "B=8192 L=64 f32 T=0.8"}] + [{
             "name": kname, "route": "cuda", "source": TRAIN_SOURCES[kname],
             "replaces": TRAIN_REPLACES[kname], "launches": launches_train[kname],
-            "launches_train_cli": cli["launches"][kname],
+            "launches_train_cli": cli["launches"][kname], "launches_dp": dp[kname],
+            "launches_dp_note": "phase 15(b): one DP step, 2048 rows, rank 0",
             **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
             "max_abs_err": errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output (forward) or "
@@ -2644,6 +3052,11 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": f"mlx_vae_tpu_torch/csrc/{src}",
             "replaces": f"mlx_vae_tpu/ops/{tpu}", "launches": launches_seq[kname],
             **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
+            **({"launches_dp": dp[kname], "launches_dp_note": (
+                "phase 15(d): the dry run's scaled data-parallel step (hidden 1024, 4 layers, "
+                f"one row a rank of {DRYRUN_N}), rank 0" if kname.startswith("seq_lstm") else
+                "phase 15(b): cli.encode --data_parallel, 2,053 rows in 3 batches of 1024, "
+                "rank 0")} if kname in dp else {}),
             "max_abs_err": seq_errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output or gradient leaf "
                           f"(phase 9{DEC_FWD_NOTE if 'decoder' in kname else ''}); largest "

@@ -10,6 +10,8 @@ checkpoint, else a hard error.
 
 from __future__ import annotations
 
+import contextlib
+import os
 from pathlib import Path
 
 import numpy as np
@@ -92,3 +94,61 @@ def normalized_targets(raw_targets, mean, std, num_conditions: int):
             f"condition (training order, e.g. tpsa,logp,mw) so each "
             f"property is conditioned on its own value.")
     return (np.asarray(raw_targets, np.float32)[None, :] - mean) / std
+
+
+def _rank_main(rank: int, module: str, argv: list) -> None:
+    """One spawned rank of a multi-device CLI run: ``module``'s ``main``."""
+    import importlib
+
+    importlib.import_module(module).main(argv)
+
+
+@contextlib.contextmanager
+def cli_ranks(module: str, argv: list, device_name: str, data_parallel: bool,
+              model_parallel: int = 1, sources: tuple = ()):
+    """This process's part of a CLI run: yields its device, or None where
+    this process spawned the ranks and they are done.
+
+    A default process group the caller initialized, or one torchrun's
+    environment describes, makes this process one rank of it. Without
+    either, ``data_parallel`` with more than one visible card spawns one
+    rank per card, and ``model_parallel`` N spawns N ranks where N cards
+    are visible (fewer: the caller refuses), each running ``module``'s
+    ``main(argv)``. On CUDA rank 0 builds ``sources`` (``csrc/<name>.cu``)
+    while the others wait; in the block, every rank but 0 prints nothing."""
+    import torch.distributed as dist
+
+    from mlx_vae_tpu_torch.parallel.launch import spawn
+    from mlx_vae_tpu_torch.parallel.mesh import (build_kernels_once, init_distributed,
+                                                 rank, visible_devices)
+
+    device = init_distributed(resolve_device(device_name))
+    if not dist.is_initialized():
+        n, tp = visible_devices(device), max(1, model_parallel)
+        world = n if data_parallel and n > 1 else tp
+        if 1 < world <= n:
+            spawn(_rank_main, world, device, args=(module, argv))
+            yield None
+            return
+    build_kernels_once(device, sources)
+    with contextlib.ExitStack() as stack:
+        if rank() != 0:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        yield device
+
+
+def data_parallel_mesh(args, what: str):
+    """The ``--data_parallel`` mesh of a generate or encode run: a
+    ``(world, 1)`` mesh under a process group of more than one rank, or
+    None (one device)."""
+    from mlx_vae_tpu_torch.parallel.mesh import make_mesh, world_size
+
+    if not args.data_parallel or world_size() == 1:
+        return None
+    mesh = make_mesh(1)
+    if args.batch_size % mesh.data != 0:
+        raise SystemExit(f"--batch_size {args.batch_size} must divide "
+                         f"over {mesh.data} data-parallel devices")
+    print(f"Data-parallel {what} over {mesh.data} devices")
+    return mesh

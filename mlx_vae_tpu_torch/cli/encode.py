@@ -20,7 +20,11 @@ cpu`` runs their plain versions. Three parts, each over fixed-size batches
   (``latent_statistics``).
 
 The ``.npz`` keys and the report's JSON keys are the JAX CLI's.
-``--data_parallel`` is not ported yet and exits with a message.
+``--data_parallel`` over more than one rank (a process group the caller or
+torchrun set up, or one rank spawned per visible card) gives each rank its
+contiguous block of every batch's rows; the blocks are gathered on the host
+(gloo) and rank 0 prints the metrics and writes the outputs.
+``--data_parallel`` on one device encodes there, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -57,8 +61,8 @@ def build_parser():
     p.add_argument("--report", type=str, default="encode_report.json",
                    help="Metrics report output (JSON)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="Shard each batch over all visible devices (not "
-                        "yet ported)")
+                   help="Shard each batch over all ranks: the process "
+                        "group's, or one spawned per visible card")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--device", type=str, default="cuda",
@@ -67,22 +71,36 @@ def build_parser():
     return p
 
 
-def _batched(fn, arrays, batch_size: int, device):
+def _batched(fn, arrays, batch_size: int, device, mesh=None):
     """Apply ``fn(*batch_tensors)`` over N rows in batches of ``batch_size``
     on ``device``; the last batch is padded by repeating row 0 and trimmed
-    after. Returns stacked numpy outputs (a tuple if fn returns one)."""
+    after. Under ``mesh`` this rank computes its data block of each batch
+    and the blocks are gathered. Returns stacked numpy outputs (a tuple if
+    fn returns one)."""
+    from mlx_vae_tpu_torch.parallel.comm import host_gather_rows
+
     n = arrays[0].shape[0]
-    outs = []
+    rows = batch_size // (mesh.data if mesh else 1)
+    first = mesh.data_rank * rows if mesh else 0
+    outs, pads = [], []
     for s in range(0, n, batch_size):
         chunk = [a[s:s + batch_size] for a in arrays]
         pad = batch_size - chunk[0].shape[0]
         if pad:
             chunk = [np.concatenate([c, np.repeat(c[:1], pad, axis=0)])
                      for c in chunk]
-        out = fn(*[torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in chunk])
+        out = fn(*[torch.from_numpy(np.ascontiguousarray(c[first:first + rows])).to(device)
+                   for c in chunk])
         out = out if isinstance(out, tuple) else (out,)
-        outs.append([o.cpu().numpy()[: batch_size - pad or None] for o in out])
-    cols = [np.concatenate(col) for col in zip(*outs)]
+        outs.append([o.cpu().numpy() for o in out])
+        pads.append(pad)
+    cols = []
+    for j in range(len(outs[0])):
+        blocks = [o[j] for o in outs]
+        if mesh is not None:
+            blocks = host_gather_rows(mesh, blocks)
+        cols.append(np.concatenate([b[: batch_size - pad or None]
+                                    for b, pad in zip(blocks, pads)]))
     return tuple(cols) if len(cols) > 1 else cols[0]
 
 
@@ -101,13 +119,14 @@ def kernels_note(device, mcfg, sources) -> str:
 
 
 def encode_split(params: dict, mcfg, device, tokens: np.ndarray, cond: np.ndarray,
-                 batch_size: int, reconstruct: bool = True) -> dict:
+                 batch_size: int, reconstruct: bool = True, mesh=None) -> dict:
     """The three device parts over a split: ``mu``, ``logvar``, and with
     ``reconstruct`` the TF=1 argmax tokens (``next_tokens``) and the greedy
     decode from ``z = mu`` (``decoded``), all numpy, with each part's
     seconds under ``seconds`` and its kernel-build note under ``notes``.
     ``params`` holds the encoder and decoder trees as tensors on
-    ``device``; ``mcfg.use_pallas`` picks the kernels or the plain route."""
+    ``device``; ``mcfg.use_pallas`` picks the kernels or the plain route.
+    ``mesh``: each rank takes its block of every batch (see ``_batched``)."""
     from mlx_vae_tpu_torch.cli.generate import make_generate_fn
     from mlx_vae_tpu_torch.models.decoder import decoder_apply
     from mlx_vae_tpu_torch.models.encoder import encoder_apply
@@ -118,7 +137,7 @@ def encode_split(params: dict, mcfg, device, tokens: np.ndarray, cond: np.ndarra
     def timed(part, sources, fn, arrays):
         out["notes"][part] = kernels_note(device, mcfg, sources)
         t0 = time.perf_counter()
-        res = _batched(fn, arrays, batch_size, device)
+        res = _batched(fn, arrays, batch_size, device, mesh)
         out["seconds"][part] = time.perf_counter() - t0
         return res
 
@@ -144,23 +163,33 @@ def encode_split(params: dict, mcfg, device, tokens: np.ndarray, cond: np.ndarra
 
 def main(argv=None):
     """Run the CLI; returns the report with the arrays behind it (``mu``,
-    ``logvar``, ``next_tokens``, ``decoded``) and the parts' seconds."""
-    from mlx_vae_tpu_torch.cli.common import resolve_device
+    ``logvar``, ``next_tokens``, ``decoded``) and the parts' seconds (on
+    every rank of a ``--data_parallel`` run; None where it spawned them)."""
+    import sys
+
+    from mlx_vae_tpu_torch.cli.common import cli_ranks
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    with cli_ranks("mlx_vae_tpu_torch.cli.encode", argv, args.device, args.data_parallel,
+                   sources=("fused_encoder", "fused_train_decoder", "fused_seq_lstm",
+                            "fused_generate")) as device:
+        return None if device is None else _encode(args, device)
+
+
+def _encode(args, device) -> dict:
+    from mlx_vae_tpu_torch.cli.common import data_parallel_mesh
     from mlx_vae_tpu_torch.cli.generate import infer_model_shape
     from mlx_vae_tpu_torch.config import ModelConfig
     from mlx_vae_tpu_torch.data.split import load_and_split
     from mlx_vae_tpu_torch.models.latent_eval import (latent_statistics,
                                                       reconstruction_metrics)
     from mlx_vae_tpu_torch.models.vae import generation_sampler
+    from mlx_vae_tpu_torch.parallel.mesh import rank
     from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
     from mlx_vae_tpu_torch.utils.tree import params_from_numpy
 
-    args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("ERROR: --data_parallel is not yet ported to "
-                         "mlx_vae_tpu_torch (single-device encoding only)")
-    device = resolve_device(args.device)
-
+    mesh = data_parallel_mesh(args, "encoding")
     ckpt = load_checkpoint(args.checkpoint)
     params = {k: params_from_numpy(ckpt["params"][k], device) for k in ("encoder", "decoder")}
     mcfg = ModelConfig(compute_dtype=args.compute_dtype, use_pallas=True,
@@ -183,7 +212,7 @@ def main(argv=None):
             "scan sampler (the fused kernel does not take this model)"))
 
     res = encode_split(params, mcfg, device, tokens, cond, args.batch_size,
-                       reconstruct=not args.no_reconstruct)
+                       reconstruct=not args.no_reconstruct, mesh=mesh)
     mu, logvar, secs, notes = res["mu"], res["logvar"], res["seconds"], res["notes"]
     print(f"Encoded in {secs['encode']:.4f}s ({n / secs['encode']:,.0f} mols/sec; "
           f"{notes['encode']})")
@@ -220,11 +249,12 @@ def main(argv=None):
         report["next_token_accuracy"] = next_tok
         report.update(rec)
 
-    np.savez(args.output, mu=mu, logvar=logvar, properties=props,
-             properties_normalized=cond, split=args.split)
-    with open(args.report, "w") as f:
-        json.dump(report, f, indent=2)
-    print(f"Saved embeddings to {args.output}, report to {args.report}")
+    if rank() == 0:  # rank 0 alone writes
+        np.savez(args.output, mu=mu, logvar=logvar, properties=props,
+                 properties_normalized=cond, split=args.split)
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"Saved embeddings to {args.output}, report to {args.report}")
     return {"report": report, **res}
 
 

@@ -3,13 +3,20 @@
 ``mlx_vae_tpu/cli/generate.py``).
 
 ``python -m mlx_vae_tpu_torch.cli.generate --checkpoint ck.npz ...`` with the
-JAX CLI's flags, on one device. ``--device`` (default ``cuda``) picks the
-card, where the fused sampler kernel runs; ``--device cpu`` runs its plain
-version. A model the kernel does not take runs the scan sampler on either
-device, as the JAX CLI routes it; the CLI prints which sampler it uses.
-``--data`` gives the train-split stats and alphabet, and novelty against
-the training split. ``--data_parallel`` is not ported yet and exits with a
-message.
+JAX CLI's flags. ``--device`` (default ``cuda``) picks the card, where the
+fused sampler kernel runs; ``--device cpu`` runs its plain version. A model
+the kernel does not take runs the scan sampler on either device, as the JAX
+CLI routes it; the CLI prints which sampler it uses. ``--data`` gives the
+train-split stats and alphabet, and novelty against the training split.
+
+Each batch's z is drawn from its own generator (seed 0), and the sampler's
+noise from another (seeded per rank, ``parallel/mesh.py:fold_seed``).
+``--data_parallel`` over more than one rank (a process group the caller or
+torchrun set up, or one rank spawned per visible card) draws every batch's
+z on every rank and decodes the rank's contiguous block of rows; rank 0
+gathers the tokens (gloo), prints the metrics and writes the output, so a
+greedy run equals the one-rank run. ``--data_parallel`` on one device
+generates there, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -61,8 +68,8 @@ def build_parser():
                         "(target - A)/B. Example: --calibrate_response "
                         "2.38,0.638")
     p.add_argument("--data_parallel", action="store_true",
-                   help="Shard each batch over all visible devices (not "
-                        "yet ported)")
+                   help="Shard each batch over all ranks: the process "
+                        "group's, or one spawned per visible card")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda[:N] (the kernel) or cpu (its plain version)")
     # Model shape flags. Default: inferred from the checkpoint's parameter
@@ -123,27 +130,17 @@ def parse_calibration(spec):
 
 
 def main(argv=None):
-    from mlx_vae_tpu_torch.cli.common import (normalized_targets,
-                                              resolve_device,
-                                              resolve_property_stats)
-    from mlx_vae_tpu_torch.config import ModelConfig
-    from mlx_vae_tpu_torch.data.metrics import molecule_metrics, novelty, uniqueness
-    from mlx_vae_tpu_torch.data.prepare import (chemistry_backend, decode_tokens,
-                                                selfies_validity)
-    from mlx_vae_tpu_torch.models.vae import generation_sampler, vae_generate
-    from mlx_vae_tpu_torch.ops.fused_decoder import prepare_weights
-    from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
-    from mlx_vae_tpu_torch.utils.tree import params_from_numpy
+    import sys
+
+    from mlx_vae_tpu_torch.cli.common import cli_ranks
 
     parser = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
     if args.top_k < 0:
         parser.error(f"--top_k must be >= 0 (0 disables), got {args.top_k}")
     if not 0.0 < args.top_p <= 1.0:
         parser.error(f"--top_p must be in (0, 1] (1.0 disables), got {args.top_p}")
-    if args.data_parallel:
-        raise SystemExit("ERROR: --data_parallel is not yet ported to "
-                         "mlx_vae_tpu_torch (single-device generation only)")
     calib = None
     if args.calibrate_response is not None:
         try:
@@ -152,8 +149,27 @@ def main(argv=None):
             parser.error("--calibrate_response must be 'A,B' (floats, "
                          "B != 0), the fitted response line "
                          "achieved = A + B*request")
-    device = resolve_device(args.device)
+    with cli_ranks("mlx_vae_tpu_torch.cli.generate", argv, args.device, args.data_parallel,
+                   sources=("fused_generate",)) as device:
+        if device is not None:
+            _generate(args, calib, device)
 
+
+def _generate(args, calib, device) -> None:
+    from mlx_vae_tpu_torch.cli.common import (data_parallel_mesh, normalized_targets,
+                                              resolve_property_stats)
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.data.metrics import molecule_metrics, novelty, uniqueness
+    from mlx_vae_tpu_torch.data.prepare import (chemistry_backend, decode_tokens,
+                                                selfies_validity)
+    from mlx_vae_tpu_torch.models.vae import decode_latents, generation_sampler
+    from mlx_vae_tpu_torch.ops.fused_decoder import prepare_weights
+    from mlx_vae_tpu_torch.parallel.comm import host_gather_rows
+    from mlx_vae_tpu_torch.parallel.mesh import fold_seed, rank
+    from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
+    from mlx_vae_tpu_torch.utils.tree import params_from_numpy
+
+    mesh = data_parallel_mesh(args, "generation")
     ckpt = load_checkpoint(args.checkpoint)
     shape = infer_model_shape(ckpt["params"]["decoder"])
     for name, inferred in shape.items():
@@ -185,16 +201,23 @@ def main(argv=None):
               else "Using the fused sampler's plain version")
     else:
         print("Using the scan sampler (the fused kernel does not take this model)")
+    rows = args.batch_size // (mesh.data if mesh else 1)
+    first = mesh.data_rank * rows if mesh else 0
     cond = torch.as_tensor(target, device=device).expand(
-        args.batch_size, mcfg.num_conditions).contiguous()
+        rows, mcfg.num_conditions).contiguous()
+    gen_z = torch.Generator(device=device)
+    gen_z.manual_seed(0)
     gen = torch.Generator(device=device)
-    gen.manual_seed(0)
+    gen.manual_seed(fold_seed(0, mesh.data_rank if mesh else 0))
     small_vocab = mcfg.vocab_size < 256
 
     def one_batch():
-        toks = vae_generate(params, mcfg, cond, gen, max_length=args.max_length,
-                            temperature=args.temperature, greedy=args.greedy,
-                            top_k=args.top_k, top_p=args.top_p, weights=weights)
+        # every rank draws the whole batch's z, then decodes its own rows
+        z = torch.randn((args.batch_size, mcfg.latent_dim), generator=gen_z, device=device)
+        toks = decode_latents(params, mcfg, z[first:first + rows], cond, gen,
+                              max_length=args.max_length, temperature=args.temperature,
+                              greedy=args.greedy, top_k=args.top_k, top_p=args.top_p,
+                              weights=weights)
         # Quarter the device->host transfer when token ids fit in a byte.
         return toks.to(torch.uint8) if small_vocab else toks
 
@@ -204,10 +227,15 @@ def main(argv=None):
     n_batches = -(-args.num_molecules // args.batch_size)
     t0 = time.perf_counter()
     device_toks = [one_batch() for _ in range(n_batches)]
-    tokens = torch.cat(device_toks).cpu().numpy()
+    if mesh is None:
+        tokens = torch.cat(device_toks).cpu().numpy()
+    else:
+        tokens = np.concatenate(host_gather_rows(mesh, [t.cpu().numpy() for t in device_toks]))
     dt = time.perf_counter() - t0
     tokens = tokens[: args.num_molecules]
     rate = len(tokens) / dt
+    if rank() != 0:  # rank 0 alone reports and writes
+        return
     validity = selfies_validity(tokens, alphabet or [])
     print(f"Generated {len(tokens):,} molecules in {dt:.2f}s "
           f"({rate:,.0f} mols/sec on {device}, warm-up excluded)")

@@ -20,9 +20,16 @@ Flag mapping on the port:
   epoch (``utils/profiler.py``).
 * ``--compilation_cache`` / ``--no_compilation_cache``: accepted, no effect
   (the port has no compile cache).
-* ``--data_parallel`` on one visible device trains there;
-  ``--data_parallel`` over more devices and ``--model_parallel`` > 1 exit
-  with "not yet ported (multi-device slice)".
+* Multi-device runs are one process per rank (``parallel/``). ``main``
+  joins a default process group the caller has initialized, or one that
+  torchrun's environment describes (``torchrun --nproc_per_node 2 -m
+  mlx_vae_tpu_torch.cli.train --data_parallel ...``; ``--device cpu`` runs
+  the ranks on gloo). Without either, ``--data_parallel`` with more than one
+  visible card spawns one rank per card, and ``--model_parallel N`` spawns
+  N ranks, or exits "requires at least N devices" before loading the
+  corpus. ``--data_parallel`` on one device trains there, as the JAX CLI
+  does. Rank 0 alone prints, makes the synthetic corpus, clears and writes
+  checkpoints and the history.
 * The init draws come from a ``torch.Generator`` seeded with ``--seed``
   (``models/vae.py:ARCVAE``); the batch order is the JAX CLI's exactly.
 """
@@ -90,11 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use_property_predictor", action="store_true",
                         help="Train the z->properties predictor head")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="Shard the batch over all visible devices (one "
-                             "visible device: trains there; more: not yet ported)")
+                        help="Shard the batch over all ranks: the process "
+                             "group's, or one spawned per visible card")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="Tensor-parallel degree (> 1 not yet ported); "
-                             "disables --use_pallas")
+                        help="Tensor-parallel degree: shard embedding/fc_out/"
+                             "LSTM gate matrices and the biases over a 'model' "
+                             "mesh axis. Alone: a pure (1, N) mesh over the "
+                             "first N ranks; with --data_parallel: an "
+                             "(n_ranks/N, N) mesh. Disables --use_pallas")
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
                         help="Run K optimizer steps per dispatch call")
     parser.add_argument("--sync_checkpoint", action="store_true",
@@ -143,18 +153,39 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+# the kernels a training run may launch (``ops/build.py`` names)
+TRAIN_SOURCES = ("fused_encoder", "fused_train_decoder", "fused_seq_lstm", "fused_lstm_gates")
+
+
 def main(argv=None):
-    from mlx_vae_tpu_torch.cli.common import resolve_device
+    """Run the CLI. Under a process group (given, or from torchrun's
+    environment) this process is one rank; otherwise a multi-device run
+    spawns its ranks here and returns when they have."""
+    import torch.distributed as dist
+
+    from mlx_vae_tpu_torch.cli.common import cli_ranks
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    with cli_ranks("mlx_vae_tpu_torch.cli.train", argv, args.device, args.data_parallel,
+                   args.model_parallel, TRAIN_SOURCES) as device:
+        if device is None:
+            return
+        _train(args, device)
+        if dist.is_initialized():  # the idle ranks of a pure tensor-parallel run wait here
+            dist.barrier()
+
+
+def _train(args, device) -> None:
+    import torch.distributed as dist
+
     from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
     from mlx_vae_tpu_torch.data.prepare import make_synthetic_dataset
     from mlx_vae_tpu_torch.data.split import load_and_split
     from mlx_vae_tpu_torch.models.decoder import train_route_refusal
     from mlx_vae_tpu_torch.models.vae import ARCVAE
-    from mlx_vae_tpu_torch.train.trainer import (ARCVAETrainer, multi_device_refusal,
-                                                 visible_devices)
-
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    from mlx_vae_tpu_torch.parallel.mesh import rank, visible_devices, world_size
+    from mlx_vae_tpu_torch.train.trainer import ARCVAETrainer, mesh_plan
 
     print("=" * 80)
     print("AR-CVAE Training (PyTorch port)")
@@ -221,16 +252,21 @@ def main(argv=None):
         seed=args.seed,
     )
     # refusals come before any corpus is made or loaded
-    for refusal in (multi_device_refusal(tcfg, visible_devices(device)),
-                    train_route_refusal(mcfg, device)):
-        if refusal is not None:
-            raise SystemExit(f"ERROR: {refusal}")
+    try:
+        mesh_plan(tcfg, world_size() if dist.is_initialized() else visible_devices(device))
+    except ValueError as e:
+        raise SystemExit(f"ERROR: {e}")
+    refusal = train_route_refusal(mcfg, device)
+    if refusal is not None:
+        raise SystemExit(f"ERROR: {refusal}")
 
-    if args.synthetic:
+    if args.synthetic and rank() == 0:
         Path(args.data).parent.mkdir(parents=True, exist_ok=True)
         make_synthetic_dataset(n=args.synthetic, vocab_size=args.vocab_size,
                                path=args.data)
         print(f"✓ Generated synthetic dataset ({args.synthetic} molecules) at {args.data}")
+    if args.synthetic and dist.is_initialized():
+        dist.barrier()  # the other ranks read rank 0's corpus
 
     print("\nLoading dataset...")
     train_dataset, val_dataset, test_dataset, data = load_and_split(
@@ -254,7 +290,7 @@ def main(argv=None):
         if not checkpoint_path.exists():
             raise FileNotFoundError(f"Checkpoint not found: {checkpoint_path}")
         print(f"\nResuming from checkpoint: {checkpoint_path}")
-    elif checkpoint_dir.exists():
+    elif checkpoint_dir.exists() and rank() == 0:
         # Fresh runs wipe old checkpoints + plot (reference train.py:157-166).
         print(f"\nClearing old checkpoints in {checkpoint_dir}")
         for f in checkpoint_dir.glob("*.npz"):
@@ -272,7 +308,14 @@ def main(argv=None):
     print("\nCreating trainer...")
     trainer = ARCVAETrainer(vae.params, mcfg, tcfg, train_dataset)
     trainer.alphabet = data.get("alphabet")
-    print("✓ Trainer created")
+    if trainer.idle:
+        print(f"  This rank is outside the {args.model_parallel}-rank mesh; idle")
+        return
+    if trainer.mesh is not None:
+        print(f"✓ Trainer created on a mesh {trainer.mesh.shape} of "
+              f"{len(trainer.mesh.ranks)} ranks")
+    else:
+        print("✓ Trainer created")
 
     if args.resume:
         from mlx_vae_tpu_torch.train.checkpoint import load_checkpoint
@@ -323,15 +366,22 @@ def main(argv=None):
 
     from mlx_vae_tpu_torch.train.history import anneal_best_warning
     warning = anneal_best_warning(trainer.history, args.best_metric)
-    if warning:
+    if warning and rank() == 0:
         print(warning, file=sys.stderr)
 
     if args.eval_test:
-        beta = trainer.compute_beta(args.epochs - 1)
-        tm = trainer._eval_batches(test_dataset, beta, None, "Test")
-        print(f"\nTest set ({len(test_dataset):,} samples): "
-              f"loss={tm['loss']:.4f} recon={tm['recon']:.4f} "
-              f"kl={tm['kl']:.4f}")
+        # Under a mesh partial batches are dropped, so a split smaller than
+        # a batch has nothing to evaluate (the JAX CLI's rule).
+        if trainer.mesh is not None and len(test_dataset) < args.batch_size:
+            print(f"\nSkipping --eval_test: test split has "
+                  f"{len(test_dataset)} samples < batch_size "
+                  f"{args.batch_size} under --data_parallel")
+        else:
+            beta = trainer.compute_beta(args.epochs - 1)
+            tm = trainer._eval_batches(test_dataset, beta, None, "Test")
+            print(f"\nTest set ({len(test_dataset):,} samples): "
+                  f"loss={tm['loss']:.4f} recon={tm['recon']:.4f} "
+                  f"kl={tm['kl']:.4f}")
 
     print("\n✓ Training complete! ✓")
 

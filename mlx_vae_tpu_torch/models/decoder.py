@@ -20,6 +20,10 @@ all but the last only without ``reference_zero_state``:
   through the fused gate kernel pair (``ops/fused_lstm.py``).
 
 The kernels launch on CUDA tensors; CPU tensors run their plain versions.
+Under a tensor-parallel ``mesh`` the teacher-forced decode always takes
+the scan, with the vocab-parallel embedding, column-parallel gates and
+vocab head, and split biases gathered at use (``models/layers.py``,
+``ops/lstm.py``).
 """
 
 from __future__ import annotations
@@ -48,29 +52,29 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def hidden_init_row(params: dict, cfg: ModelConfig, z: torch.Tensor,
-                    conditions: torch.Tensor) -> torch.Tensor:
+                    conditions: torch.Tensor, mesh=None) -> torch.Tensor:
     """The shared per-layer initial h ``[B, H]`` = (z_proj + cond_proj)/2."""
-    hidden_z = linear(params["z_to_hidden"], z, cfg.dtype)
-    hidden_c = linear(params["condition_to_hidden"], conditions, cfg.dtype)
+    hidden_z = linear(params["z_to_hidden"], z, cfg.dtype, mesh)
+    hidden_c = linear(params["condition_to_hidden"], conditions, cfg.dtype, mesh)
     return (hidden_z + hidden_c) / 2.0
 
 
 def initialize_hidden_state(params: dict, cfg: ModelConfig, z: torch.Tensor,
-                            conditions: torch.Tensor
+                            conditions: torch.Tensor, mesh=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h, c) ``[num_layers, B, H]``: h replicated over layers, c = 0."""
-    row = hidden_init_row(params, cfg, z, conditions)
+    row = hidden_init_row(params, cfg, z, conditions, mesh)
     h = row.unsqueeze(0).expand((cfg.num_layers,) + tuple(row.shape))
     return h, torch.zeros_like(h)
 
 
 def _stacked_cell(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                  h: torch.Tensor, c: torch.Tensor):
+                  h: torch.Tensor, c: torch.Tensor, mesh=None):
     """One timestep through the layer stack. ``h/c [num_layers, B, H]``."""
     new_h, new_c = [], []
     for layer in range(cfg.num_layers):
         hl, cl = lstm_cell(params[f"lstm_layer_{layer}"], x, h[layer], c[layer],
-                           dtype=cfg.dtype, use_pallas=cfg.use_pallas)
+                           dtype=cfg.dtype, use_pallas=cfg.use_pallas, mesh=mesh)
         new_h.append(hl)
         new_c.append(cl)
         x = hl
@@ -115,14 +119,15 @@ def train_route_refusal(cfg: ModelConfig, device) -> Optional[str]:
 
 def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
                   conditions: torch.Tensor, target_seq: Optional[torch.Tensor] = None,
-                  max_length: int = 80, tf_mask: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  max_length: int = 80, tf_mask: Optional[torch.Tensor] = None,
+                  mesh=None) -> torch.Tensor:
     """Autoregressive decode -> logits ``[B, L, vocab]`` f32.
 
     With ``target_seq [B, L]``, ``tf_mask [L]`` (bool) is required: the
     token fed at step t+1 is ``target_seq[:, t]`` where ``tf_mask[t]``, else
     the argmax of step t's logits. Without it, L = ``max_length`` with pure
-    argmax feedback.
+    argmax feedback. ``mesh``: the tensor-parallel mesh whose model group
+    splits ``params`` (None: one device).
     """
     B = z.shape[0]
     dev = z.device
@@ -133,7 +138,7 @@ def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
             raise ValueError("decoder_apply with target_seq requires tf_mask")
         targets = target_seq.to(torch.int32)
         tf_mask = tf_mask.to(dev).bool()
-        route = train_decoder_route(cfg, dev)
+        route = "scan" if mesh is not None else train_decoder_route(cfg, dev)
         if route == "fused":
             from mlx_vae_tpu_torch.ops.fused_train_decoder import decoder_train
             h_init = hidden_init_row(params, cfg, z, cond_f)
@@ -148,16 +153,17 @@ def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
         targets = torch.zeros((B, L), dtype=torch.int32, device=dev)
         tf_mask = torch.zeros((L,), dtype=torch.bool, device=dev)
 
-    h, c = initialize_hidden_state(params, cfg, z, cond_f)
+    h, c = initialize_hidden_state(params, cfg, z, cond_f, mesh)
     token = torch.full((B,), cfg.start_token, dtype=torch.int32, device=dev)
     logits_all = []
     for t in range(L):
         if cfg.reference_zero_state:
             h, c = torch.zeros_like(h), torch.zeros_like(c)
-        emb = embedding(params["embedding"], token, cfg.dtype, onehot=cfg.embed_onehot)
+        emb = embedding(params["embedding"], token, cfg.dtype, onehot=cfg.embed_onehot,
+                        mesh=mesh, num_embeddings=cfg.vocab_size)
         x = torch.cat([emb.float(), cond_f], dim=1)
-        out, h, c = _stacked_cell(params, cfg, x, h, c)
-        logits = linear(params["fc_out"], out, cfg.dtype)
+        out, h, c = _stacked_cell(params, cfg, x, h, c, mesh)
+        logits = linear(params["fc_out"], out, cfg.dtype, mesh, cfg.vocab_size)
         pred = torch.argmax(logits.detach(), dim=1).to(torch.int32)
         token = torch.where(tf_mask[t], targets[:, t], pred)
         logits_all.append(logits)

@@ -21,6 +21,11 @@ The fused routes launch their CUDA kernels on CUDA tensors (a configuration
 no kernel takes raises ``NotImplementedError``) and run their plain versions
 on CPU tensors. Randomness comes from the caller: :func:`reparameterize`
 takes ``eps`` and dropout takes keep-masks or a ``torch.Generator``.
+
+Under a tensor-parallel ``mesh`` (the GSPMD route of the JAX package, whose
+``use_pallas`` is off) the encoder runs the scan layer by layer with the
+vocab-parallel embedding, column-parallel gates and split biases gathered
+at use (``models/layers.py``, ``ops/lstm.py``).
 """
 
 from __future__ import annotations
@@ -64,15 +69,19 @@ def dropout_masks(gen: torch.Generator, cfg: ModelConfig, batch: int,
 
 def encoder_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
                   conditions: torch.Tensor,
-                  keep_masks: Optional[Sequence[torch.Tensor]] = None
+                  keep_masks: Optional[Sequence[torch.Tensor]] = None, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x [B, L] int`` tokens, ``conditions [B, C]`` -> ``(mu, logvar)``.
 
     ``keep_masks``: one boolean keep-mask per inter-layer dropout (see
     :func:`dropout_masks`), used only when ``cfg.apply_dropout``; None for
-    eval.
+    eval. ``mesh``: the tensor-parallel mesh whose model group splits
+    ``params`` (None: one device).
     """
-    if cfg.use_pallas:
+    if mesh is not None:
+        def seq(p, xs, h0, c0, dtype):
+            return lstm_sequence(p, xs, h0, c0, dtype, mesh=mesh)
+    elif cfg.use_pallas:
         from mlx_vae_tpu_torch.ops.fused_encoder import encoder_stack, fused_encoder_supported
         if fused_encoder_supported(cfg) and stack_fits_l2(cfg):
             return _heads(params, cfg, encoder_stack(params, cfg, x), conditions)
@@ -85,7 +94,8 @@ def encoder_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     dev = x.device
     h0 = torch.zeros((B, cfg.hidden_dim), dtype=torch.float32, device=dev)
     c0 = torch.zeros_like(h0)
-    output = embedding(params["embedding"], x, cfg.dtype).float()
+    output = embedding(params["embedding"], x, cfg.dtype, mesh=mesh,
+                       num_embeddings=cfg.vocab_size).float()
     for i in range(cfg.num_layers):
         fwd = seq(params[f"lstm_layer_{i}"], output, h0, c0, cfg.dtype)[0]
         if cfg.bidirectional:
@@ -98,18 +108,18 @@ def encoder_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 and i < cfg.num_layers - 1:
             output = torch.where(keep_masks[i], output / (1.0 - cfg.dropout),
                                  torch.zeros_like(output))
-    return _heads(params, cfg, output[:, -1, :].float(), conditions)
+    return _heads(params, cfg, output[:, -1, :].float(), conditions, mesh)
 
 
 def _heads(params: dict, cfg: ModelConfig, final_hidden: torch.Tensor,
-           conditions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+           conditions: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Condition projection + bounded mu/logvar heads."""
     dtype = cfg.dtype
-    condition_repr = linear(params["condition_fc"], conditions, dtype)
+    condition_repr = linear(params["condition_fc"], conditions, dtype, mesh)
     combined = torch.cat([final_hidden, condition_repr], dim=1)
-    mu_raw = linear(params["fc_mu"], combined, dtype)
-    logvar_hidden = torch.tanh(linear(params["fc_logvar_hidden"], combined, dtype))
-    logvar_raw = linear(params["fc_logvar"], logvar_hidden, dtype)
+    mu_raw = linear(params["fc_mu"], combined, dtype, mesh)
+    logvar_hidden = torch.tanh(linear(params["fc_logvar_hidden"], combined, dtype, mesh))
+    logvar_raw = linear(params["fc_logvar"], logvar_hidden, dtype, mesh)
     mu = torch.tanh(mu_raw / 2.0) * 2.0
     logvar = torch.tanh(logvar_raw / 2.0) - 1.0
     return mu, logvar

@@ -16,6 +16,9 @@ def init_predictor_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def predictor_apply(params: dict, cfg: ModelConfig, z: torch.Tensor) -> torch.Tensor:
-    h = torch.relu(linear(params["fc_hidden"], z, cfg.dtype))
-    return linear(params["fc_out"], h, cfg.dtype)
+def predictor_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
+                    mesh=None) -> torch.Tensor:
+    """``z [B, latent]`` -> ``[B, num_conditions]``; ``mesh`` as in
+    ``models/layers.py:linear``."""
+    h = torch.relu(linear(params["fc_hidden"], z, cfg.dtype, mesh))
+    return linear(params["fc_out"], h, cfg.dtype, mesh, cfg.num_conditions)

@@ -9,6 +9,12 @@ plain per-layer encoder path (autograd differentiates the loop);
 the JAX package's custom VJP (the encoder's plain route at H >= 768 or
 ``custom_vjp``). With ``use_pallas`` the gate tail runs as the fused gate
 kernel pair (``ops/fused_lstm.py``).
+
+Under a tensor-parallel mesh (``mesh``) a layer whose ``Wx`` holds fewer
+than 4H rows is column-parallel: rank m holds gate rows ``[m*4H/tp,
+(m+1)*4H/tp)`` of ``Wx``, ``Wh`` and ``bias``, computes those gate
+pre-activations, and the model group's are gathered before the cell,
+which runs replicated.
 """
 
 from __future__ import annotations
@@ -56,26 +62,47 @@ def combined_weight(params: dict) -> torch.Tensor:
     return torch.cat([params["Wx"].T, params["Wh"].T], dim=0)
 
 
+def gate_preacts(inp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dtype,
+                 mesh=None) -> torch.Tensor:
+    """``inp @ w + bias`` (``w`` the combined ``[in + H, 4H]`` weight): the
+    gate pre-activations ``[B, 4H]``. Where ``w`` holds only this rank's
+    gate columns (``mesh``), the product is column-parallel and the model
+    group's columns are gathered."""
+    if mesh is None:
+        return mm_f32(inp, w, dtype) + bias.float()
+    from mlx_vae_tpu_torch.parallel.comm import copy_to_model, gather_from_model
+    return gather_from_model(mm_f32(copy_to_model(inp, mesh), w, dtype) + bias.float(), mesh)
+
+
 def lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-              dtype=torch.float32, use_pallas: bool = False):
+              dtype=torch.float32, use_pallas: bool = False, mesh=None):
     """One LSTM step: ``x [B, in]``, ``h/c [B, H]`` -> ``(h', c')``."""
     inp = torch.cat([x, h], dim=1)
-    gates = mm_f32(inp, combined_weight(params), dtype) + params["bias"].float()
+    gates = gate_preacts(inp, combined_weight(params), params["bias"], dtype,
+                         split_mesh(params, h.shape[-1], mesh))
     return lstm_gates(gates, c, use_pallas)
 
 
+def split_mesh(params: dict, H: int, mesh):
+    """``mesh`` where this layer's gate rows are split over its model group
+    (``Wx`` holds fewer than 4H rows), else None."""
+    return mesh if mesh is not None and params["Wx"].shape[0] < 4 * H else None
+
+
 def lstm_sequence(params: dict, xs: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                  dtype=torch.float32) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                  dtype=torch.float32, mesh=None
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence LSTM: ``xs [B, L, in]`` -> ``(outputs [B, L, H], (h, c))``,
     one fused ``[x_t, h] @ W`` matmul + gate update per step (autograd
-    differentiates the loop). JAX's ``unroll`` and ``remat`` are XLA
+    differentiates the loop; under ``mesh`` column-parallel, see
+    :func:`gate_preacts`). JAX's ``unroll`` and ``remat`` are XLA
     scheduling knobs with no counterpart here."""
     w = combined_weight(params)
-    bias = params["bias"].float()
+    mesh = split_mesh(params, h0.shape[-1], mesh)
     h, c = h0, c0
     outs = []
     for t in range(xs.shape[1]):
-        gates = mm_f32(torch.cat([xs[:, t], h], dim=1), w, dtype) + bias
+        gates = gate_preacts(torch.cat([xs[:, t], h], dim=1), w, params["bias"], dtype, mesh)
         h, c = lstm_gates(gates, c)
         outs.append(h)
     return torch.stack(outs, dim=1), (h, c)

@@ -31,9 +31,23 @@ How it maps onto PyTorch on one device:
   batch trains and evaluates like any other.
 * ``steps_per_dispatch`` K runs K steps per ``multi_train_step_gather``
   call, with the JAX accounting of chunks and trailing partial chunks.
-* Multi-device training (``data_parallel`` over more than one device,
-  ``model_parallel`` > 1) is not ported yet and is refused
-  (:func:`multi_device_refusal`).
+* Multi-device training runs one trainer per rank of a
+  ``torch.distributed`` group (``parallel/``), by the JAX trainer's rules
+  (:func:`mesh_plan`): a mesh only when ``data_parallel`` or
+  ``model_parallel`` > 1 is asked for over more than one rank; with
+  ``data_parallel`` every rank joins a ``(world / tp, tp)`` mesh, with
+  ``model_parallel`` alone the first ``tp`` ranks form a ``(1, tp)`` mesh
+  and the others stay idle (:attr:`ARCVAETrainer.idle`). Every rank
+  shuffles with the same RNG and holds the whole corpus; the steps
+  (``train/steps.py:make_dp_*``) keep its block of each batch. Partial
+  batches are dropped when the data axis is split (a split smaller than one
+  batch then reports ``+inf`` for every metric). Data-parallel noise comes
+  from a generator seeded per data rank (``parallel/mesh.py:fold_seed``);
+  tensor-parallel noise is the global draw cut to the rank's rows, so a
+  tensor-parallel run equals the one-rank run with the same seed. With
+  ``host_data`` a mesh runs one step per dispatch. Rank 0 alone writes
+  checkpoints (full arrays, gathered over the model group) and the
+  history; ``join_saves`` ends in a barrier; a load re-shards.
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ except ImportError:  # pragma: no cover
         return it
 
 from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
+from mlx_vae_tpu_torch.parallel import mesh as pmesh
 from mlx_vae_tpu_torch.train import checkpoint as ckpt_io
 from mlx_vae_tpu_torch.train.history import make_history, plot_history, save_history
 from mlx_vae_tpu_torch.train.optim import adam_init
@@ -63,6 +78,12 @@ from mlx_vae_tpu_torch.train.steps import (
     draw_noise,
     eval_step,
     eval_step_gather,
+    make_dp_eval_step,
+    make_dp_eval_step_gather,
+    make_dp_multi_train_step_gather,
+    make_dp_train_step,
+    make_dp_train_step_gather,
+    mesh_noise,
     monitor_step,
     multi_train_step,
     multi_train_step_gather,
@@ -76,22 +97,19 @@ LAG = 4  # steps between a step's dispatch and the read of its metrics
 _EVAL_KEYS = ("total_loss", "recon_loss", "kl_loss", "collapse_penalty", "prop_loss")
 
 
-def multi_device_refusal(tcfg: TrainConfig, n_devices: int) -> Optional[str]:
-    """Why the config needs the multi-device slice, which is not ported
-    yet, or None: ``model_parallel`` > 1, or ``data_parallel`` over more
-    than one visible device (on one device it trains there, as the JAX
-    trainer does when it forms no mesh)."""
-    if max(1, tcfg.model_parallel) > 1:
-        return (f"--model_parallel {tcfg.model_parallel} is not yet ported "
-                "(multi-device slice)")
-    if tcfg.data_parallel and n_devices > 1:
-        return (f"--data_parallel over {n_devices} devices is not yet ported "
-                "(multi-device slice)")
-    return None
-
-
-def visible_devices(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def mesh_plan(tcfg: TrainConfig, n_ranks: int) -> Optional[tuple]:
+    """The mesh the JAX trainer would form over ``n_ranks`` devices, as
+    ``(ranks, model_parallel)``, or None for one device (``data_parallel``
+    on one device trains there). ``model_parallel`` above ``n_ranks``
+    raises rather than train on fewer devices than asked for."""
+    tp = max(1, tcfg.model_parallel)
+    if tp > 1 and n_ranks < tp:
+        raise ValueError(f"model_parallel={tp} requires at least {tp} devices; "
+                         f"{n_ranks} visible")
+    if not (tcfg.data_parallel or tp > 1) or n_ranks <= 1:
+        return None
+    # --model_parallel alone: pure tensor parallelism over the first tp ranks
+    return tuple(range(n_ranks if tcfg.data_parallel else tp)), tp
 
 
 class _Readback:
@@ -139,13 +157,32 @@ class ARCVAETrainer:
         self.learning_rate = tcfg.learning_rate
         self.device = tree_leaves(params)[0].device
 
-        refusal = multi_device_refusal(tcfg, visible_devices(self.device))
-        if refusal is not None:
-            raise NotImplementedError(refusal)
+        # The mesh (None on one device; see the module docstring). A rank
+        # outside a pure tensor-parallel mesh is idle: it trains nothing.
+        self.mesh, self.layouts, self.idle = None, None, False
+        plan = mesh_plan(tcfg, pmesh.world_size())
+        if plan is not None:
+            self.mesh = pmesh.make_mesh(plan[1], plan[0])
+            self.idle = self.mesh is None
+        if self.mesh is not None:
+            if tcfg.batch_size % self.mesh.data != 0:
+                raise ValueError(f"batch_size {tcfg.batch_size} must divide over "
+                                 f"{self.mesh.data} data-parallel devices")
+            if self.mesh.model > 1:
+                if mcfg.use_pallas:
+                    raise ValueError(
+                        "model_parallel > 1 requires use_pallas=False: the fused "
+                        "kernels hold whole gate/vocab blocks and have no "
+                        "partitioning rule for model-sharded operands "
+                        "(config.py TrainConfig.model_parallel)")
+                self.layouts = pmesh.param_layout(params, self.mesh.model)
+                params = pmesh.shard_params(self.mesh, params, self.layouts)
 
         seed = tcfg.seed if seed is None else seed
         self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(seed)
+        self._generator.manual_seed(
+            pmesh.fold_seed(seed, self.mesh.data_rank)
+            if self.mesh is not None and self.mesh.model == 1 else seed)
         self._shuffle_rng = np.random.default_rng(seed)
 
         self.checkpoint_dir = Path(tcfg.checkpoint_dir)
@@ -163,6 +200,7 @@ class ARCVAETrainer:
 
         self.params = params
         self.opt_states = {name: adam_init(p) for name, p in params.items()}
+        self._bind_steps()
 
         self._device_data = not tcfg.host_data
         # device-resident corpora of this trainer, by dataset identity (the
@@ -171,16 +209,49 @@ class ARCVAETrainer:
 
     # ---------------------------------------------------------------- utils
 
+    def _bind_steps(self) -> None:
+        """The step functions of this trainer, with one signature each on
+        one device and on a mesh (``train/steps.py``)."""
+        m, t, mesh = self.mcfg, self.tcfg, self.mesh
+        if mesh is None:
+            self._step = lambda p, o, *a: train_step(p, o, m, t, *a)
+            self._step_gather = lambda p, o, *a: train_step_gather(p, o, m, t, *a)
+            self._multi = lambda p, o, *a: multi_train_step(p, o, m, t, *a)
+            self._multi_gather = lambda p, o, *a: multi_train_step_gather(p, o, m, t, *a)
+            self._eval = lambda p, *a: eval_step(p, m, t, *a)
+            self._eval_gather = lambda p, *a: eval_step_gather(p, m, t, *a)
+            return
+        self._step = make_dp_train_step(mesh, m, t, self.layouts)
+        self._step_gather = make_dp_train_step_gather(mesh, m, t, self.layouts)
+        self._multi = None  # a mesh fed from the host runs one step a dispatch
+        self._multi_gather = make_dp_multi_train_step_gather(mesh, m, t, self.layouts)
+        self._eval = make_dp_eval_step(mesh, m, t)
+        self._eval_gather = make_dp_eval_step_gather(mesh, m, t)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and the history (rank 0)."""
+        return pmesh.rank() == 0
+
+    @property
+    def _drop_partial(self) -> bool:
+        """Partial batches are dropped only when the batch axis is split over
+        ranks (data axis > 1): an indivisible remainder cannot split. A pure
+        tensor-parallel mesh runs them as one device does."""
+        return self.mesh is not None and self.mesh.data > 1
+
     def _next_noise(self, batch: int, length: int, tf_ratio: float,
                     steps: Optional[int] = None):
-        """One step's noise (``train/steps.py:draw_noise``), or a list of
-        ``steps`` of them for a K-chunk. Every device draw of the trainer
-        goes through here, in the order the JAX trainer splits its key:
-        the train steps, then the true-loss batches, then validation."""
-        if steps is None:
-            return draw_noise(self._generator, self.mcfg, batch, length, tf_ratio)
-        return [draw_noise(self._generator, self.mcfg, batch, length, tf_ratio)
-                for _ in range(steps)]
+        """One step's noise (``train/steps.py:draw_noise``; on a mesh this
+        rank's, ``mesh_noise``), or a list of ``steps`` of them for a
+        K-chunk. Every device draw of the trainer goes through here, in the
+        order the JAX trainer splits its key: the train steps, then the
+        true-loss batches, then validation."""
+        def one():
+            if self.mesh is None:
+                return draw_noise(self._generator, self.mcfg, batch, length, tf_ratio)
+            return mesh_noise(self._generator, self.mesh, self.mcfg, batch, length, tf_ratio)
+        return one() if steps is None else [one() for _ in range(steps)]
 
     def compute_beta(self, epoch: int) -> float:
         return self.tcfg.compute_beta(epoch)
@@ -190,7 +261,8 @@ class ARCVAETrainer:
 
     def _batches(self, dataset, shuffle: bool):
         it = dataset.to_batches(self.batch_size, shuffle=shuffle,
-                                rng=self._shuffle_rng if shuffle else None)
+                                rng=self._shuffle_rng if shuffle else None,
+                                drop_last=self._drop_partial)
         return prefetch_to_device(it, size=2, device=self.device)
 
     def _dev_data(self, dataset):
@@ -215,7 +287,7 @@ class ARCVAETrainer:
         indices cross to the device in one copy."""
         batches = list(dataset.to_index_batches(
             self.batch_size, shuffle=shuffle,
-            rng=self._shuffle_rng if shuffle else None))
+            rng=self._shuffle_rng if shuffle else None, drop_last=self._drop_partial))
         if not batches:
             return []
         flat = to_device(np.concatenate(batches).astype(np.int64), self.device)
@@ -315,7 +387,7 @@ class ARCVAETrainer:
             if batch_idx % 10 == 0 and hasattr(pbar, "set_postfix"):
                 pbar.set_postfix({"loss": f"{loss_val:.4f}"})
 
-        K = max(1, tcfg.steps_per_dispatch)
+        K = 1 if self.mesh is not None and not dev else max(1, tcfg.steps_per_dispatch)
         chunk = []  # payloads awaiting a K-step dispatch
         if dev:
             toks_dev, props_dev = self._dev_data(self.dataset)
@@ -327,11 +399,10 @@ class ARCVAETrainer:
             B = payload_rows(p)
             noise = self._next_noise(B, L, tf)
             if dev:
-                return train_step_gather(self.params, self.opt_states, self.mcfg, tcfg,
-                                         toks_dev, props_dev, p, None, beta, tf, noise)
+                return self._step_gather(self.params, self.opt_states, toks_dev, props_dev, p,
+                                         None, beta, tf, noise)
             m, c = p
-            return train_step(self.params, self.opt_states, self.mcfg, tcfg, m, c, None,
-                              beta, tf, noise)
+            return self._step(self.params, self.opt_states, m, c, None, beta, tf, noise)
 
         def push_one(first_idx, p):
             self.params, self.opt_states, metrics = one_step(p)
@@ -340,12 +411,12 @@ class ARCVAETrainer:
         def dispatch_chunk(first_idx):
             noise = self._next_noise(self.batch_size, L, tf, steps=len(chunk))
             if dev:
-                self.params, self.opt_states, metrics = multi_train_step_gather(
-                    self.params, self.opt_states, self.mcfg, tcfg, toks_dev, props_dev,
+                self.params, self.opt_states, metrics = self._multi_gather(
+                    self.params, self.opt_states, toks_dev, props_dev,
                     torch.stack(chunk), None, beta, tf, noise)
             else:
-                self.params, self.opt_states, metrics = multi_train_step(
-                    self.params, self.opt_states, self.mcfg, tcfg,
+                self.params, self.opt_states, metrics = self._multi(
+                    self.params, self.opt_states,
                     torch.stack([m for m, _ in chunk]),
                     torch.stack([c for _, c in chunk]), None, beta, tf, noise)
             pending.append((first_idx, _Readback(metrics), len(chunk)))
@@ -421,13 +492,12 @@ class ARCVAETrainer:
                 break
             if dev:
                 noise = self._next_noise(payload.shape[0], L, 0.0)
-                m = eval_step_gather(self.params, self.mcfg, self.tcfg, toks_dev,
-                                     props_dev, payload, None, beta, 0.0, noise)
+                m = self._eval_gather(self.params, toks_dev, props_dev, payload, None, beta,
+                                      0.0, noise)
             else:
                 molecules, conditions = payload
                 noise = self._next_noise(molecules.shape[0], L, 0.0)
-                m = eval_step(self.params, self.mcfg, self.tcfg, molecules, conditions,
-                              None, beta, 0.0, noise)
+                m = self._eval(self.params, molecules, conditions, None, beta, 0.0, noise)
             readbacks.append(_Readback({k: m[k] for k in _EVAL_KEYS}))
         for rb in readbacks:
             m = rb.get()
@@ -437,6 +507,15 @@ class ARCVAETrainer:
             sums["collapse"] += m["collapse_penalty"]
             sums["prop"] += m["prop_loss"]
         n = len(readbacks)
+        if n == 0 and len(dataset) > 0:
+            # No full batch fit the data axis (partial batches cannot split):
+            # +inf for EVERY metric, not 0.0, since each is a --best_metric
+            # candidate and a zero would win the is_best comparison.
+            print(f"   ⚠️  {desc}: dataset has {len(dataset)} samples < "
+                  f"batch_size {self.batch_size}; partial batches cannot "
+                  "split over the data axis — metrics report +inf so they can "
+                  "never be selected as best")
+            return {k: float("inf") for k in sums}
         return {k: v / n if n else 0.0 for k, v in sums.items()}
 
     def _compute_true_train_loss(self, epoch: int,
@@ -462,7 +541,7 @@ class ARCVAETrainer:
             self.dataset.to_batches(monitor_bs, shuffle=False)))
         stats = monitor_step(self.params["encoder"], self.mcfg,
                              to_device(molecules, self.device),
-                             to_device(conditions, self.device))
+                             to_device(conditions, self.device), mesh=self.mesh)
         stats = _Readback(stats).get()
         print(f"   Latent Stats: μ=[{stats['mu_min']:.3f}, {stats['mu_max']:.3f}] "
               f"(mean={stats['mu_mean']:.3f}, std={stats['mu_std']:.3f}), "
@@ -473,18 +552,26 @@ class ARCVAETrainer:
     # ---------------------------------------------------------- persistence
 
     def _snapshot(self):
-        """Fresh copies of every param and Adam-state leaf, made on the
+        """Fresh full copies of every param and Adam-state leaf, made on the
         current stream, and an event recorded after them (None on the CPU):
-        the next in-place step cannot touch the copies."""
-        def copy(tree):
-            return tree_map(lambda t: t.detach().clone(), tree)
-
-        params, opt_states = copy(self.params), copy(self.opt_states)
+        the next in-place step cannot touch the copies. Split leaves are
+        gathered over the model group (a collective: every rank of the mesh
+        calls this)."""
+        if self.layouts is not None:
+            params = pmesh.gather_params(self.mesh, self.params, self.layouts)
+            opt_states = pmesh.gather_params(self.mesh, self.opt_states, self._opt_layouts())
+        else:
+            def copy(tree):
+                return tree_map(lambda t: t.detach().clone(), tree)
+            params, opt_states = copy(self.params), copy(self.opt_states)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         return params, opt_states, event
+
+    def _opt_layouts(self) -> dict:
+        return {n: {"step": False, "m": lay, "v": lay} for n, lay in self.layouts.items()}
 
     def save_checkpoint(self, epoch: int, is_best: bool = False,
                         best_val_loss: float = float("inf")) -> None:
@@ -498,6 +585,10 @@ class ARCVAETrainer:
         reason. The snapshot doubles the device residency of params and
         states until the write lands; ``--sync_checkpoint`` trades that for
         a stall. At most one save is in flight (``join_saves``).
+
+        On a mesh every rank calls this; rank 0 alone writes, full arrays
+        (split leaves gathered over the model group, which is then the
+        snapshot whatever ``async_checkpoint`` says).
         """
         self.join_saves()
         path = self.checkpoint_dir / f"checkpoint_epoch_{epoch:03d}.npz"
@@ -507,7 +598,11 @@ class ARCVAETrainer:
             "alphabet": self.alphabet,
         }
         params, opt_states, event = self.params, self.opt_states, None
-        if self.tcfg.async_checkpoint:
+        if self.layouts is not None:  # a collective over the model group
+            params, opt_states, event = self._snapshot()
+        if not self.is_writer:
+            return
+        if self.tcfg.async_checkpoint and self.layouts is None:
             params, opt_states, event = self._snapshot()
         history = {k: list(v) for k, v in self.history.items()}
         device = self.device
@@ -562,6 +657,9 @@ class ARCVAETrainer:
         if t is not None:
             t.join()
             self._save_thread = None
+        if self.mesh is not None:  # every rank past here sees rank 0's files
+            import torch.distributed as dist
+            dist.barrier(group=self.mesh.host_group)
         err, self._save_error = self._save_error, None
         if err is not None:
             raise RuntimeError("async checkpoint save failed") from err
@@ -572,6 +670,11 @@ class ARCVAETrainer:
         self.join_saves()
         loaded = ckpt_io.load_checkpoint(checkpoint_path)
         params, opt_states = ckpt_io.train_state_from_checkpoint(loaded, self.device)
+        if self.layouts is not None:  # re-shard the full arrays
+            params = pmesh.shard_params(
+                self.mesh, params, {n: self.layouts[n] for n in params})
+            opt_states = pmesh.shard_params(
+                self.mesh, opt_states, {n: self._opt_layouts()[n] for n in opt_states})
         # Keep predictor params if the checkpoint lacks them but we have them.
         self.params.update(params)
         self.opt_states.update(opt_states)
@@ -580,7 +683,9 @@ class ARCVAETrainer:
         return loaded["epoch"]
 
     def save_history(self, path) -> None:
-        save_history(self.history, path)
+        if self.is_writer:
+            save_history(self.history, path)
 
     def plot_history(self, save_path=None) -> None:
-        plot_history(self.history, save_path)
+        if self.is_writer:
+            plot_history(self.history, save_path)

@@ -229,7 +229,13 @@ def test_cuda_device_without_a_card_exits(files, name):
         main(["--checkpoint", files["ck_pred"], "--data", files["data"]])
 
 
-def test_encode_data_parallel_exits(files):
-    with pytest.raises(SystemExit, match="--data_parallel is not yet ported"):
-        tencode.main(["--checkpoint", files["ck"], "--data", files["data"], "--data_parallel",
-                      "--device", "cpu"])
+def test_encode_data_parallel_exits(files, tmp_path):
+    """--data_parallel on one device (no process group, no card) encodes
+    there, as the JAX CLI does when it forms no mesh: the same arrays as
+    without the flag."""
+    argv = ["--checkpoint", files["ck"], "--data", files["data"], "--device", "cpu",
+            "--report", str(tmp_path / "r.json")]
+    one = tencode.main(argv + ["--output", str(tmp_path / "a.npz")])
+    dp = tencode.main(argv + ["--output", str(tmp_path / "b.npz"), "--data_parallel"])
+    for k in ("mu", "logvar", "next_tokens", "decoded"):
+        np.testing.assert_array_equal(dp[k], one[k], err_msg=k)

@@ -87,3 +87,18 @@ def test_partial_copy_statements_equal_original(rel):
         assert seg in original, f"{rel}: {name or seg[:60]!r} differs from the original"
     stubs = {name for name, _ in port} & PARTIAL[rel]
     assert stubs == PARTIAL[rel]
+
+
+@pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
+                                 "parallel/launch.py", "parallel/dryrun.py"])
+def test_parallel_module_imports_no_jax(rel):
+    """The rank workers start from a fresh interpreter on a machine without
+    JAX: no module of ``parallel/`` imports jax or the JAX package, at any
+    depth of its code."""
+    tree = ast.parse((PORT_PKG / rel).read_text())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "mlx_vae_tpu"), f"{rel} imports {name}"

@@ -343,6 +343,13 @@ def test_generate_cli_on_cpu(tmp_path, suffix, capsys):
 
 
 def test_generate_cli_data_parallel_not_yet_ported(tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        generate_main(["--checkpoint", _checkpoint(tmp_path / "ck.npz"),
-                       "--device", "cpu", "--data_parallel"])
+    """--data_parallel on one device (no process group, no card) generates
+    there, as the JAX CLI does when it forms no mesh: the same tokens as
+    without the flag."""
+    argv = ["--checkpoint", _checkpoint(tmp_path / "ck.npz"), "--device", "cpu",
+            "--num_molecules", "10", "--batch_size", "4", "--max_length", "6", "--greedy",
+            "--target", "60", "1"]
+    generate_main(argv + ["--output", str(tmp_path / "a.npz")])
+    generate_main(argv + ["--output", str(tmp_path / "b.npz"), "--data_parallel"])
+    np.testing.assert_array_equal(np.load(tmp_path / "b.npz")["tokens"],
+                                  np.load(tmp_path / "a.npz")["tokens"])

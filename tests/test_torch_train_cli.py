@@ -142,7 +142,10 @@ def test_port_checkpoint_resumes_in_jax(tmp_path, data, capsys):
 
 
 def test_model_parallel_exits_before_loading(tmp_path, capsys):
-    with pytest.raises(SystemExit, match=r"not yet ported \(multi-device slice\)"):
+    """One CPU device and no process group: --model_parallel 2 exits with
+    the JAX trainer's message before the (missing) corpus is read."""
+    with pytest.raises(SystemExit, match="model_parallel=2 requires at least 2 devices; "
+                                         "1 visible"):
         ttrain.main(["--data", str(tmp_path / "missing.json"), *TINY, "--device", "cpu",
                      "--model_parallel", "2", "--use_pallas"])
     assert "disables --use_pallas" in capsys.readouterr().out

@@ -46,7 +46,7 @@ from mlx_vae_tpu_torch.models.vae import ARCVAE
 from mlx_vae_tpu_torch.train import checkpoint as ckpt_io
 from mlx_vae_tpu_torch.train import trainer as ttrainer
 from mlx_vae_tpu_torch.train.history import HISTORY_KEYS
-from mlx_vae_tpu_torch.train.trainer import ARCVAETrainer, multi_device_refusal
+from mlx_vae_tpu_torch.train.trainer import ARCVAETrainer, mesh_plan
 from mlx_vae_tpu_torch.utils.tree import params_from_numpy, params_to_numpy, tree_leaves
 
 MODEL = dict(vocab_size=24, embedding_dim=16, hidden_dim=32, latent_dim=8,
@@ -378,17 +378,21 @@ def test_plot_written_or_skipped(corpus, monkeypatch, capsys):
     assert "matplotlib not available" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("tp,dp,n,refused", [
-    (1, False, 1, False), (1, True, 1, False), (1, True, 2, True), (2, False, 4, True)])
-def test_multi_device_refusal(tp, dp, n, refused):
-    msg = multi_device_refusal(TrainConfig(model_parallel=tp, data_parallel=dp), n)
-    assert (msg is not None) is refused
-    if refused:
-        assert "not yet ported (multi-device slice)" in msg
+@pytest.mark.parametrize("tp,dp,n,plan", [
+    (1, False, 1, None), (1, True, 1, None), (1, True, 2, ((0, 1), 1)),
+    (2, False, 4, ((0, 1), 2))])
+def test_multi_device_refusal(tp, dp, n, plan):
+    """The JAX trainer's mesh rules, now ported: no mesh on one device (nor
+    without a flag), every rank with --data_parallel, the first tp ranks
+    with --model_parallel alone."""
+    assert mesh_plan(TrainConfig(model_parallel=tp, data_parallel=dp), n) == plan
 
 
 def test_trainer_refuses_model_parallel(corpus):
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    """Tensor parallelism over more ranks than the process has raises with
+    the JAX trainer's message, rather than train on one device."""
+    with pytest.raises(ValueError, match="model_parallel=2 requires at least 2 devices; "
+                                         "1 visible"):
         _port(corpus, _params(False), name="mp", cls=ARCVAETrainer, model_parallel=2)
 
 

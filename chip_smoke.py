@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-15 below
+    python3 chip_smoke.py            # phases 1-16 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -234,7 +234,19 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
     Printed, not gated: the DP step's ms on the two ranks sharing the card
     beside the one-rank step, and the gloo all-reduce of the gradient
     tree's bytes (the cost of the code path on one shared card, not a
-    scaling figure). Rows 1-8 of the kernels line gain ``launches_dp``.
+    scaling figure). Rows 1-8 of the kernels line gain ``launches_dp``;
+16. curve parity and diagnostics: (a) the three diagnostics
+    (``mlx_vae_tpu_torch/diagnostics/``) on cuda:0, each exiting 0; (b) the
+    curve-parity study's corpus (``studies/elbo_compare.py:build_corpus``,
+    45,000 synthetic molecules) and, through the study's ``run``, the first 3
+    epochs of its 50-epoch schedule in ``fixed_decoder`` and epoch 1 of
+    ``reference_zero_state`` (seed 67, default model, bf16, B=256, fused
+    route): each epoch's ELBO lies within the JAX seeds' mean +- 3 sample SD
+    at that epoch (``benchmarks/elbo_compare.json``); the launches are
+    counted per mode: rows 2-5 in the fixed mode, rows 2-3 and the gate pair
+    in the zero-state mode, each backward once a train step (the gate pair's
+    n x L a step), none of the other mode's. Printed: each epoch's step time
+    at B=256. Rows 2-5 and 9 of the kernels line gain ``launches_curve``.
 
 ``--sweep`` times the tensor-core kernel with each cluster size forced and
 the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
@@ -2889,6 +2901,93 @@ def _flat(tree, prefix=()):
     return [(prefix, tree)]
 
 
+# ------------------------------------------------------------------ phase 16
+# 16(b): the first epochs of the curve-parity study's 50-epoch schedule, by
+# mode; each epoch's ELBO must lie within the JAX seeds' mean +- CURVE_SDS
+# sample SD at that epoch (benchmarks/elbo_compare.json, 16 seeds)
+CURVE_EPOCHS = {"fixed_decoder": 3, "reference_zero_state": 1}
+CURVE_SDS = 3.0
+CURVE_SEED = 67
+CURVE_KERNELS = TRAIN_KERNELS + ("lstm_gates_fwd", "lstm_gates_bwd")
+
+
+def phase_curve(smi: str) -> dict:
+    """Phase 16 (the docstring): the diagnostics on the card, then the
+    study's first epochs in each mode. Returns the launches of rows 2-5 and
+    9 over (b)."""
+    import statistics
+
+    from mlx_vae_tpu_torch.diagnostics import check_decoder_grads, data_diagnostic, loss_signs
+    from mlx_vae_tpu_torch.studies import elbo_compare as ec
+
+    t_phase = time.perf_counter()
+    for name, mod in (("check_decoder_grads", check_decoder_grads),
+                      ("data_diagnostic", data_diagnostic), ("loss_signs", loss_signs)):
+        t0 = time.perf_counter()
+        _, rc = run_cli(mod.main, ["--device", "cuda"])
+        log(f"  (a) {name} --device cuda: exit {rc} ({time.perf_counter() - t0:.1f}s)")
+        if rc != 0:
+            raise AssertionError(f"16(a): {name} exited {rc}")
+
+    with open(ec.REPO / "benchmarks" / "elbo_compare.json") as f:
+        ref = json.load(f)
+    cfg = ref["config"]
+    t0 = time.perf_counter()
+    train_ds, val_ds = ec.build_corpus(cfg["molecules"], False, cfg["max_length"])
+    B, L = cfg["batch_size"], train_ds.max_length
+    steps = math.ceil(len(train_ds) / B)
+    log(f"  (b) the study's corpus: {cfg['molecules']} synthetic molecules, train {len(train_ds)} "
+        f"({steps} batches of {B}), val {len(val_ds)}, L={L} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    counters = {k: v for k, v in kernel_counters().items() if k in CURVE_KERNELS}
+    total = dict.fromkeys(CURVE_KERNELS, 0)
+    for mode, mcfg in ec.mode_configs(use_pallas=True).items():
+        stop = CURVE_EPOCHS[mode]
+        with tempfile.TemporaryDirectory() as ck:
+            tcfg = ec.train_config(cfg["epochs"], B, CURVE_SEED, ck)
+            reset_counts(counters)
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                curve = ec.run(mode, CURVE_SEED, mcfg, tcfg, train_ds, val_ds, cfg["epochs"],
+                               device="cuda", stop=stop)
+            torch.cuda.synchronize()
+            counts = read_counts(counters)
+        for c in curve:
+            e = c["epoch"]
+            xs = [r[e]["elbo"] for r in ref["runs"][mode].values()]
+            mu, sd = statistics.mean(xs), statistics.stdev(xs)
+            ok = math.isfinite(c["elbo"]) and abs(c["elbo"] - mu) <= CURVE_SDS * sd
+            log(f"  (b) {mode} seed {CURVE_SEED} epoch {e + 1}/{cfg['epochs']}: ELBO "
+                f"{c['elbo']:.4f} against the JAX seeds' {mu:.4f} +- {CURVE_SDS:g} x "
+                f"{sd:.4f} ({len(xs)} seeds): {'inside' if ok else 'OUTSIDE'}; val "
+                f"{c['val_loss']:.4f}, MI {c['mutual_info']:.3f}; epoch {c['seconds']:.2f}s, "
+                f"train pass {c['train_pass_s']:.2f}s = {c['train_pass_s'] * 1e3 / steps:.3f} ms a step "
+                f"[{smi}]")
+            if not ok:
+                raise AssertionError(f"16(b): {mode} epoch {e}'s ELBO {c['elbo']} lies outside "
+                                     f"the JAX band {mu} +- {CURVE_SDS} x {sd}")
+        log(f"  (b) {mode}: launches over {stop} epoch(s) {counts}")
+        zero = mode == "reference_zero_state"
+        want_zero = TRAIN_KERNELS[2:] if zero else ("lstm_gates_fwd", "lstm_gates_bwd")
+        used = [k for k in CURVE_KERNELS if k not in want_zero]
+        bwd = {"fused_encoder_bwd": steps * stop,
+               **({"lstm_gates_bwd": steps * stop * L * mcfg.num_layers} if zero else
+                  {"fused_train_decoder_bwd": steps * stop})}
+        if (any(counts[k] for k in want_zero) or min(counts[k] for k in used) < 1
+                or any(counts[k] != n for k, n in bwd.items())):
+            raise AssertionError(f"16(b): {mode}'s launches {counts}: expected none of "
+                                 f"{want_zero}, some of each of {used}, backwards {bwd}")
+        for k in CURVE_KERNELS:
+            total[k] += counts[k]
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
+CURVE_NOTE = ("phase 16(b): the curve-parity study's first epochs at B=256 (3 of "
+              "fixed_decoder, 1 of reference_zero_state), train, true-loss, validation and "
+              "latent-statistics passes")
+
+
 # kernel: (source, the TPU kernel it replaces, its row in phase 11's times,
 # the timed shape)
 SEQ_RECORDS = {
@@ -2992,6 +3091,11 @@ def main() -> int:
             f"{DRYRUN_N} gloo ranks on cuda:0")
         dp = phase_multi_device(smi, step_ms, tmp12)
 
+    log("[16 curve parity and diagnostics] the three diagnostics on cuda:0; the curve-parity "
+        "study's corpus and the first epochs of its 50-epoch schedule, default model, bf16, "
+        f"B=256, fused route, against the JAX seeds' band [{smi}]")
+    curve = phase_curve(smi)
+
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
     sampler_err = ("largest |kernel - plain| of the first step's scaled logits over "
@@ -3036,6 +3140,7 @@ def main() -> int:
             "replaces": TRAIN_REPLACES[kname], "launches": launches_train[kname],
             "launches_train_cli": cli["launches"][kname], "launches_dp": dp[kname],
             "launches_dp_note": "phase 15(b): one DP step, 2048 rows, rank 0",
+            "launches_curve": curve[kname], "launches_curve_note": CURVE_NOTE,
             **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
             "max_abs_err": errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output (forward) or "
@@ -3051,6 +3156,8 @@ def main() -> int:
             for kname in TRAIN_KERNELS] + [{
             "name": kname, "route": "cuda", "source": f"mlx_vae_tpu_torch/csrc/{src}",
             "replaces": f"mlx_vae_tpu/ops/{tpu}", "launches": launches_seq[kname],
+            **({"launches_curve": curve[kname], "launches_curve_note": CURVE_NOTE}
+               if kname in curve else {}),
             **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
             **({"launches_dp": dp[kname], "launches_dp_note": (
                 "phase 15(d): the dry run's scaled data-parallel step (hidden 1024, 4 layers, "

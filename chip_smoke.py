@@ -2,7 +2,7 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-16 below
+    python3 chip_smoke.py            # phases 1-17 below
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -116,9 +116,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    fused training decoder's logits specialization at the scaled model
    (H=1024, 4 layers, B=2048, L=64, f32 and bf16, teacher forcing 1.0 and
    0.9; in bf16 also phase 6's bitwise repeat and head-alone checks) and
-   the LSTM gate pair at [4096, 1024], [2048, 4096] and [4096, 256] (f32),
-   each against its plain version, with phase 6's tolerances and
-   agreement floors;
+   the LSTM gate pair at [4096, 1024], [2048, 4096], [4096, 256], [512,
+   256], [256, 256] and [37, 102] (f32), each against its plain version,
+   with phase 6's tolerances and agreement floors;
 10. the scaled slice: ``train_step`` at hidden 1024 / 4 layers / latent 512,
    bf16, B=2048, L=64, fused route (the per-layer one at this size) for 4
    steps: losses finite, the last below the first, and per step 4
@@ -134,7 +134,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    of each, in turns, each queued behind a 128 MB write that evicts the L2
    and a spin kernel, so that every input comes from device memory and the
    host's launch time stays outside its events;
-   ``mlx_vae_tpu_torch/bench_gates.py:median_ms``); the whole-stack kernels at the scaled
+   ``mlx_vae_tpu_torch/bench_gates.py:median_ms``; at [4096, 256] and at
+   [256, 256], the curve-parity study's batch); the whole-stack kernels at
+   the scaled
    shape through their ``launch_*`` functions (the route check); the
    scaled step on the fused route against the plain route, in tokens/s;
    and one scaled fused step under ``torch.profiler`` (as in phase 8, with
@@ -246,7 +248,24 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
     counted per mode: rows 2-5 in the fixed mode, rows 2-3 and the gate pair
     in the zero-state mode, each backward once a train step (the gate pair's
     n x L a step), none of the other mode's. Printed: each epoch's step time
-    at B=256. Rows 2-5 and 9 of the kernels line gain ``launches_curve``.
+    at B=256. Rows 2-5 and 9 of the kernels line gain ``launches_curve``;
+17. models the whole-stack kernels refuse, routed before any launch as the
+   JAX package routes them: (a) one bf16 train step of a V=600 model at the
+   default width (B=512, L=64) and of a 9-layer one (B=256), each with
+   every launch count set to 0 just before: rows 7 and 8 n times (the
+   encoder on the sequence kernels), row 9 L*n times each way (the decoder
+   on the scan), no whole-stack kernel; then each model's step against the
+   plain route (``use_pallas=False``) on the same params and noise, V=600
+   in f32 and bf16, 9 layers in bf16, with phase 7's bounds. (b)
+   ``data.prepare --synthetic 2000 --vocab_size 600`` and ``cli.train
+   --use_pallas`` for one bf16 epoch at B=256: a finite history, a best
+   checkpoint, rows 7-9 launched and no whole-stack kernel. (c)
+   ``cli.encode`` on that checkpoint (f32): its notes name the sequence
+   kernels and the gate pair and no sampler kernel, the counters show only
+   rows 7 and 9's forwards, and its TF=1 argmax agrees with the plain route
+   on the card on >= 99.0% of first tokens and >= 97.0% of rows. Rows 7-9
+   of the kernels line gain ``launches_refused``, row 9 its times at [256,
+   256] (``*_b256``).
 
 ``--sweep`` times the tensor-core kernel with each cluster size forced and
 the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
@@ -1708,7 +1727,7 @@ def phase_scaled_kernels() -> dict:
                                 worst["fused_train_decoder_fwd_logits"])
         del k, p, wd, params
         torch.cuda.empty_cache()
-    for B, Hg in ((4096, 1024), (2048, 4096), (4096, 256)):
+    for B, Hg in GATE_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B + Hg)
         gates = 3 * torch.randn((B, 4 * Hg), generator=g, device="cuda")
         c, dh, dc = (torch.randn((B, Hg), generator=g, device="cuda") for _ in range(3))
@@ -1722,6 +1741,15 @@ def phase_scaled_kernels() -> dict:
         compare(f"float32 gates bwd [{B}, {Hg}] [dgates, dc_prev]", kb, pb, "float32",
                 worst["lstm_gates_bwd"])
     return worst
+
+
+# the gate pair against its plain version: the scaled and wide shapes, the
+# default model's zero-state step (B=4096), the curve-parity study's B=256
+# and phase 17's B=512 and 256 (H=256), ragged rows and an unaligned width
+GATE_SHAPES = ((4096, 1024), (2048, 4096), (4096, 256), (512, 256), (256, 256), (37, 102))
+# the gate pair's timed shapes: the zero-state step's, and the study's B=256,
+# where the launch's own latency dominates
+GATE_TIMED = ((4096, 256), (256, 256))
 
 
 def kernel_counters() -> dict:
@@ -1751,9 +1779,10 @@ def read_counts(counters: dict) -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
-def fused_vs_plain(what: str, model, x, cond, B: int, L: int) -> None:
+def fused_vs_plain(what: str, model, x, cond, B: int, L: int,
+                   dtypes=("float32", "bfloat16")) -> None:
     """One step on the fused route against the plain route, same params and
-    noise, in f32 and bf16: phase 7's bounds."""
+    noise, in each of ``dtypes``: phase 7's bounds."""
     import math
 
     from mlx_vae_tpu_torch.config import TrainConfig
@@ -1767,6 +1796,8 @@ def fused_vs_plain(what: str, model, x, cond, B: int, L: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(6)
     for dtype, s_tol, same_min, leaf_off in (("float32", 1e-4, 0.9999, 1e-4),
                                               ("bfloat16", 1e-2, 0.98, None)):
+        if dtype not in dtypes:
+            continue
         cfg, p0 = model(dtype)
         noise = draw_noise(gen, cfg, B, L, 0.9)
         out = {}
@@ -1939,34 +1970,38 @@ def phase_scaled_times(smi: str) -> dict:
     del enc_res, dec_res, wd, we, params
     torch.cuda.empty_cache()
 
-    # the gate pair at its main path's shape (default model: B=4096, H=256)
-    Bg, Hg = 4096, 256
-    g = torch.Generator(device="cuda").manual_seed(9)
-    gates = torch.randn((Bg, 4 * Hg), generator=g, device="cuda")
-    c, dh, dc = (torch.randn((Bg, Hg), generator=g, device="cuda") for _ in range(3))
-    zero = torch.zeros_like(gates)
-    k_ms, p_ms = turns("lstm_gates_fwd", lambda: fl.gates_fwd(gates, c),
-                       lambda: fl.gates_fwd_reference(gates, c), smi, 50, 50)
-    kb_ms, pb_ms = turns("lstm_gates_bwd", lambda: fl.gates_bwd(gates, c, dh, dc),
-                         lambda: fl.gates_bwd_reference(gates, c, dh, dc), smi, 50, 50)
+    # the gate pair at its main paths' shapes (default model: B=4096 and 256,
+    # H=256)
     aten = torch.ops.aten
-    hy, cy, ws = aten._thnn_fused_lstm_cell(gates, zero, c)
-    med = median_ms({
-        "kernel fwd": lambda: fl.gates_fwd(gates, c),
-        "aten fwd": lambda: aten._thnn_fused_lstm_cell(gates, zero, c),
-        "kernel bwd": lambda: fl.gates_bwd(gates, c, dh, dc),
-        "aten bwd": lambda: aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, ws, False)},
-        GATE_SAMPLES, l2_scrub())
-    log(f"  gate pair vs PyTorch's fused LSTM cell (aten::_thnn_fused_lstm_cell) [{Bg}, {Hg}] "
-        f"f32, median device ms of {GATE_SAMPLES} launches each, interleaved, each behind a "
-        f"128 MB write that evicts the L2: forward kernel "
-        f"{med['kernel fwd']:.5f} / aten {med['aten fwd']:.5f}, backward kernel "
-        f"{med['kernel bwd']:.5f} / aten {med['aten bwd']:.5f} [{smi}]")
-    units = Bg * Hg
-    out["lstm_gates_fwd"] = (med["kernel fwd"], p_ms, med["aten fwd"],
-                             *bound_ms(40.0 * units, 28.0 * units, "float32"))
-    out["lstm_gates_bwd"] = (med["kernel bwd"], pb_ms, med["aten bwd"],
-                             *bound_ms(70.0 * units, 48.0 * units, "float32"))
+    for Bg, Hg in GATE_TIMED:
+        g = torch.Generator(device="cuda").manual_seed(9)
+        gates = torch.randn((Bg, 4 * Hg), generator=g, device="cuda")
+        c, dh, dc = (torch.randn((Bg, Hg), generator=g, device="cuda") for _ in range(3))
+        zero = torch.zeros_like(gates)
+        tag = "" if (Bg, Hg) == GATE_TIMED[0] else f" [{Bg}, {Hg}]"
+        k_ms, p_ms = turns(f"lstm_gates_fwd{tag}", lambda: fl.gates_fwd(gates, c),
+                           lambda: fl.gates_fwd_reference(gates, c), smi, 50, 50)
+        kb_ms, pb_ms = turns(f"lstm_gates_bwd{tag}", lambda: fl.gates_bwd(gates, c, dh, dc),
+                             lambda: fl.gates_bwd_reference(gates, c, dh, dc), smi, 50, 50)
+        hy, cy, ws = aten._thnn_fused_lstm_cell(gates, zero, c)
+        med = median_ms({
+            "kernel fwd": lambda: fl.gates_fwd(gates, c),
+            "aten fwd": lambda: aten._thnn_fused_lstm_cell(gates, zero, c),
+            "kernel bwd": lambda: fl.gates_bwd(gates, c, dh, dc),
+            "aten bwd": lambda: aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, ws,
+                                                                         False)},
+            GATE_SAMPLES, l2_scrub())
+        log(f"  gate pair vs PyTorch's fused LSTM cell (aten::_thnn_fused_lstm_cell) [{Bg}, "
+            f"{Hg}] f32, median device ms of {GATE_SAMPLES} launches each, interleaved, each "
+            f"behind a 128 MB write that evicts the L2: forward kernel "
+            f"{med['kernel fwd']:.5f} / aten {med['aten fwd']:.5f}, backward kernel "
+            f"{med['kernel bwd']:.5f} / aten {med['aten bwd']:.5f} [{smi}]")
+        units = Bg * Hg
+        out[f"lstm_gates_fwd{tag}"] = (med["kernel fwd"], p_ms, med["aten fwd"],
+                                       *bound_ms(40.0 * units, 28.0 * units, "float32"))
+        out[f"lstm_gates_bwd{tag}"] = (med["kernel bwd"], pb_ms, med["aten bwd"],
+                                       *bound_ms(70.0 * units, 48.0 * units, "float32"))
+        del gates, c, dh, dc, zero, hy, cy, ws
 
     # the scaled step, plain route against the fused route
     tcfg = TrainConfig(batch_size=SB)
@@ -2988,6 +3023,151 @@ CURVE_NOTE = ("phase 16(b): the curve-parity study's first epochs at B=256 (3 of
               "latent-statistics passes")
 
 
+# ------------------------------------------------------------------ phase 17
+# models the whole-stack kernels refuse: a vocabulary beyond the kernels'
+# 512 (the encoder on the sequence kernels, rows 7-8, the decoder on the
+# scan through the gate pair, row 9) and a 9-layer stack
+REFUSED_KERNELS = ("seq_lstm_fwd", "seq_lstm_bwd", "lstm_gates_fwd", "lstm_gates_bwd")
+REFUSED_V = 600
+
+
+def refused_model(dtype: str, seed: int = 0, **kw):
+    """A model the whole-stack kernels refuse, on the fused route (so on
+    the sequence kernels and the scan), and its params from ``seed``."""
+    from mlx_vae_tpu_torch.bench import init_train_params
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.models.decoder import train_decoder_route
+    from mlx_vae_tpu_torch.models.encoder import encoder_route
+
+    cfg = ModelConfig(compute_dtype=dtype, use_pallas=True, **kw)
+    if (encoder_route(cfg), train_decoder_route(cfg)) != ("seq", "scan"):
+        raise AssertionError(f"{kw}: routes {encoder_route(cfg)}, {train_decoder_route(cfg)}, "
+                             "expected seq, scan")
+    return cfg, init_train_params(cfg, "cuda", seed)
+
+
+def refused_counts(what: str, got: dict, want: dict) -> None:
+    """The launches of a refused model's run: ``want``'s kernels exactly
+    where it gives a count, at least once where it gives None, and none of
+    the whole-stack kernels."""
+    log(f"  {what}: launches {got}")
+    bad = {k: v for k, v in got.items()
+           if (k in want and (v < 1 if want[k] is None else v != want[k]))
+           or (k not in want and v != 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches {got}, expected {want} and no other")
+
+
+def phase_refused(smi: str, tmp: str) -> dict:
+    """Phase 17 (the docstring): returns the launches of rows 7-9 over (a)'s
+    counted steps and (b)'s training run."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli import encode as cli_encode
+    from mlx_vae_tpu_torch.cli import train as cli_train
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.data import prepare
+    from mlx_vae_tpu_torch.data.split import load_and_split
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import train_step
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    counters["fused_generate_tc"] = (fused_generate, "tc_launches")
+    counters["fused_generate_core"] = (fused_generate, "core_launches")
+    total = dict.fromkeys(REFUSED_KERNELS, 0)
+
+    # (a) one counted step, then one step against the plain route, V=600
+    # (B=512) and 9 layers (B=256)
+    for kw, B, dtypes in ((dict(vocab_size=REFUSED_V), 512, ("bfloat16", "float32")),
+                          (dict(num_layers=9), 256, ("bfloat16",))):
+        L = 64
+        cfg, params = refused_model("bfloat16", seed=7, **kw)
+        x, cond = synthetic_batch(cfg, B, L)
+        opt = {k: adam_init(v) for k, v in params.items()}
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        _, _, m = train_step(params, opt, cfg, TrainConfig(batch_size=B), x, cond, gen, 0.05,
+                             0.9)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = read_counts(counters)
+        n = cfg.num_layers
+        tag = ", ".join(f"{k}={v}" for k, v in kw.items())
+        refused_counts(f"(a) {tag}, bf16, B={B} L={L}, one step ({ms:.1f} ms with the first "
+                       f"call's setup; total loss {float(m['total_loss']):.4f})", got,
+                       {"seq_lstm_fwd": n, "seq_lstm_bwd": n, "lstm_gates_fwd": L * n,
+                        "lstm_gates_bwd": L * n})
+        if not math.isfinite(float(m["total_loss"])):
+            raise AssertionError(f"(a) {tag}: the loss is not finite")
+        for k in total:
+            total[k] += got[k]
+        del params, opt, m
+        torch.cuda.empty_cache()
+        fused_vs_plain(f"(a) {tag} B={B}", lambda dt, kw=kw: refused_model(dt, seed=3, **kw),
+                       x, cond, B, L, dtypes)
+
+    # (b) data.prepare and one bf16 epoch of cli.train --use_pallas at V=600
+    s, ck = f"{tmp}/v600.json", f"{tmp}/ck600"
+    run_main(prepare.main, ["--synthetic", "2000", "--vocab_size", str(REFUSED_V),
+                            "--output", s])
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    run_main(cli_train.main, ["--data", s, "--vocab_size", str(REFUSED_V), "--batch_size",
+                              "256", "--compute_dtype", "bfloat16", "--use_pallas",
+                              "--epochs", "1", "--checkpoint_dir", ck])
+    got = read_counts(counters)
+    h = read_history(ck)
+    log(f"  (b) cli.train --use_pallas, V={REFUSED_V}, 2,000 molecules, B=256, bf16, one "
+        f"epoch: {time.perf_counter() - t0:.1f}s; history {h} [{smi}]")
+    refused_counts("(b) cli.train", got, dict.fromkeys(REFUSED_KERNELS))
+    if h["epoch"] != [0] or not all(math.isfinite(v) for k in h for v in h[k]):
+        raise AssertionError(f"(b) the history: {h}")
+    if not os.path.exists(f"{ck}/checkpoint_best.npz"):
+        raise AssertionError("(b) no checkpoint_best.npz")
+    for k in total:
+        total[k] += got[k]
+
+    # (c) cli.encode on that checkpoint (f32, the CLI's default), against
+    # the plain route on the card
+    best = f"{ck}/checkpoint_best.npz"
+    reset_counts(counters)
+    _, res = run_cli(cli_encode.main, ["--checkpoint", best, "--data", s, "--split", "test",
+                                       "--batch_size", "256", "--device", "cuda",
+                                       "--output", f"{tmp}/lat600.npz",
+                                       "--report", f"{tmp}/rep600.json"])
+    refused_counts("(c) cli.encode", read_counts(counters),
+                   {"seq_lstm_fwd": None, "lstm_gates_fwd": None})
+    notes = res["notes"]
+    log(f"  (c) the kernels' notes: {notes}")
+    if not ("fused_seq_lstm" in notes["encode"] and "fused_lstm_gates" in notes["next_token"]
+            and "fused_lstm_gates" in notes["greedy"]
+            and "fused_generate" not in notes["greedy"]):
+        raise AssertionError(f"(c) the notes name other kernels than the route's: {notes}")
+    test = load_and_split(s, property_keys=("tpsa",))[2]
+    params, pcfg = plain_setup(best, "float32")
+    plain = cli_encode.encode_split(params, pcfg, torch.device("cuda"), test.molecules,
+                                    test.properties_normalized, 256)
+    first, rows = agreement(torch.from_numpy(res["next_tokens"]),
+                            torch.from_numpy(plain["next_tokens"]))
+    tok = float(np.mean(res["next_tokens"] == plain["next_tokens"]))
+    greedy = agreement(torch.from_numpy(res["decoded"]), torch.from_numpy(plain["decoded"]))
+    log(f"  (c) {len(test.molecules)} test rows: the TF=1 argmax against the plain route: "
+        f"first tokens {first:.4%}, rows {rows:.4%}, tokens {tok:.4%}; greedy from z=mu: "
+        f"first tokens {greedy[0]:.4%}, rows {greedy[1]:.4%}; mu max |diff| "
+        f"{np.abs(res['mu'] - plain['mu']).max():.3e}")
+    if first < AGREE_FIRST or rows < AGREE_ROWS:
+        raise AssertionError("(c) the TF=1 argmax parts from the plain route")
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
+REFUSED_NOTE = ("phase 17: the V=600 (B=512) and 9-layer (B=256) bf16 counted steps and "
+                "the V=600 cli.train epoch (2,000 molecules, B=256)")
+
+
 # kernel: (source, the TPU kernel it replaces, its row in phase 11's times,
 # the timed shape)
 SEQ_RECORDS = {
@@ -3096,6 +3276,12 @@ def main() -> int:
         f"B=256, fused route, against the JAX seeds' band [{smi}]")
     curve = phase_curve(smi)
 
+    log(f"[17 refused models] V={REFUSED_V} and 9-layer train steps on the sequence kernels and "
+        "the scan against the plain route; data.prepare, cli.train --use_pallas and "
+        f"cli.encode at V={REFUSED_V} [{smi}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        refused = phase_refused(smi, tmp)
+
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
     sampler_err = ("largest |kernel - plain| of the first step's scaled logits over "
@@ -3158,6 +3344,11 @@ def main() -> int:
             "replaces": f"mlx_vae_tpu/ops/{tpu}", "launches": launches_seq[kname],
             **({"launches_curve": curve[kname], "launches_curve_note": CURVE_NOTE}
                if kname in curve else {}),
+            **({"launches_refused": refused[kname], "launches_refused_note": REFUSED_NOTE}
+               if kname in refused else {}),
+            **({f"{k}_b256": v for k, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                                                seq_times[f"{kname} [256, 256]"])}
+               if kname.startswith("lstm_gates") else {}),
             **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
             **({"launches_dp": dp[kname], "launches_dp_note": (
                 "phase 15(d): the dry run's scaled data-parallel step (hidden 1024, 4 layers, "

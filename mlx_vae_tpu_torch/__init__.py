@@ -7,15 +7,16 @@ mirror ``mlx_vae_tpu`` so each counterpart is easy to find; parameter trees
 are the same nested dicts of the ``.npz`` checkpoint contract, so numpy
 trees move between the two packages unchanged.
 
-Ported so far: the generation-serving path (``cli/serve.py``,
-``cli/generate.py``) on the fused sampler (``ops/fused_decoder.py`` +
-``csrc/fused_generate.cu``), and the single-device train step
-(``train/steps.py``) on the fused encoder (``ops/fused_encoder.py`` +
-``csrc/fused_encoder.cu``) and the fused training decoder with CE
-(``ops/fused_train_decoder.py`` + ``csrc/fused_train_decoder.cu``);
-``python -m mlx_vae_tpu_torch.bench`` measures the step.
+Every part of the JAX package has its counterpart here: training
+(``cli/train.py``, ``train/``), evaluation and design (``cli/encode.py``,
+``cli/interpolate.py``, ``cli/optimize.py``), generation and serving
+(``cli/generate.py``, ``cli/serve.py``), multi-device runs (``parallel/``),
+the diagnostics and the curve-parity study. Each Pallas kernel of the JAX
+package is a hand-written CUDA kernel for the H100 (``csrc/``, bound in
+``ops/``) with a plain PyTorch twin that CPU tensors run.
 """
 
-from mlx_vae_tpu_torch.config import ModelConfig
+from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
+from mlx_vae_tpu_torch.version import __version__
 
-__all__ = ["ModelConfig"]
+__all__ = ["__version__", "ModelConfig", "TrainConfig"]

@@ -1,29 +1,38 @@
-"""Launch shapes of the gate pair's backward on one CUDA card; prints ONE
-JSON line.
+"""Launch shapes of the gate pair on one CUDA card; prints ONE JSON line.
 
     python -m mlx_vae_tpu_torch.bench_gates [--samples N]
 
-At the default model's main-path shape (B = 4096, H = 256, f32) it takes
-the median device time of interleaved launches of:
+Each call below is timed by the median device time of interleaved launches:
 
-* ``kernel``: ``csrc/fused_lstm_gates.cu:gates_bwd_kernel<4>`` as the port
-  launches it (``ops/fused_lstm.py:gates_bwd``): a flat 2-D grid, one
-  thread a float4 chunk of one row;
-* ``rows xN``: the same body inside a grid-stride loop over row groups,
-  with the grid cut to N blocks an SM (built here from the source below);
-* ``aten``: ``aten::_thnn_fused_lstm_cell_backward_impl``, the library's
-  kernel for the same function;
-* ``copy``: one ``copy_`` of 6 floats a unit, which moves the backward's 48
-  bytes a unit (each read once, each written once).
+* the backward at the default model's main-path shape (B = 4096, H = 256,
+  f32):
+  * ``kernel``: ``csrc/fused_lstm_gates.cu:gates_bwd_kernel<4>`` as the
+    port launches it (``ops/fused_lstm.py:gates_bwd``): a flat 2-D grid,
+    one thread a float4 chunk of one row;
+  * ``rows xN``: the same body inside a grid-stride loop over row groups,
+    with the grid cut to N blocks an SM (built here from the source below);
+  * ``aten``: ``aten::_thnn_fused_lstm_cell_backward_impl``, the library's
+    kernel for the same function;
+  * ``copy``: one ``copy_`` of 6 floats a unit, which moves the backward's
+    48 bytes a unit (each read once, each written once);
+* the forward at B = 4096 and at B = 256 (the curve-parity study's batch),
+  H = 256:
+  * ``kernel``: ``gates_fwd_kernel<4, 1>`` as the port launches it
+    (``ops/fused_lstm.py:gates_fwd``), one row a thread;
+  * ``rows R``: ``gates_fwd_kernel<4, R>``, R = 2 and 4 rows a thread (all
+    their loads issued before any arithmetic), launched from this
+    source, which includes the port's;
+  * ``aten``: ``aten::_thnn_fused_lstm_cell``;
+  * ``copy``: one ``copy_`` of 3.5 floats a unit: the forward's 28 bytes.
 
 Each launch is queued behind a spin kernel, so the bracket of CUDA events
 holds its device time and not the host's launch time. Two passes: ``cold``
 writes 128 MB (over twice the L2) before each launch, so that every input
-comes from device memory as the bound assumes; ``interleaved`` does not, as
-``chip_smoke.py`` phase 11 does not, so a call may find inputs that the
-call before it read still in L2. Every shape is first held against
-``gates_bwd_reference``. The card's name and power limit go to
-stderr. Without CUDA the script exits 2 and prints no result.
+comes from device memory as the bound assumes (``chip_smoke.py`` phase 11
+times so); ``interleaved`` does not, so a call may find inputs that the call
+before it read still in L2. Every kernel is first held against its plain
+version. The card's name and power limit go to stderr. Without CUDA the
+script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -42,11 +51,12 @@ from mlx_vae_tpu_torch.ops import fused_lstm as fl
 from mlx_vae_tpu_torch.ops.build import BUILD, CSRC, nvcc
 
 B, H = 4096, 256
+FWD_BATCHES = (4096, 256)  # the forward's timed batches, at H
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3
 SPIN_CYCLES = 2_000_000  # ~1 ms of device spin ahead of each timed launch
 
 ROWS_SRC = r"""
-#include "train_common.cuh"
+#include "fused_lstm_gates.cu"
 
 // gates_bwd_kernel<4>'s body in a loop over row groups: thread (x, y) of
 // block (bx, by) owns units (bx * blockDim.x + x) * 4 .. + 3 of rows
@@ -86,6 +96,22 @@ __global__ void __launch_bounds__(256) gates_bwd_rows(
   }
 }
 
+// gates_fwd_kernel<4, rows> of the port's source, on its own grid.
+extern "C" int gates_fwd_rows_launch(const void* gates, const void* c, void* h_out, void* c_out,
+                                     int B, int H, int rows, void* stream) {
+  if (H % 4 != 0) return (int)cudaErrorInvalidValue;
+  const float* g = static_cast<const float*>(gates);
+  const float* cc = static_cast<const float*>(c);
+  float* h = static_cast<float*>(h_out);
+  float* co = static_cast<float*>(c_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 2: return (int)launch_fwd<4, 2>(g, cc, h, co, B, H, s);
+    case 4: return (int)launch_fwd<4, 4>(g, cc, h, co, B, H, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // per_sm blocks an SM, each walking an equal share of the row groups.
 extern "C" int gates_bwd_rows_launch(const void* gates, const void* c, const void* dh,
                                      const void* dc, void* dgates, void* dc_prev, int B, int H,
@@ -121,7 +147,9 @@ def log(*a) -> None:
 
 def build_rows() -> ctypes.CDLL:
     """Build ``ROWS_SRC`` (``nvcc``, as ``ops/build.py`` builds ``csrc/``)."""
-    digest = hashlib.sha256(ROWS_SRC.encode() + (CSRC / "train_common.cuh").read_bytes())
+    digest = hashlib.sha256(ROWS_SRC.encode() + b"".join(
+        (CSRC / n).read_bytes() for n in ("fused_lstm_gates.cu", "train_common.cuh",
+                                          "wgmma.cuh")))
     so = BUILD / f"libbench_gates_rows_{digest.hexdigest()[:12]}.so"
     if not so.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
@@ -134,6 +162,9 @@ def build_rows() -> ctypes.CDLL:
     lib.gates_bwd_rows_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.gates_bwd_rows_launch.restype = ctypes.c_int
+    lib.gates_fwd_rows_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.gates_fwd_rows_launch.restype = ctypes.c_int
     return lib
 
 
@@ -212,12 +243,55 @@ def main() -> int:
     for mode, sc in (("cold", scrub), ("interleaved", None)):
         med[mode] = median_ms(fns, args.samples, sc)
         for name, ms in med[mode].items():
-            log(f"  {mode:11s} {name:8s} median {ms:.5f} ms  {48.0 * B * H / ms / 1e9:.3f} TB/s  "
-                f"{bound / ms:.1%} of the bound [{smi}]")
+            log(f"  backward {mode:11s} {name:8s} median {ms:.5f} ms  "
+                f"{48.0 * B * H / ms / 1e9:.3f} TB/s  {bound / ms:.1%} of the bound [{smi}]")
+    fwd = {Bf: forward(lib, st, Bf, args.samples, scrub, smi) for Bf in FWD_BATCHES}
     print(json.dumps({"card": smi, "shape": [B, H], "samples": args.samples, "bound_ms": bound,
-                      "median_ms": med, "max_rel_err": err}))
+                      "median_ms": med, "max_rel_err": err,
+                      "forward": {f"B={Bf} H={H}": v for Bf, v in fwd.items()}}))
     return 0
 
+
+def forward(lib, st: int, Bf: int, samples: int, scrub, smi: str) -> dict:
+    """The forward's calls (the module docstring) at [Bf, H]: {"bound_ms",
+    "median_ms": {mode: {call: ms}}, "max_rel_err"}."""
+    g = torch.Generator(device="cuda").manual_seed(Bf)
+    gates = torch.randn((Bf, 4 * H), generator=g, device="cuda")
+    c = torch.randn((Bf, H), generator=g, device="cuda")
+    want = fl.gates_fwd_reference(gates, c)
+    h_out, c_out = torch.empty_like(c), torch.empty_like(c)
+
+    def rows(r: int):
+        def run():
+            rc = lib.gates_fwd_rows_launch(gates.data_ptr(), c.data_ptr(), h_out.data_ptr(),
+                                           c_out.data_ptr(), Bf, H, r, st)
+            if rc:
+                raise RuntimeError(f"gates_fwd_rows_launch: cudaError {rc}")
+            return h_out, c_out
+        return run
+
+    zero = torch.zeros_like(gates)
+    src = torch.randn((Bf * H * 7 // 2,), generator=g, device="cuda")
+    dst = torch.empty_like(src)
+    fns = {"kernel": lambda: fl.gates_fwd(gates, c), "rows 2": rows(2), "rows 4": rows(4),
+           "aten": lambda: torch.ops.aten._thnn_fused_lstm_cell(gates, zero, c),
+           "copy": lambda: dst.copy_(src)}
+    err = {}
+    for name in ("kernel", "rows 2", "rows 4"):
+        got = fns[name]()
+        torch.cuda.synchronize()
+        err[name] = max((a - b).abs().max().item() / b.abs().max().item()
+                        for a, b in zip(got, want))
+        if not err[name] <= 1e-5:
+            raise AssertionError(f"forward {name} at B={Bf}: rel err {err[name]:.3e} > 1e-5")
+    bound = 28.0 * Bf * H / HBM_BYTES_PER_S * 1e3
+    med = {}
+    for mode, sc in (("cold", scrub), ("interleaved", None)):
+        med[mode] = median_ms(fns, samples, sc)
+        for name, ms in med[mode].items():
+            log(f"  forward [{Bf}, {H}] {mode:11s} {name:7s} median {ms:.5f} ms  "
+                f"{28.0 * Bf * H / ms / 1e9:.3f} TB/s  {bound / ms:.1%} of the bound [{smi}]")
+    return {"bound_ms": bound, "median_ms": med, "max_rel_err": err}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -4,10 +4,13 @@
 
 ``python -m mlx_vae_tpu_torch.cli.encode --checkpoint ck.npz --data d.json``
 with the JAX CLI's flags, on one device. ``--device`` (default ``cuda``)
-picks the card, where the whole-stack encoder, the training decoder's
-logits specialization and the fused sampler run as kernels; ``--device
-cpu`` runs their plain versions. Three parts, each over fixed-size batches
-(the last one padded by repeating row 0, its outputs trimmed):
+picks the card, where each part runs the kernels of the route its model
+takes (:func:`route_sources`: for the default model the whole-stack
+encoder, the training decoder's logits specialization and the fused
+sampler; where those refuse the model, the sequence kernels and the
+scans' gate kernel pair); ``--device cpu`` runs their plain versions.
+Three parts, each over fixed-size batches (the last one padded by
+repeating row 0, its outputs trimmed):
 
 * **Embeddings**: ``(mu, logvar)`` of every molecule of the split
   (``models/encoder.py:encoder_apply``), written to one ``.npz`` with the
@@ -104,17 +107,39 @@ def _batched(fn, arrays, batch_size: int, device, mesh=None):
     return tuple(cols) if len(cols) > 1 else cols[0]
 
 
-def kernels_note(device, mcfg, sources) -> str:
-    """Whether a timed span on ``device`` includes loading (and, where this
-    checkout has not built them, compiling) the kernels of ``sources``."""
-    if device.type != "cuda" or not mcfg.use_pallas:
+def route_sources(mcfg) -> dict:
+    """{part: the kernel sources (``csrc/<name>.cu``) it launches on the
+    card}, from the routes the config takes (``models/encoder.py:
+    encoder_route``, ``models/decoder.py:train_decoder_route``,
+    ``models/vae.py:generation_sampler``); a scan's gate kernel pair runs
+    under ``use_pallas``."""
+    from mlx_vae_tpu_torch.models.decoder import train_decoder_route
+    from mlx_vae_tpu_torch.models.encoder import encoder_route
+    from mlx_vae_tpu_torch.models.vae import generation_sampler
+
+    gates = ["fused_lstm_gates"] if mcfg.use_pallas else []
+    kernels = {"fused": ["fused_encoder"], "seq": ["fused_seq_lstm"]}
+    decoder = {"fused": ["fused_train_decoder"], "cvp": ["fused_train_decoder"], "cv": []}
+    return {"encode": kernels.get(encoder_route(mcfg), gates),
+            "next_token": decoder.get(train_decoder_route(mcfg), gates),
+            "greedy": ["fused_generate"] if generation_sampler(mcfg) == "fused" else gates}
+
+
+def kernels_note(device, sources) -> str:
+    """The kernels a timed span on ``device`` launches (``sources``), and
+    whether the span includes loading (and, where this checkout has not
+    built them, compiling) them."""
+    if device.type != "cuda":
         return "plain versions, no kernel build"
+    if not sources:
+        return "no kernel on this route"
     from mlx_vae_tpu_torch.ops.build import is_loaded
 
+    names = f"csrc/{', '.join(sources)}.cu"
     missing = [s for s in sources if not is_loaded(s)]
     if not missing:
-        return "kernels loaded before, no build inside"
-    return (f"first call loads csrc/{', '.join(missing)}.cu, and builds what this "
+        return f"{names}, loaded before, no build inside"
+    return (f"{names}; the first call loads {', '.join(missing)}, and builds what this "
             f"checkout has not, inside the time")
 
 
@@ -123,7 +148,7 @@ def encode_split(params: dict, mcfg, device, tokens: np.ndarray, cond: np.ndarra
     """The three device parts over a split: ``mu``, ``logvar``, and with
     ``reconstruct`` the TF=1 argmax tokens (``next_tokens``) and the greedy
     decode from ``z = mu`` (``decoded``), all numpy, with each part's
-    seconds under ``seconds`` and its kernel-build note under ``notes``.
+    seconds under ``seconds`` and its kernels' note under ``notes``.
     ``params`` holds the encoder and decoder trees as tensors on
     ``device``; ``mcfg.use_pallas`` picks the kernels or the plain route.
     ``mesh``: each rank takes its block of every batch (see ``_batched``)."""
@@ -133,9 +158,10 @@ def encode_split(params: dict, mcfg, device, tokens: np.ndarray, cond: np.ndarra
 
     L = tokens.shape[1]
     out = {"seconds": {}, "notes": {}}
+    sources = route_sources(mcfg)
 
-    def timed(part, sources, fn, arrays):
-        out["notes"][part] = kernels_note(device, mcfg, sources)
+    def timed(part, fn, arrays):
+        out["notes"][part] = kernels_note(device, sources[part])
         t0 = time.perf_counter()
         res = _batched(fn, arrays, batch_size, device, mesh)
         out["seconds"][part] = time.perf_counter() - t0
@@ -143,21 +169,19 @@ def encode_split(params: dict, mcfg, device, tokens: np.ndarray, cond: np.ndarra
 
     with torch.no_grad():
         out["mu"], out["logvar"] = timed(
-            "encode", ["fused_encoder"],
-            lambda x, c: encoder_apply(params["encoder"], mcfg, x, c), [tokens, cond])
+            "encode", lambda x, c: encoder_apply(params["encoder"], mcfg, x, c), [tokens, cond])
         if not reconstruct:
             return out
         tf_on = torch.ones((L,), dtype=torch.bool, device=device)
         out["next_tokens"] = timed(
-            "next_token", ["fused_train_decoder"],
+            "next_token",
             lambda z, c, x: torch.argmax(decoder_apply(params["decoder"], mcfg, z, c,
                                                        target_seq=x, tf_mask=tf_on), dim=-1),
             [out["mu"], cond, tokens])
         gen = make_generate_fn(mcfg, params["decoder"], L, 1.0, greedy=True)
         g = torch.Generator(device=device)
         g.manual_seed(0)  # greedy is deterministic; a fixed generator
-        out["decoded"] = timed("greedy", ["fused_generate"],
-                               lambda z, c: gen(z, c, g), [out["mu"], cond])
+        out["decoded"] = timed("greedy", lambda z, c: gen(z, c, g), [out["mu"], cond])
     return out
 
 
@@ -173,7 +197,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     with cli_ranks("mlx_vae_tpu_torch.cli.encode", argv, args.device, args.data_parallel,
                    sources=("fused_encoder", "fused_train_decoder", "fused_seq_lstm",
-                            "fused_generate")) as device:
+                            "fused_lstm_gates", "fused_generate")) as device:
         return None if device is None else _encode(args, device)
 
 

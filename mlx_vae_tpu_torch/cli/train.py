@@ -13,9 +13,10 @@ Flag mapping on the port:
 * ``--use_pallas``: the fused CUDA kernels (on CPU tensors their plain
   versions). The defaults stay ``float32`` without ``--use_pallas``, as in
   the JAX CLI; pass ``--use_pallas --compute_dtype bfloat16`` for the
-  tensor-core kernels. On the card a model the fused training decoder does
-  not take is refused before the corpus is loaded
-  (``models/decoder.py:train_route_refusal``, beside the dispatch).
+  tensor-core kernels. Each part of the model takes the kernels that take
+  its configuration and, where none does, the route the JAX package takes
+  (``models/encoder.py:encoder_route``,
+  ``models/decoder.py:train_decoder_route``).
 * ``--profile LOGDIR``: a ``torch.profiler`` Chrome trace of the first
   epoch (``utils/profiler.py``).
 * ``--compilation_cache`` / ``--no_compilation_cache``: accepted, no effect
@@ -182,7 +183,6 @@ def _train(args, device) -> None:
     from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
     from mlx_vae_tpu_torch.data.prepare import make_synthetic_dataset
     from mlx_vae_tpu_torch.data.split import load_and_split
-    from mlx_vae_tpu_torch.models.decoder import train_route_refusal
     from mlx_vae_tpu_torch.models.vae import ARCVAE
     from mlx_vae_tpu_torch.parallel.mesh import rank, visible_devices, world_size
     from mlx_vae_tpu_torch.train.trainer import ARCVAETrainer, mesh_plan
@@ -256,9 +256,6 @@ def _train(args, device) -> None:
         mesh_plan(tcfg, world_size() if dist.is_initialized() else visible_devices(device))
     except ValueError as e:
         raise SystemExit(f"ERROR: {e}")
-    refusal = train_route_refusal(mcfg, device)
-    if refusal is not None:
-        raise SystemExit(f"ERROR: {refusal}")
 
     if args.synthetic and rank() == 0:
         Path(args.data).parent.mkdir(parents=True, exist_ok=True)

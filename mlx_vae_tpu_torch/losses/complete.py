@@ -58,7 +58,7 @@ def complete_vae_loss(
     z = reparameterize(eps, mu, logvar)
 
     recon_loss = None
-    if mesh is None and train_decoder_route(cfg, x.device) == "fused":
+    if mesh is None and train_decoder_route(cfg) == "fused":
         # fused decoder + CE: logits never reach device memory
         from mlx_vae_tpu_torch.ops.fused_train_decoder import decoder_train_ce
         cond_f = conditions.float()

@@ -5,21 +5,25 @@ The initial state is h = (z_proj + cond_proj)/2 replicated over layers and
 c = 0. ``decoder_apply`` is the teacher-forced decode: the per-step coin
 flips ``tf_mask [L]`` come from the caller, the fed-back argmax carries no
 gradient, and ``reference_zero_state`` restarts every step from zero state.
-Routes of the teacher-forced decode (the JAX package's ``decoder_apply``),
-all but the last only without ``reference_zero_state``:
+Routes of the teacher-forced decode (:func:`train_decoder_route`, the JAX
+package's ``decoder_apply``), chosen from the config before any launch by
+asking the kernels' predicates, all but the last only without
+``reference_zero_state``:
 
-* ``cfg.use_pallas`` and the stack's weights fit in L2
-  (``ops/train_common.py:stack_fits_l2``): the fused training decoder
-  (``ops/fused_train_decoder.py``). On CUDA a configuration its kernels do
-  not take raises ``NotImplementedError``; on the CPU it takes the routes
-  below.
-* ``custom_vjp`` or H >= 768: ``ops/decoder_cv.py``'s
-  ``decoder_train_cvp`` with ``use_pallas`` (off the CPU always, on the CPU
-  where ``decoder_cvp_supported``), else ``decoder_train_cv``.
-* The scan, one ``lstm_cell`` per layer and step, with ``use_pallas``
-  through the fused gate kernel pair (``ops/fused_lstm.py``).
+* ``"fused"``: ``cfg.use_pallas``, the stack's weights fit in L2
+  (``ops/train_common.py:stack_fits_l2``) and the fused training decoder's
+  kernels take the configuration (``fused_train_decoder_supported``):
+  ``ops/fused_train_decoder.py``.
+* ``custom_vjp`` or H >= 768: ``"cvp"``, ``ops/decoder_cv.py``'s
+  ``decoder_train_cvp``, with ``use_pallas`` where its kernels take the
+  configuration (``decoder_cvp_supported``), else ``"cv"``,
+  ``decoder_train_cv``.
+* ``"scan"``: one ``lstm_cell`` per layer and step, with ``use_pallas``
+  through the fused gate kernel pair (``ops/fused_lstm.py``), and the vocab
+  head a product outside any kernel, as in the JAX scan.
 
-The kernels launch on CUDA tensors; CPU tensors run their plain versions.
+The kernels launch on CUDA tensors and their plain versions run on CPU
+tensors; a kernel that fails to build or launch raises.
 Under a tensor-parallel ``mesh`` the teacher-forced decode always takes
 the scan, with the vocab-parallel embedding, column-parallel gates and
 vocab head, and split biases gathered at use (``models/layers.py``,
@@ -81,40 +85,20 @@ def _stacked_cell(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, torch.stack(new_h), torch.stack(new_c)
 
 
-def train_decoder_route(cfg: ModelConfig, device) -> str:
-    """The teacher-forced decode's route on ``device`` (the module
-    docstring's list): ``"fused"``, ``"cvp"``, ``"cv"`` or ``"scan"``."""
-    on_cpu = torch.device(device).type == "cpu"
+def train_decoder_route(cfg: ModelConfig, device=None) -> str:
+    """The teacher-forced decode's route (the module docstring's list):
+    ``"fused"``, ``"cvp"``, ``"cv"`` or ``"scan"``. The same on every
+    device, so ``device`` does not enter."""
     if cfg.reference_zero_state:
         return "scan"
     if cfg.use_pallas and stack_fits_l2(cfg):
         from mlx_vae_tpu_torch.ops.fused_train_decoder import fused_train_decoder_supported
-        # off the CPU the fused route launches its kernels or raises
-        if not on_cpu or fused_train_decoder_supported(cfg):
+        if fused_train_decoder_supported(cfg):
             return "fused"
     if cfg.custom_vjp or cfg.hidden_dim >= 768:
         from mlx_vae_tpu_torch.ops.decoder_cv import decoder_cvp_supported
-        return "cvp" if cfg.use_pallas and (not on_cpu or decoder_cvp_supported(cfg)) else "cv"
+        return "cvp" if cfg.use_pallas and decoder_cvp_supported(cfg) else "cv"
     return "scan"
-
-
-def train_route_refusal(cfg: ModelConfig, device) -> Optional[str]:
-    """Why the kernels of :func:`train_decoder_route` on ``device`` would
-    refuse ``cfg`` (they raise ``NotImplementedError`` at their first
-    launch; the JAX package routes such a config to its scan instead), or
-    None. The CPU runs the plain versions and refuses nothing."""
-    route = train_decoder_route(cfg, device)
-    if torch.device(device).type == "cpu":
-        return None
-    if route == "fused":
-        from mlx_vae_tpu_torch.ops.fused_train_decoder import _unsupported_reason
-        reason = _unsupported_reason(cfg)
-        return None if reason is None else f"the fused training decoder does not take {reason}"
-    if route == "cvp":
-        from mlx_vae_tpu_torch.ops.decoder_cv import decoder_cvp_supported
-        if not decoder_cvp_supported(cfg):
-            return "the per-layer decoder kernels do not take this model"
-    return None
 
 
 def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
@@ -138,7 +122,7 @@ def decoder_apply(params: dict, cfg: ModelConfig, z: torch.Tensor,
             raise ValueError("decoder_apply with target_seq requires tf_mask")
         targets = target_seq.to(torch.int32)
         tf_mask = tf_mask.to(dev).bool()
-        route = "scan" if mesh is not None else train_decoder_route(cfg, dev)
+        route = "scan" if mesh is not None else train_decoder_route(cfg)
         if route == "fused":
             from mlx_vae_tpu_torch.ops.fused_train_decoder import decoder_train
             h_init = hidden_init_row(params, cfg, z, cond_f)

@@ -5,22 +5,26 @@ condition projection concatenated with the pooled state -> ``fc_mu`` and the
 two-layer ``fc_logvar`` heads, bounded as ``mu = 2 tanh(mu_raw / 2)`` in
 [-2, 2] and ``logvar = tanh(logvar_raw / 2) - 1`` in [-2, 0].
 
-Routes (the JAX package's ``encoder_apply``):
+Routes (:func:`encoder_route`, the JAX package's ``encoder_apply``), chosen
+from the config before any launch by asking the kernels' predicates:
 
-* ``cfg.use_pallas`` and the whole-stack encoder (``ops/fused_encoder.py``)
-  takes the configuration and its weights fit in L2
-  (``ops/train_common.py:stack_fits_l2``): the whole stack in one kernel
+* ``"fused"``: ``cfg.use_pallas``, the whole-stack encoder
+  (``ops/fused_encoder.py``) takes the configuration and its weights fit in
+  L2 (``ops/train_common.py:stack_fits_l2``): the whole stack in one kernel
   pair.
 * Otherwise layer by layer (both directions with ``bidirectional``,
   inter-layer dropout from the caller's keep-masks with ``apply_dropout``):
-  with ``use_pallas`` each layer is ``ops/fused_seq_lstm.py``'s
-  ``lstm_sequence_fused``; else ``ops/lstm.py:lstm_sequence_cv`` at
-  ``custom_vjp`` or H >= 768, and ``ops/lstm.py:lstm_sequence`` below.
+  ``"seq"``, with ``use_pallas`` where the sequence kernels take every
+  layer's input width (``ops/fused_seq_lstm.py:fused_seq_supported``), each
+  layer is ``lstm_sequence_fused``; else ``"cv"``,
+  ``ops/lstm.py:lstm_sequence_cv`` at ``custom_vjp`` or H >= 768, and
+  ``"scan"``, ``ops/lstm.py:lstm_sequence``, below (both with the gate
+  kernel pair under ``use_pallas``).
 
-The fused routes launch their CUDA kernels on CUDA tensors (a configuration
-no kernel takes raises ``NotImplementedError``) and run their plain versions
-on CPU tensors. Randomness comes from the caller: :func:`reparameterize`
-takes ``eps`` and dropout takes keep-masks or a ``torch.Generator``.
+The kernels launch on CUDA tensors and their plain versions run on CPU
+tensors; a kernel that fails to build or launch raises. Randomness comes
+from the caller: :func:`reparameterize` takes ``eps`` and dropout takes
+keep-masks or a ``torch.Generator``.
 
 Under a tensor-parallel ``mesh`` (the GSPMD route of the JAX package, whose
 ``use_pallas`` is off) the encoder runs the scan layer by layer with the
@@ -30,6 +34,7 @@ at use (``models/layers.py``, ``ops/lstm.py``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -67,6 +72,27 @@ def dropout_masks(gen: torch.Generator, cfg: ModelConfig, batch: int,
             >= cfg.dropout for _ in range(cfg.num_layers - 1)]
 
 
+def layer_input_widths(cfg: ModelConfig) -> list:
+    """Each LSTM layer's input width: the embedding, then the layer below's
+    output (both directions' with ``bidirectional``)."""
+    out_dim = cfg.hidden_dim * (2 if cfg.bidirectional else 1)
+    return [cfg.embedding_dim] + [out_dim] * (cfg.num_layers - 1)
+
+
+def encoder_route(cfg: ModelConfig) -> str:
+    """The encoder's route (the module docstring's list): ``"fused"``,
+    ``"seq"``, ``"cv"`` or ``"scan"``. The same on every device."""
+    if cfg.use_pallas:
+        from mlx_vae_tpu_torch.ops.fused_encoder import fused_encoder_supported
+        from mlx_vae_tpu_torch.ops.fused_seq_lstm import fused_seq_supported
+        if fused_encoder_supported(cfg) and stack_fits_l2(cfg):
+            return "fused"
+        if all(fused_seq_supported(i, cfg.hidden_dim, cfg.dtype)
+               for i in layer_input_widths(cfg)):
+            return "seq"
+    return "cv" if cfg.custom_vjp or cfg.hidden_dim >= 768 else "scan"
+
+
 def encoder_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
                   conditions: torch.Tensor,
                   keep_masks: Optional[Sequence[torch.Tensor]] = None, mesh=None
@@ -78,18 +104,16 @@ def encoder_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     eval. ``mesh``: the tensor-parallel mesh whose model group splits
     ``params`` (None: one device).
     """
-    if mesh is not None:
-        def seq(p, xs, h0, c0, dtype):
-            return lstm_sequence(p, xs, h0, c0, dtype, mesh=mesh)
-    elif cfg.use_pallas:
-        from mlx_vae_tpu_torch.ops.fused_encoder import encoder_stack, fused_encoder_supported
-        if fused_encoder_supported(cfg) and stack_fits_l2(cfg):
-            return _heads(params, cfg, encoder_stack(params, cfg, x), conditions)
+    route = "scan" if mesh is not None else encoder_route(cfg)
+    if route == "fused":
+        from mlx_vae_tpu_torch.ops.fused_encoder import encoder_stack
+        return _heads(params, cfg, encoder_stack(params, cfg, x), conditions)
+    if route == "seq":
         from mlx_vae_tpu_torch.ops.fused_seq_lstm import lstm_sequence_fused as seq
-    elif cfg.custom_vjp or cfg.hidden_dim >= 768:
-        seq = lstm_sequence_cv
+    elif route == "cv":
+        seq = functools.partial(lstm_sequence_cv, use_pallas=cfg.use_pallas)
     else:
-        seq = lstm_sequence
+        seq = functools.partial(lstm_sequence, mesh=mesh, use_pallas=cfg.use_pallas)
     B = x.shape[0]
     dev = x.device
     h0 = torch.zeros((B, cfg.hidden_dim), dtype=torch.float32, device=dev)

@@ -27,13 +27,15 @@ gradient, as in the scan decoder.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.models.layers import embedding, linear, mm_f32
-from mlx_vae_tpu_torch.ops.fused_seq_lstm import fused_seq_supported, seq_lstm_bwd_tm
-from mlx_vae_tpu_torch.ops.fused_train_decoder import (
-    decoder_fwd, fused_train_decoder_fwd_supported)
+from mlx_vae_tpu_torch.ops.fused_seq_lstm import _unsupported_reason as seq_unsupported_reason
+from mlx_vae_tpu_torch.ops.fused_seq_lstm import seq_lstm_bwd_tm
+from mlx_vae_tpu_torch.ops.fused_train_decoder import _fwd_unsupported_reason, decoder_fwd
 from mlx_vae_tpu_torch.ops.lstm import combined_weight, gate_activations
 from mlx_vae_tpu_torch.ops.train_common import (
     embed_rows, embedding_grad, layer_grads, layer_leaves, prepare_stack_weights,
@@ -217,9 +219,16 @@ def decoder_train_cvp(params: dict, cfg: ModelConfig, h_init: torch.Tensor,
     return _apply(_DecoderCVP, params, cfg, h_init, conditions, target_seq, tf_mask)
 
 
+def cvp_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
+    """Why the fused forward or a per-layer backward refuses ``cfg`` (that
+    kernel's own reason), or None."""
+    H = cfg.hidden_dim
+    widths = [cfg.embedding_dim + cfg.num_conditions] + [H] * (cfg.num_layers > 1)
+    reasons = [_fwd_unsupported_reason(cfg)] + [seq_unsupported_reason(i, H, cfg.dtype)
+                                                for i in widths]
+    return next((r for r in reasons if r is not None), None)
+
+
 def decoder_cvp_supported(cfg: ModelConfig) -> bool:
     """Whether the fused forward and every per-layer backward take ``cfg``."""
-    H = cfg.hidden_dim
-    return (fused_train_decoder_fwd_supported(cfg)
-            and fused_seq_supported(cfg.embedding_dim + cfg.num_conditions, H, cfg.dtype)
-            and (cfg.num_layers == 1 or fused_seq_supported(H, H, cfg.dtype)))
+    return cvp_unsupported_reason(cfg) is None

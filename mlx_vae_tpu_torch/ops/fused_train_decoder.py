@@ -358,11 +358,6 @@ def _unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
-def fused_train_decoder_fwd_supported(cfg: ModelConfig) -> bool:
-    """Shapes the forward kernel takes (the backward may refuse more)."""
-    return _fwd_unsupported_reason(cfg) is None
-
-
 def fused_train_decoder_supported(cfg: ModelConfig) -> bool:
     """Shapes the kernels take: 1..8 layers, f32 or bf16, V <= 512, and one
     row's state within a block's shared memory. ``reference_zero_state``

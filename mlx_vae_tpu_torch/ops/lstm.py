@@ -7,8 +7,10 @@ cast to the compute dtype and float32 accumulation. ``lstm_sequence`` is the
 plain per-layer encoder path (autograd differentiates the loop);
 ``lstm_sequence_cv`` is the same forward with the hand-written backward of
 the JAX package's custom VJP (the encoder's plain route at H >= 768 or
-``custom_vjp``). With ``use_pallas`` the gate tail runs as the fused gate
-kernel pair (``ops/fused_lstm.py``).
+``custom_vjp``). With ``use_pallas`` the gate tail of every one of them runs
+as the fused gate kernel pair (``ops/fused_lstm.py``; in ``lstm_sequence_cv``
+only its forward, under the hand-written backward), as the JAX package's
+``lstm_gates`` does.
 
 Under a tensor-parallel mesh (``mesh``) a layer whose ``Wx`` holds fewer
 than 4H rows is column-parallel: rank m holds gate rows ``[m*4H/tp,
@@ -90,12 +92,13 @@ def split_mesh(params: dict, H: int, mesh):
 
 
 def lstm_sequence(params: dict, xs: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                  dtype=torch.float32, mesh=None
+                  dtype=torch.float32, mesh=None, use_pallas: bool = False
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence LSTM: ``xs [B, L, in]`` -> ``(outputs [B, L, H], (h, c))``,
     one fused ``[x_t, h] @ W`` matmul + gate update per step (autograd
     differentiates the loop; under ``mesh`` column-parallel, see
-    :func:`gate_preacts`). JAX's ``unroll`` and ``remat`` are XLA
+    :func:`gate_preacts`; with ``use_pallas`` the gate update is
+    :func:`lstm_gates`' kernel pair). JAX's ``unroll`` and ``remat`` are XLA
     scheduling knobs with no counterpart here."""
     w = combined_weight(params)
     mesh = split_mesh(params, h0.shape[-1], mesh)
@@ -103,7 +106,7 @@ def lstm_sequence(params: dict, xs: torch.Tensor, h0: torch.Tensor, c0: torch.Te
     outs = []
     for t in range(xs.shape[1]):
         gates = gate_preacts(torch.cat([xs[:, t], h], dim=1), w, params["bias"], dtype, mesh)
-        h, c = lstm_gates(gates, c)
+        h, c = lstm_gates(gates, c, use_pallas)
         outs.append(h)
     return torch.stack(outs, dim=1), (h, c)
 
@@ -116,14 +119,14 @@ class _SeqCV(torch.autograd.Function):
     and dxs as single products over the flattened ``[L*B, .]`` rows."""
 
     @staticmethod
-    def forward(ctx, dtype, xs, h0, c0, wx, wh, bias):
+    def forward(ctx, dtype, use_pallas, xs, h0, c0, wx, wh, bias):
         w = torch.cat([wx.T, wh.T], dim=0)
         b = bias.float()
         h, c = h0.float(), c0.float()
         hs, cs, gates_t = [], [], []
         for t in range(xs.shape[1]):
             gates = mm_f32(torch.cat([xs[:, t], h], dim=1), w, dtype) + b
-            h, c = lstm_gates(gates, c)
+            h, c = lstm_gates(gates, c, use_pallas)
             hs.append(h)
             cs.append(c)
             gates_t.append(gates.to(dtype))
@@ -158,14 +161,16 @@ class _SeqCV(torch.autograd.Function):
         dwx = mm_f32(dg.T, xs_flat, dtype)
         dwh = mm_f32(dg.T, h_prev, dtype)
         dxs = mm_f32(dg, wx, dtype).reshape(L, B, -1).transpose(0, 1).to(xs.dtype)
-        return None, dxs, dh, dc, dwx, dwh, dg.float().sum(dim=0)
+        return None, None, dxs, dh, dc, dwx, dwh, dg.float().sum(dim=0)
 
 
 def lstm_sequence_cv(params: dict, xs: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                     dtype=torch.float32
+                     dtype=torch.float32, use_pallas: bool = False
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """``lstm_sequence`` with the hand-written backward (``lstm_sequence_cv``
     of the JAX package): ``xs [B, L, in]`` -> ``(outputs [B, L, H], (h, c))``,
-    f32."""
-    hs, h, c = _SeqCV.apply(dtype, xs, h0, c0, params["Wx"], params["Wh"], params["bias"])
+    f32. ``use_pallas``: the forward's gate update through the gate
+    kernel's forward."""
+    hs, h, c = _SeqCV.apply(dtype, use_pallas, xs, h0, c0, params["Wx"], params["Wh"],
+                            params["bias"])
     return hs, (h, c)

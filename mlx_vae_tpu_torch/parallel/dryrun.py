@@ -10,7 +10,8 @@ mesh (``(N, 1)`` where N is odd or below 4, as the JAX dry run picks) it
 takes one tensor-parallel train step; on an ``(N, 1)`` mesh one gather-fed
 data-parallel step, one data-parallel eval step and one data-parallel
 greedy generation with ``use_pallas``: the kernels on the cards (a model
-they refuse is an error, and so is a data-parallel step that launched
+whose train step would take no train-kernel route is an error,
+:func:`kernel_route_refusal`, and so is a data-parallel step that launched
 none), their plain versions on the CPU. It then runs the same at the
 scaled width (hidden 1024, 4 layers, latent 512, 3 conditions), and rank 0
 prints one line in the JAX dry run's format. Every loss must be finite and
@@ -20,6 +21,7 @@ every shape right.
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,6 +56,35 @@ def launch_counts() -> dict:
             "fused_generate": fused_generate.core_launches}
 
 
+def kernel_route_refusal(cfg) -> Optional[str]:
+    """Why the train step of ``cfg`` would take no train-kernel route on the
+    card, in the refusing kernel's own words, or None. The dry run exists to
+    launch the kernels, so it asks for more than the model's routes do: the
+    encoder ``"fused"`` or ``"seq"`` (``models/encoder.py:encoder_route``)
+    and the decoder ``"fused"`` or ``"cvp"``
+    (``models/decoder.py:train_decoder_route``)."""
+    from mlx_vae_tpu_torch.models.decoder import train_decoder_route
+    from mlx_vae_tpu_torch.models.encoder import encoder_route, layer_input_widths
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+    from mlx_vae_tpu_torch.ops.decoder_cv import cvp_unsupported_reason
+
+    if not cfg.use_pallas:
+        return "use_pallas is off"
+    if encoder_route(cfg) not in ("fused", "seq"):
+        reason = next(r for r in (fs._unsupported_reason(i, cfg.hidden_dim, cfg.dtype)
+                                  for i in layer_input_widths(cfg)) if r is not None)
+        return f"the encoder's sequence kernels do not take {reason}"
+    route = train_decoder_route(cfg)
+    if route == "cv":
+        return f"decoder_train_cvp's kernels do not take {cvp_unsupported_reason(cfg)}"
+    if route == "scan":
+        reason = ("reference_zero_state" if cfg.reference_zero_state else
+                  fd._unsupported_reason(cfg) or "a stack whose weights exceed L2")
+        return f"the fused training decoder does not take {reason}"
+    return None
+
+
 def _since(before: dict) -> dict:
     return {k: v - before[k] for k, v in launch_counts().items()}
 
@@ -63,7 +94,6 @@ def _tier(mcfg, B: int, L: int, device, seed: int) -> dict:
     eval step and greedy generation, at ``mcfg`` on this rank; with each
     data-parallel part's kernel launches on this rank (``"launches"``)."""
     from mlx_vae_tpu_torch.config import TrainConfig
-    from mlx_vae_tpu_torch.models.decoder import train_route_refusal
     from mlx_vae_tpu_torch.models.vae import ARCVAE, decode_latents
     from mlx_vae_tpu_torch.parallel.comm import host_gather_rows
     from mlx_vae_tpu_torch.parallel.mesh import (fold_seed, make_mesh, param_layout,
@@ -99,7 +129,7 @@ def _tier(mcfg, B: int, L: int, device, seed: int) -> dict:
     # 2)-4) data parallelism over every rank, the kernels where they take it
     dp = make_mesh(1)
     kcfg = mcfg.replace(use_pallas=True)
-    refusal = train_route_refusal(kcfg, device)
+    refusal = kernel_route_refusal(kcfg)
     if refusal is not None:
         raise RuntimeError(f"dry run: {refusal}")
     params = tree_map(torch.clone, full)

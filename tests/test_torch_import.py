@@ -51,7 +51,7 @@ def _sub(text: str) -> str:
 WHOLE = ["chem/__init__.py", "chem/mol.py", "chem/smiles.py",
          "chem/selfies_codec.py", "chem/descriptors.py", "chem/corpus.py",
          "chem/shim.py", "data/prepare.py", "data/metrics.py", "data/packer.py",
-         "data/dataset.py", "data/split.py", "train/history.py"]
+         "data/dataset.py", "data/split.py", "train/history.py", "version.py"]
 # Partial copies: every top-level statement of the port file (bar its own
 # docstring, its import lines and the listed statements of its own: the
 # loader's cache directory and environment variable, or a call rewritten for

@@ -1,9 +1,9 @@
 """The port's train CLI on the CPU (``--device cpu``): its flag set against
 the JAX CLI's, whole runs with checkpoints, history and ``--eval_test``,
-``--resume`` across the two packages in both directions, the refusals
-(multi-device, and the fused decoder's on the card, checked before the
-corpus is loaded), and the compile-cache flags, which every port CLI
-accepts and ignores."""
+``--resume`` across the two packages in both directions, the multi-device
+refusal (checked before the corpus is loaded), the routes a model takes
+where the fused kernels refuse it (none refused), and the compile-cache
+flags, which every port CLI accepts and ignores."""
 
 import json
 from pathlib import Path
@@ -152,42 +152,63 @@ def test_model_parallel_exits_before_loading(tmp_path, capsys):
 
 
 def test_route_refusal_on_the_card_only():
-    """The CLI's up-front check is the model layer's, beside the dispatch."""
-    refusal = tdecoder.train_route_refusal
+    """The model layer refuses no model on any device: a V=600 model, which
+    the whole-stack kernels refuse, takes the sequence kernels in its
+    encoder and the scan in its decoder, as the JAX package routes it. Only
+    the dry run, which exists to launch the train kernels, refuses it, in
+    the fused training decoder's own words."""
+    from mlx_vae_tpu_torch.models.encoder import encoder_route
+    from mlx_vae_tpu_torch.parallel.dryrun import kernel_route_refusal
+
     cfg = ModelConfig(vocab_size=600, use_pallas=True)
-    reason = refusal(cfg, torch.device("cuda"))
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        assert tdecoder.train_decoder_route(cfg, dev) == "scan"
+    assert encoder_route(cfg) == "seq"
+    reason = kernel_route_refusal(cfg)
     assert reason is not None and "vocab_size=600" in reason
-    assert refusal(cfg, torch.device("cpu")) is None
-    assert refusal(cfg.replace(use_pallas=False), torch.device("cuda")) is None
-    assert refusal(ModelConfig(use_pallas=True), torch.device("cuda")) is None
-    assert refusal(cfg.replace(reference_zero_state=True), torch.device("cuda")) is None
+    assert kernel_route_refusal(ModelConfig(use_pallas=True)) is None
+    assert kernel_route_refusal(cfg.replace(use_pallas=False)) == "use_pallas is off"
+    assert "reference_zero_state" in kernel_route_refusal(
+        ModelConfig(use_pallas=True, reference_zero_state=True))
 
 
 @pytest.mark.parametrize("kw,cuda,cpu", [
     (dict(use_pallas=True), "fused", "fused"),
-    (dict(use_pallas=True, vocab_size=600), "fused", "scan"),
+    (dict(use_pallas=True, vocab_size=600), "scan", "scan"),
     (dict(), "scan", "scan"),
     (dict(use_pallas=True, reference_zero_state=True), "scan", "scan"),
     (dict(custom_vjp=True), "cv", "cv"),
-    (dict(use_pallas=True, custom_vjp=True, vocab_size=600), "fused", "cv"),
+    (dict(use_pallas=True, custom_vjp=True, vocab_size=600), "cv", "cv"),
     (dict(use_pallas=True, hidden_dim=1024, num_layers=4), "cvp", "cvp"),
     (dict(hidden_dim=1024, num_layers=4), "cv", "cv")])
 def test_train_decoder_route(kw, cuda, cpu):
-    """The route that the dispatch takes and the refusal checks, by device."""
+    """The route that the dispatch takes, by device: the same on both, the
+    kernels' predicates asked before any launch."""
     cfg = ModelConfig(**kw)
     assert tdecoder.train_decoder_route(cfg, torch.device("cuda")) == cuda
     assert tdecoder.train_decoder_route(cfg, "cpu") == cpu
 
 
 def test_refused_route_exits_before_loading(tmp_path, monkeypatch):
-    """On a CUDA device the refusal comes before the corpus is made or
-    read (the data path does not exist)."""
+    """On a CUDA device ``--use_pallas`` with a model the fused kernels
+    refuse (V=600) is no longer refused: the run makes and loads its corpus
+    and goes on to build the model (stopped there: this machine has no
+    card)."""
+    from mlx_vae_tpu_torch.models import vae as tvae
+
+    class Reached(Exception):
+        pass
+
+    def stop(*a, **kw):
+        raise Reached
+
     monkeypatch.setattr(tcommon, "resolve_device", lambda name: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: "a card")
-    with pytest.raises(SystemExit, match="vocab_size=600"):
-        ttrain.main(["--data", str(tmp_path / "missing.json"), "--synthetic", "50",
+    monkeypatch.setattr(tvae, "ARCVAE", stop)
+    with pytest.raises(Reached):
+        ttrain.main(["--data", str(tmp_path / "v.json"), "--synthetic", "50",
                      "--vocab_size", "600", "--use_pallas"])
-    assert not (tmp_path / "missing.json").exists()
+    assert (tmp_path / "v.json").exists()
 
 
 def test_refused_config_trains_on_the_scan_on_cpu(tmp_path, monkeypatch):

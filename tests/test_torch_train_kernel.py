@@ -1,8 +1,8 @@
 """The train step's CUDA kernels (fused encoder, fused training decoder:
 forward and backward each; in bf16 the decoder forward's step and vocab-head
 chain, each head launch also alone, and the decoder backward's head pass and
-reverse chain, each also alone; and the two instances of the gate pair's
-backward) against their plain PyTorch versions, on the card. Tests
+reverse chain, each also alone; and the instances of the gate pair's
+forward and backward) against their plain PyTorch versions, on the card. Tests
 marked ``cuda`` skip without a CUDA device. This file imports no JAX, so it
 also runs on a GPU machine without it:
 
@@ -84,7 +84,8 @@ def test_gates_refuse_what_the_kernels_do_not_take():
 
 # configurations a whole-stack kernel refuses: (kwargs, encoder refuses,
 # decoder refuses). The encoder then runs layer by layer through the
-# sequence kernels; the decoder's whole-stack route raises on the card.
+# sequence kernels, the decoder (H=32) on the scan through the gate kernel
+# pair, as the JAX package routes them.
 REFUSED = [
     (dict(bidirectional=True), True, False),
     (dict(apply_dropout=True, dropout=0.2), True, False),
@@ -109,14 +110,23 @@ def _route_case(kw, device):
 
 @pytest.mark.parametrize("case", range(len(REFUSED)))
 def test_fused_route_takes_no_scan_off_the_cpu(case, monkeypatch):
-    """Off the CPU the fused route goes to the kernel wrappers even for a
-    configuration they refuse: on the meta device every dispatch stops at
-    the wrappers' device check rather than running the scan (on the card
-    the same call raises NotImplementedError, below)."""
+    """Off the CPU every route goes to its kernel wrappers, chosen from the
+    config before any launch: on the meta device each dispatch stops at a
+    wrapper's device check rather than running a plain version. A decoder
+    the whole-stack kernels refuse reaches the gate kernel of its scan and
+    never the fused decoder."""
+    from mlx_vae_tpu_torch.models.decoder import train_decoder_route
+
     kw, enc_refuses, dec_refuses = REFUSED[case]
     cfg, enc, dec, x, cond, z, tf = _route_case(kw, "meta")
     assert fe.fused_encoder_supported(cfg) != enc_refuses
     assert fd.fused_train_decoder_supported(cfg) != dec_refuses
+    assert train_decoder_route(cfg) == ("scan" if dec_refuses else "fused")
+    if dec_refuses:
+        def refused(*a, **k):
+            raise AssertionError("the fused decoder ran on a config it refuses")
+        monkeypatch.setattr(fd, "decoder_train", refused)
+        monkeypatch.setattr(fd, "decoder_train_ce", refused)
     with pytest.raises(ValueError, match="unsupported device meta"):
         encoder_apply(enc, cfg, x, cond)
     with pytest.raises(ValueError, match="unsupported device meta"):
@@ -296,10 +306,12 @@ def test_autograd_on_the_card_matches_the_cpu(dev, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(REFUSED)))
 def test_fused_route_raises_on_the_card(dev, case):
-    """With use_pallas on CUDA tensors a configuration the whole-stack
-    decoder refuses raises NotImplementedError from the dispatch that
-    reaches it; it never runs the scan in its place. An encoder the
-    whole-stack kernel refuses runs through the per-layer sequence kernels."""
+    """With use_pallas on CUDA tensors a configuration a whole-stack kernel
+    refuses never reaches that kernel: an encoder it refuses runs through
+    the per-layer sequence kernels, a decoder it refuses (H=32) on the scan
+    through the gate kernel pair, L * n launches each way, and the loss
+    agrees with the same call on the CPU."""
+    from mlx_vae_tpu_torch.ops import fused_lstm as fl
     from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
 
     kw, enc_refuses, dec_refuses = REFUSED[case]
@@ -311,10 +323,21 @@ def test_fused_route_raises_on_the_card(dev, case):
     assert fs.seq_lstm_fwd.launches - before == \
         (cfg.num_layers * (1 + cfg.bidirectional) if enc_refuses else 0)
     if dec_refuses:
-        with pytest.raises(NotImplementedError, match="fused_train_decoder"):
-            decoder_apply(dec, cfg, z, cond, target_seq=x, tf_mask=tf)
-        with pytest.raises(NotImplementedError, match="fused_train_decoder"):
-            complete_mod.complete_vae_loss(enc, dec, None, cfg, x, cond, z, tf)
+        fused = (fd.decoder_fwd.launches, fd.decoder_bwd.launches)
+        gates = (fl.gates_fwd.launches, fl.gates_bwd.launches)
+        leaves = [t.requires_grad_(True) for v in dec.values() for t in v.values()]
+        loss = complete_mod.complete_vae_loss(enc, dec, None, cfg, x, cond, z, tf)["total_loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        n = x.shape[1] * cfg.num_layers
+        assert (fl.gates_fwd.launches - gates[0], fl.gates_bwd.launches - gates[1]) == (n, n)
+        assert (fd.decoder_fwd.launches, fd.decoder_bwd.launches) == fused
+        cpu = [{k: {m: t.detach().cpu() for m, t in v.items()} for k, v in p.items()}
+               for p in (enc, dec)]
+        want = complete_mod.complete_vae_loss(*cpu, None, cfg, x.cpu(), cond.cpu(), z.cpu(),
+                                              tf.cpu())["total_loss"]
+        _close([loss.detach().cpu()], [want], "float32")
+        assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
 
 
 @pytest.mark.cuda
@@ -624,3 +647,35 @@ def test_gates_bwd_vector_and_scalar_paths(dev, case):
         assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1e-30)
     ran = [m for m in names if re.search(r"\bgates_bwd_kernel\b", m)]
     assert len(ran) == 1 and f"gates_bwd_kernel<{units}>" in ran[0], names
+
+
+# (B, H, offset in floats of the gates' view, units a thread): the gate
+# pair's forward on its vector instance (H % 4 == 0, every pointer 16-byte
+# aligned) and its scalar one (odd or ragged H, a view one float off the
+# gates' 16-byte alignment), from one row to a ragged row count
+GATES_FWD = [(4096, 256, 0, 4), (37, 1024, 0, 4), (1, 256, 0, 4), (1, 3, 0, 1), (37, 102, 0, 1),
+             (37, 256, 1, 1), (5, 1, 0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(GATES_FWD)))
+def test_gates_fwd_vector_and_scalar_paths(dev, case):
+    """gates_fwd against gates_fwd_reference within 1e-5 of each output's
+    largest magnitude, on the instance the profiler names
+    (gates_fwd_kernel<4, 1> or <1, 1>)."""
+    import re
+
+    from mlx_vae_tpu_torch.ops import fused_lstm as fl
+
+    B, H, off, units = GATES_FWD[case]
+    g = torch.Generator().manual_seed(case)
+    flat = (3 * torch.randn((off + B * 4 * H,), generator=g)).to(dev)
+    gates = flat[off:].view(B, 4 * H)
+    c = (3 * torch.randn((B, H), generator=g)).to(dev)
+    got = []
+    names = _device_kernels(lambda: got.extend(fl.gates_fwd(gates, c)))
+    want = fl.gates_fwd_reference(gates, c)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1e-30)
+    ran = [m for m in names if re.search(r"\bgates_fwd_kernel\b", m)]
+    assert len(ran) == 1 and f"gates_fwd_kernel<{units}, 1>" in ran[0], names

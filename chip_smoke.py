@@ -58,13 +58,13 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    the plain forward's residuals, as its plain twin does. Teacher forcing
    all on: every output and gradient leaf within max |kernel - plain| /
    max |plain| <= 1e-4 (f32; the two sum in different orders) or 2e-2
-   (bf16; one ulp of a bf16 rounding is ~4e-3 of the value). In bf16 the
-   encoder forward (the tensor-core step kernel, layer by layer) runs twice
-   and must repeat bit for bit, and its backward also runs on the kernel
-   forward's residuals against its plain version on the same residuals.
-   The encoder backward's reverse chain is also held alone (dgates, dx0)
-   against ``encoder_reverse_reference``, in both dtypes, and in bf16 (the
-   tensor-core chain) a second backward must equal the first bit for bit.
+   (bf16; one ulp of a bf16 rounding is ~4e-3 of the value). In both
+   dtypes the encoder forward (the tensor-core step kernel, layer by layer:
+   bf16 wgmma, f32 split-TF32) runs twice and must repeat bit for bit, and
+   its backward also runs on the kernel forward's residuals against its
+   plain version on the same residuals. The encoder backward's reverse chain
+   is also held alone (dgates, dx0) against ``encoder_reverse_reference``,
+   and a second backward must equal the first bit for bit, in both dtypes.
    In bf16 the decoder forward (n*L tensor-core step launches and L
    ``dec_head_kernel`` launches) must repeat bit for bit, and each head
    launch alone, on the plain forward's residuals, is held against
@@ -105,7 +105,16 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    (``seq_fwd_kernel``, ``enc_fwd_kernel``, ``dec_fwd_kernel``), and the
    tensor-core reverse step kernels of the encoder (``enc_step_kernel``)
    and of the decoder (``dec_step_kernel``) and no ``enc_bwd_kernel`` or
-   ``dec_bwd_kernel``;
+   ``dec_bwd_kernel``. Then the f32 pass: rows 2-5 in f32 against their
+   plain versions in turns, cuDNN's two-layer f32 LSTM with TF32 off (the
+   f32 function: rows 2-3's ``library_ms_f32``) and on (printed only), both
+   bounds (split-TF32: 3 x the operations over 495 TFLOP/s; CUDA-core: over
+   67 TFLOP/s), the train kernels' launches in one f32 step, the f32 step on
+   the fused route against the plain route, and one f32 fused step under
+   ``torch.profiler``, which must show the split-TF32 kernels of rows 2-3
+   (``seq_fwd_tf32_kernel``, ``enc_step_tf32_kernel``,
+   ``wgrad_tf32_kernel``) and no ``enc_fwd_kernel``, ``enc_bwd_kernel`` or
+   ``wgrad_f32_kernel``;
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
    (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
    L=64, f32 and bf16, each backward also over residuals and inputs
@@ -140,7 +149,11 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    shape through their ``launch_*`` functions (the route check); the
    scaled step on the fused route against the plain route, in tokens/s;
    and one scaled fused step under ``torch.profiler`` (as in phase 8, with
-   the same check of the forward kernels' names);
+   the same check of the forward kernels' names). Then the f32 pass at the
+   scaled shape: the sequence forward and backward (I=1024) and the
+   decoder's logits forward against their plain versions in turns, cuDNN's
+   one-layer f32 LSTM with TF32 off and on, both bounds, and the launches of
+   one f32 scaled step;
 12. the train CLI: the port's ``data.prepare``, ``cli.train`` and
    ``cli.generate`` run in this process (``main(argv)``). A 20,523-molecule
    synthetic corpus (split 16,418 / 2,052 / 2,053: four train batches of
@@ -267,6 +280,10 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    of the kernels line gain ``launches_refused``, row 9 its times at [256,
    256] (``*_b256``).
 
+``--f32_times`` runs phases 1-2, then only phase 8's and phase 11's f32
+passes (their profile is printed, not checked for kernel names), and prints
+them as one JSON line ``{"f32_times": ...}``.
+
 ``--sweep`` times the tensor-core kernel with each cluster size forced and
 the CUDA-core kernel with each rows-per-thread instance forced (1, 2, 4, 8)
 at B = 256, 1024, 2048, 8192, L=64, T=0.8, f32 and bf16: three repeats of 5
@@ -279,7 +296,10 @@ the per-kernel JSON record (each kernel's launches on its main path, its
 largest error against the plain version, its time, the plain version's,
 the library call's where one computes the same function, and its bound:
 the larger of its operations over the card's peak for their type and its
-bytes, each input read once and each output written once, over 3.35 TB/s).
+bytes, each input read once and each output written once, over 3.35 TB/s);
+rows 2-8 also carry their f32 numbers (``ms_f32``, ``plain_ms_f32``,
+``library_ms_f32``, ``bound_ms_f32`` as split-TF32 and
+``bound_ms_f32_cuda_core``, ``launches_f32``).
 Without CUDA the script exits 2 and prints no result.
 """
 
@@ -319,8 +339,10 @@ LOGIT_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TIERS = (256, 2048, 8192)
 # NVIDIA's published H100 SXM peaks (dense): bf16 tensor cores, f32 outside
 # the tensor cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_TF32 = 495e12  # tensor cores, TF32 (dense): the f32 sampler's split-TF32 route
+PEAK_TF32 = 495e12  # tensor cores, TF32 (dense)
+# by route: bf16 on the tensor cores, f32 on CUDA cores, and f32 as
+# split-TF32 (three TF32 products for each f32 product, so a third of the rate)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "split_tf32": PEAK_TF32 / 3}
 PEAK_BYTES = 3.35e12
 SCALED = dict(hidden_dim=1024, num_layers=4, latent_dim=512)
 SB, SL = 2048, 64  # the scaled batch and length
@@ -1218,36 +1240,34 @@ def phase_train_kernels() -> dict:
             torch.cuda.synchronize()
             compare(f"{tag} encoder bwd [dW.., db, demb]", [*kb[0], *kb[1:]],
                     [*pb[0], *pb[1:]], dtype, worst["fused_encoder_bwd"])
-            # the reverse chain alone (bf16: the tensor-core chain; f32: enc_bwd_kernel)
+            # the reverse chain alone (the tensor-core chain: bf16 wgmma, f32 split-TF32)
             le, st = fe.build_library(), torch.cuda.current_stream().cuda_stream
             kr = fe.launch_encoder_bwd(le, we, tok, dh, *p[1:], st, with_reverse=True)
             pr = fe.encoder_reverse_reference(we, dh, *p[1:])
             torch.cuda.synchronize()
             compare(f"{tag} encoder reverse alone [dgates, dx0]", kr[3:], pr, dtype,
                     worst["fused_encoder_bwd"])
-            if dtype == "bfloat16":  # one writer per element, fixed-order sums
-                again = fe.launch_encoder_bwd(le, we, tok, dh, *p[1:], st, with_reverse=True)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip([*kr[0], *kr[1:]],
-                                                             [*again[0], *again[1:]])):
-                    raise AssertionError(f"{tag} encoder bwd: two runs differ")
-                log(f"  {tag} encoder bwd: a second run is bitwise equal (dW, db, demb, "
-                    f"dgates, dx0)")
-                del again
-            del kr, pr
-            if dtype == "bfloat16":
-                again = fe.encoder_fwd(we, tok)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(k, again)):
-                    raise AssertionError(f"{tag} encoder fwd: two runs differ")
-                log(f"  {tag} encoder fwd: a second run is bitwise equal")
-                # the backward on the tensor-core forward's own residuals
-                kb = fe.encoder_bwd(we, tok, dh, *k[1:])
-                pb = fe.encoder_bwd_reference(we, tok, dh, *k[1:])
-                torch.cuda.synchronize()
-                compare(f"{tag} encoder bwd on the kernel forward's residuals", [*kb[0], *kb[1:]],
-                        [*pb[0], *pb[1:]], dtype, worst["fused_encoder_bwd"])
-                del again
+            # one writer per element, fixed-order sums: both dtypes repeat bit for bit
+            again = fe.launch_encoder_bwd(le, we, tok, dh, *p[1:], st, with_reverse=True)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip([*kr[0], *kr[1:]],
+                                                         [*again[0], *again[1:]])):
+                raise AssertionError(f"{tag} encoder bwd: two runs differ")
+            log(f"  {tag} encoder bwd: a second run is bitwise equal (dW, db, demb, "
+                f"dgates, dx0)")
+            del again, kr, pr
+            again = fe.encoder_fwd(we, tok)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(k, again)):
+                raise AssertionError(f"{tag} encoder fwd: two runs differ")
+            log(f"  {tag} encoder fwd: a second run is bitwise equal")
+            # the backward on the tensor-core forward's own residuals
+            kb = fe.encoder_bwd(we, tok, dh, *k[1:])
+            pb = fe.encoder_bwd_reference(we, tok, dh, *k[1:])
+            torch.cuda.synchronize()
+            compare(f"{tag} encoder bwd on the kernel forward's residuals", [*kb[0], *kb[1:]],
+                    [*pb[0], *pb[1:]], dtype, worst["fused_encoder_bwd"])
+            del again
             del k, p, kb, pb
             tf_on = torch.ones((L,), dtype=torch.bool, device="cuda")
             for with_ce in (True, False):
@@ -1569,6 +1589,112 @@ def phase_train_times(smi: str) -> dict:
     heads = {k: v for k, v in out["profile"]["kernels"].items()
              if k in ("dec_head_bwd_kernel", "dec_dtop_kernel")}
     log(f"  default train step: the decoder backward's head pass {heads} (ms) [{smi}]")
+    return out
+
+
+# the f32 default step's kernels: rows 2 and 3 on split-TF32 wgmma (the
+# forward's step kernel, the reverse chain's step kernel, the weight-gradient
+# pass) and none of the CUDA-core kernels they replaced
+F32_NEW = (("encoder forward", "seq_fwd_tf32_kernel"),
+           ("encoder reverse chain", "enc_step_tf32_kernel"),
+           ("weight-gradient pass", "wgrad_tf32_kernel"))
+F32_GONE = ("enc_fwd_kernel", "enc_bwd_kernel", "wgrad_f32_kernel")
+
+
+def cudnn_f32_ms(I: int, H: int, layers: int, B: int, L: int) -> tuple:
+    """cuDNN's f32 ``torch.nn.LSTM`` with TF32 off (the yardstick: the same
+    f32 function) and on (printed only: one TF32 pass keeps ~3 digits and
+    does not meet the f32 contract): ((forward, backward) off, (forward,
+    backward) on). The flag is restored."""
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        off = cudnn_lstm_ms(I, H, layers, B, L, "float32")
+        torch.backends.cudnn.allow_tf32 = True
+        on = cudnn_lstm_ms(I, H, layers, B, L, "float32")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return off, on
+
+
+def phase_train_times_f32(smi: str, check: bool = True) -> dict:
+    """Phase 8's f32 pass, default model, B=4096, L=64: rows 2-5 against
+    their plain versions in turns; cuDNN's two-layer f32 LSTM with TF32 off
+    (rows 2-3's library_ms) and on; both bounds (split-TF32 and CUDA-core);
+    the train kernels' launches in one f32 fused step (counts set to 0 just
+    before); the f32 step, fused route against plain route; one f32 fused
+    step under ``torch.profiler``, which (``check``) must show the
+    split-TF32 kernels of rows 2-3 and none of the CUDA-core ones."""
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.ops import fused_encoder as fe
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+    from mlx_vae_tpu_torch.ops import train_common as tc
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import train_step
+
+    B, L = 4096, 64
+    cfg, params = train_model("float32")
+    we = tc.prepare_stack_weights(params["encoder"], cfg, with_head=False)
+    wd = tc.prepare_stack_weights(params["decoder"], cfg, with_head=True)
+    tok, cond, h0, g = train_inputs(cfg, B, L, seed=5)
+    tf = torch.rand((L,), generator=g, device="cuda") < 0.9
+    enc = fe.encoder_fwd_reference(we, tok)
+    dh = torch.randn((B, cfg.hidden_dim), generator=g, device="cuda")
+    dec = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, True)
+    dce = torch.full((B,), 1.0 / (B * L), device="cuda")
+    pairs = {
+        "fused_encoder_fwd": (lambda: fe.encoder_fwd(we, tok),
+                              lambda: fe.encoder_fwd_reference(we, tok)),
+        "fused_encoder_bwd": (lambda: fe.encoder_bwd(we, tok, dh, *enc[1:]),
+                              lambda: fe.encoder_bwd_reference(we, tok, dh, *enc[1:])),
+        "fused_train_decoder_fwd": (
+            lambda: fd.decoder_fwd(wd, h0, cond, tok, tf, True),
+            lambda: fd.decoder_fwd_reference(wd, h0, cond, tok, tf, True)),
+        "fused_train_decoder_bwd": (
+            lambda: fd.decoder_bwd(wd, dce, tok, dec[1], h0, cond, *dec[2:], True),
+            lambda: fd.decoder_bwd_reference(wd, dce, tok, dec[1], h0, cond, *dec[2:], True)),
+    }
+    out = {name: turns(f"{name} f32", kern, plain, smi, 2, 1)
+           for name, (kern, plain) in pairs.items()}
+    del enc, dec
+    off, on = cudnn_f32_ms(cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers, B, L)
+    out["library"] = {"fused_encoder_fwd": off[0], "fused_encoder_bwd": off[1]}
+    log(f"  cuDNN torch.nn.LSTM, {cfg.num_layers} layers, I={cfg.embedding_dim} "
+        f"H={cfg.hidden_dim} B={B} L={L} f32: TF32 off (the yardstick) forward {off[0]} ms, "
+        f"backward alone {off[1]} ms; TF32 on (not the f32 function) forward {on[0]} ms, "
+        f"backward alone {on[1]} ms [{smi}]")
+    out["library_tf32"] = {"fused_encoder_fwd": on[0], "fused_encoder_bwd": on[1]}
+    out["bounds"] = {"split_tf32": train_bounds(4, "split_tf32"),
+                     "cuda_core": train_bounds(4, "float32")}
+    for name in pairs:
+        (bt, byt), (bc, byc) = (out["bounds"][r][name] for r in ("split_tf32", "cuda_core"))
+        log(f"  {name} f32: {out[name][0]:.3f} ms; bound split-TF32 {bt:.3f} ms ({byt}), "
+            f"CUDA-core {bc:.3f} ms ({byc}) [{smi}]")
+    tcfg = TrainConfig(batch_size=B)
+    xs, conds = synthetic_batch(cfg, B, L)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    counters = {k: v for k, v in kernel_counters().items() if k in TRAIN_KERNELS}
+    p = train_model("float32")[1]
+    o = {k: adam_init(v) for k, v in p.items()}
+    reset_counts(counters)  # the main path's launches: one f32 step
+    train_step(p, o, cfg, tcfg, xs, conds, gen, 0.05, 0.9)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts(counters)
+    log(f"  launches in one f32 default step (fused route): {out['launches']}")
+    if min(out["launches"].values()) < 1:
+        raise AssertionError(f"an f32 train kernel was not launched: {out['launches']}")
+    for route, c in (("plain", cfg.replace(use_pallas=False)), ("fused", cfg),
+                     ("fused", cfg), ("plain", cfg.replace(use_pallas=False))):
+        ms = time_ms(lambda: train_step(p, o, c, tcfg, xs, conds, gen, 0.05, 0.9), 2)
+        out.setdefault(f"step_{route}", []).append(ms)
+        log(f"  train step, {route} route: {ms:.3f} ms = {B * L / ms * 1e3:,.0f} tokens/s "
+            f"(B=4096 L=64 f32) [{smi}]")
+    out["profile"] = profile_step("default train step, fused route (B=4096 L=64 f32)",
+                                  lambda: train_step(p, o, cfg, tcfg, xs, conds, gen, 0.05, 0.9),
+                                  smi)
+    if check:
+        for role, kernel in F32_NEW:
+            check_kernels(out["profile"], "default f32 train step", role, kernel, F32_GONE)
     return out
 
 
@@ -1910,10 +2036,7 @@ def phase_scaled_times(smi: str) -> dict:
         wcat, bias, xs, h0, c0, dhs, dhf, dcf = seq_inputs(I, H, dt, seed=I + 1)
         res = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
         fl_ops = lstm_flops(SB, SL, [(I, H)])
-        w_bytes = (I + H) * 4 * H * es + 4 * H * 4
-        fwd_bytes = M * I * es + w_bytes + 2 * SB * H * 4 + M * 6 * H * es + 2 * SB * H * 4
-        bwd_bytes = (M * I * es + w_bytes + M * 6 * H * es + M * H * 4 + 4 * SB * H * 4
-                     + M * I * 4 + (I + H) * 4 * H * 4 + 4 * H * 4 + 2 * SB * H * 4)
+        fwd_bound, bwd_bound = seq_bounds(I, H, es, dt)
         k_ms, p_ms = turns(f"seq_lstm_fwd I={I}", lambda: fs.seq_lstm_fwd(wcat, bias, xs, h0, c0),
                            lambda: fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0), smi, 3, 2)
         kb_ms, pb_ms = turns(f"seq_lstm_bwd I={I}",
@@ -1923,8 +2046,8 @@ def phase_scaled_times(smi: str) -> dict:
         lib = cudnn_lstm_ms(I, H, 1, SB, SL, dt)
         log(f"  cuDNN torch.nn.LSTM, 1 layer, I={I} H={H} B={SB} L={SL} bf16: forward "
             f"{lib[0]} ms, backward alone {lib[1]} ms [{smi}]")
-        out[f"seq_lstm_fwd I={I}"] = (k_ms, p_ms, lib[0], *bound_ms(fl_ops, fwd_bytes, dt))
-        out[f"seq_lstm_bwd I={I}"] = (kb_ms, pb_ms, lib[1], *bound_ms(2 * fl_ops, bwd_bytes, dt))
+        out[f"seq_lstm_fwd I={I}"] = (k_ms, p_ms, lib[0], *fwd_bound)
+        out[f"seq_lstm_bwd I={I}"] = (kb_ms, pb_ms, lib[1], *bwd_bound)
         log(f"  I={I}: forward {fl_ops / 1e12:.4f} TFLOP, bound "
             f"{out[f'seq_lstm_fwd I={I}'][3]:.4f} ms, {fl_ops / k_ms / 1e9:.1f} TFLOP/s; "
             f"backward bound {out[f'seq_lstm_bwd I={I}'][3]:.4f} ms")
@@ -1936,16 +2059,11 @@ def phase_scaled_times(smi: str) -> dict:
     we = tc.prepare_stack_weights(params["encoder"], cfg, with_head=False)
     tok, cond, h0, g = train_inputs(cfg, SB, SL, seed=12)
     tf = torch.rand((SL,), generator=g, device="cuda") < 0.9
-    E, C, V, n = cfg.embedding_dim, cfg.num_conditions, cfg.vocab_size, cfg.num_layers
-    dec_widths = [(E + C, H)] + [(H, H)] * (n - 1)
-    dec_ops = lstm_flops(SB, SL, dec_widths) + 2.0 * M * H * V
-    stack_bytes = sum((i + H) * 4 * H for i, _ in dec_widths) * es
-    res_bytes = M * n * 6 * H * es
+    n = cfg.num_layers
     k_ms, p_ms = turns("fused_train_decoder_fwd_logits",
                        lambda: fd.decoder_fwd(wd, h0, cond, tok, tf, False),
                        lambda: fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False), smi, 2, 1)
-    out["fused_train_decoder_fwd_logits"] = (
-        k_ms, p_ms, None, *bound_ms(dec_ops, stack_bytes + res_bytes + M * V * 4 + M * 8, dt))
+    out["fused_train_decoder_fwd_logits"] = (k_ms, p_ms, None, *dec_logits_bound(cfg, es, dt))
 
     # route check: the whole-stack kernels at the scaled shape, through their
     # launch functions (no route, no counter)
@@ -2027,11 +2145,138 @@ def phase_scaled_times(smi: str) -> dict:
     return out
 
 
+def phase_scaled_times_f32(smi: str) -> dict:
+    """Phase 11's f32 pass at the scaled shape (H=1024, B=2048, L=64): the
+    sequence forward and backward (rows 7-8, I=1024) and the decoder's
+    logits forward (row 6, 4 layers) against their plain versions in turns;
+    cuDNN's one-layer f32 LSTM with TF32 off (library_ms) and on; both
+    bounds; the launches of one f32 scaled fused step (counts set to 0 just
+    before)."""
+    from mlx_vae_tpu_torch.config import TrainConfig
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+    from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
+    from mlx_vae_tpu_torch.ops import train_common as tc
+    from mlx_vae_tpu_torch.train.optim import adam_init
+    from mlx_vae_tpu_torch.train.steps import train_step
+
+    out = {}
+    H, dt, I = SCALED["hidden_dim"], "float32", 1024
+    wcat, bias, xs, h0, c0, dhs, dhf, dcf = seq_inputs(I, H, dt, seed=I + 1)
+    res = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
+    k_ms, p_ms = turns(f"seq_lstm_fwd I={I} f32", lambda: fs.seq_lstm_fwd(wcat, bias, xs, h0, c0),
+                       lambda: fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0), smi, 1, 1)
+    kb_ms, pb_ms = turns(f"seq_lstm_bwd I={I} f32",
+                         lambda: fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res[:3], dhs, dhf, dcf),
+                         lambda: fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *res[:3], dhs, dhf,
+                                                           dcf), smi, 1, 1)
+    del res, wcat, xs, dhs
+    torch.cuda.empty_cache()
+    off, on = cudnn_f32_ms(I, H, 1, SB, SL)
+    log(f"  cuDNN torch.nn.LSTM, 1 layer, I={I} H={H} B={SB} L={SL} f32: TF32 off (the "
+        f"yardstick) forward {off[0]} ms, backward alone {off[1]} ms; TF32 on forward {on[0]} "
+        f"ms, backward alone {on[1]} ms [{smi}]")
+    fwd_b = {r: seq_bounds(I, H, 4, r)[0] for r in ("split_tf32", "float32")}
+    bwd_b = {r: seq_bounds(I, H, 4, r)[1] for r in ("split_tf32", "float32")}
+    out["seq_lstm_fwd"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=off[0], library_tf32_ms=on[0],
+                               bounds=fwd_b)
+    out["seq_lstm_bwd"] = dict(ms=kb_ms, plain_ms=pb_ms, library_ms=off[1],
+                               library_tf32_ms=on[1], bounds=bwd_b)
+    cfg, params = scaled_model(dt)
+    wd = tc.prepare_stack_weights(params["decoder"], cfg, with_head=True)
+    tok, cond, h0, g = train_inputs(cfg, SB, SL, seed=12)
+    tf = torch.rand((SL,), generator=g, device="cuda") < 0.9
+    k_ms, p_ms = turns("fused_train_decoder_fwd_logits f32",
+                       lambda: fd.decoder_fwd(wd, h0, cond, tok, tf, False),
+                       lambda: fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False), smi, 1, 1)
+    out["fused_train_decoder_fwd_logits"] = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=None, library_tf32_ms=None,
+        bounds={r: dec_logits_bound(cfg, 4, r) for r in ("split_tf32", "float32")})
+    del wd
+    for name, rec in out.items():
+        log(f"  {name} f32 at the scaled shape: {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
+            f"ms; bound split-TF32 {rec['bounds']['split_tf32'][0]:.3f} ms, CUDA-core "
+            f"{rec['bounds']['float32'][0]:.3f} ms [{smi}]")
+    counters = {k: kernel_counters()[k] for k in SEQ_RECORDS if not k.startswith("lstm_gates")}
+    o = {k: adam_init(v) for k, v in params.items()}
+    xb, cb = synthetic_batch(cfg, SB, SL)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    reset_counts(counters)  # the main path's launches: one f32 scaled step
+    t0 = time.perf_counter()
+    train_step(params, o, cfg, TrainConfig(batch_size=SB), xb, cb, gen, 0.05, 0.9)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts(counters)
+    log(f"  launches in one f32 scaled step (fused route, {out['step_s']:.3f} s by the host "
+        f"clock, the first): {out['launches']}")
+    if out["launches"] != {"seq_lstm_fwd": 4, "seq_lstm_bwd": 8,
+                           "fused_train_decoder_fwd_logits": 1}:
+        raise AssertionError(f"f32 scaled launches {out['launches']}")
+    del params, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_bounds(es: int, route: str) -> dict:
+    """{kernel: (bound ms, bound by)} of rows 2-5 at the shape phase 8 times
+    them (default model, B=4096, L=64), residuals and weights of ``es``
+    bytes, the operations at ``route``'s rate (``PEAK_FLOPS``)."""
+    from mlx_vae_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    E, C, H, V, n = (cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim, cfg.vocab_size,
+                     cfg.num_layers)
+    B, L = 4096, 64
+    M = B * L
+    res = M * n * 6 * H * es
+    enc_w = [(E, H)] + [(H, H)] * (n - 1)
+    dec_w = [(E + C, H)] + [(H, H)] * (n - 1)
+    enc_ops, dec_ops = lstm_flops(B, L, enc_w), lstm_flops(B, L, dec_w)
+    wb = lambda ws: sum((i + h) * 4 * h for i, h in ws)  # noqa: E731
+    grads = lambda ws, head: (wb(ws) + n * 4 * H + V * E + head) * 4  # noqa: E731
+    out = {}
+    out["fused_encoder_fwd"] = bound_ms(enc_ops, M * 4 + (wb(enc_w) + V * E) * es + res
+                                        + B * H * 4, route)
+    out["fused_encoder_bwd"] = bound_ms(2 * enc_ops, M * 4 + (wb(enc_w) + V * E) * es + res
+                                        + B * H * 4 + grads(enc_w, 0), route)
+    dec_in = M * 4 + B * (H + C) * 4 + (wb(dec_w) + V * E + 2 * H * V) * es
+    out["fused_train_decoder_fwd"] = bound_ms(dec_ops + 2.0 * M * H * V,
+                                              dec_in + B * 4 + M * 4 + res, route)
+    out["fused_train_decoder_bwd"] = bound_ms(
+        2 * dec_ops + 6.0 * M * H * V, dec_in + B * 4 + M * 4 + res
+        + grads(dec_w, H * V + V) + B * (H + C) * 4, route)
+    return out
+
+
+def seq_bounds(I: int, H: int, es: int, route: str) -> tuple:
+    """((bound ms, bound by) of the sequence forward, of its backward) at the
+    scaled shape phase 11 times them (B=2048, L=64)."""
+    M = SB * SL
+    fl_ops = lstm_flops(SB, SL, [(I, H)])
+    w_bytes = (I + H) * 4 * H * es + 4 * H * 4
+    fwd_bytes = M * I * es + w_bytes + 2 * SB * H * 4 + M * 6 * H * es + 2 * SB * H * 4
+    bwd_bytes = (M * I * es + w_bytes + M * 6 * H * es + M * H * 4 + 4 * SB * H * 4
+                 + M * I * 4 + (I + H) * 4 * H * 4 + 4 * H * 4 + 2 * SB * H * 4)
+    return bound_ms(fl_ops, fwd_bytes, route), bound_ms(2 * fl_ops, bwd_bytes, route)
+
+
+def dec_logits_bound(cfg, es: int, route: str) -> tuple:
+    """(bound ms, bound by) of the decoder's logits forward at the scaled
+    shape (B=2048, L=64)."""
+    E, C, V, n, H = (cfg.embedding_dim, cfg.num_conditions, cfg.vocab_size, cfg.num_layers,
+                     cfg.hidden_dim)
+    M = SB * SL
+    dec_widths = [(E + C, H)] + [(H, H)] * (n - 1)
+    dec_ops = lstm_flops(SB, SL, dec_widths) + 2.0 * M * H * V
+    stack_bytes = sum((i + H) * 4 * H for i, _ in dec_widths) * es
+    res_bytes = M * n * 6 * H * es
+    return bound_ms(dec_ops, stack_bytes + res_bytes + M * V * 4 + M * 8, route)
+
+
 def default_bounds() -> dict:
     """{kernel: (bound ms, bound by)} of the sampler and the default-model
     train kernels at the shapes phases 5 and 8 time them; the sampler's by
     route: CUDA-core f32 FMA (67 TFLOP/s), split-TF32 (3 x the operations at
-    495 TFLOP/s), bf16 (989 TFLOP/s)."""
+    495 TFLOP/s), bf16 (989 TFLOP/s); the train kernels in bf16."""
     from mlx_vae_tpu_torch.config import ModelConfig
 
     cfg = ModelConfig()
@@ -2044,30 +2289,9 @@ def default_bounds() -> dict:
     w = ((E + C + H) * 4 * H + (n - 1) * 2 * H * 4 * H + H * V + V * E) * 4
     nbytes = w + B * (H + C) * 4 + M * 4
     out["fused_generate"] = bound_ms(ops, nbytes, "float32")  # CUDA cores
-    # the tensor-core route: three TF32 products a product in f32, bf16 as is
-    t_bytes = nbytes / PEAK_BYTES
-    t_tf32 = 3 * ops / PEAK_TF32
-    out["fused_generate_tc"] = (max(t_tf32, t_bytes) * 1e3,
-                                "operations" if t_tf32 >= t_bytes else "bytes")
+    out["fused_generate_tc"] = bound_ms(ops, nbytes, "split_tf32")
     out["fused_generate_tc_bf16"] = bound_ms(ops, nbytes - w // 2, "bfloat16")
-    B, L, es = 4096, 64, 2  # the train kernels, bf16
-    M = B * L
-    res = M * n * 6 * H * es
-    enc_w = [(E, H)] + [(H, H)] * (n - 1)
-    dec_w = [(E + C, H)] + [(H, H)] * (n - 1)
-    enc_ops, dec_ops = lstm_flops(B, L, enc_w), lstm_flops(B, L, dec_w)
-    wb = lambda ws: sum((i + h) * 4 * h for i, h in ws)  # noqa: E731
-    grads = lambda ws, head: (wb(ws) + n * 4 * H + V * E + head) * 4  # noqa: E731
-    out["fused_encoder_fwd"] = bound_ms(enc_ops, M * 4 + (wb(enc_w) + V * E) * es + res
-                                        + B * H * 4, "bfloat16")
-    out["fused_encoder_bwd"] = bound_ms(2 * enc_ops, M * 4 + (wb(enc_w) + V * E) * es + res
-                                        + B * H * 4 + grads(enc_w, 0), "bfloat16")
-    dec_in = M * 4 + B * (H + C) * 4 + (wb(dec_w) + V * E + 2 * H * V) * es
-    out["fused_train_decoder_fwd"] = bound_ms(dec_ops + 2.0 * M * H * V,
-                                              dec_in + B * 4 + M * 4 + res, "bfloat16")
-    out["fused_train_decoder_bwd"] = bound_ms(
-        2 * dec_ops + 6.0 * M * H * V, dec_in + B * 4 + M * 4 + res
-        + grads(dec_w, H * V + V) + B * (H + C) * 4, "bfloat16")
+    out.update(train_bounds(2, "bfloat16"))
     return out
 
 
@@ -3185,11 +3409,41 @@ SEQ_RECORDS = {
 }
 
 
+# rows 6-8 in f32: the shapes phase 11's f32 pass times
+F32_SCALED_SHAPES = {"seq_lstm_fwd": "I=1024 H=1024 B=2048 L=64 f32",
+                     "seq_lstm_bwd": "I=1024 H=1024 B=2048 L=64 f32",
+                     "fused_train_decoder_fwd_logits": "H=1024 n=4 V=80 E=128 B=2048 L=64 f32 "
+                                                       "tf 0.9"}
+
+
+def f32_record(rec: dict, kname: str, shape: str) -> dict:
+    """A kernel's f32 keys of the kernels line from phase 8's or 11's f32
+    pass: its time, the plain version's, cuDNN's with TF32 off (the
+    library call that computes the same f32 function; with TF32 on beside
+    it), the split-TF32 bound (3 x the operations over 495 TFLOP/s, or the
+    bytes) and the CUDA-core one (67 TFLOP/s), and its launches in one f32
+    step (default model for rows 2-5, scaled for rows 6-8)."""
+    if "bounds" in rec:  # phase 8: per-kernel pairs, shared dicts
+        ms, plain = rec[kname]
+        lib, lib_tf32 = rec["library"].get(kname), rec["library_tf32"].get(kname)
+        bt, bc = rec["bounds"]["split_tf32"][kname], rec["bounds"]["cuda_core"][kname]
+    else:
+        r = rec[kname]
+        ms, plain, lib, lib_tf32 = r["ms"], r["plain_ms"], r["library_ms"], r["library_tf32_ms"]
+        bt, bc = r["bounds"]["split_tf32"], r["bounds"]["float32"]
+    return {"ms_f32": ms, "plain_ms_f32": plain, "library_ms_f32": lib,
+            "library_ms_f32_tf32_on": lib_tf32, "bound_ms_f32": bt[0], "bound_by_f32": bt[1],
+            "bound_ms_f32_cuda_core": bc[0], "launches_f32": rec["launches"][kname],
+            "timed_shape_f32": shape}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
                     help="time every sampler cluster size and rows-per-thread instance "
-                         "instead of phases 3-14")
+                         "instead of phases 3-17")
+    ap.add_argument("--f32_times", action="store_true",
+                    help="run only phase 8's and phase 11's f32 passes after the build")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3215,6 +3469,15 @@ def main() -> int:
         print(json.dumps({"tile_sweep": sweep}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    if args.f32_times:
+        log(f"[8 train times, f32] B=4096 L=64, CUDA events [{smi}]")
+        f32 = {"default": phase_train_times_f32(smi, check=False)}
+        log(f"[11 scaled times, f32] CUDA events [{smi}]")
+        f32["scaled"] = phase_scaled_times_f32(smi)
+        log(smi)
+        print(json.dumps({"f32_times": f32}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
 
     log("[3 kernel vs plain] both sampler kernels, default model, B=256/2048/8192, L=64")
     worst = phase_kernel_vs_plain()
@@ -3237,6 +3500,8 @@ def main() -> int:
 
     log(f"[8 train times] B=4096 L=64 bf16, CUDA events [{smi}]")
     train_times = phase_train_times(smi)
+    log(f"[8 train times, f32] B=4096 L=64, CUDA events [{smi}]")
+    train_f32 = phase_train_times_f32(smi)
 
     log("[9 scaled kernels vs plain] sequence LSTM, decoder logits forward, gate pair")
     seq_errs = phase_scaled_kernels()
@@ -3247,6 +3512,8 @@ def main() -> int:
 
     log(f"[11 scaled times] CUDA events [{smi}]")
     seq_times = phase_scaled_times(smi)
+    log(f"[11 scaled times, f32] CUDA events [{smi}]")
+    seq_f32 = phase_scaled_times_f32(smi)
 
     log("[12 train CLI] cli.train on a 20,523-molecule corpus, default model, bf16, "
         "B=4096, fused route; resume; f32 fused vs plain; cli.generate with --data")
@@ -3338,7 +3605,8 @@ def main() -> int:
             "ms": train_times[kname][0], "plain_ms": train_times[kname][1],
             "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
             "library_ms": train_times["library"].get(kname),
-            "timed_shape": "B=4096 L=64 bf16" + (" with_ce" if "decoder" in kname else "")}
+            "timed_shape": "B=4096 L=64 bf16" + (" with_ce" if "decoder" in kname else ""),
+            **f32_record(train_f32, kname, "B=4096 L=64 f32")}
             for kname in TRAIN_KERNELS] + [{
             "name": kname, "route": "cuda", "source": f"mlx_vae_tpu_torch/csrc/{src}",
             "replaces": f"mlx_vae_tpu/ops/{tpu}", "launches": launches_seq[kname],
@@ -3361,7 +3629,9 @@ def main() -> int:
                           f"max|diff|/max|plain| {seq_errs[kname][1]:.3e} "
                           f"(tolerance 1e-4 f32, 2e-2 bf16)",
             **dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), seq_times[row])),
-            "timed_shape": shape}
+            "timed_shape": shape,
+            **(f32_record(seq_f32, kname, F32_SCALED_SHAPES[kname])
+               if kname in F32_SCALED_SHAPES else {})}
             for kname, (src, tpu, row, shape) in SEQ_RECORDS.items()]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -36,9 +36,10 @@
 // cores' bf16 rate) bound it. In bf16 it runs on wgmma (wgrad_wgmma_kernel:
 // 128 x 128 tiles, a 3-stage cp.async ring, two blocks an SM, both operands
 // MN-major as they lie in memory, f32 accumulation); db is a separate
-// column sum (colsum_kernel). The f32 pass stays CUDA-core FMA (wgrad_f32_kernel):
-// tensor cores in f32 would mean TF32, about three decimal digits, and the
-// f32 contract holds gradients to 1e-4.
+// column sum (colsum_kernel). In f32 it runs split-TF32 (wgrad_tf32_kernel,
+// wgmma.cuh:gemm_tf32: three TF32 products for each f32 product, so 3 x the
+// operations at 495 TFLOP/s bound it), each operand transposed to K-major
+// while it is split, since TF32 wgmma has no transposed operand.
 
 #pragma once
 
@@ -234,41 +235,48 @@ __device__ __forceinline__ void cell_bwd_dinp(const T* WT, const float* dg, int 
   }
 }
 
-// The bf16 reverse step of one layer at one step s, element by element: the
-// epilogue of the tensor-core reverse products (dinp_tile below) and the
-// first launch of their chains (gate_kernel).
-struct GateArgs {
-  const __nv_bfloat16* gs;     // [B, 4H] activated gates at s
-  const __nv_bfloat16* cs;     // [B, H] c at s
-  const __nv_bfloat16* cprev;  // [B, H] c at s - 1, or null: c0 (zeros if null too)
-  const float* c0;             // [B, H], or null
-  const float* dhs;            // [B, H] output cotangent at s, or null: none
-  const float* dc_in;          // [B, H] running dc
-  float* dc;                   // [B, H] running dc out (may be dc_in)
-  __nv_bfloat16* dg;           // [B, 4H] dgates at s, rounded to bf16
+// The reverse step of one layer at one step s, element by element: the
+// epilogue of the tensor-core reverse products (dinp_tile and dinp_tile_tf32
+// below) and the first launch of their chains (gate_kernel). T: the
+// residuals' and dgates' type (bf16, or f32 on the encoder's split-TF32
+// chain).
+template <typename T>
+struct GateArgsT {
+  const T* gs;         // [B, 4H] activated gates at s
+  const T* cs;         // [B, H] c at s
+  const T* cprev;      // [B, H] c at s - 1, or null: c0 (zeros if null too)
+  const float* c0;     // [B, H], or null
+  const float* dhs;    // [B, H] output cotangent at s, or null: none
+  const float* dc_in;  // [B, H] running dc
+  float* dc;           // [B, H] running dc out (may be dc_in)
+  T* dg;               // [B, 4H] dgates at s, rounded to T
   int H;
 };
+using GateArgs = GateArgsT<__nv_bfloat16>;
 
 // Row b, unit j, with dh the h cotangent from the layers and steps after s
 // (the output cotangent dhs, where there is one, is added here).
-__device__ __forceinline__ void gate_step(const GateArgs& a, int b, int j, float dh) {
+template <typename T>
+__device__ __forceinline__ void gate_step(const GateArgsT<T>& a, int b, int j, float dh) {
   const int H = a.H;
   const size_t G = 4 * (size_t)H, bj = (size_t)b * H + j;
-  const __nv_bfloat16* gp = a.gs + b * G + j;
+  const T* gp = a.gs + b * G + j;
   float g4[4], d4[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) g4[q] = ld(gp + q * H);
   const float cp = a.cprev != nullptr ? ld(a.cprev + bj) : (a.c0 != nullptr ? a.c0[bj] : 0.0f);
   const float dht = a.dhs != nullptr ? dh + a.dhs[bj] : dh;
-  a.dc[bj] = gate_cot<__nv_bfloat16>(g4, ld(a.cs + bj), cp, dht, a.dc_in[bj], d4);
-  __nv_bfloat16* o = a.dg + b * G + j;
+  a.dc[bj] = gate_cot<T>(g4, ld(a.cs + bj), cp, dht, a.dc_in[bj], d4);
+  T* o = a.dg + b * G + j;
 #pragma unroll
   for (int q = 0; q < 4; ++q) st(o + q * H, d4[q]);
 }
 
-// The first launch of a bf16 reverse chain: the gate step of its last step
-// from the cotangent dh [B, H] (count = B * H elements).
-__global__ void __launch_bounds__(256) gate_kernel(const GateArgs a, const float* dh, int count) {
+// The first launch of a reverse chain: the gate step of its last step from
+// the cotangent dh [B, H] (count = B * H elements).
+template <typename T>
+__global__ void __launch_bounds__(256) gate_kernel(const GateArgsT<T> a, const float* dh,
+                                                   int count) {
   const int idx = blockIdx.x * 256 + threadIdx.x;
   if (idx < count) gate_step(a, idx / a.H, idx % a.H, dh[idx]);
 }
@@ -302,6 +310,40 @@ __device__ __forceinline__ const float* dinp_tile(unsigned char* smem_raw,
     }
   });
   return wg::stage_tile(acc, smem_raw, ring);
+}
+
+// The f32 counterpart (fused_encoder.cu's enc_step_tf32_kernel): the same
+// tile as split-TF32 (wgmma.cuh:gemm_tf32), both operands split while they
+// are staged (dg's rows, and w's rows read as they lie). Rows and columns
+// outside read zeros; every row of dg and w is 16-byte aligned (G = 4H).
+__device__ __forceinline__ const float* dinp_tile_tf32(unsigned char* smem_raw, const float* dg,
+                                                       const float* w, int B, int N, int G) {
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  // This thread stages 16-byte chunk c of tile rows r0 + 32 u of both operands.
+  const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  float4 av[4], bv[4];
+  float sum[64];
+  wg::gemm_tf32(
+      sum, ring, (G + wg::TF_BK - 1) / wg::TF_BK,
+      [&](int kt) {
+        const int q = kt * wg::TF_BK + 4 * c;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int r = r0 + 32 * u;
+          av[u] = wg::load4(m0 + r < B ? dg + (size_t)(m0 + r) * G : nullptr, q, G, true);
+          bv[u] = wg::load4(n0 + r < N ? w + (size_t)(n0 + r) * G : nullptr, q, G, true);
+        }
+      },
+      [&](uint32_t dst, int) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t off = wg::swz(r0 + 32 * u, c);
+          wg::put4_split(dst + off, av[u]);
+          wg::put4_split(dst + 2 * wg::TILE + off, bv[u]);
+        }
+      });
+  return wg::stage_tile(sum, smem_raw, ring);
 }
 
 // ------------------------------------------------------- gradient sums
@@ -347,58 +389,57 @@ __device__ __forceinline__ const TD* d_row(const WgradArgs& g, int t, int b) {
 }
 
 // f32: part[s] = sum over rows [s*chunk, (s+1)*chunk) of A^T D for one
-// 64 x 64 tile, CUDA-core FMA in full f32 (tensor cores would mean TF32).
-constexpr int GB_M = 16;  // rows of t*B per shared-memory stage
-constexpr int GB_K = 64;  // output tile: rows of dW
-constexpr int GB_N = 64;  // output tile: columns of dW
-
-__global__ void __launch_bounds__(256) wgrad_f32_kernel(const WgradArgs g) {
-  __shared__ float As[GB_M][GB_K];
-  __shared__ float Ds[GB_M][GB_N];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * GB_N, k0 = blockIdx.y * GB_K, s = blockIdx.z;
+// 128 x 128 tile (128 rows k, 128 columns n) as split-TF32
+// (wgmma.cuh:gemm_tf32), 32 rows m a stage. Both operands lie MN-major
+// (a row m holds k or n contiguously) and TF32 wgmma reads only K-major, so
+// each is transposed while it is split: this thread loads rows 4 mg .. 4 mg
+// + 3 of the stage at columns 4 kg .. 4 kg + 3 of A and of D (float4 where
+// every row is 16-byte aligned) and writes them as chunk mg of lines 4 kg ..
+// 4 kg + 3 (wgmma.cuh:load_t4 / put_t4). Rows past the slice and columns
+// past K or N are zeros.
+__global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM) wgrad_tf32_kernel(
+    const WgradArgs g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, k0 = blockIdx.y * wg::BM, s = blockIdx.z;
   const int m_begin = s * g.chunk;
   const int m_end = min(m_begin + g.chunk, g.M);
-  float acc[4][4];
+  const int nk = (m_end - m_begin + wg::TF_BK - 1) / wg::TF_BK;
+  const int mg = threadIdx.x & 7, kg = threadIdx.x >> 3;
+  int t[4], b[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int m0 = m_begin; m0 < m_end; m0 += GB_M) {
-    for (int idx = tid; idx < GB_M * GB_K; idx += 256) {
-      const int mm = idx / GB_K, kk = idx % GB_K, m = m0 + mm, k = k0 + kk;
-      const float* row = (m < m_end && k < g.K) ? a_row<float>(g, m / g.B, m % g.B) : nullptr;
-      As[mm][kk] = row != nullptr ? row[k] : 0.0f;
-    }
-    for (int idx = tid; idx < GB_M * GB_N; idx += 256) {
-      const int mm = idx / GB_N, nn = idx % GB_N, m = m0 + mm, n = n0 + nn;
-      Ds[mm][nn] = (m < m_end && n < g.N) ? d_row<float>(g, m / g.B, m % g.B)[n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < GB_M; ++mm) {
-      float av[4], dv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[mm][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dv[j] = Ds[mm][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int u = 0; u < 4; ++u) {
+    const int m = m_begin + 4 * mg + u;
+    t[u] = m / g.B;
+    b[u] = m % g.B;
   }
+  float4 va[4], vd[4];
+  float sum[64];
+  wg::gemm_tf32(
+      sum, ring, nk,
+      [&](int kt) {
+        const int m0 = m_begin + kt * wg::TF_BK;
+        const float* ar[4];
+        const float* dr[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = m0 + 4 * mg + u < m_end;
+          ar[u] = in ? a_row<float>(g, t[u], b[u]) : nullptr;
+          dr[u] = in ? d_row<float>(g, t[u], b[u]) : nullptr;
+          for (b[u] += wg::TF_BK; b[u] >= g.B; b[u] -= g.B) ++t[u];
+        }
+        wg::load_t4(va, ar, k0 + 4 * kg, g.K, g.a_vec);
+        wg::load_t4(vd, dr, n0 + 4 * kg, g.N, g.d_vec);
+      },
+      [&](uint32_t dst, int) {
+        wg::put_t4(dst, va, 4 * kg, mg);
+        wg::put_t4(dst + 2 * wg::TILE, vd, 4 * kg, mg);
+      });
   float* out = g.part + (size_t)s * g.K * g.N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= g.K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < g.N) out[(size_t)k * g.N + n] = acc[i][j];
-    }
+  for (int j = 0; j < 64; ++j) {
+    const int k = k0 + wg::acc_row(j), n = n0 + wg::acc_col(j);
+    if (k < g.K && n < g.N) out[(size_t)k * g.N + n] = sum[j];
   }
 }
 
@@ -507,8 +548,10 @@ __global__ void __launch_bounds__(DE_COLS) demb_kernel(const T* dx, const int* t
 
 inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
 
-// blocks of the tensor-core passes resident at once on an H100 SXM (132 SMs)
+// blocks of the tensor-core passes resident at once on an H100 SXM (132 SMs):
+// bf16 and split-TF32
 constexpr int SLOTS = 132 * wg::BLOCKS_PER_SM;
+constexpr int TF_SLOTS = 132 * wg::TF_BLOCKS_PER_SM;
 
 inline cudaError_t reduce(const float* part, int S, long count, float* out, cudaStream_t st) {
   reduce_kernel<<<cdiv(count, 256), 256, 0, st>>>(part, S, count, out);
@@ -516,13 +559,13 @@ inline cudaError_t reduce(const float* part, int S, long count, float* out, cuda
 }
 
 // Splits of the M rows for `tiles` output tiles: the fewest that fill one or
-// more whole waves of SLOTS blocks to within 10%, at most 32, at least
+// more whole waves of `slots` blocks to within 10%, at most 32, at least
 // `rows_min` rows each, and at most `cap`.
-inline int split_count(int tiles, long M, int rows_min, long cap) {
+inline int split_count(int tiles, long M, int rows_min, long cap, int slots = SLOTS) {
   int best = 1;
-  double best_eff = (double)tiles / ((double)cdiv(tiles, SLOTS) * SLOTS);
+  double best_eff = (double)tiles / ((double)cdiv(tiles, slots) * slots);
   for (int S = 2; S <= 32 && best_eff < 0.9; ++S) {
-    const double eff = (double)tiles * S / ((double)cdiv((long)tiles * S, SLOTS) * SLOTS);
+    const double eff = (double)tiles * S / ((double)cdiv((long)tiles * S, slots) * slots);
     if (eff > best_eff + 0.05) { best = S; best_eff = eff; }
   }
   if ((long)best * rows_min > M) best = cdiv(M, rows_min);
@@ -532,28 +575,26 @@ inline int split_count(int tiles, long M, int rows_min, long cap) {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-// dW rows [out, out + K) (+ db when db != null) from one A source: the f32
-// kernel for T = float, the tensor-core kernel for bf16 (a dispatch on
-// dtype: f32 on the tensor cores would be TF32). Partials are added in a
-// fixed order by reduce_kernel, so the sums are the same from run to run.
+// dW rows [out, out + K) (+ db when db != null) from one A source: on the
+// tensor cores in both dtypes, a dispatch on dtype (bf16 wgmma for T = bf16,
+// split-TF32 for T = float: 128 x 128 tiles, 32 rows a stage, one block an
+// SM). Partials are added in a fixed order by reduce_kernel, so the sums are
+// the same from run to run.
 template <typename T, typename TD>
 cudaError_t wgrad(WgradArgs g, float* out, float* db, float* scratch, long scratch_elems,
                   cudaStream_t st) {
-  constexpr bool TC = sizeof(T) == 2;
-  const int bm = TC ? wg::BM : GB_K, bn = TC ? wg::BN : GB_N, bk = TC ? wg::BK : GB_M;
-  const int tiles = cdiv(g.K, bm) * cdiv(g.N, bn);
+  constexpr bool BF = sizeof(T) == 2;
+  const int bk = BF ? wg::BK : wg::TF_BK;
+  const int tiles = cdiv(g.K, wg::BM) * cdiv(g.N, wg::BN);
   const long per = (long)g.K * g.N;
-  // f32: ~1024 blocks of 256 threads, several resident per SM
-  int S = TC ? split_count(tiles, g.M, 8 * bk, scratch_elems / per)
-             : std::max(1L, std::min({(long)cdiv(1024, tiles), (long)cdiv(g.M, bk),
-                                      scratch_elems / per}));
+  int S = split_count(tiles, g.M, 8 * bk, scratch_elems / per, BF ? SLOTS : TF_SLOTS);
   g.chunk = cdiv(cdiv(g.M, S), bk) * bk;
   S = cdiv(g.M, g.chunk);
   if (S > 1 && (long)S * per > scratch_elems) return cudaErrorInvalidValue;
   g.part = S > 1 ? scratch : out;
-  dim3 grid(cdiv(g.N, bn), cdiv(g.K, bm), S);
+  dim3 grid(cdiv(g.N, wg::BN), cdiv(g.K, wg::BM), S);
   cudaError_t e;
-  if constexpr (TC) {
+  if constexpr (BF) {
     constexpr int E = 8;  // bf16 per 16 bytes
     const bool shift_ok = g.a_mode != A_SHIFT || g.a0 == nullptr || aligned16(g.a0);
     g.a_vec = aligned16(g.a) && shift_ok && g.K % E == 0 &&
@@ -565,7 +606,16 @@ cudaError_t wgrad(WgradArgs g, float* out, float* db, float* scratch, long scrat
     if (e != cudaSuccess) return e;
     wgrad_wgmma_kernel<TD><<<grid, wg::NTH, wg::SMEM, st>>>(g);
   } else {
-    wgrad_f32_kernel<<<grid, 256, 0, st>>>(g);
+    static_assert(sizeof(TD) == 4, "the split-TF32 pass reads f32 cotangents");
+    constexpr int E = 4;  // f32 per 16 bytes
+    const bool shift_ok = g.a_mode != A_SHIFT || g.a0 == nullptr || aligned16(g.a0);
+    g.a_vec = aligned16(g.a) && shift_ok && g.K % E == 0 &&
+              (g.a_mode == A_GATHER || (g.a_st % E == 0 && g.a_sb % E == 0));
+    g.d_vec = aligned16(g.d) && g.N % E == 0 && g.d_st % E == 0 && g.d_sb % E == 0;
+    e = cudaFuncSetAttribute(wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::TF_SMEM);
+    if (e != cudaSuccess) return e;
+    wgrad_tf32_kernel<<<grid, wg::NTH, wg::TF_SMEM, st>>>(g);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -803,6 +853,178 @@ inline cudaError_t seq_fwd_wgmma(const SeqFwdArgs& s, cudaStream_t st) {
     a.gs = s.gs + t * s.g_st;
     a.hf = t == s.L - 1 ? s.hf : nullptr;
     seq_fwd_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// ------------------------------------------ f32 forward as split-TF32
+
+// The f32 counterpart of seq_fwd_step_kernel (the whole-stack encoder's
+// forward, fused_encoder.cu): step t of one layer is one card-wide GEMM
+// gates_t [B, 4H] = A_t [B, Kp] W' [Kp, Np] on wgmma as split-TF32
+// (wgmma.cuh:gemm_tf32: 128 x 128 tiles, 32-deep stages, 3-stage ring, one
+// block an SM), with the cell in its epilogue. A_t's columns k < I are the
+// step's input row (a dense f32 row, or the embedding row of the row's
+// token, zeros for a token outside [0, V)); columns Ixp + j hold h_{t-1}
+// (the f32 h the previous launch stored, hprev at t = 0, zeros where null).
+// W' is interleave_weight's copy of the layer's f32 weight. Both operands
+// are split into TF32 hi and lo while they are staged (reading precomputed
+// hi and lo planes of W' instead measured the same and cost two copies a
+// call; PERF.md, PR 17). The epilogue is seq_fwd_step_kernel's,
+// storing h, c and the activated gates in f32. One writer per element and
+// no atomics, so two runs are bitwise equal.
+// Shared memory: the ring, 3 x 64 KB (A and W', each hi and lo), and the
+// staged 128 x 136 f32 tile inside it: 197,632 B with the alignment slack,
+// one block an SM (wgmma.cuh gives the choice and its measured times).
+struct FwdStepTf32Args {
+  const float* x;       // [B, I] the step's input rows, or with tok the table [V, I]
+  const int* tok;       // the token of row b at tok[b * tok_sb], or null (dense)
+  long tok_sb;
+  int V;
+  const float* hprev;   // [B, H] h_{t-1}, or null: zeros
+  const float* c_in;    // [B, H] c_{t-1}, or null: zeros
+  float* c_out;         // [B, H] c_t (may be c_in)
+  const float* w;       // [Np, Kp] interleave_weight (f32)
+  const float* bias;    // [4H]
+  float* hs;            // [B, H] step t's h
+  float* cs;            // [B, H] step t's c
+  float* gs;            // [B, 4H] step t's activated gates
+  float* hf;            // [B, H] a copy of h, or null
+  int B, I, Ixp, H, Kp, vec_x, vec_h;
+};
+
+__global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
+    seq_fwd_tf32_kernel(const FwdStepTf32Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  const int B = a.B, I = a.I, H = a.H, Ixp = a.Ixp, Kp = a.Kp;
+  // This thread stages 16-byte chunk c (4 f32) of tile rows r0 + 32 u.
+  const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const float* xr[4];
+  const float* hr[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int row = m0 + r0 + 32 * u;
+    xr[u] = nullptr;
+    hr[u] = nullptr;
+    if (row < B) {
+      if (a.tok == nullptr) {
+        xr[u] = a.x + (size_t)row * I;
+      } else {
+        const int v = a.tok[row * a.tok_sb];
+        if (v >= 0 && v < a.V) xr[u] = a.x + (size_t)v * I;
+      }
+      if (a.hprev != nullptr) hr[u] = a.hprev + (size_t)row * H;
+    }
+  }
+  float4 av[4], bv[4];
+  float sum[64];
+  wg::gemm_tf32(
+      sum, ring, Kp / wg::TF_BK,
+      [&](int kt) {
+        const int k0 = kt * wg::TF_BK;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          av[u] = k0 < Ixp ? wg::load4(xr[u], k0 + 4 * c, I, a.vec_x)
+                           : wg::load4(hr[u], k0 - Ixp + 4 * c, H, a.vec_h);
+          bv[u] = wg::load4(a.w + (size_t)(n0 + r0 + 32 * u) * Kp, k0 + 4 * c, Kp, true);
+        }
+      },
+      [&](uint32_t dst, int) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t off = wg::swz(r0 + 32 * u, c);
+          wg::put4_split(dst + off, av[u]);
+          wg::put4_split(dst + 2 * wg::TILE + off, bv[u]);
+        }
+      });
+  const float* tile = wg::stage_tile(sum, smem_raw, ring);
+  const int u0 = blockIdx.x * 32;
+  const size_t G = 4 * (size_t)H;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < wg::BM * 32; idx += wg::NTH) {
+    const int r = idx >> 5, j = idx & 31, row = m0 + r, u = u0 + j;
+    if (row >= B || u >= H) continue;
+    const float* g = tile + r * wg::EPI_PITCH + j;  // gate q at g[32 q]
+    const float ig = sigm(g[0] + a.bias[u]);
+    const float fg = sigm(g[32] + a.bias[H + u]);
+    const float gg = tanhf(g[64] + a.bias[2 * H + u]);
+    const float og = sigm(g[96] + a.bias[3 * H + u]);
+    const size_t bu = (size_t)row * H + u;
+    const float cn = fg * (a.c_in != nullptr ? a.c_in[bu] : 0.0f) + ig * gg;
+    const float hn = og * tanhf(cn);
+    a.c_out[bu] = cn;
+    a.hs[bu] = hn;
+    a.cs[bu] = cn;
+    float* gp = a.gs + row * G + u;
+    gp[0] = ig;
+    gp[H] = fg;
+    gp[2 * H] = gg;
+    gp[3 * H] = og;
+    if (a.hf != nullptr) a.hf[bu] = hn;
+  }
+}
+
+// One f32 layer over L steps (SeqFwdArgs' layout in f32): L launches of
+// seq_fwd_tf32_kernel, the kernel boundary being the grid-wide barrier the
+// recurrence needs. Step t's input rows are xs + t * x_st ([B, I]); with
+// tok, row b reads table row tok[t * tok_st + b * tok_sb] of xs [V, I].
+// Residual row t at hs/cs + t * h_st, gs + t * g_st (elements).
+struct SeqFwdTf32Args {
+  const float* xs;
+  long x_st;
+  const int* tok;
+  long tok_st, tok_sb;
+  int V;
+  const float* h0;   // [B, H], or null: zeros
+  const float* c0;   // [B, H], or null: zeros
+  const float* w;    // [fwd_np(H), fwd_kp(I, H)] interleave_weight (f32)
+  const float* bias; // [4H]
+  float* hs;
+  float* cs;
+  float* gs;
+  long h_st, g_st;
+  float* c;          // [B, H] the running c; c_{L-1} at the end
+  float* hf;         // [B, H] h_{L-1}, or null
+  int B, L, I, H;
+};
+
+inline cudaError_t seq_fwd_tf32(const SeqFwdTf32Args& s, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(seq_fwd_tf32_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, wg::TF_SMEM);
+  if (e != cudaSuccess) return e;
+  const int H = s.H, I = s.I;
+  FwdStepTf32Args a = {};
+  a.tok_sb = s.tok_sb;
+  a.V = s.V;
+  a.c_out = s.c;
+  a.w = s.w;
+  a.bias = s.bias;
+  a.B = s.B; a.I = I; a.H = H;
+  a.Ixp = fwd_ixp(I);
+  a.Kp = fwd_kp(I, H);
+  a.vec_x = I % 4 == 0 && aligned16(s.xs) && (s.tok != nullptr || s.x_st % 4 == 0);
+  const dim3 grid(fwd_np(H) / wg::BN, cdiv(s.B, wg::BM));
+  for (int t = 0; t < s.L; ++t) {
+    a.x = s.tok != nullptr ? s.xs : s.xs + t * s.x_st;
+    a.tok = s.tok != nullptr ? s.tok + t * s.tok_st : nullptr;
+    if (t == 0) {
+      a.hprev = s.h0;
+      a.vec_h = H % 4 == 0 && aligned16(s.h0);
+      a.c_in = s.c0;
+    } else {
+      a.hprev = s.hs + (t - 1) * s.h_st;
+      a.vec_h = H % 4 == 0 && aligned16(s.hs) && s.h_st % 4 == 0;
+      a.c_in = s.c;
+    }
+    a.hs = s.hs + t * s.h_st;
+    a.cs = s.cs + t * s.h_st;
+    a.gs = s.gs + t * s.g_st;
+    a.hf = t == s.L - 1 ? s.hf : nullptr;
+    seq_fwd_tf32_kernel<<<grid, wg::NTH, wg::TF_SMEM, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }

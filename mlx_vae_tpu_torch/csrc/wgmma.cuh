@@ -1,6 +1,7 @@
-// Hopper (sm_90a) tensor-core building blocks for the bf16 train kernels:
+// Hopper (sm_90a) tensor-core building blocks for the train kernels:
 // warpgroup matrix multiply (wgmma) on operands in 128-byte-swizzled shared
-// memory, staged by cp.async, and the 128 x 128 block GEMM built on them.
+// memory, staged by cp.async, and the 128 x 128 block GEMMs built on them:
+// bf16 (gemm) and f32 as split-TF32 (gemm_tf32, at the end of this file).
 //
 // Shared-memory layout. An operand tile is a stack of 128-byte lines (64
 // bf16 values); 16-byte chunk c of line r sits at chunk c ^ (r % 8), the
@@ -250,6 +251,183 @@ __device__ __forceinline__ const float* stage_tile(float (&acc)[64], unsigned ch
         make_float2(acc[j], acc[j + 1]);
   __syncthreads();
   return tile;
+}
+
+// ------------------------------------------------- split-TF32 block GEMM
+//
+// f32 products on the tensor cores. Each f32 operand x is split into
+// hi = TF32(x) and lo = TF32(x - hi), both rounded to nearest (cvt.rna; hi +
+// lo is within 2^-21 |x| of x), and a product a b is formed as hi_a hi_b +
+// hi_a lo_b + lo_a hi_b: three m64n128k8 TF32 wgmmas a k8 step (a TF32
+// product is exact in f32; the dropped lo lo is ~2^-22 of it). A stage is 32
+// reduction values deep (one 128-byte line of f32) and holds four tiles: A
+// hi, A lo, B hi, B lo, 16 KB each, both operands K-major (TF32 wgmma has
+// no transpose). Three stages are 192 KB, so one block an SM. Each stage's
+// product is formed afresh on the tensor cores (12 wgmmas, accumulating) and
+// added to the running sum in f32 registers, so that the sum over a long
+// reduction rounds as IEEE f32 does rather than as the tensor cores'
+// accumulator does; one writer per element, a fixed order, so two runs are
+// bitwise equal. The same scheme as the f32 sampler (fused_generate.cu).
+// The choice for this card: 32-deep stages (one 128-byte line of f32, the
+// 128-byte swizzle), three of them, one block of 256 threads an SM (the
+// ring is 192 KB, and the stage product plus its f32 sum hold 128
+// registers a thread: a second block would get neither). Measured with
+// python -m mlx_vae_tpu_torch.bench_train_f32 on an H100 80GB HBM3 at 700 W
+// (PERF.md, PR 17): a stage takes ~1.5 us where its products alone need
+// ~0.84; a forward step launch at the default model takes 31 / 37 us by
+// layer (12 / 16 stages) whenever the grid is one wave. Fetching A a stage
+// ahead took a stage from ~3.9 us; one product instead of three, adding to
+// the sum every second stage, dropping the weight's lo plane, fetching two
+// stages ahead and rotating each row block's first stage each left it
+// where it is. Programmatic dependent launch of the step launches saved
+// 1-4% but lets consecutive step kernels overlap, which the profile's
+// device time by kernel then counts twice; not used.
+constexpr int TF_BK = 32;  // f32 reduction values a stage
+constexpr int TF_STAGES = 3;
+constexpr int TF_STAGE = 4 * TILE;  // A hi, A lo, B hi, B lo
+constexpr int TF_SMEM = TF_STAGES * TF_STAGE + 1024;  // 197,632 B with the alignment slack
+constexpr int TF_BLOCKS_PER_SM = 1;
+static_assert(BM * EPI_PITCH * 4 <= TF_STAGES * TF_STAGE, "staged tile exceeds the ring");
+
+// TF32 of x, rounded to nearest (ties away from zero): the low 13 bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d[64] (+)= A[64 x 8] B[8 x 128], tf32 in, f32 accumulate, both K-major;
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void mma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint4 tf32_hi4(const float (&v)[4]) {
+  return make_uint4(tf32_rna(v[0]), tf32_rna(v[1]), tf32_rna(v[2]), tf32_rna(v[3]));
+}
+__device__ __forceinline__ uint4 tf32_lo4(const float (&v)[4], uint4 hi) {
+  return make_uint4(tf32_rna(v[0] - __uint_as_float(hi.x)), tf32_rna(v[1] - __uint_as_float(hi.y)),
+                    tf32_rna(v[2] - __uint_as_float(hi.z)), tf32_rna(v[3] - __uint_as_float(hi.w)));
+}
+
+// 4 f32 values of row `row` from column k (len columns in the row): one
+// float4 load where vec (the row 16-byte aligned at k), else element loads;
+// zeros past len or for a null row.
+__device__ __forceinline__ float4 load4(const float* row, int k, int len, bool vec) {
+  if (row != nullptr && vec && k + 4 <= len) return *reinterpret_cast<const float4*>(row + k);
+  float v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = (row != nullptr && k + q < len) ? row[k + q] : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Split 4 values into the 16-byte chunk at dst (hi) and at dst + TILE (lo).
+__device__ __forceinline__ void put4_split(uint32_t dst, float4 x) {
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  const uint4 hi = tf32_hi4(v);
+  st16(dst, hi);
+  st16(dst + TILE, tf32_lo4(v, hi));
+}
+
+// An MN-major 4 x 4 block: rows[u] (u = 0..3: reduction rows 4 mg + u of a
+// stage) at columns col .. col + 3, into v[u][i] (load4 each).
+__device__ __forceinline__ void load_t4(float4 (&v)[4], const float* const (&rows)[4], int col,
+                                        int len, bool vec) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] = load4(rows[u], col, len, vec);
+}
+
+// ... transposed while it is split: column col + i goes to line line0 + i
+// of the tile, chunk mg (hi at dst, lo at dst + TILE), so each line holds
+// 32 reduction values (K-major, as TF32 wgmma reads). A quarter-warp (eight
+// mg) writes one whole line: no bank conflict.
+__device__ __forceinline__ void put_t4(uint32_t dst, const float4 (&v)[4], int line0, int mg) {
+  put4_split(dst + swz(line0, mg), make_float4(v[0].x, v[1].x, v[2].x, v[3].x));
+  put4_split(dst + swz(line0 + 1, mg), make_float4(v[0].y, v[1].y, v[2].y, v[3].y));
+  put4_split(dst + swz(line0 + 2, mg), make_float4(v[0].z, v[1].z, v[2].z, v[3].z));
+  put4_split(dst + swz(line0 + 3, mg), make_float4(v[0].w, v[1].w, v[2].w, v[3].w));
+}
+
+// sum = A B over the nk stages for this warpgroup's 64 rows, as
+// split-TF32 (above). Each stage is loaded in two calls, in order of kt:
+// `fetch(kt)` issues its global loads into registers the caller keeps (one
+// stage's worth), and `put(dst, kt)` splits them and stores the stage at dst
+// (A hi, A lo at dst + TILE, B hi at dst + 2 TILE, B lo at dst + 3 TILE).
+// Stage kt + 2 is put
+// while stage kt's products run, from registers fetched while stage kt - 1's
+// ran: a global load has a whole stage to land before its values are
+// needed. `ring` is the 1024-aligned shared address of the TF_STAGES-stage
+// ring.
+template <typename Fetch, typename Put>
+__device__ __forceinline__ void gemm_tf32(float (&sum)[64], uint32_t ring, int nk, Fetch&& fetch,
+                                          Put&& put) {
+  const uint32_t a_off = (threadIdx.x / 128) * 8192;  // this warpgroup's 64 rows
+  float acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    sum[j] = 0.0f;
+    acc[j] = 0.0f;
+  }
+  fence_acc(acc);
+#pragma unroll
+  for (int s = 0; s < TF_STAGES - 1; ++s) {
+    if (s < nk) {
+      fetch(s);
+      put(ring + s * TF_STAGE, s);
+    }
+    cp_commit();
+  }
+  if (TF_STAGES - 1 < nk) fetch(TF_STAGES - 1);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<TF_STAGES - 2>();
+    proxy_fence();
+    __syncthreads();  // stage kt is in; stage kt - 1 is no longer read
+    const uint32_t sa = ring + (kt % TF_STAGES) * TF_STAGE + a_off, sb = ring +
+        (kt % TF_STAGES) * TF_STAGE + 2 * TILE;
+    fence_acc(acc);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < TF_BK / 8; ++kk) {
+      const uint64_t ahi = desc(sa + kk * 32, 16, 1024), alo = desc(sa + TILE + kk * 32, 16, 1024);
+      const uint64_t bhi = desc(sb + kk * 32, 16, 1024), blo = desc(sb + TILE + kk * 32, 16, 1024);
+      mma_m64n128k8_tf32(acc, ahi, bhi, kk > 0);
+      mma_m64n128k8_tf32(acc, ahi, blo, 1);
+      mma_m64n128k8_tf32(acc, alo, bhi, 1);
+    }
+    commit();
+    fence_acc(acc);
+    const int nxt = kt + TF_STAGES - 1;
+    if (nxt < nk) put(ring + (nxt % TF_STAGES) * TF_STAGE, nxt);
+    if (nxt + 1 < nk) fetch(nxt + 1);
+    cp_commit();
+    wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sum[j] += acc[j];
+  }
 }
 
 }  // namespace wg

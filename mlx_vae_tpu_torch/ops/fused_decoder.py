@@ -49,7 +49,8 @@ from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.lstm import combined_weight, lstm_gates
 from mlx_vae_tpu_torch.ops.sampling import _check_truncation, truncate_logits_bisect
-from mlx_vae_tpu_torch.ops.train_common import MAX_SMEM, MAX_V, NT, RPTS, check
+from mlx_vae_tpu_torch.ops.train_common import (  # noqa: F401 (re-exported)
+    MAX_SMEM, MAX_V, NT, RPTS, _tf32_rna, check, tf32_split)
 
 KERNELS = ("tc", "cuda_core")  # the sampler's two routes
 
@@ -164,22 +165,6 @@ def tc_reduction_cols(k_in: int, H: int, xp: int, device=None) -> torch.Tensor:
     weight's rows ``[input (k_in), h (H)]``: the input from 0, h from ``xp``
     (the input segment padded to a stage's depth)."""
     return torch.cat([torch.arange(k_in, device=device), xp + torch.arange(H, device=device)])
-
-
-def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """TF32 of float32 ``x`` rounded to nearest, ties away from zero (csrc:
-    ``cvt.rna.tf32.f32``): the low 13 mantissa bits cleared after adding
-    half of their range to the magnitude."""
-    b = x.float().contiguous().view(torch.int32)
-    return ((b + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(hi, lo)``: ``hi = TF32(x)``, ``lo = TF32(x - hi)``, both float32
-    with the low 13 mantissa bits zero; ``hi + lo`` is within ``2**-21 |x|``
-    of ``x``."""
-    hi = _tf32_rna(x)
-    return hi, _tf32_rna(x.float() - hi)
 
 
 @dataclass(frozen=True)

@@ -6,22 +6,29 @@ tokens ``[B, L]`` -> the top layer's h at the last step ``[B, H]`` f32,
 through the embedding and every LSTM layer from zero state, with gradients
 for every layer and the embedding table. The kernels are in
 ``csrc/fused_encoder.cu`` (CUDA C++ for ``sm_90a``); their design and what
-bounds them are noted at the top of that file. The route is chosen by
-dtype before any launch:
+bounds them are noted at the top of that file. Both dtypes run one frame
+on the tensor cores (``wgmma``), routed by dtype before any launch: bf16 on
+bf16 operands, f32 as split-TF32 (every f32 product as three TF32 products
+of the operands' hi and lo parts, ``ops/train_common.py:tf32_split``, split
+while the kernels stage them).
 
-* bf16 (the tensor cores, ``wgmma``). The forward runs the stack layer by
-  layer through ``csrc/train_common.cuh``'s step kernel (n * L launches a
-  call, gathering layer 0's input rows by token), on gate-interleaved copies
-  of the layers' weights that the wrapper builds per call
-  (``ops/train_common.py:interleave_weight``). The backward's reverse chain
-  is 1 + n * L launches: a gate kernel for the top layer's last step, then
-  per (step, layer), top down, one GEMM ``dgates(t, l) W_l^T`` whose
-  epilogue runs the gate step that product unblocks
-  (:func:`encoder_reverse_step_reference` is the plain twin of one launch).
-* f32 (CUDA cores; tensor cores in f32 would mean TF32): one kernel over the
-  whole stack each way.
+* The forward runs the stack layer by layer through ``csrc/
+  train_common.cuh``'s step kernel (n * L launches a call, gathering layer
+  0's input rows by token), on gate-interleaved copies of the layers'
+  weights that the wrapper builds per call
+  (``ops/train_common.py:interleave_weight``).
+  :func:`~mlx_vae_tpu_torch.ops.train_common.seq_fwd_step_reference`
+  is the plain twin of one launch (``split_tf32=True`` in f32).
+* The backward's reverse chain is 1 + n * L launches: a gate kernel for the
+  top layer's last step, then per (step, layer), top down, one GEMM
+  ``dgates(t, l) W_l^T`` whose epilogue runs the gate step that product
+  unblocks (:func:`encoder_reverse_step_reference` is the plain twin of one
+  launch).
 
-Both then form dW, db and d(embedding) by split reductions over the rows.
+Both then form dW, db and d(embedding) by split reductions over the rows
+(the weight gradient on ``wgmma``, in f32 as split-TF32).
+:func:`encoder_launch_plan` is the host side's launch plan, for the CPU
+tests.
 
 :func:`encoder_stack` is one ``torch.autograd.Function`` whose forward is
 :func:`encoder_fwd` and whose backward is :func:`encoder_bwd`. Each launches
@@ -46,10 +53,11 @@ import torch
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
-    MAX_V, SCRATCH_ELEMS, StackWeights, bwd_rows, cell_step_reference, check, embed_rows,
-    embedding_grad, fwd_tile, interleave_weight, layer_grads, layer_leaves,
-    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_gate_reference,
-    reverse_step_reference, scratch_fits, shifted, stream_of, sum_outer)
+    MAX_V, SCRATCH_ELEMS, TF32_SMEM, StackWeights, bwd_rows, cell_step_reference, check,
+    embed_rows, embedding_grad, fwd_step_plan, fwd_tile, interleave_weight, layer_grads,
+    layer_leaves, prepare_stack_weights, raise_if, rebuild_params, require_cuda,
+    reverse_gate_reference, reverse_step_reference, scratch_fits, seq_fwd_step_reference,
+    shifted, split_tf32_matmul, stream_of, sum_outer, wgrad_splits)
 
 
 # ----------------------------------------------------------- plain version
@@ -108,13 +116,17 @@ def encoder_reverse_reference(w: StackWeights, dh_last: torch.Tensor, hs: torch.
 
 def encoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Tensor,
                                    gs: torch.Tensor, dgates: torch.Tensor, dx0: torch.Tensor,
-                                   dh: torch.Tensor, dc: torch.Tensor) -> None:
+                                   dh: torch.Tensor, dc: torch.Tensor,
+                                   split_tf32: bool = False) -> None:
     """Plain twin of one ``enc_step_kernel`` launch, (step ``t``, layer
-    ``l``), in place.
+    ``l``), in place (``split_tf32``: of one f32 ``enc_step_tf32_kernel``
+    launch, whose product is
+    :func:`~mlx_vae_tpu_torch.ops.train_common.split_tf32_matmul`).
 
     ``dinp = dgates[t, l] W_l^T`` (f32 products of the rounded operands, over
     the full 4H in the combined weight's order, so that composed in launch
-    order the steps equal :func:`encoder_reverse_reference` bit for bit),
+    order the steps equal :func:`encoder_reverse_reference` bit for bit;
+    ``split_tf32``: within the split's ~2^-21 of each product),
     then each column as the kernel's epilogue routes it: the input columns
     ``k < K_l`` run the gate step of ``(t, l-1)`` with ``dh[l-1] + value``
     (``l > 0``) or are ``dx0[t]`` (``l = 0``); the h columns at ``t > 0`` run
@@ -124,7 +136,8 @@ def encoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Te
     cfg = w.cfg
     n = cfg.num_layers
     kx = cfg.embedding_dim if l == 0 else cfg.hidden_dim
-    dinp = dgates[t, l].float() @ w.layers[l].float().T
+    a, wl = dgates[t, l].float(), w.layers[l].float().T
+    dinp = split_tf32_matmul(a, wl) if split_tf32 else a @ wl
     if l > 0:
         reverse_gate_reference(cfg, t, l - 1, dh[l - 1] + dinp[:, :kx], cs, gs, dgates, dc)
     else:
@@ -134,6 +147,54 @@ def encoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Te
             reverse_gate_reference(cfg, t - 1, l, dinp[:, kx:], cs, gs, dgates, dc)
         else:
             dh[l] = dinp[:, kx:]
+
+
+def encoder_fwd_steps_reference(w: StackWeights, tokens: torch.Tensor,
+                                split_tf32: bool = False):
+    """The forward launch by launch: layer by layer, L launches of the step
+    twin (``seq_fwd_step_reference``) each, layer 0 gathering embedding rows
+    by token, layer l > 0 reading rows t * n + l - 1 of hs, residuals at rows
+    t * n + l, zero initial state. ``split_tf32``: the f32 kernel's product.
+    Returns the contract of :func:`encoder_fwd_reference`, which it equals
+    bit for bit without ``split_tf32``."""
+    cfg = w.cfg
+    n, H, E = cfg.num_layers, cfg.hidden_dim, cfg.embedding_dim
+    B, L = tokens.shape
+    dev = tokens.device
+    hs = torch.zeros((L * n, B, H), dtype=cfg.dtype, device=dev)
+    cs, gs = torch.zeros_like(hs), torch.zeros((L * n, B, 4 * H), dtype=cfg.dtype, device=dev)
+    c, h_last = (torch.empty((B, H), device=dev) for _ in range(2))
+    for l in range(n):
+        k = E if l == 0 else H
+        wt = interleave_weight(w.layers[l], k, H)
+        for t in range(L):
+            kw = dict(tokens=tokens) if l == 0 else dict(x_stride=n, x_offset=l - 1)
+            seq_fwd_step_reference(wt, w.bias[l], t, w.emb if l == 0 else hs, c, hs, cs, gs, k,
+                                   H, res_stride=n, res_offset=l,
+                                   hf=h_last if (l == n - 1 and t == L - 1) else None,
+                                   split_tf32=split_tf32, **kw)
+    view = lambda a: a.view(L, n, B, -1)  # noqa: E731
+    return h_last, view(hs), view(cs), view(gs)
+
+
+def encoder_reverse_steps_reference(w: StackWeights, dh_last: torch.Tensor, cs: torch.Tensor,
+                                    gs: torch.Tensor, split_tf32: bool = False):
+    """The reverse chain launch by launch: the gate step of (L-1, n-1) from
+    ``dh_last``, then :func:`encoder_reverse_step_reference` at (t, l) for t
+    = L-1 .. 0, l = n-1 .. 0. ``split_tf32``: the f32 kernel's product.
+    Returns ``(dgates, dx0)``, which equal :func:`encoder_reverse_reference`'s
+    bit for bit without ``split_tf32``."""
+    cfg = w.cfg
+    L, n, B, H = cs.shape
+    dev = cs.device
+    dgates = torch.empty((L, n, B, 4 * H), dtype=cfg.dtype, device=dev)
+    dx0 = torch.empty((L, B, cfg.embedding_dim), dtype=cfg.dtype, device=dev)
+    dh, dc = torch.zeros((2, n, B, H), device=dev)
+    reverse_gate_reference(cfg, L - 1, n - 1, dh_last.float(), cs, gs, dgates, dc)
+    for t in range(L - 1, -1, -1):
+        for l in range(n - 1, -1, -1):
+            encoder_reverse_step_reference(w, t, l, cs, gs, dgates, dx0, dh, dc, split_tf32)
+    return dgates, dx0
 
 
 def encoder_grads(w: StackWeights, tokens: torch.Tensor, hs: torch.Tensor,
@@ -160,6 +221,10 @@ def encoder_bwd_reference(w: StackWeights, tokens: torch.Tensor, dh_last: torch.
 
 # ------------------------------------------------------------------ kernels
 
+# The shared-memory rule below sized the CUDA-core kernels that ran before
+# both dtypes moved to the tensor cores; it stays the rule of what the
+# encoder takes, so that no model changes route (the tensor-core kernels
+# take every width: encoder_launch_plan).
 def _fwd_smem(cfg: ModelConfig):
     E, H, n = cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers
     return lambda r: r * E + 3 * n * r * H
@@ -195,14 +260,50 @@ def fused_encoder_supported(cfg: ModelConfig) -> bool:
     return _unsupported_reason(cfg) is None
 
 
+def encoder_launch_plan(cfg: ModelConfig, B: int, L: int) -> list:
+    """The launches of one forward and one backward call (the host side of
+    ``csrc/fused_encoder.cu``), each ``dict(kernel, grid, smem, count)``;
+    a weight-gradient pass also has ``splits`` (its partials need ``splits
+    * K * N`` scratch elements where ``splits > 1``) and ``K``, ``N``.
+    ``smem`` is a block's dynamic shared memory: the bf16 ring (3 x 32 KB)
+    or the split-TF32 ring (3 x 64 KB), each with 1 KB of alignment slack;
+    grids are (x, y, z)."""
+    E, H, n, V = cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers, cfg.vocab_size
+    bf16 = cfg.compute_dtype == "bfloat16"
+    smem = 3 * 32768 + 1024 if bf16 else TF32_SMEM
+    sfx = "" if bf16 else "_tf32"
+    rows = -(-B // 128)
+    out = []
+    for l in range(n):
+        kx = E if l == 0 else H
+        _, kp, np_ = fwd_step_plan(kx, H)
+        out.append(dict(kernel=f"seq_fwd{'_step' if bf16 else sfx}_kernel",
+                        grid=(np_ // 128, rows, 1), smem=smem, count=L, Kp=kp))
+    out.append(dict(kernel="gate_kernel", grid=(-(-B * H // 256), 1, 1), smem=0, count=1))
+    for l in range(n):
+        kx = E if l == 0 else H
+        for t_pos, N in (("t > 0", kx + H), ("t = 0", kx)):
+            out.append(dict(kernel=f"enc_step{sfx}_kernel", grid=(-(-N // 128), rows, 1),
+                            smem=smem, count=(L - 1) if t_pos == "t > 0" else 1))
+    for l in range(n):
+        kx = E if l == 0 else H
+        for K in (kx, H):
+            splits = wgrad_splits(K, 4 * H, B * L, bf16)
+            out.append(dict(kernel="wgrad_wgmma_kernel" if bf16 else "wgrad_tf32_kernel",
+                            grid=(-(-4 * H // 128), -(-K // 128), splits), smem=smem, count=1,
+                            splits=splits, K=K, N=4 * H))
+    out.append(dict(kernel="demb_kernel", grid=(-(-E // 64), 1, 1), smem=4 * V * 64, count=1))
+    return out
+
+
 def build_library(verbose: bool = False) -> ctypes.CDLL:
     """Build ``csrc/fused_encoder.cu`` (``ops/build.py``), load it and
     declare its C interface."""
     lib = load_library("fused_encoder", verbose)
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.enc_fwd_launch.argtypes = [p] * 10 + [i] * 10 + [p]
+    lib.enc_fwd_launch.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.enc_fwd_launch.restype = i
-    lib.enc_bwd_launch.argtypes = [p] * 16 + [lg] + [i] * 8 + [p]
+    lib.enc_bwd_launch.argtypes = [p] * 15 + [lg] + [i] * 7 + [p]
     lib.enc_bwd_launch.restype = i
     lib.enc_error_string.argtypes = [i]
     lib.enc_error_string.restype = ctypes.c_char_p
@@ -210,30 +311,26 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
 
 
 def launch_encoder_fwd(lib, w: StackWeights, tokens: torch.Tensor, stream: int):
-    """Allocate the outputs (and in bf16 the interleaved weights and the
-    running c) and launch the forward kernels (no device or support checks:
+    """Allocate the outputs, the interleaved weights and the running c, and
+    launch the forward kernels (no device or support checks:
     :func:`encoder_fwd` makes them)."""
     cfg = w.cfg
     B, L = tokens.shape
-    H, n = cfg.hidden_dim, cfg.num_layers
+    E, H, n = cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers
     dev, wdt = tokens.device, cfg.dtype
     h_last = torch.empty((B, H), dtype=torch.float32, device=dev)
     hs = torch.empty((L, n, B, H), dtype=wdt, device=dev)
     cs = torch.empty_like(hs)
     gs = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
     bf16 = wdt == torch.bfloat16
-    wt = cbuf = None
-    if bf16:  # each layer's interleaved copy, back to back, and the running c
-        E = cfg.embedding_dim
-        wt = torch.cat([interleave_weight(m, E if l == 0 else H, H).reshape(-1)
-                        for l, m in enumerate(w.layers)])
-        cbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
-    R, tj, tr = (0, 0, 0) if bf16 else fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
-    rc = lib.enc_fwd_launch(tokens.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(),
-                            wt.data_ptr() if bf16 else None, w.bias.data_ptr(),
-                            h_last.data_ptr(), hs.data_ptr(), cs.data_ptr(), gs.data_ptr(),
-                            cbuf.data_ptr() if bf16 else None, B, L, cfg.vocab_size,
-                            cfg.embedding_dim, H, n, int(bf16), R, tj, tr, stream)
+    # each layer's interleaved copy, back to back, and the running c
+    wt = torch.cat([interleave_weight(m, E if l == 0 else H, H).reshape(-1)
+                    for l, m in enumerate(w.layers)])
+    cbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
+    rc = lib.enc_fwd_launch(tokens.data_ptr(), w.emb.data_ptr(), wt.data_ptr(),
+                            w.bias.data_ptr(), h_last.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                            gs.data_ptr(), cbuf.data_ptr(), B, L, cfg.vocab_size, E, H, n,
+                            int(bf16), stream)
     raise_if(rc, "encoder forward", lib.enc_error_string)
     return h_last, hs, cs, gs
 
@@ -260,11 +357,10 @@ encoder_fwd.launches = 0
 def launch_encoder_bwd(lib, w: StackWeights, tokens, dh_last, hs, cs, gs, stream: int,
                        with_reverse: bool = False):
     """Allocate the outputs and scratch and launch the backward kernels (no
-    device or support checks: :func:`encoder_bwd` makes them). bf16 runs the
-    tensor-core reverse chain on ``wcat`` with zeroed ``[n, B, H]`` dh and
-    dc buffers; f32 the CUDA-core reverse kernel on ``wT``. Returns ``(dW,
-    db, demb)``, and with ``with_reverse`` also the chain's ``(dgates,
-    dx0)``."""
+    device or support checks: :func:`encoder_bwd` makes them). The reverse
+    chain reads ``wcat`` with zeroed ``[n, B, H]`` dh and dc buffers.
+    Returns ``(dW, db, demb)``, and with ``with_reverse`` also the chain's
+    ``(dgates, dx0)``."""
     cfg = w.cfg
     L, n, B, H = hs.shape
     E, V = cfg.embedding_dim, cfg.vocab_size
@@ -278,14 +374,12 @@ def launch_encoder_bwd(lib, w: StackWeights, tokens, dh_last, hs, cs, gs, stream
     db = torch.empty((n, 4 * H), **f32)
     demb = torch.empty((V, E), **f32)
     scratch = torch.empty((SCRATCH_ELEMS,), **f32)
-    dhc = torch.zeros((2, n, B, H), **f32) if bf16 else None  # dh, dc
-    R = 0 if bf16 else bwd_rows(_bwd_smem(cfg))
+    dhc = torch.zeros((2, n, B, H), **f32)  # dh, dc
     rc = lib.enc_bwd_launch(tokens.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(),
-                            w.wT.data_ptr(), dh_last.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                            gs.data_ptr(), dhc[0].data_ptr() if bf16 else None,
-                            dhc[1].data_ptr() if bf16 else None, dgates.data_ptr(), dx0.data_ptr(),
+                            dh_last.data_ptr(), hs.data_ptr(), cs.data_ptr(), gs.data_ptr(),
+                            dhc[0].data_ptr(), dhc[1].data_ptr(), dgates.data_ptr(), dx0.data_ptr(),
                             dW_flat.data_ptr(), db.data_ptr(), demb.data_ptr(),
-                            scratch.data_ptr(), SCRATCH_ELEMS, B, L, V, E, H, n, int(bf16), R,
+                            scratch.data_ptr(), SCRATCH_ELEMS, B, L, V, E, H, n, int(bf16),
                             stream)
     raise_if(rc, "encoder backward", lib.enc_error_string)
     dW, off = [], 0

@@ -13,11 +13,14 @@
 * The plain versions' shared steps (one LSTM cell, its reverse step from
   activated gates and the reverse chains' gate step, the weight- and
   embedding-gradient sums).
-* The bf16 forward step kernel's layout (``csrc/train_common.cuh``:
-  ``seq_fwd_step_kernel``): :func:`fwd_step_plan` and :func:`step_columns`
-  (input, optional conditions, h), the gate-interleaved weight copy
-  :func:`interleave_weight`, and the kernel's plain twin of one step,
-  :func:`seq_fwd_step_reference`.
+* The forward step kernels' layout (``csrc/train_common.cuh``:
+  ``seq_fwd_step_kernel`` in bf16, ``seq_fwd_tf32_kernel`` in f32):
+  :func:`fwd_step_plan` and :func:`step_columns` (input, optional
+  conditions, h), the gate-interleaved weight copy :func:`interleave_weight`,
+  and the kernels' plain twin of one step, :func:`seq_fwd_step_reference`.
+* Split-TF32, the f32 route on the tensor cores (``csrc/wgmma.cuh``:
+  ``gemm_tf32``): :func:`tf32_split` and the three-term product
+  :func:`split_tf32_matmul`.
 * The argument and device checks every wrapper makes before a launch.
 """
 
@@ -39,6 +42,7 @@ RPTS = (8, 4, 2, 1)  # forward rows per thread the kernels are built for
 RS = (8, 4, 2, 1)    # reverse-kernel rows per block the kernels are built for
 SCRATCH_ELEMS = 1 << 23  # f32 partial sums of the split reductions (32 MB)
 BK = 64              # csrc wg::BK: reduction depth of one wgmma stage
+TF32_SMEM = 3 * 4 * 16384 + 1024  # csrc wg::TF_SMEM: the split-TF32 ring, 3 x 64 KB + slack
 UNITS = 32           # hidden units per 128-wide output tile of the forward step
 
 
@@ -49,8 +53,9 @@ class StackWeights:
     """An LSTM stack's weights in the kernels' layout, on one device.
 
     ``wcat`` holds every layer's ``[K_l + H, 4H]`` combined weight back to
-    back and ``wT`` every layer's transpose ``[4H, K_l + H]`` (the reverse
-    kernels read input columns from it); ``layers`` are views of ``wcat``.
+    back and ``wT`` every layer's transpose ``[4H, K_l + H]`` (the decoder's
+    f32 reverse kernel reads input columns from it; None for the encoder,
+    whose reverse chain reads ``wcat``); ``layers`` are views of ``wcat``.
     Matrices are in the compute dtype, biases in float32. ``wout``,
     ``woutT`` and ``bout`` (decoder only) are ``fc_out`` as ``[H, V]``,
     ``[V, H]`` and ``[V]``.
@@ -59,7 +64,7 @@ class StackWeights:
     cfg: ModelConfig
     emb: torch.Tensor
     wcat: torch.Tensor
-    wT: torch.Tensor
+    wT: Optional[torch.Tensor]
     layers: tuple
     bias: torch.Tensor
     wout: Optional[torch.Tensor] = None
@@ -77,7 +82,7 @@ def prepare_stack_weights(params: dict, cfg: ModelConfig,
         mats = [combined_weight(params[f"lstm_layer_{i}"]).to(wdt)
                 for i in range(cfg.num_layers)]
         wcat = torch.cat([m.reshape(-1) for m in mats])
-        wT = torch.cat([m.T.reshape(-1) for m in mats])
+        wT = torch.cat([m.T.reshape(-1) for m in mats]) if with_head else None
         layers, off = [], 0
         for m in mats:
             layers.append(wcat[off:off + m.numel()].view(m.shape))
@@ -144,6 +149,34 @@ def cell_step_reference(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     return cell_from_gates(torch.cat([x, h], dim=1).to(wdt).float() @ w.float() + bias, c)
 
 
+# ----------------------------------------------------------- split-TF32
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """TF32 of float32 ``x`` rounded to nearest, ties away from zero (csrc:
+    ``cvt.rna.tf32.f32``): the low 13 mantissa bits cleared after adding
+    half of their range to the magnitude."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: ``hi = TF32(x)``, ``lo = TF32(x - hi)``, both float32
+    with the low 13 mantissa bits zero; ``hi + lo`` is within ``2**-21 |x|``
+    of ``x``."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x.float() - hi)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the split-TF32 kernels form it (``csrc/wgmma.cuh``:
+    ``gemm_tf32``): both f32 operands split (:func:`tf32_split`), the product
+    ``hi_a hi_b + hi_a lo_b + lo_a hi_b`` in f32 (the kernels drop ``lo_a
+    lo_b``, ~2^-22 of each product, and sum in another order)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
 # ----------------------------------------------------------- forward step
 
 def fwd_step_plan(I: int, H: int, C: int = 0) -> Tuple[int, int, int]:
@@ -195,9 +228,11 @@ def seq_fwd_step_reference(wt: torch.Tensor, bias: torch.Tensor, t: int, xs: tor
                            h0: Optional[torch.Tensor] = None, c0: Optional[torch.Tensor] = None,
                            res_stride: int = 1, res_offset: int = 0,
                            hf: Optional[torch.Tensor] = None,
-                           cond: Optional[torch.Tensor] = None) -> None:
+                           cond: Optional[torch.Tensor] = None,
+                           split_tf32: bool = False) -> None:
     """Plain twin of one launch of the forward step kernel, step ``t`` of
-    one layer, in place.
+    one layer, in place (``split_tf32``: of the f32 kernel, whose product is
+    :func:`split_tf32_matmul`).
 
     A ``[B, Kp]``: columns ``k < I`` hold step t's input rows, row ``t *
     x_stride + x_offset`` of ``xs [., B, I]``, or with ``tokens [B, L]`` the
@@ -212,7 +247,8 @@ def seq_fwd_step_reference(wt: torch.Tensor, bias: torch.Tensor, t: int, xs: tor
     and ``gs`` (and ``hf`` if given). The padding's zero columns add nothing
     to the kernel's sums; the product here runs over the columns that hold
     weights, in the combined weight's order, so that in f32 its sums equal
-    :func:`cell_step_reference`'s bit for bit."""
+    :func:`cell_step_reference`'s bit for bit (``split_tf32``: within the
+    split's ~2^-21 of each product)."""
     wdt = wt.dtype
     C = cond.shape[1] if cond is not None else 0
     B = c.shape[0]
@@ -223,7 +259,8 @@ def seq_fwd_step_reference(wt: torch.Tensor, bias: torch.Tensor, t: int, xs: tor
     else:
         hp = h0 if h0 is not None else torch.zeros((B, H), device=dev)
     a = torch.cat([x.to(wdt), *((cond.to(wdt),) if C else ()), hp.to(wdt)], dim=1).float()
-    prod = a @ wt[:, step_columns(I, H, C, dev)].float().T.contiguous()
+    wsel = wt[:, step_columns(I, H, C, dev)].float().T.contiguous()
+    prod = split_tf32_matmul(a, wsel) if split_tf32 else a @ wsel
     c_prev = c if t > 0 else (c0.float() if c0 is not None else torch.zeros_like(c))
     h, c_new, g = cell_from_gates(prod[:, gate_columns(H, dev)] + bias, c_prev)
     c.copy_(c_new)
@@ -311,6 +348,33 @@ def scratch_fits(cfg: ModelConfig) -> bool:
     H, E = cfg.hidden_dim, cfg.embedding_dim
     k_seg = max(E, cfg.num_conditions, H)
     return k_seg * 4 * H + 4 * H <= SCRATCH_ELEMS and cfg.vocab_size * E <= SCRATCH_ELEMS
+
+
+def wgrad_splits(K: int, N: int, M: int, bf16: bool) -> int:
+    """The row splits of one weight-gradient pass (``csrc/train_common.cuh``:
+    ``wgrad`` / ``split_count``): 128 x 128 tiles of the ``[K, N]`` sum over
+    ``M`` rows; the fewest splits that fill whole waves of resident blocks
+    (264 in bf16, two an SM; 132 as split-TF32, one an SM) to within 10%,
+    at most 32, at least 8 stages of rows each (stages of 64 rows in bf16,
+    32 in f32), at most what the scratch holds."""
+    slots, bk = (264, 64) if bf16 else (132, 32)
+    tiles = -(-K // 128) * -(-N // 128)
+    cap = SCRATCH_ELEMS // (K * N)
+
+    def eff(s):
+        return tiles * s / (-(-tiles * s // slots) * slots)
+
+    best, best_eff = 1, eff(1)
+    for s in range(2, 33):
+        if best_eff >= 0.9:
+            break
+        if eff(s) > best_eff + 0.05:
+            best, best_eff = s, eff(s)
+    if best * 8 * bk > M:
+        best = -(-M // (8 * bk))
+    best = max(1, min(best, cap))
+    chunk = -(-(-(-M // best)) // bk) * bk
+    return -(-M // chunk)
 
 
 def stack_fits_l2(cfg: ModelConfig) -> bool:

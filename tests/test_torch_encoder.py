@@ -3,9 +3,11 @@
 ``encoder_apply`` (scan path, bidirectional and dropout included), the
 bounded heads, ``reparameterize``, and the fused encoder's plain path
 against ``encoder_stack_pallas`` in interpret mode (forward and every
-gradient leaf, n = 1, 2, 3, at the JAX kernel tests' shapes). The bf16
+gradient leaf, n = 1, 2, 3, at the JAX kernel tests' shapes). The
 kernels' step twins (the forward's step, the backward's reverse-chain
-launch) composed in launch order equal the plain versions bit for bit.
+launch) composed in launch order equal the plain versions bit for bit; in
+f32 their split-TF32 arithmetic (the f32 kernels' three TF32 products a
+product) matches them within 1e-6 and JAX within 1e-5 / 1e-4.
 
 Tolerances: float32 forward values 1e-5 (the frameworks sum in different
 orders); float32 gradients 1e-4, the JAX package's own kernel-vs-autodiff
@@ -199,31 +201,9 @@ def test_custom_vjp_width_is_not_ported_yet():
             _close(leaf.grad, jg[name][k], 1e-4)
 
 
-# ---- the bf16 forward's step kernel, layer by layer, through its plain twin ----
+# ---- the forward's step kernel, layer by layer, through its plain twin ----
 
 from mlx_vae_tpu_torch.ops import train_common as tc  # noqa: E402
-
-
-def _encoder_by_steps(w, tokens):
-    """The step twin, layer by layer: layer 0 gathers embedding rows by
-    token, layer l > 0 reads rows t * n + l - 1 of hs; residuals at rows
-    t * n + l; zero initial state. Returns (h_last, hs, cs, gs)."""
-    cfg = w.cfg
-    n, H, E = cfg.num_layers, cfg.hidden_dim, cfg.embedding_dim
-    B, L = tokens.shape
-    hs = torch.zeros((L * n, B, H), dtype=cfg.dtype)
-    cs, gs = torch.zeros_like(hs), torch.zeros((L * n, B, 4 * H), dtype=cfg.dtype)
-    c, h_last = torch.empty((B, H)), torch.empty((B, H))
-    for l in range(n):
-        I_ = E if l == 0 else H
-        wt = tc.interleave_weight(w.layers[l], I_, H)
-        for t in range(L):
-            kw = dict(tokens=tokens) if l == 0 else dict(x_stride=n, x_offset=l - 1)
-            tc.seq_fwd_step_reference(wt, w.bias[l], t, w.emb if l == 0 else hs, c, hs, cs, gs,
-                                      I_, H, res_stride=n, res_offset=l,
-                                      hf=h_last if (l == n - 1 and t == L - 1) else None, **kw)
-    view = lambda a: a.view(L, n, B, -1)  # noqa: E731
-    return h_last, view(hs), view(cs), view(gs)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -238,7 +218,7 @@ def test_fwd_steps_compose_to_the_encoder_reference(n, H, dtype):
     x[0, 0], x[1, 1], x[2, 5] = -1, jcfg.vocab_size, 999
     w = tc.prepare_stack_weights(params_from_numpy(npp), tcfg, with_head=False)
     tok = torch.from_numpy(x)
-    got = _encoder_by_steps(w, tok)
+    got = fe.encoder_fwd_steps_reference(w, tok)
     want = fe.encoder_fwd_reference(w, tok)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
@@ -249,23 +229,7 @@ def test_fwd_steps_compose_to_the_encoder_reference(n, H, dtype):
         _scaled_close(got[0], jv, 2e-2, "h_last")
 
 
-# ---- the bf16 backward's reverse chain, launch by launch, through its plain twins ----
-
-def _reverse_by_steps(w, dh_last, cs, gs):
-    """The chain's launches in order: the gate step of (L-1, n-1) from
-    dh_last, then the step twin at (t, l) for t = L-1 .. 0, l = n-1 .. 0.
-    Returns (dgates, dx0)."""
-    cfg = w.cfg
-    L, n, B, H = cs.shape
-    dgates = torch.empty((L, n, B, 4 * H), dtype=cfg.dtype)
-    dx0 = torch.empty((L, B, cfg.embedding_dim), dtype=cfg.dtype)
-    dh, dc = torch.zeros((2, n, B, H))
-    tc.reverse_gate_reference(cfg, L - 1, n - 1, dh_last, cs, gs, dgates, dc)
-    for t in range(L - 1, -1, -1):
-        for l in range(n - 1, -1, -1):
-            fe.encoder_reverse_step_reference(w, t, l, cs, gs, dgates, dx0, dh, dc)
-    return dgates, dx0
-
+# ---- the backward's reverse chain, launch by launch, through its plain twins ----
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,H,E", [(1, 32, 16), (2, 100, 20), (3, 128, 129)])
@@ -283,7 +247,7 @@ def test_reverse_steps_compose_to_the_encoder_reference(n, H, E, dtype):
     _, hs, cs, gs = fe.encoder_fwd_reference(w, tok)
     dh_np = np.random.default_rng(n + 10).standard_normal((19, H)).astype(np.float32)
     dh_last = torch.from_numpy(dh_np)
-    got = _reverse_by_steps(w, dh_last, cs, gs)
+    got = fe.encoder_reverse_steps_reference(w, dh_last, cs, gs)
     want = fe.encoder_reverse_reference(w, dh_last, hs, cs, gs)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
@@ -314,3 +278,76 @@ def test_reverse_step_zero_state_is_explicit_zeros(dtype):
     want = tc.reverse_step_reference(gs, c_t, torch.zeros((B, H), dtype=dtype), dh, dc, dtype)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
+
+
+# ---- f32 as split-TF32: the weight planes, the three-term product, the twins ----
+
+@pytest.mark.parametrize("E,H", [(128, 256), (129, 100)])
+def test_tf32_planes_rebuild_the_interleaved_weight(E, H):
+    """The f32 kernels' weight operands as they split them while staging:
+    the TF32 hi and lo planes (tf32_split) of the forward's gate-interleaved
+    copy (interleave_weight) have their low 13 mantissa bits zero and
+    rebuild it within 2^-21 of each element; the reverse chain's planes of
+    wcat the same."""
+    _, tcfg = _cfgs(2, H=H, embedding_dim=E)
+    _, npp, _, _ = _setup(_cfgs(2, H=H, embedding_dim=E)[0])
+    w = tc.prepare_stack_weights(params_from_numpy(npp), tcfg, with_head=False)
+    for l, k in enumerate((E, H)):
+        for full in (tc.interleave_weight(w.layers[l], k, H), w.layers[l]):
+            hi, lo = tc.tf32_split(full)
+            for p in (hi, lo):
+                assert not (p.view(torch.int32) & 0x1FFF).any()
+            err = (hi.double() + lo.double() - full.double()).abs()
+            assert (err <= 2.0 ** -21 * full.double().abs()).all()
+
+
+@pytest.mark.parametrize("E,H", [(128, 256), (129, 100)])
+def test_split_tf32_product_matches_the_f32_product(E, H):
+    """hi_a hi_w + hi_a lo_w + lo_a hi_w (split_tf32_matmul, the product the
+    f32 kernels form on the tensor cores) matches the f32 product A W' of
+    the step kernel's operands within 1e-6 of its largest magnitude, at the
+    default widths and at E = 129, H = 100."""
+    _, tcfg = _cfgs(2, H=H, embedding_dim=E)
+    _, npp, _, _ = _setup(_cfgs(2, H=H, embedding_dim=E)[0])
+    w = tc.prepare_stack_weights(params_from_numpy(npp), tcfg, with_head=False)
+    rng = np.random.default_rng(E + H)
+    for l, k in enumerate((E, H)):
+        wt = tc.interleave_weight(w.layers[l], k, H).T.contiguous()
+        a = torch.from_numpy(rng.uniform(-1, 1, (64, wt.shape[0])).astype(np.float32))
+        want = a @ wt
+        err = float((tc.split_tf32_matmul(a, wt) - want).abs().max() / want.abs().max())
+        assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("n,H,E", [(1, 32, 16), (2, 100, 20), (3, 128, 129), (2, 256, 128)])
+def test_split_tf32_twins_compose_to_the_encoder(n, H, E):
+    """f32: the split-TF32 step twins composed in launch order
+    (encoder_fwd_steps_reference / encoder_reverse_steps_reference with
+    split_tf32, as the f32 kernels' n * L forward and 1 + n * L reverse
+    launches run) match encoder_fwd_reference / encoder_reverse_reference
+    within 1e-6, and encoder_stack_pallas(interpret=True) and its VJP within
+    1e-5 / 1e-4 (B = 19, H = 100 and E = 129 among the widths, tokens outside
+    [0, V))."""
+    jcfg, tcfg = _cfgs(n, H=H, embedding_dim=E)
+    jp, npp, x, _ = _setup(jcfg, B=19, L=6, seed=n)
+    x[0, 0], x[1, 1], x[2, 5] = -1, jcfg.vocab_size, 999
+    w = tc.prepare_stack_weights(params_from_numpy(npp), tcfg, with_head=False)
+    tok = torch.from_numpy(x)
+    got = fe.encoder_fwd_steps_reference(w, tok, split_tf32=True)
+    want = fe.encoder_fwd_reference(w, tok)
+    for g, w_ in zip(got, want):
+        _close(g, w_, 1e-6)
+    _close(got[0], encoder_stack_pallas(jp, jcfg, jnp.asarray(x), True), 1e-5)
+    dh_np = np.random.default_rng(n + 10).standard_normal((19, H)).astype(np.float32)
+    dh_last = torch.from_numpy(dh_np)
+    rev = fe.encoder_reverse_steps_reference(w, dh_last, *got[2:], split_tf32=True)
+    for g, w_ in zip(rev, fe.encoder_reverse_reference(w, dh_last, *want[1:])):
+        _close(g, w_, 1e-6)
+    dW, db, demb = fe.encoder_grads(w, tok, got[1], *rev)
+    _, vjp = jax.vjp(lambda p: encoder_stack_pallas(p, jcfg, jnp.asarray(x), True), jp)
+    (jg,) = vjp(jnp.asarray(dh_np))
+    leaves = fe.layer_grads(dW, db, tcfg, E)
+    _close(demb, jg["embedding"]["weight"], 1e-4)
+    for l in range(n):
+        for i, k in enumerate(("Wx", "Wh", "bias")):
+            _close(leaves[3 * l + i], jg[f"lstm_layer_{l}"][k], 1e-4)

@@ -59,17 +59,45 @@ def _cfg(shape, dtype="float32"):
 
 @pytest.mark.parametrize("shape", range(len(CONFIGS)))
 def test_config_picks_its_kernel_instances(shape):
-    """The tile plan picks the instances each configuration is here to
-    exercise (a CPU check of the host-side plan)."""
-    rpt, rows, kw, _ = CONFIGS[shape]
+    """The decoder's tile plan picks the instances each configuration is here
+    to exercise; the encoder, on the tensor cores in both dtypes (f32 as
+    split-TF32), plans every configuration with its split-TF32 kernels and
+    none of the CUDA-core ones, and its shared-memory rule still takes them
+    all, so no route moved (a CPU check of the host-side plans)."""
+    rpt, rows, kw, (B, L) = CONFIGS[shape]
     cfg = _cfg(shape)
     assert fe.fused_encoder_supported(cfg) and fd.fused_train_decoder_supported(cfg)
-    for mod in (fe, fd):
-        R, tj, tr = tc.fwd_tile(cfg.hidden_dim, mod._fwd_smem(cfg))
-        assert (tj, tr) == (min(cfg.hidden_dim, 256), 256 // min(cfg.hidden_dim, 256))
-        assert R == rpt * tr
+    R, tj, tr = tc.fwd_tile(cfg.hidden_dim, fd._fwd_smem(cfg))
+    assert (tj, tr) == (min(cfg.hidden_dim, 256), 256 // min(cfg.hidden_dim, 256))
+    assert R == rpt * tr
     assert tc.bwd_rows(fd._bwd_smem(cfg)) == rows
-    assert tc.bwd_rows(fe._bwd_smem(cfg)) == rows
+    kernels = {p["kernel"] for p in fe.encoder_launch_plan(cfg, B, L)}
+    assert kernels == {"seq_fwd_tf32_kernel", "gate_kernel", "enc_step_tf32_kernel",
+                       "wgrad_tf32_kernel", "demb_kernel"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", range(len(CONFIGS)))
+def test_encoder_launch_plan_fits_the_card(shape, dtype):
+    """Every launch of the encoder's plan fits an H100 block and grid: its
+    shared memory within MAX_SMEM (in f32 the split-TF32 ring, 197,632 B),
+    grid y and z within 65,535, a weight-gradient pass's partials within the
+    split-reduction scratch; the forward is n * L step launches and the
+    reverse chain 1 + n * L."""
+    B, L = CONFIGS[shape][3]
+    cfg = _cfg(shape, dtype)
+    plan = fe.encoder_launch_plan(cfg, B, L)
+    for p in plan:
+        assert p["smem"] <= tc.MAX_SMEM, p
+        x, y, z = p["grid"]
+        assert x >= 1 and 1 <= y <= 65535 and 1 <= z <= 65535, p
+        if p.get("splits", 1) > 1:
+            assert p["splits"] * p["K"] * p["N"] <= tc.SCRATCH_ELEMS, p
+    n = cfg.num_layers
+    fwd = sum(p["count"] for p in plan if p["kernel"].startswith("seq_fwd"))
+    rev = sum(p["count"] for p in plan if p["kernel"] in ("gate_kernel", "enc_step_kernel",
+                                                          "enc_step_tf32_kernel"))
+    assert (fwd, rev) == (n * L, 1 + n * L)
 
 
 def test_gates_refuse_what_the_kernels_do_not_take():
@@ -413,9 +441,12 @@ def test_encoder_bf16_reverse_chain_matches_plain(dev, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_encoder_backward_routes_by_dtype(dev, dtype):
-    """bf16: the reverse chain is 1 + n * L launches of hand-written
-    kernels (train::gate_kernel once, enc_step_kernel per (step, layer)) and
-    no enc_bwd_kernel; f32 still runs the CUDA-core enc_bwd_kernel, once."""
+    """Both dtypes run the reverse chain as 1 + n * L launches of
+    hand-written kernels (train::gate_kernel once, then one tensor-core step
+    kernel per (step, layer): enc_step_kernel in bf16, the split-TF32
+    enc_step_tf32_kernel in f32) and the weight gradient as 2n tensor-core
+    passes (wgrad_wgmma_kernel, wgrad_tf32_kernel); no CUDA-core
+    enc_bwd_kernel or wgrad_f32_kernel."""
     import re
 
     cfg, enc, _, tok, _, _, g = _setup(2, dtype, dev)
@@ -423,13 +454,112 @@ def test_encoder_backward_routes_by_dtype(dev, dtype):
     p = fe.encoder_fwd_reference(w, tok)
     dh = torch.randn((tok.shape[0], cfg.hidden_dim), generator=g).to(dev)
     names = _device_kernels(lambda: fe.encoder_bwd(w, tok, dh, *p[1:]))
+    bf16 = dtype == "bfloat16"
+    step = "enc_step_kernel" if bf16 else "enc_step_tf32_kernel"
+    wgrad = "wgrad_wgmma_kernel" if bf16 else "wgrad_tf32_kernel"
     count = {k: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
-             for k in ("gate_kernel", "enc_step_kernel", "enc_bwd_kernel")}
+             for k in ("gate_kernel", step, wgrad, "enc_bwd_kernel", "wgrad_f32_kernel")}
     L, n = tok.shape[1], cfg.num_layers
-    want = ({"gate_kernel": 1, "enc_step_kernel": n * L, "enc_bwd_kernel": 0}
-            if dtype == "bfloat16" else
-            {"gate_kernel": 0, "enc_step_kernel": 0, "enc_bwd_kernel": 1})
+    want = {"gate_kernel": 1, step: n * L, wgrad: 2 * n, "enc_bwd_kernel": 0,
+            "wgrad_f32_kernel": 0}
     assert count == want, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(CONFIGS)))
+def test_encoder_f32_forward_is_the_split_step_layer_by_layer(dev, shape):
+    """The f32 whole-stack forward (n * L launches of the split-TF32 step
+    kernel, layer 0 gathering embedding rows by token, tokens outside [0, V)
+    included) against its step twin composed layer by layer
+    (encoder_fwd_steps_reference with split_tf32) within 1e-4; a second run
+    repeats the first bit for bit."""
+    cfg, enc, _, tok, _, _, _ = _setup(shape, "float32", dev)
+    B, L = tok.shape
+    tok = tok.clone()
+    tok[0, 0] = -1
+    if B > 1 and L > 1:
+        tok[1, 1] = cfg.vocab_size
+    w = tc.prepare_stack_weights(enc, cfg, with_head=False)
+    before = fe.encoder_fwd.launches
+    k1 = fe.encoder_fwd(w, tok)
+    k2 = fe.encoder_fwd(w, tok)
+    want = fe.encoder_fwd_steps_reference(w, tok, split_tf32=True)
+    torch.cuda.synchronize()
+    _close(k1, want, "float32")
+    for a, b in zip(k1, k2):
+        assert torch.equal(a, b)
+    assert fe.encoder_fwd.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(CONFIGS)))
+def test_encoder_f32_reverse_chain_matches_plain(dev, shape):
+    """The f32 reverse chain alone (the gate kernel, then one split-TF32
+    product per (step, layer) with the gate step in its epilogue): dgates
+    and dx0 against encoder_reverse_reference on the same residuals within
+    1e-4, over ragged batches, E from 16 to 4807 (tiles that straddle the
+    input and h columns) and H = 100; a second run repeats the first bit for
+    bit (dW, db, demb too)."""
+    cfg, enc, _, tok, _, _, g = _setup(shape, "float32", dev)
+    w = tc.prepare_stack_weights(enc, cfg, with_head=False)
+    _, hs, cs, gs = fe.encoder_fwd_reference(w, tok)
+    dh = torch.randn((tok.shape[0], cfg.hidden_dim), generator=g).to(dev)
+    lib = fe.build_library()
+    st = tc.stream_of(dev)
+    k1 = fe.launch_encoder_bwd(lib, w, tok, dh, hs, cs, gs, st, with_reverse=True)
+    k2 = fe.launch_encoder_bwd(lib, w, tok, dh, hs, cs, gs, st, with_reverse=True)
+    want = fe.encoder_reverse_reference(w, dh, hs, cs, gs)
+    torch.cuda.synchronize()
+    _close(k1[3:], want, "float32")
+    for a, b in zip([*k1[0], *k1[1:]], [*k2[0], *k2[1:]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [1, 2, 6, 7])
+def test_f32_weight_gradients_repeat_bit_for_bit(dev, shape):
+    """The split-TF32 weight-gradient pass (every f32 backward's) in its row
+    sources: the encoder's (the embedding gathered by token, the layer
+    below's h, the previous h from zero state), the decoder's (its fed token,
+    the conditions, h_init at t = 0, f32 dlogits for fc_out) and the
+    sequence backward's (a dense input, h0 at t = 0), with widths not a
+    multiple of 4 among them (C = 3, E = 20, H = 100): two runs of each
+    backward give the same bits and match the plain versions within 1e-4."""
+    from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
+
+    cfg, enc, dec, tok, cond, h0, g = _setup(shape, "float32", dev)
+    B, L = tok.shape
+    E, H = cfg.embedding_dim, cfg.hidden_dim
+    we = tc.prepare_stack_weights(enc, cfg, with_head=False)
+    wd = tc.prepare_stack_weights(dec, cfg, with_head=True)
+    pe = fe.encoder_fwd_reference(we, tok)
+    dh = torch.randn((B, H), generator=g).to(dev)
+    tf = torch.ones((L,), dtype=torch.bool, device=dev)
+    pd = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False)
+    dlog = torch.randn((B, L, cfg.vocab_size), generator=g).to(dev)
+    xs = torch.randn((L, B, E), generator=g).to(dev)
+    wl, bl = we.layers[0].contiguous(), we.bias[0].contiguous()  # [E + H, 4H]
+    c0 = (0.3 * torch.randn((B, H), generator=g)).to(dev)
+    ps = fs.seq_lstm_fwd_reference(wl, bl, xs, h0, c0)
+    dhs = torch.randn((L, B, H), generator=g).to(dev)
+    dhf, dcf = (torch.randn((B, H), generator=g).to(dev) for _ in range(2))
+    runs = {
+        "encoder": (lambda: fe.encoder_bwd(we, tok, dh, *pe[1:]),
+                    lambda: fe.encoder_bwd_reference(we, tok, dh, *pe[1:])),
+        "decoder": (lambda: fd.decoder_bwd(wd, dlog, tok, pd[1], h0, cond, *pd[2:], False),
+                    lambda: fd.decoder_bwd_reference(wd, dlog, tok, pd[1], h0, cond, *pd[2:],
+                                                     False)),
+        "sequence": (lambda: [fs.seq_lstm_bwd_tm(wl, xs, h0, c0, *ps[:3], dhs, dhf, dcf)],
+                     lambda: [fs.seq_lstm_bwd_reference(wl, xs, h0, c0, *ps[:3], dhs, dhf,
+                                                        dcf)]),
+    }
+    for name, (kern, plain) in runs.items():
+        k1, k2, p = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        flat = [[*r[0], *r[1:]] for r in (k1, k2, p)]
+        _close(flat[0], flat[2], "float32")
+        for a, b in zip(flat[0], flat[1]):
+            assert torch.equal(a, b), name
 
 
 # the bf16 decoder forward's chain: (n, E, C, H, V, B, L) over one row, ragged

@@ -113,14 +113,14 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    the fused route against the plain route, and one f32 fused step under
    ``torch.profiler``, which must show the split-TF32 kernels of rows 2-3
    (``seq_fwd_tf32_kernel``, ``enc_step_tf32_kernel``,
-   ``wgrad_tf32_kernel``) and no ``enc_fwd_kernel``, ``enc_bwd_kernel`` or
-   ``wgrad_f32_kernel``;
+   ``wgrad_tf32_kernel``) and none of the CUDA-core kernels deleted since
+   (``F32_GONE``);
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
    (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
    L=64, f32 and bf16, each backward also over residuals and inputs
-   addressed inside layer-stacked arrays, and a second bf16 backward
-   bitwise equal to the first; the bf16 forward, the tensor-core step
-   kernel, also repeated bit for bit and with its input and residuals at
+   addressed inside layer-stacked arrays, and a second backward bitwise
+   equal to the first; the forward, the tensor-core step kernel in both
+   dtypes, also repeated bit for bit and with its input and residuals at
    rows 2t + 1 of layer-stacked arrays, bitwise equal to the dense call), the
    fused training decoder's logits specialization at the scaled model
    (H=1024, 4 layers, B=2048, L=64, f32 and bf16, teacher forcing 1.0 and
@@ -150,10 +150,13 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    scaled step on the fused route against the plain route, in tokens/s;
    and one scaled fused step under ``torch.profiler`` (as in phase 8, with
    the same check of the forward kernels' names). Then the f32 pass at the
-   scaled shape: the sequence forward and backward (I=1024) and the
+   scaled shape: the sequence forward and backward (I=1024 and 128) and the
    decoder's logits forward against their plain versions in turns, cuDNN's
-   one-layer f32 LSTM with TF32 off and on, both bounds, and the launches of
-   one f32 scaled step;
+   one-layer f32 LSTM with TF32 off and on, both bounds, the launches of
+   one f32 scaled step, the warm f32 step (the median of three after it),
+   and one f32 scaled step under ``torch.profiler``, which must show the
+   split-TF32 sequence kernels (``seq_fwd_tf32_kernel``,
+   ``seq_step_tf32_kernel``) and none of ``F32_GONE``;
 12. the train CLI: the port's ``data.prepare``, ``cli.train`` and
    ``cli.generate`` run in this process (``main(argv)``). A 20,523-molecule
    synthetic corpus (split 16,418 / 2,052 / 2,053: four train batches of
@@ -1594,11 +1597,15 @@ def phase_train_times(smi: str) -> dict:
 
 # the f32 default step's kernels: rows 2 and 3 on split-TF32 wgmma (the
 # forward's step kernel, the reverse chain's step kernel, the weight-gradient
-# pass) and none of the CUDA-core kernels they replaced
+# pass) and none of the CUDA-core kernels they and rows 7-8 replaced
 F32_NEW = (("encoder forward", "seq_fwd_tf32_kernel"),
            ("encoder reverse chain", "enc_step_tf32_kernel"),
            ("weight-gradient pass", "wgrad_tf32_kernel"))
-F32_GONE = ("enc_fwd_kernel", "enc_bwd_kernel", "wgrad_f32_kernel")
+F32_GONE = ("enc_fwd_kernel", "enc_bwd_kernel", "wgrad_f32_kernel", "seq_fwd_kernel",
+            "seq_bwd_kernel")
+# the f32 scaled step's kernels: rows 7-8 on split-TF32 wgmma
+F32_SEQ_NEW = (("sequence forward", "seq_fwd_tf32_kernel"),
+               ("sequence reverse chain", "seq_step_tf32_kernel"))
 
 
 def cudnn_f32_ms(I: int, H: int, layers: int, B: int, L: int) -> tuple:
@@ -1781,24 +1788,23 @@ def phase_scaled_kernels() -> dict:
             p = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
             torch.cuda.synchronize()
             compare(f"{tag} seq fwd [hs, cs, gs, hf, cf]", k, p, dtype, worst["seq_lstm_fwd"])
-            if dtype == "bfloat16":  # one writer per element: the step kernel repeats
-                again = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
-                xs2 = torch.zeros((2 * SL,) + tuple(xs.shape[1:]), dtype=xs.dtype, device="cuda")
-                xs2[1::2] = xs
-                out = tuple(torch.zeros((2 * SL,) + tuple(a.shape[1:]), dtype=a.dtype,
-                                        device="cuda") for a in k[:3])
-                ks = fs.seq_lstm_fwd(wcat, bias, xs2, h0, c0, res_stride=2, res_offset=1,
-                                     xs_stride=2, xs_offset=1, out=out)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(k, again)):
-                    raise AssertionError(f"{tag} seq fwd: two runs differ")
-                if not (all(torch.equal(a[1::2], b) for a, b in zip(ks[:3], k[:3]))
-                        and torch.equal(ks[3], k[3]) and torch.equal(ks[4], k[4])):
-                    raise AssertionError(f"{tag} seq fwd, strided: differs from the dense call")
-                log(f"  {tag} seq fwd: a second run and a strided run (stride 2, offset 1) "
-                    f"are bitwise equal to the first")
-                del again, xs2, out, ks
-            del k
+            # one writer per element: the step kernels repeat, in both dtypes
+            again = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+            xs2 = torch.zeros((2 * SL,) + tuple(xs.shape[1:]), dtype=xs.dtype, device="cuda")
+            xs2[1::2] = xs
+            out = tuple(torch.zeros((2 * SL,) + tuple(a.shape[1:]), dtype=a.dtype,
+                                    device="cuda") for a in k[:3])
+            ks = fs.seq_lstm_fwd(wcat, bias, xs2, h0, c0, res_stride=2, res_offset=1,
+                                 xs_stride=2, xs_offset=1, out=out)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(k, again)):
+                raise AssertionError(f"{tag} seq fwd: two runs differ")
+            if not (all(torch.equal(a[1::2], b) for a, b in zip(ks[:3], k[:3]))
+                    and torch.equal(ks[3], k[3]) and torch.equal(ks[4], k[4])):
+                raise AssertionError(f"{tag} seq fwd, strided: differs from the dense call")
+            log(f"  {tag} seq fwd: a second run and a strided run (stride 2, offset 1) "
+                f"are bitwise equal to the first")
+            del again, xs2, out, ks, k
             kb = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
             pb = fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
             torch.cuda.synchronize()
@@ -1816,14 +1822,13 @@ def phase_scaled_kernels() -> dict:
             torch.cuda.synchronize()
             compare(f"{tag} seq bwd, strided (stride 2, offset 1)", ks, pb, dtype,
                     worst["seq_lstm_bwd"])
-            if dtype == "bfloat16":  # the fixed-order sums repeat bit for bit
-                again = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, b) for a, b in zip(kb, again)):
-                    raise AssertionError(f"{tag} seq bwd: two runs differ")
-                log(f"  {tag} seq bwd: a second run is bitwise equal")
-                del again
-            del kb, pb, p, ks, stk
+            # the fixed-order sums repeat bit for bit, in both dtypes
+            again = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(kb, again)):
+                raise AssertionError(f"{tag} seq bwd: two runs differ")
+            log(f"  {tag} seq bwd: a second run is bitwise equal")
+            del again, kb, pb, p, ks, stk
             torch.cuda.empty_cache()
         # row 6's counterpart: the decoder's fused forward, logits specialization
         cfg, params = scaled_model(dtype)
@@ -2147,11 +2152,16 @@ def phase_scaled_times(smi: str) -> dict:
 
 def phase_scaled_times_f32(smi: str) -> dict:
     """Phase 11's f32 pass at the scaled shape (H=1024, B=2048, L=64): the
-    sequence forward and backward (rows 7-8, I=1024) and the decoder's
-    logits forward (row 6, 4 layers) against their plain versions in turns;
-    cuDNN's one-layer f32 LSTM with TF32 off (library_ms) and on; both
-    bounds; the launches of one f32 scaled fused step (counts set to 0 just
-    before)."""
+    sequence forward and backward (rows 7-8, I=1024, and I=128 as the
+    encoder's layer 0) and the decoder's logits forward (row 6, 4 layers)
+    against their plain versions in turns; cuDNN's one-layer f32 LSTM with
+    TF32 off (library_ms) and on; both bounds; the launches of one f32
+    scaled fused step (counts set to 0 just before); the warm step (the
+    median of three after it, host clock); one warm step under
+    ``torch.profiler``, which must show rows 7-8's split-TF32 kernels and
+    none of the CUDA-core kernels they replaced."""
+    import statistics
+
     from mlx_vae_tpu_torch.config import TrainConfig
     from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
     from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
@@ -2160,27 +2170,30 @@ def phase_scaled_times_f32(smi: str) -> dict:
     from mlx_vae_tpu_torch.train.steps import train_step
 
     out = {}
-    H, dt, I = SCALED["hidden_dim"], "float32", 1024
-    wcat, bias, xs, h0, c0, dhs, dhf, dcf = seq_inputs(I, H, dt, seed=I + 1)
-    res = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
-    k_ms, p_ms = turns(f"seq_lstm_fwd I={I} f32", lambda: fs.seq_lstm_fwd(wcat, bias, xs, h0, c0),
-                       lambda: fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0), smi, 1, 1)
-    kb_ms, pb_ms = turns(f"seq_lstm_bwd I={I} f32",
-                         lambda: fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res[:3], dhs, dhf, dcf),
-                         lambda: fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *res[:3], dhs, dhf,
-                                                           dcf), smi, 1, 1)
-    del res, wcat, xs, dhs
-    torch.cuda.empty_cache()
-    off, on = cudnn_f32_ms(I, H, 1, SB, SL)
-    log(f"  cuDNN torch.nn.LSTM, 1 layer, I={I} H={H} B={SB} L={SL} f32: TF32 off (the "
-        f"yardstick) forward {off[0]} ms, backward alone {off[1]} ms; TF32 on forward {on[0]} "
-        f"ms, backward alone {on[1]} ms [{smi}]")
-    fwd_b = {r: seq_bounds(I, H, 4, r)[0] for r in ("split_tf32", "float32")}
-    bwd_b = {r: seq_bounds(I, H, 4, r)[1] for r in ("split_tf32", "float32")}
-    out["seq_lstm_fwd"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=off[0], library_tf32_ms=on[0],
-                               bounds=fwd_b)
-    out["seq_lstm_bwd"] = dict(ms=kb_ms, plain_ms=pb_ms, library_ms=off[1],
-                               library_tf32_ms=on[1], bounds=bwd_b)
+    H, dt = SCALED["hidden_dim"], "float32"
+    for I in (1024, 128):
+        tag = "" if I == 1024 else f" I={I}"
+        wcat, bias, xs, h0, c0, dhs, dhf, dcf = seq_inputs(I, H, dt, seed=I + 1)
+        res = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
+        k_ms, p_ms = turns(f"seq_lstm_fwd I={I} f32",
+                           lambda: fs.seq_lstm_fwd(wcat, bias, xs, h0, c0),
+                           lambda: fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0), smi, 3, 1)
+        kb_ms, pb_ms = turns(f"seq_lstm_bwd I={I} f32",
+                             lambda: fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res[:3], dhs, dhf, dcf),
+                             lambda: fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *res[:3], dhs,
+                                                               dhf, dcf), smi, 2, 1)
+        del res, wcat, xs, dhs
+        torch.cuda.empty_cache()
+        off, on = cudnn_f32_ms(I, H, 1, SB, SL)
+        log(f"  cuDNN torch.nn.LSTM, 1 layer, I={I} H={H} B={SB} L={SL} f32: TF32 off (the "
+            f"yardstick) forward {off[0]} ms, backward alone {off[1]} ms; TF32 on forward "
+            f"{on[0]} ms, backward alone {on[1]} ms [{smi}]")
+        fwd_b = {r: seq_bounds(I, H, 4, r)[0] for r in ("split_tf32", "float32")}
+        bwd_b = {r: seq_bounds(I, H, 4, r)[1] for r in ("split_tf32", "float32")}
+        out[f"seq_lstm_fwd{tag}"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=off[0],
+                                         library_tf32_ms=on[0], bounds=fwd_b)
+        out[f"seq_lstm_bwd{tag}"] = dict(ms=kb_ms, plain_ms=pb_ms, library_ms=off[1],
+                                         library_tf32_ms=on[1], bounds=bwd_b)
     cfg, params = scaled_model(dt)
     wd = tc.prepare_stack_weights(params["decoder"], cfg, with_head=True)
     tok, cond, h0, g = train_inputs(cfg, SB, SL, seed=12)
@@ -2200,17 +2213,34 @@ def phase_scaled_times_f32(smi: str) -> dict:
     o = {k: adam_init(v) for k, v in params.items()}
     xb, cb = synthetic_batch(cfg, SB, SL)
     gen = torch.Generator(device="cuda").manual_seed(4)
+    tcfg = TrainConfig(batch_size=SB)
+
+    def step():
+        train_step(params, o, cfg, tcfg, xb, cb, gen, 0.05, 0.9)
+
+    def timed_s():
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     reset_counts(counters)  # the main path's launches: one f32 scaled step
-    t0 = time.perf_counter()
-    train_step(params, o, cfg, TrainConfig(batch_size=SB), xb, cb, gen, 0.05, 0.9)
-    torch.cuda.synchronize()
-    out["step_s"] = time.perf_counter() - t0
+    out["step_s"] = timed_s()
     out["launches"] = read_counts(counters)
     log(f"  launches in one f32 scaled step (fused route, {out['step_s']:.3f} s by the host "
         f"clock, the first): {out['launches']}")
     if out["launches"] != {"seq_lstm_fwd": 4, "seq_lstm_bwd": 8,
                            "fused_train_decoder_fwd_logits": 1}:
         raise AssertionError(f"f32 scaled launches {out['launches']}")
+    warm = [timed_s() for _ in range(3)]
+    out["warm_step_s"] = statistics.median(warm)
+    log(f"  f32 scaled step, fused route, warm: median {out['warm_step_s']:.4f} s of "
+        f"{', '.join(f'{w:.4f}' for w in warm)} s by the host clock = "
+        f"{SB * SL / out['warm_step_s']:,.0f} tokens/s (H=1024 n=4 B={SB} L={SL} f32) [{smi}]")
+    out["profile"] = profile_step(f"f32 scaled train step, fused route (H=1024 n=4 B={SB} "
+                                  f"L={SL} f32)", step, smi)
+    for role, kernel in F32_SEQ_NEW:
+        check_kernels(out["profile"], "f32 scaled train step", role, kernel, F32_GONE)
     del params, o
     torch.cuda.empty_cache()
     return out
@@ -3422,7 +3452,8 @@ def f32_record(rec: dict, kname: str, shape: str) -> dict:
     library call that computes the same f32 function; with TF32 on beside
     it), the split-TF32 bound (3 x the operations over 495 TFLOP/s, or the
     bytes) and the CUDA-core one (67 TFLOP/s), and its launches in one f32
-    step (default model for rows 2-5, scaled for rows 6-8)."""
+    step (default model for rows 2-5, scaled for rows 6-8); rows 7-8 also
+    at I=128 (``*_f32_i128``)."""
     if "bounds" in rec:  # phase 8: per-kernel pairs, shared dicts
         ms, plain = rec[kname]
         lib, lib_tf32 = rec["library"].get(kname), rec["library_tf32"].get(kname)
@@ -3431,10 +3462,16 @@ def f32_record(rec: dict, kname: str, shape: str) -> dict:
         r = rec[kname]
         ms, plain, lib, lib_tf32 = r["ms"], r["plain_ms"], r["library_ms"], r["library_tf32_ms"]
         bt, bc = r["bounds"]["split_tf32"], r["bounds"]["float32"]
-    return {"ms_f32": ms, "plain_ms_f32": plain, "library_ms_f32": lib,
-            "library_ms_f32_tf32_on": lib_tf32, "bound_ms_f32": bt[0], "bound_by_f32": bt[1],
-            "bound_ms_f32_cuda_core": bc[0], "launches_f32": rec["launches"][kname],
-            "timed_shape_f32": shape}
+    out = {"ms_f32": ms, "plain_ms_f32": plain, "library_ms_f32": lib,
+           "library_ms_f32_tf32_on": lib_tf32, "bound_ms_f32": bt[0], "bound_by_f32": bt[1],
+           "bound_ms_f32_cuda_core": bc[0], "launches_f32": rec["launches"][kname],
+           "timed_shape_f32": shape}
+    r = rec.get(f"{kname} I=128")
+    if r is not None:
+        out.update(ms_f32_i128=r["ms"], plain_ms_f32_i128=r["plain_ms"],
+                   library_ms_f32_i128=r["library_ms"],
+                   bound_ms_f32_i128=r["bounds"]["split_tf32"][0])
+    return out
 
 
 def main() -> int:

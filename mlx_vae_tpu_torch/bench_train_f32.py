@@ -1,7 +1,7 @@
 """Where a split-TF32 train launch spends its time, on one CUDA card; prints
 ONE JSON line.
 
-    python -m mlx_vae_tpu_torch.bench_train_f32
+    python -m mlx_vae_tpu_torch.bench_train_f32 [--seq]
 
 At the default model (E=128, H=256, n=2, L=64), f32, for B = 1024, 2048 and
 4096 and the same shapes in bf16 beside them:
@@ -17,6 +17,15 @@ At the default model (E=128, H=256, n=2, L=64), f32, for B = 1024, 2048 and
 * ``plan``: each launch's grid and shared memory
   (``ops/fused_encoder.py:encoder_launch_plan``).
 
+``--seq`` measures the per-layer sequence kernels instead (rows 7-8,
+``ops/fused_seq_lstm.py``) at the scaled shape, H = 1024, B = 2048, f32, for
+I = 1024 and 128: ``fwd_ms`` / ``bwd_ms`` as above, cuDNN's one-layer f32
+``torch.nn.LSTM`` with TF32 off beside them (``cudnn_fwd_ms`` /
+``cudnn_bwd_ms``, backward alone), and ``launch_us`` with each kernel's
+launch count, mean and total device time in one call (how the backward
+splits between its reverse chain, its weight-gradient pass and its column
+sums).
+
 Comparing B = 1024 / 2048 / 4096 separates a block's own latency (a launch
 of fewer blocks than the card holds takes as long as one of its blocks)
 from the card's throughput. The card's name and power limit go to stderr.
@@ -25,6 +34,7 @@ Without CUDA the script exits 2 and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -35,6 +45,7 @@ import torch
 from mlx_vae_tpu_torch.bench import init_train_params
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.ops import fused_encoder as fe
+from mlx_vae_tpu_torch.ops import fused_seq_lstm as fs
 from mlx_vae_tpu_torch.ops import train_common as tc
 
 L = 64
@@ -81,7 +92,7 @@ def by_kernel(evs: list, n: int) -> dict:
     for name, us in evs:
         steps.setdefault(name, []).append(us)
     for name, us in steps.items():
-        rec = {"count": len(us), "mean_us": sum(us) / len(us)}
+        rec = {"count": len(us), "mean_us": sum(us) / len(us), "total_ms": sum(us) / 1e3}
         if len(us) == n * L and "fwd" in name:
             rec["by_layer_us"] = [sum(us[l * L:(l + 1) * L]) / L for l in range(n)]
         elif len(us) == n * L:  # the reverse chain: top down within a step
@@ -92,7 +103,59 @@ def by_kernel(evs: list, n: int) -> dict:
     return out
 
 
+SEQ_H, SEQ_B = 1024, 2048  # the scaled model's layer width and batch
+
+
+def cudnn_ms(I: int) -> tuple:
+    """cuDNN's one-layer f32 ``torch.nn.LSTM`` with TF32 off at the scaled
+    shape: (forward ms, backward-alone ms)."""
+    torch.backends.cudnn.allow_tf32 = False
+    lstm = torch.nn.LSTM(I, SEQ_H).to("cuda")
+    lstm.flatten_parameters()
+    x = torch.randn((L, SEQ_B, I), device="cuda", requires_grad=True)
+    hc = (torch.zeros((1, SEQ_B, SEQ_H), device="cuda"),) * 2
+    fwd = time_ms(lambda: lstm(x.detach(), hc), 1)
+    out, _ = lstm(x, hc)
+    g = torch.randn_like(out)
+    leaves = [x] + list(lstm.parameters())
+    return fwd, time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 1)
+
+
+def seq_cells(smi: str) -> list:
+    """Rows 7-8 in f32 at the scaled shape, I = 1024 and 128."""
+    cells = []
+    for I in (1024, 128):
+        g = torch.Generator(device="cuda").manual_seed(I)
+        s = SEQ_H ** -0.5
+        wcat = (torch.rand((I + SEQ_H, 4 * SEQ_H), generator=g, device="cuda") * 2 - 1) * s
+        bias = (torch.rand((4 * SEQ_H,), generator=g, device="cuda") * 2 - 1) * s
+        xs = torch.randn((L, SEQ_B, I), generator=g, device="cuda")
+        h0, c0, dhf, dcf = (0.3 * torch.randn((SEQ_B, SEQ_H), generator=g, device="cuda")
+                            for _ in range(4))
+        dhs = torch.randn((L, SEQ_B, SEQ_H), generator=g, device="cuda") / (SEQ_B * L) ** 0.5
+        res = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)
+        fwd = lambda: fs.seq_lstm_fwd(wcat, bias, xs, h0, c0)  # noqa: E731
+        bwd = lambda: fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res[:3], dhs, dhf, dcf)  # noqa
+        cf, cb = cudnn_ms(I)
+        cell = {"dtype": "float32", "I": I, "H": SEQ_H, "B": SEQ_B,
+                "fwd_ms": time_ms(fwd, 1), "bwd_ms": time_ms(bwd, 1),
+                "cudnn_fwd_ms": cf, "cudnn_bwd_ms": cb,
+                "launch_us": {"fwd": by_kernel(launches(fwd), 1),
+                              "bwd": by_kernel(launches(bwd), 1)}}
+        cells.append(cell)
+        print(f"f32 I={I} H={SEQ_H} B={SEQ_B}: fwd {cell['fwd_ms']:.3f} ms, bwd "
+              f"{cell['bwd_ms']:.3f} ms, cuDNN (TF32 off) {cf:.3f} / {cb:.3f} ms; "
+              f"{json.dumps(cell['launch_us'])} [{smi}]", file=sys.stderr)
+        del res, wcat, xs, dhs
+        torch.cuda.empty_cache()
+    return cells
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seq", action="store_true",
+                    help="the per-layer sequence kernels (rows 7-8) at the scaled shape")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_train_f32: CUDA is not available", file=sys.stderr)
         return 2
@@ -101,6 +164,10 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     print(smi, file=sys.stderr)
     rec = {"device": torch.cuda.get_device_name(0), "smi": smi, "L": L, "cells": []}
+    if args.seq:
+        rec["cells"] = seq_cells(smi)
+        print(json.dumps(rec))
+        return 0
     for dtype in ("float32", "bfloat16"):
         cfg = ModelConfig(compute_dtype=dtype, use_pallas=True)
         params = init_train_params(cfg, "cuda", 0)

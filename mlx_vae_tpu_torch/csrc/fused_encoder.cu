@@ -200,7 +200,7 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
 __global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
     enc_step_tf32_kernel(const StepArgs<float> a) {
   extern __shared__ unsigned char smem_raw[];
-  step_epilogue(train::dinp_tile_tf32(smem_raw, a.dg, a.w, a.B, a.N, a.G), a);
+  step_epilogue(train::dinp_tile_tf32(smem_raw, a.dg, a.w, a.B, a.N, a.G, a.vec), a);
 }
 
 // The reverse chain: 1 + n * L launches on one stream (the kernel boundary
@@ -243,7 +243,8 @@ cudaError_t reverse_chain(const BwdArgs& a, cudaStream_t st) {
   for (int l = 0; l < n; ++l) wend += (size_t)((l == 0 ? E : H) + H) * G;
   StepArgs<T> s = {};
   s.B = B; s.G = G; s.H = H;
-  s.vec = G % 8 == 0 && train::aligned16(a.wcat) && train::aligned16(a.dgates);
+  s.vec = G % (16 / (int)sizeof(T)) == 0 && train::aligned16(a.wcat) &&
+          train::aligned16(a.dgates);
   for (int t = L - 1; t >= 0; --t) {
     size_t woff = wend;
     for (int l = n - 1; l >= 0; --l) {

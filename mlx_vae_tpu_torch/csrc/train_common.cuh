@@ -14,8 +14,9 @@
 //    stored activations, so a gate that saturated to exactly 1.0 in bf16
 //    has a zero a*(1-a) term, as on the TPU.
 //  * Layer l's combined weight is [K_l + H, 4H] (input rows, then recurrent
-//    rows); the CUDA-core reverse steps read its transpose [4H, K_l + H] so
-//    that a thread owning one input column reads neighbouring addresses.
+//    rows); the CUDA-core reverse step (the f32 training decoder's) reads
+//    its transpose [4H, K_l + H] so that a thread owning one input column
+//    reads neighbouring addresses.
 //
 // Cross-row sums. On the TPU a backward kernel adds every batch block's
 // weight gradient into one VMEM accumulator, because its grid runs in order
@@ -312,12 +313,15 @@ __device__ __forceinline__ const float* dinp_tile(unsigned char* smem_raw,
   return wg::stage_tile(acc, smem_raw, ring);
 }
 
-// The f32 counterpart (fused_encoder.cu's enc_step_tf32_kernel): the same
-// tile as split-TF32 (wgmma.cuh:gemm_tf32), both operands split while they
-// are staged (dg's rows, and w's rows read as they lie). Rows and columns
-// outside read zeros; every row of dg and w is 16-byte aligned (G = 4H).
+// The f32 counterpart (fused_encoder.cu's enc_step_tf32_kernel and
+// fused_seq_lstm.cu's seq_step_tf32_kernel): the same tile as split-TF32
+// (wgmma.cuh:gemm_tf32), both operands split while they are staged (dg's
+// rows, and w's rows read as they lie). Rows and columns outside read
+// zeros; vec: every row of dg and w 16-byte aligned (float4 loads; else
+// element loads).
 __device__ __forceinline__ const float* dinp_tile_tf32(unsigned char* smem_raw, const float* dg,
-                                                       const float* w, int B, int N, int G) {
+                                                       const float* w, int B, int N, int G,
+                                                       bool vec) {
   const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
   // This thread stages 16-byte chunk c of tile rows r0 + 32 u of both operands.
@@ -331,8 +335,8 @@ __device__ __forceinline__ const float* dinp_tile_tf32(unsigned char* smem_raw, 
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int r = r0 + 32 * u;
-          av[u] = wg::load4(m0 + r < B ? dg + (size_t)(m0 + r) * G : nullptr, q, G, true);
-          bv[u] = wg::load4(n0 + r < N ? w + (size_t)(n0 + r) * G : nullptr, q, G, true);
+          av[u] = wg::load4(m0 + r < B ? dg + (size_t)(m0 + r) * G : nullptr, q, G, vec);
+          bv[u] = wg::load4(n0 + r < N ? w + (size_t)(n0 + r) * G : nullptr, q, G, vec);
         }
       },
       [&](uint32_t dst, int) {
@@ -862,7 +866,8 @@ inline cudaError_t seq_fwd_wgmma(const SeqFwdArgs& s, cudaStream_t st) {
 // ------------------------------------------ f32 forward as split-TF32
 
 // The f32 counterpart of seq_fwd_step_kernel (the whole-stack encoder's
-// forward, fused_encoder.cu): step t of one layer is one card-wide GEMM
+// forward, fused_encoder.cu, and the sequence forward, fused_seq_lstm.cu):
+// step t of one layer is one card-wide GEMM
 // gates_t [B, 4H] = A_t [B, Kp] W' [Kp, Np] on wgmma as split-TF32
 // (wgmma.cuh:gemm_tf32: 128 x 128 tiles, 32-deep stages, 3-stage ring, one
 // block an SM), with the cell in its epilogue. A_t's columns k < I are the

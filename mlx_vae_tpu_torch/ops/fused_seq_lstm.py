@@ -4,11 +4,18 @@ plain PyTorch versions.
 Counterpart of ``mlx_vae_tpu/ops/pallas_seq_lstm.py``: the forward of
 ``lstm_sequence_pallas`` and the time-major backward
 ``lstm_seq_bwd_pallas_tm``. The kernels are in ``csrc/fused_seq_lstm.cu``
-(CUDA C++ for ``sm_90a``; in bf16 both run on the tensor cores, ``wgmma``,
-in f32 on CUDA cores); their design and what bounds them are noted at the
-top of that file. The bf16 forward is ``csrc/train_common.cuh``'s step
-kernel, which reads a gate-interleaved copy of the weight that the wrapper
-builds per call (``ops/train_common.py:interleave_weight``).
+(CUDA C++ for ``sm_90a``; both dtypes run one frame on the tensor cores,
+``wgmma``: bf16 on bf16 operands, f32 as split-TF32, every f32 product as
+three TF32 products of the operands' hi and lo parts); their design and
+what bounds them are noted at the top of that file. The forward is
+``csrc/train_common.cuh``'s step kernel (``seq_fwd_step_kernel`` in bf16,
+``seq_fwd_tf32_kernel`` in f32), L launches a call, reading a
+gate-interleaved copy of the weight that the wrapper builds per call
+(``ops/train_common.py:interleave_weight``). The backward's reverse chain
+is a gate kernel for the last step, then one GEMM ``dgates_t W^T`` a step
+whose epilogue runs the gate step of ``t - 1``
+(:func:`seq_reverse_steps_reference` is its plain twin launch by launch),
+then the weight-gradient sums.
 
 * :func:`seq_lstm_fwd`: ``xs_t [L, B, I]`` (compute dtype), ``h0``/``c0``
   ``[B, H]`` f32 -> ``hs_t``, ``cs_t [L, B, H]`` and activated gates
@@ -43,7 +50,8 @@ import torch
 from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
     MAX_SMEM, SCRATCH_ELEMS, bwd_rows, cell_step_reference, check, fwd_tile, interleave_weight,
-    raise_if, require_cuda, reverse_step_reference, shifted, stream_of, sum_outer)
+    raise_if, require_cuda, reverse_step_reference, shifted, split_tf32_matmul, stream_of,
+    sum_outer)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -105,7 +113,54 @@ def seq_lstm_bwd_reference(wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf
     return dxs, dwcat, dgates.float().sum(dim=(0, 1)), dh, dc
 
 
+def seq_reverse_steps_reference(wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf,
+                                res_stride: int = 1, res_offset: int = 0, xs_stride: int = 1,
+                                xs_offset: int = 0, split_tf32: bool = False):
+    """The backward launch by launch (contract of :func:`seq_lstm_bwd_tm`):
+    ``gate_kernel`` runs the gate step of t = L-1 from ``dhf``, ``dcf`` and
+    ``dhs[L-1]``; then for t = L-1 .. 0 one step launch forms ``dinp_t =
+    dgates_t W^T``, writes its input columns to ``dxs[t]`` and runs the gate
+    step of t-1 on its h columns (``dh0`` at t = 0), the running dc carried
+    from launch to launch as the kernels carry it in ``dc0``; then the
+    weight-gradient sums. ``split_tf32``: the f32 kernels' products
+    (``seq_step_tf32_kernel``, ``wgrad_tf32_kernel``), each
+    :func:`~mlx_vae_tpu_torch.ops.train_common.split_tf32_matmul`. Equals
+    :func:`seq_lstm_bwd_reference` bit for bit without ``split_tf32``."""
+    wdt = wcat.dtype
+    L = hs_t.shape[0] // res_stride
+    hs, cs, gs = (_rows(a, res_stride, res_offset, L) for a in (hs_t, cs_t, gs_t))
+    xs = _rows(xs_t, xs_stride, xs_offset, L)
+    I = xs.shape[-1]
+    mm = split_tf32_matmul if split_tf32 else torch.matmul
+    w = wcat.float().T
+    dgates = torch.empty(gs.shape, dtype=wdt, device=gs.device)
+    dxs = torch.empty(xs.shape, dtype=torch.float32, device=gs.device)
+
+    def gate(s, dh, dc):  # the gate step of s: dgates[s], and the new dc
+        dgates[s], dc = reverse_step_reference(gs[s], cs[s], cs[s - 1] if s else c0,
+                                               dh + dhs_t[s], dc, wdt)
+        return dc
+
+    dc = gate(L - 1, dhf.float(), dcf.float())
+    for t in range(L - 1, -1, -1):
+        dinp = mm(dgates[t].float(), w)
+        dxs[t] = dinp[:, :I]
+        if t > 0:
+            dc = gate(t - 1, dinp[:, I:], dc)
+    a = torch.cat([xs.to(wdt), shifted(hs, h0)], dim=-1)
+    dwcat = (split_tf32_matmul(a.reshape(-1, a.shape[-1]).float().T,
+                               dgates.reshape(-1, dgates.shape[-1]).float())
+             if split_tf32 else sum_outer(a, dgates))
+    return dxs, dwcat, dgates.float().sum(dim=(0, 1)), dinp[:, I:], dc
+
+
 # ------------------------------------------------------------------ kernels
+
+# The f32 support rule below is the shared-memory plan of the CUDA-core
+# kernels that ran f32 before its split-TF32 kernels (one row's forward
+# state, and one row's reverse state, in a block's shared memory). The
+# split-TF32 kernels take any width, as the bf16 ones do; the rule is kept
+# so that no model changes route with the kernels.
 
 def _fwd_smem(I: int, H: int):
     return lambda r: r * I + 3 * r * H
@@ -116,7 +171,7 @@ def _bwd_smem(H: int):
 
 
 def bwd_plan(H: int, dtype) -> Optional[int]:
-    """Rows per block of the f32 reverse kernel (its dh, dc, output
+    """Rows per block of the CUDA-core f32 reverse plan (dh, dc, output
     cotangent and dgates in shared memory), or None where one row does not
     fit. 0 for bf16: its per-step GEMMs tile rows and columns through a
     fixed shared-memory ring, so any width fits."""
@@ -136,7 +191,7 @@ def fused_seq_supported(input_size: int, hidden: int, dtype) -> bool:
     """Shapes the kernels take: bf16 at any width (per-step GEMMs through a
     fixed shared-memory ring, both ways); f32 where one row's forward state
     (input, h twice, c) and one row's reverse state (:func:`bwd_plan`) fit a
-    block's shared memory. Any batch."""
+    block's shared memory (the rule above). Any batch."""
     return _unsupported_reason(input_size, hidden, dtype) is None
 
 
@@ -145,11 +200,10 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     declare its C interface."""
     lib = load_library("fused_seq_lstm", verbose)
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.seq_fwd_launch.argtypes = ([p] + [i] * 2 + [p] * 8 + [i] * 2 + [p] * 2 + [i] * 8
-                                   + [p])
+    lib.seq_fwd_launch.argtypes = [p] + [i] * 2 + [p] * 7 + [i] * 2 + [p] * 2 + [i] * 5 + [p]
     lib.seq_fwd_launch.restype = i
-    lib.seq_bwd_launch.argtypes = ([p] * 3 + [i] * 2 + [p] + [i] * 2 + [p] * 14 + [lg]
-                                   + [i] * 6 + [p])
+    lib.seq_bwd_launch.argtypes = ([p] * 3 + [i] * 2 + [p] + [i] * 2 + [p] * 13 + [lg]
+                                   + [i] * 5 + [p])
     lib.seq_bwd_launch.restype = i
     lib.seq_error_string.argtypes = [i]
     lib.seq_error_string.restype = ctypes.c_char_p
@@ -158,24 +212,20 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
 
 def launch_seq_fwd(lib, wcat, bias, xs_t, h0, c0, stream: int, res_stride: int = 1,
                    res_offset: int = 0, xs_stride: int = 1, xs_offset: int = 0, out=None):
-    """Allocate the outputs (the residuals unless ``out`` holds them) and
-    launch the forward kernels (no device or support checks:
-    :func:`seq_lstm_fwd` makes them). bf16 reads the weight's interleaved
-    copy, built here; f32 reads ``wcat``."""
+    """Allocate the outputs (the residuals unless ``out`` holds them), build
+    the weight's interleaved copy and launch the forward kernels (no device
+    or support checks: :func:`seq_lstm_fwd` makes them)."""
     wdt = wcat.dtype
     B, I = xs_t.shape[1:]
     H = h0.shape[1]
     L = xs_t.shape[0] // xs_stride
     hs, cs, gs = _residuals(L * res_stride, B, H, wdt, xs_t.device, out)
     hf, cf = torch.empty_like(h0), torch.empty_like(h0)
-    bf16 = wdt == torch.bfloat16
-    wt = interleave_weight(wcat, I, H) if bf16 else None
-    R, tj, tr = (0, 0, 0) if bf16 else fwd_tile(H, _fwd_smem(I, H))
+    wt = interleave_weight(wcat, I, H)
     rc = lib.seq_fwd_launch(xs_t.data_ptr(), xs_stride, xs_offset, h0.data_ptr(), c0.data_ptr(),
-                            wcat.data_ptr(), wt.data_ptr() if bf16 else None, bias.data_ptr(),
-                            hs.data_ptr(), cs.data_ptr(), gs.data_ptr(), res_stride, res_offset,
-                            hf.data_ptr(), cf.data_ptr(), B, L, I, H, int(bf16), R, tj, tr,
-                            stream)
+                            wt.data_ptr(), bias.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                            gs.data_ptr(), res_stride, res_offset, hf.data_ptr(), cf.data_ptr(),
+                            B, L, I, H, int(wdt == torch.bfloat16), stream)
     raise_if(rc, "seq_lstm forward", lib.seq_error_string)
     return hs, cs, gs, hf, cf
 
@@ -227,15 +277,13 @@ def _check_offsets(res_stride: int, res_offset: int, xs_stride: int, xs_offset: 
 def launch_seq_bwd(lib, wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf, res_stride,
                    res_offset, xs_stride, xs_offset, stream: int):
     """Allocate the outputs and scratch and launch the backward kernels (no
-    device or support checks: :func:`seq_lstm_bwd_tm` makes them). The f32
-    reverse kernel reads the weight's transpose; bf16 reads ``wcat``."""
+    device or support checks: :func:`seq_lstm_bwd_tm` makes them). The
+    reverse chain reads ``wcat`` as it lies."""
     wdt = wcat.dtype
     L, B, H = dhs_t.shape
     I = xs_t.shape[-1]
     dev = dhs_t.device
     f32 = dict(dtype=torch.float32, device=dev)
-    R = bwd_plan(H, wdt)
-    wT = wcat.T.contiguous() if R else None
     h0w = h0.to(wdt).contiguous()
     dgates = torch.empty((L, B, 4 * H), dtype=wdt, device=dev)
     dxs = torch.empty((L, B, I), **f32)
@@ -247,10 +295,9 @@ def launch_seq_bwd(lib, wcat, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs_t, dhf, dcf, r
     rc = lib.seq_bwd_launch(
         gs_t.data_ptr(), cs_t.data_ptr(), hs_t.data_ptr(), res_stride, res_offset,
         xs_t.data_ptr(), xs_stride, xs_offset, h0w.data_ptr(), c0.data_ptr(), wcat.data_ptr(),
-        wT.data_ptr() if R else None, dhs_t.data_ptr(), dhf.data_ptr(), dcf.data_ptr(),
-        dgates.data_ptr(), dxs.data_ptr(), dwcat.data_ptr(), db.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), scratch.data_ptr(), scratch_elems, B, L, I, H,
-        int(wdt == torch.bfloat16), R, stream)
+        dhs_t.data_ptr(), dhf.data_ptr(), dcf.data_ptr(), dgates.data_ptr(), dxs.data_ptr(),
+        dwcat.data_ptr(), db.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), scratch.data_ptr(),
+        scratch_elems, B, L, I, H, int(wdt == torch.bfloat16), stream)
     raise_if(rc, "seq_lstm backward", lib.seq_error_string)
     return dxs, dwcat, db, dh0, dc0
 

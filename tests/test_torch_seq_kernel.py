@@ -11,11 +11,12 @@ bfloat16 (a different summation order can move a stored residual or a
 rounded gate cotangent by one bf16 ulp, ~4e-3 of the value). Each backward
 kernel gets the plain forward's residuals, as its plain twin does.
 
-The shapes cover the sequence kernels' instances the tile plan can pick
-(forward rows per thread 8, 4, 2, 1; reverse rows per block 8, 4, 2, 1),
-widths below, at and above one thread per hidden unit, unaligned widths,
-ragged batches, one row of one step, and residuals addressed inside
-layer-stacked arrays.
+Both dtypes run the sequence kernels on the tensor cores (bf16 on bf16
+operands, f32 as split-TF32). The shapes cover widths from 32 to 8192 and
+inputs to 5000 (the f32 support rule's shared-memory plans, kept from the
+CUDA-core kernels, are checked on the CPU), unaligned widths, ragged
+batches, one row of one step, residuals addressed inside layer-stacked
+arrays, and operands that start off a 16-byte boundary.
 """
 
 import pytest
@@ -31,7 +32,8 @@ from mlx_vae_tpu_torch.ops import train_common as tc
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# (forward rows per thread, reverse rows per block, I, H, B, L)
+# (the f32 support rule's forward rows per thread and reverse rows per
+# block, I, H, B, L)
 SEQ = [
     (8, 8, 128, 128, 37, 7),
     (8, 8, 129, 256, 19, 5),
@@ -51,7 +53,9 @@ SEQ = [
 
 @pytest.mark.parametrize("case", range(len(SEQ)))
 def test_tile_plan_picks_its_instances(case):
-    """A CPU check of the host-side plan the kernels are launched with."""
+    """A CPU check of the f32 support rule's shared-memory plans (those of
+    the CUDA-core kernels that ran f32 before the split-TF32 ones, kept so
+    that no route moves)."""
     rpt, rows, I, H, _, _ = SEQ[case]
     R, tj, tr = tc.fwd_tile(H, fs._fwd_smem(I, H))
     assert (tj, tr, R) == (min(H, 256), 256 // min(H, 256), rpt * (256 // min(H, 256)))
@@ -67,9 +71,10 @@ BWD_PLAN = [(128, 64, 8), (129, 200, 8), (1024, 1024, 8), (64, 2048, 4), (16, 40
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", range(len(BWD_PLAN)))
 def test_bwd_plan_and_support(case, dtype):
-    """A CPU check of the backward's support rule: the f32 reverse kernel
-    keeps one row's state in shared memory, the bf16 one (per-step GEMMs
-    through a fixed shared-memory ring) takes any width."""
+    """A CPU check of the backward's support rule: f32 where one row's
+    reverse state fits a block's shared memory (the CUDA-core plan the rule
+    keeps), bf16 (per-step GEMMs through a fixed shared-memory ring) at any
+    width."""
     I, H, rows = BWD_PLAN[case]
     if dtype == "bfloat16":
         assert fs.bwd_plan(H, torch.bfloat16) == 0
@@ -80,8 +85,9 @@ def test_bwd_plan_and_support(case, dtype):
 
 
 # (I, H): bf16 takes any width (the forward's and the backward's per-step
-# GEMMs go through a fixed shared-memory ring); f32 only where one row's
-# forward state and one row's reverse state fit a block's shared memory
+# GEMMs go through a fixed shared-memory ring); f32 only where the support
+# rule's row of forward state and row of reverse state fit a block's shared
+# memory
 WIDE = [(50000, 8192), (16, 9000), (129, 100), (1024, 1024)]
 
 
@@ -208,6 +214,125 @@ def test_seq_bwd_bf16_matches_plain(dev, case, strided):
     _close(k1, p, "bfloat16")
     for a, b in zip(k1, k2):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("case", range(len(WGMMA_BWD)))
+def test_seq_f32_matches_plain_and_repeats(dev, case, strided):
+    """The split-TF32 forward and backward against their plain f32 versions
+    on every output and gradient leaf, dense and with residuals and inputs
+    addressed inside layer-stacked arrays (the backward at residual stride
+    3 offset 1, input stride 2 offset 1; the forward's input at stride 2
+    offset 1); two runs of each agree bit for bit (one writer per element,
+    sums in a fixed order)."""
+    I, H, B = WGMMA_BWD[case]
+    L = 4
+    rs, ro, xst, xo = (3, 1, 2, 1) if strided else (1, 0, 1, 0)
+    wcat, bias, xs, h0, c0, (dhs, dhf, dcf) = _seq_inputs(I, H, B, L, "float32", dev,
+                                                          stride=xst, seed=case)
+    fkw = dict(xs_stride=xst, xs_offset=xo)
+    f1 = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0, **fkw)
+    f2 = fs.seq_lstm_fwd(wcat, bias, xs, h0, c0, **fkw)
+    res = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0, **fkw)
+    torch.cuda.synchronize()
+    _close(f1, res, "float32")
+    for a, b in zip(f1, f2):
+        assert torch.equal(a, b)
+    res = res[:3]
+    if strided:
+        stk = []
+        for a in res:
+            big = torch.randn((L * rs,) + tuple(a.shape[1:]), device=dev)
+            big[ro::rs] = a
+            stk.append(big)
+        res = stk
+    kw = dict(res_stride=rs, res_offset=ro, xs_stride=xst, xs_offset=xo)
+    k1 = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res, dhs, dhf, dcf, **kw)
+    k2 = fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res, dhs, dhf, dcf, **kw)
+    p = fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *res, dhs, dhf, dcf, **kw)
+    torch.cuda.synchronize()
+    _close(k1, p, "float32")
+    for a, b in zip(k1, k2):
+        assert torch.equal(a, b)
+
+
+def _kernel_counts(fn, names) -> dict:
+    """How many launches of each kernel in ``names`` ``fn`` made on the
+    card (torch.profiler), after a warm-up call."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # CUPTI can drop a kernel launched as the profiler starts (the f32
+        # backward's first launch is its gate_kernel): a first kernel and a
+        # synchronize open the window before fn's launches
+        torch.ones(1, device="cuda")
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {k: sum(bool(re.search(rf"\b{k}\b", n)) for n in ran) for k in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_seq_kernels_route_by_dtype(dev, dtype):
+    """The forward is L launches of the step kernel (seq_fwd_tf32_kernel in
+    f32, seq_fwd_step_kernel in bf16); the backward one gate_kernel, L step
+    launches (seq_step_tf32_kernel, seq_step_kernel) and the weight-gradient
+    passes (wgrad_tf32_kernel, wgrad_wgmma_kernel), one for the input rows
+    and one for the recurrent rows; no CUDA-core seq_fwd_kernel or
+    seq_bwd_kernel."""
+    I, H, B, L = 129, 256, 300, 5
+    wcat, bias, xs, h0, c0, (dhs, dhf, dcf) = _seq_inputs(I, H, B, L, dtype, dev)
+    bf16 = dtype == "bfloat16"
+    fwd, step, wgrad = (("seq_fwd_step_kernel", "seq_step_kernel", "wgrad_wgmma_kernel") if bf16
+                        else ("seq_fwd_tf32_kernel", "seq_step_tf32_kernel",
+                              "wgrad_tf32_kernel"))
+    old = ("seq_fwd_kernel", "seq_bwd_kernel")
+    got = _kernel_counts(lambda: fs.seq_lstm_fwd(wcat, bias, xs, h0, c0), (fwd, *old))
+    assert got == {fwd: L, "seq_fwd_kernel": 0, "seq_bwd_kernel": 0}, got
+    res = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)[:3]
+    got = _kernel_counts(lambda: fs.seq_lstm_bwd_tm(wcat, xs, h0, c0, *res, dhs, dhf, dcf),
+                         ("gate_kernel", step, wgrad, *old))
+    assert got == {"gate_kernel": 1, step: L, wgrad: 2, "seq_fwd_kernel": 0,
+                   "seq_bwd_kernel": 0}, got
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose first element sits one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_seq_kernels_take_misaligned_views(dev, dtype):
+    """wcat, xs, h0 and c0 as contiguous views that start off a 16-byte
+    boundary: the loaders take their element path (the reverse product's
+    rows of wcat, the forward's input and h0 rows, the weight gradient's
+    rows) and the results equal the aligned call's within the file's
+    tolerance of the plain version."""
+    I, H, B, L = 128, 128, 70, 3
+    wcat, bias, xs, h0, c0, (dhs, dhf, dcf) = _seq_inputs(I, H, B, L, dtype, dev, seed=3)
+    mw, mx, mh, mc = (_misaligned(t) for t in (wcat, xs, h0, c0))
+    k = fs.seq_lstm_fwd(mw, bias, mx, mh, mc)
+    p = fs.seq_lstm_fwd_reference(wcat, bias, xs, h0, c0)
+    torch.cuda.synchronize()
+    _close(k, p, dtype)
+    kb = fs.seq_lstm_bwd_tm(mw, mx, mh, mc, *p[:3], dhs, dhf, dcf)
+    pb = fs.seq_lstm_bwd_reference(wcat, xs, h0, c0, *p[:3], dhs, dhf, dcf)
+    torch.cuda.synchronize()
+    _close(kb, pb, dtype)
 
 
 @pytest.mark.cuda

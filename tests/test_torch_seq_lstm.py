@@ -232,8 +232,9 @@ STEP_CASES = [(129, 100, 19, 5, (1, 0), (1, 0)), (128, 128, 16, 7, (2, 1), (3, 2
               (16, 32, 8, 3, (3, 0), (2, 1))]
 
 
-def _compose_steps(wcat, bias, xs, h0, c0, I_, H_, L_, xst, res):
-    """The step twin over L steps; residuals at (stride, offset) ``res``."""
+def _compose_steps(wcat, bias, xs, h0, c0, I_, H_, L_, xst, res, split_tf32=False):
+    """The step twin over L steps; residuals at (stride, offset) ``res``
+    (``split_tf32``: the f32 kernel's product)."""
     rs, ro = res
     B_ = h0.shape[0]
     wt = tc.interleave_weight(wcat, I_, H_)
@@ -243,19 +244,24 @@ def _compose_steps(wcat, bias, xs, h0, c0, I_, H_, L_, xst, res):
     for t in range(L_):
         tc.seq_fwd_step_reference(wt, bias, t, xs, c, hs, cs, gs, I_, H_, x_stride=xst[0],
                                   x_offset=xst[1], h0=h0, c0=c0, res_stride=rs,
-                                  res_offset=ro, hf=hf if t == L_ - 1 else None)
+                                  res_offset=ro, hf=hf if t == L_ - 1 else None,
+                                  split_tf32=split_tf32)
     return hs, cs, gs, hf, c
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "split_tf32"])
 @pytest.mark.parametrize("case", range(len(STEP_CASES)))
 def test_fwd_steps_compose_to_the_plain_forward(case, dtype):
     """The step twin (input rows at a stride, residual rows at a stride, h0
     at t = 0) composed over L equals seq_lstm_fwd_reference bit for bit
     (also through seq_lstm_fwd's strided arguments on CPU tensors), and
     matches lstm_sequence_pallas(interpret=True) within the file's
-    tolerances."""
+    tolerances. ``split_tf32``: the f32 kernel's twin (its products
+    split-TF32) within 1e-6 (absolute and relative) of the plain f32
+    forward, and within 1e-5 of the JAX f32 forward."""
     I_, H_, B_, L_, xst, res = STEP_CASES[case]
+    split = dtype == "split_tf32"
+    dtype = "float32" if split else dtype
     jdt, tdt = DT[dtype]
     params = jax.tree_util.tree_map(np.array,
                                     jlstm.init_lstm_params(jax.random.PRNGKey(case), I_, H_))
@@ -270,20 +276,83 @@ def test_fwd_steps_compose_to_the_plain_forward(case, dtype):
                               ).to(tdt)
     xs_big[xst[1]::xst[0]] = xs_t
     th0, tc0 = torch.from_numpy(h0), torch.from_numpy(c0)
-    got = _compose_steps(wcat, bias, xs_big, th0, tc0, I_, H_, L_, xst, res)
+    got = _compose_steps(wcat, bias, xs_big, th0, tc0, I_, H_, L_, xst, res, split)
     want = fs.seq_lstm_fwd_reference(wcat, bias, xs_t, th0, tc0)
     rs, ro = res
-    for g, w_ in zip(got[:3], want[:3]):
-        assert torch.equal(g[ro::rs], w_)
-    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
-    out = tuple(torch.zeros_like(a) for a in got[:3])
-    strided = fs.seq_lstm_fwd(wcat, bias, xs_big, th0, tc0, res_stride=rs, res_offset=ro,
-                              xs_stride=xst[0], xs_offset=xst[1], out=out)
-    for g, s_ in zip(got, strided):
-        assert torch.equal(g, s_)
+    if split:
+        for g, w_ in zip((*(a[ro::rs] for a in got[:3]), *got[3:]), want):
+            np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=1e-6, atol=1e-6)
+    else:
+        for g, w_ in zip(got[:3], want[:3]):
+            assert torch.equal(g[ro::rs], w_)
+        assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        out = tuple(torch.zeros_like(a) for a in got[:3])
+        strided = fs.seq_lstm_fwd(wcat, bias, xs_big, th0, tc0, res_stride=rs, res_offset=ro,
+                                  xs_stride=xst[0], xs_offset=xst[1], out=out)
+        for g, s_ in zip(got, strided):
+            assert torch.equal(g, s_)
     (_, (jhf, jcf)), jres = psl._fwd(jax.tree_util.tree_map(jnp.asarray, params),
                                      jnp.asarray(xs), jnp.asarray(h0), jnp.asarray(c0), jdt,
                                      True)
     for g, jv, what in zip(got, (*jres[4:], jhf, jcf), ("hs", "cs", "gs", "hf", "cf")):
         g = g[ro::rs] if g.dim() == 3 else g
         _close(g, jv, dtype, what, 1e-5)
+
+
+def _leaf_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (the card tests' yardstick)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+# (input width, residuals and input at stride 2 offset 1, non-zero c0):
+# H = 100, B = 19, L = 6
+REV_CASES = [(I_, strided, c0) for I_ in (129, 100) for strided in (False, True)
+             for c0 in (False, True)]
+
+
+@pytest.mark.parametrize("case", range(len(REV_CASES)))
+def test_reverse_steps_match_the_plain_backward_and_jax(case):
+    """The f32 backward launch by launch, as the split-TF32 kernels form it
+    (seq_reverse_steps_reference(split_tf32=True): gate_kernel, then one
+    seq_step_tf32_kernel a step, then wgrad_tf32_kernel), within 2e-6 of
+    each leaf's largest magnitude of seq_lstm_bwd_reference (the split
+    keeps ~2^-21 of each product; over the six-step chain dh0 reaches
+    ~1e-6), and within 1e-4 of
+    lstm_seq_bwd_pallas_tm(interpret=True) on the same residuals
+    and cotangents; without split_tf32 the twin equals the plain backward
+    bit for bit. Dense and layer-stacked residuals and inputs (stride 2,
+    offset 1), I in {129, H}, zero and non-zero c0."""
+    I_, strided, nonzero_c0 = REV_CASES[case]
+    H_, B_, L_ = 100, 19, 6
+    params = jax.tree_util.tree_map(
+        np.array, jlstm.init_lstm_params(jax.random.PRNGKey(case), I_, H_))
+    rng = np.random.default_rng(case + 11)
+    xs = rng.standard_normal((B_, L_, I_)).astype(np.float32)
+    h0 = (0.3 * rng.standard_normal((B_, H_))).astype(np.float32)
+    c0 = (0.3 * rng.standard_normal((B_, H_)) * nonzero_c0).astype(np.float32)
+    (_, _), res = psl._fwd(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(xs),
+                           jnp.asarray(h0), jnp.asarray(c0), jnp.float32, True)
+    dhs = rng.standard_normal((L_, B_, H_)).astype(np.float32)
+    dhf, dcf = (rng.standard_normal((B_, H_)).astype(np.float32) for _ in range(2))
+    w = np.concatenate([params["Wx"].T, params["Wh"].T], axis=0)
+    arrays = [np.array(a) for a in (*res[4:], xs.swapaxes(0, 1))]
+    kw = {}
+    if strided:
+        arrays = [_stacked(a, 2, 1, rng) for a in arrays]
+        kw = dict(res_stride=2, res_offset=1, xs_stride=2, xs_offset=1)
+    hs_t, cs_t, gs_t, xs_t = arrays
+    want = psl.lstm_seq_bwd_pallas_tm(
+        jnp.asarray(w), jnp.asarray(xs_t), jnp.asarray(h0), jnp.asarray(c0), jnp.asarray(hs_t),
+        jnp.asarray(cs_t), jnp.asarray(gs_t), jnp.asarray(dhs), jnp.asarray(dhf),
+        jnp.asarray(dcf), True, **kw)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (w, xs_t, h0, c0, hs_t, cs_t, gs_t, dhs, dhf, dcf)]
+    plain = fs.seq_lstm_bwd_reference(*args, **kw)
+    steps = fs.seq_reverse_steps_reference(*args, **kw)
+    split = fs.seq_reverse_steps_reference(*args, **kw, split_tf32=True)
+    for p, st, sp, jv, what in zip(plain, steps, split, want,
+                                   ("dxs", "dwcat", "db", "dh0", "dc0")):
+        assert torch.equal(st, p), what
+        assert _leaf_err(sp, p) <= 2e-6, what
+        _close(sp, jv, "float32", what, 1e-4)

@@ -65,11 +65,13 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    plain version on the same residuals. The encoder backward's reverse chain
    is also held alone (dgates, dx0) against ``encoder_reverse_reference``,
    and a second backward must equal the first bit for bit, in both dtypes.
-   In bf16 the decoder forward (n*L tensor-core step launches and L
-   ``dec_head_kernel`` launches) must repeat bit for bit, and each head
-   launch alone, on the plain forward's residuals, is held against
-   ``decoder_head_step_reference`` (CE or logits within 2e-2, next tokens
-   on >= 99.0% of rows). The decoder backward's reverse alone (bf16: the
+   In both dtypes the decoder forward (n*L tensor-core step launches and L
+   vocab-head launches: ``seq_fwd_step_kernel`` and ``dec_head_kernel`` in
+   bf16, ``seq_fwd_tf32_kernel`` and ``dec_head_tf32_kernel`` as
+   split-TF32 in f32) must repeat bit for bit, and each head launch alone,
+   on the plain forward's residuals, is held against
+   ``decoder_head_step_reference`` (f32: ``split_tf32=True``; CE or logits
+   within 1e-4, next tokens on >= 99.0% of rows). The decoder backward's reverse alone (bf16: the
    head pass over all L*B rows and the tensor-core chain; f32:
    ``dec_bwd_kernel``) is held against ``decoder_reverse_steps_reference``
    (dgates, dx0, dlog, d(h_init), d(cond)); in bf16 a second backward must
@@ -81,8 +83,8 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    Teacher forcing 0 (the eval passes): the logits forward's kernel against
    its plain version fed the kernel's own argmax tokens by full teacher
    forcing (so a flip near a tie does not part the two paths), every output
-   within the tolerances above, and in bf16 the bitwise repeat and
-   head-alone checks;
+   within the tolerances above, and the bitwise repeat and head-alone
+   checks;
 7. the train slice: ``train_step`` at full width (default model, bf16,
    B=4096, L=64, fused route) takes 8 steps on a fixed synthetic batch; the
    losses stay finite, the total loss at step 8 is below step 1, and the
@@ -109,12 +111,13 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    plain versions in turns, cuDNN's two-layer f32 LSTM with TF32 off (the
    f32 function: rows 2-3's ``library_ms_f32``) and on (printed only), both
    bounds (split-TF32: 3 x the operations over 495 TFLOP/s; CUDA-core: over
-   67 TFLOP/s), the train kernels' launches in one f32 step, the f32 step on
-   the fused route against the plain route, and one f32 fused step under
-   ``torch.profiler``, which must show the split-TF32 kernels of rows 2-3
-   (``seq_fwd_tf32_kernel``, ``enc_step_tf32_kernel``,
-   ``wgrad_tf32_kernel``) and none of the CUDA-core kernels deleted since
-   (``F32_GONE``);
+   67 TFLOP/s), row 4's device time by kernel (``torch.profiler``: step and
+   head launches), the train kernels' launches in one f32 step, the f32
+   step on the fused route against the plain route, and one f32 fused step
+   under ``torch.profiler``, which must show the split-TF32 kernels of rows
+   2-4 (``seq_fwd_tf32_kernel``, ``enc_step_tf32_kernel``,
+   ``wgrad_tf32_kernel``, ``dec_head_tf32_kernel``) and none of the
+   CUDA-core kernels deleted since (``F32_GONE``);
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
    (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
    L=64, f32 and bf16, each backward also over residuals and inputs
@@ -124,7 +127,7 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    rows 2t + 1 of layer-stacked arrays, bitwise equal to the dense call), the
    fused training decoder's logits specialization at the scaled model
    (H=1024, 4 layers, B=2048, L=64, f32 and bf16, teacher forcing 1.0 and
-   0.9; in bf16 also phase 6's bitwise repeat and head-alone checks) and
+   0.9; phase 6's bitwise repeat and head-alone checks in both dtypes) and
    the LSTM gate pair at [4096, 1024], [2048, 4096], [4096, 256], [512,
    256], [256, 256] and [37, 102] (f32), each against its plain version,
    with phase 6's tolerances and agreement floors;
@@ -152,11 +155,13 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    the same check of the forward kernels' names). Then the f32 pass at the
    scaled shape: the sequence forward and backward (I=1024 and 128) and the
    decoder's logits forward against their plain versions in turns, cuDNN's
-   one-layer f32 LSTM with TF32 off and on, both bounds, the launches of
-   one f32 scaled step, the warm f32 step (the median of three after it),
-   and one f32 scaled step under ``torch.profiler``, which must show the
-   split-TF32 sequence kernels (``seq_fwd_tf32_kernel``,
-   ``seq_step_tf32_kernel``) and none of ``F32_GONE``;
+   one-layer f32 LSTM with TF32 off and on, both bounds, row 6's device
+   time by kernel (step and head launches), the launches of one f32 scaled
+   step, the warm f32 step (the median of three after it), and one f32
+   scaled step under ``torch.profiler``, which must show the split-TF32
+   sequence kernels (``seq_fwd_tf32_kernel``, ``seq_step_tf32_kernel``) and
+   the decoder's split-TF32 vocab head (``dec_head_tf32_kernel``) and none
+   of ``F32_GONE``;
 12. the train CLI: the port's ``data.prepare``, ``cli.train`` and
    ``cli.generate`` run in this process (``main(argv)``). A 20,523-molecule
    synthetic corpus (split 16,418 / 2,052 / 2,053: four train batches of
@@ -302,7 +307,9 @@ the larger of its operations over the card's peak for their type and its
 bytes, each input read once and each output written once, over 3.35 TB/s);
 rows 2-8 also carry their f32 numbers (``ms_f32``, ``plain_ms_f32``,
 ``library_ms_f32``, ``bound_ms_f32`` as split-TF32 and
-``bound_ms_f32_cuda_core``, ``launches_f32``).
+``bound_ms_f32_cuda_core``, ``launches_f32``); rows 4 and 6 also their
+device ms by kernel (``device_ms_f32_by_kernel``: the step launches and the
+vocab heads).
 Without CUDA the script exits 2 and prints no result.
 """
 
@@ -1158,12 +1165,13 @@ TRAIN_SOURCES = {
     "fused_train_decoder_fwd": "mlx_vae_tpu_torch/csrc/fused_train_decoder.cu",
     "fused_train_decoder_bwd": "mlx_vae_tpu_torch/csrc/fused_train_decoder.cu",
 }
-# the bf16 decoder forward is two kernels of csrc: the step kernel and the head
-DEC_FWD_NOTE = ("; bf16: n*L launches of train_common.cuh:seq_fwd_step_kernel and L of "
-                "fused_train_decoder.cu:dec_head_kernel, also each dec_head_kernel launch "
-                "alone against decoder_head_step_reference, each step's CE term or logits "
-                "within 1e-4, with targets outside [0, V); teacher forcing 0: the logits "
-                "forward against its plain version fed the kernel's own argmax tokens")
+# the decoder forward is two kernels of csrc: the step kernel and the head
+DEC_FWD_NOTE = ("; n*L launches of train_common.cuh:seq_fwd_step_kernel (bf16) or "
+                "seq_fwd_tf32_kernel (f32, split-TF32) and L of fused_train_decoder.cu:"
+                "dec_head_kernel or dec_head_tf32_kernel, also each head launch alone against "
+                "decoder_head_step_reference (f32: split_tf32=True), each step's CE term or "
+                "logits within 1e-4, with targets outside [0, V); teacher forcing 0: the "
+                "logits forward against its plain version fed the kernel's own argmax tokens")
 # the bf16 decoder backward: the head pass and the chain's step kernel
 DEC_BWD_NOTE = ("; bf16: fused_train_decoder.cu:dec_head_bwd_kernel and dec_dtop_kernel "
                 "over all L*B rows, then train_common.cuh:gate_kernel and n*L launches of "
@@ -1283,9 +1291,8 @@ def phase_train_kernels() -> dict:
                                          f"under full teacher forcing")
                 compare(f"{tag} decoder fwd {spec} [out, hs, cs, gs]", (k[0], *k[2:]),
                         (p[0], *p[2:]), dtype, worst["fused_train_decoder_fwd"])
-                if dtype == "bfloat16":
-                    check_decoder_chain(wd, h0, cond, tok, tf_on, with_ce, k, p, tag,
-                                        worst["fused_train_decoder_fwd"])
+                check_decoder_chain(wd, h0, cond, tok, tf_on, with_ce, k, p, tag,
+                                    worst["fused_train_decoder_fwd"])
                 din = (torch.randn((B,), generator=g, device="cuda") if with_ce else
                        torch.randn((B, L, cfg.vocab_size), generator=g, device="cuda") / (B * L))
                 kb = fd.decoder_bwd(wd, din, tok, p[1], h0, cond, *p[2:], with_ce)
@@ -1304,9 +1311,8 @@ def phase_train_kernels() -> dict:
             p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, True)
             torch.cuda.synchronize()
             check_fed_tokens(f"{tag} decoder fwd ce, teacher forcing 0.9", k, p, tf)
-            if dtype == "bfloat16":
-                check_decoder_chain(wd, h0, cond, tok, tf, True, k, p, tag,
-                                    worst["fused_train_decoder_fwd"])
+            check_decoder_chain(wd, h0, cond, tok, tf, True, k, p, tag,
+                                worst["fused_train_decoder_fwd"])
             del k, p
             # teacher forcing 0, as in the eval passes: the plain version is fed
             # the kernel's own argmax tokens by full teacher forcing
@@ -1321,9 +1327,8 @@ def phase_train_kernels() -> dict:
             compare(f"{tag} decoder fwd logits, teacher forcing 0, plain fed the kernel's "
                     f"tokens [out, hs, cs, gs]", (k[0], *k[2:]), (p[0], *p[2:]), dtype,
                     worst["fused_train_decoder_fwd"])
-            if dtype == "bfloat16":
-                check_decoder_chain(wd, h0, cond, tok, tf_off, False, k, p, tag,
-                                    worst["fused_train_decoder_fwd"])
+            check_decoder_chain(wd, h0, cond, tok, tf_off, False, k, p, tag,
+                                worst["fused_train_decoder_fwd"])
             del k, p
     return {k: tuple(v) for k, v in worst.items()}
 
@@ -1342,16 +1347,20 @@ def check_fed_tokens(what: str, k, p, tf) -> None:
 
 def check_decoder_chain(w, h0, cond, tok, tf, with_ce: bool, k, p, tag: str,
                         worst: list) -> None:
-    """The bf16 decoder forward's chain: a second call equals the first
-    ``k`` bit for bit; and each step's ``dec_head_kernel`` alone, on the plain
-    forward's residuals ``p``, against ``decoder_head_step_reference`` on the
-    same inputs. Both read the same rounded operands, so each step's CE term
-    (from zero) or logits is held within HEAD_TOL; the head alone is fed
-    teacher forcing on even steps only, so that forced next tokens must equal
-    the target and argmax-fed ones agree on >= AGREE_FIRST of rows a step."""
+    """The decoder forward's chain (bf16 or f32): a second call equals the
+    first ``k`` bit for bit; and each step's vocab head alone
+    (``dec_head_kernel``, or ``dec_head_tf32_kernel`` on f32 residuals), on
+    the plain forward's residuals ``p``, against ``decoder_head_step_reference``
+    on the same inputs (f32: its split-TF32 product). Both read the same
+    rounded operands, so each step's CE term (from zero) or logits is held
+    within HEAD_TOL; the head alone is fed teacher forcing on even steps
+    only, so that forced next tokens must equal the target and argmax-fed
+    ones agree on >= AGREE_FIRST of rows a step."""
     from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
 
     spec = "ce" if with_ce else "logits"
+    split = p[2].dtype == torch.float32
+    head = "dec_head_tf32_kernel" if split else "dec_head_kernel"
     again = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(k, again)):
@@ -1372,7 +1381,8 @@ def check_decoder_chain(w, h0, cond, tok, tf, with_ce: bool, k, p, tag: str,
             p_out.zero_()
         fd.launch_decoder_head(lib, w, t, p[2], tgt, tf_head.to(torch.int32), k_toks, k_out,
                                with_ce, st)
-        fd.decoder_head_step_reference(w, t, p[2], tgt, tf_head, p_toks, p_out, with_ce)
+        fd.decoder_head_step_reference(w, t, p[2], tgt, tf_head, p_toks, p_out, with_ce,
+                                       split_tf32=split)
         if with_ce:
             k_terms.append(k_out.clone())
             p_terms.append(p_out.clone())
@@ -1381,15 +1391,15 @@ def check_decoder_chain(w, h0, cond, tok, tf, with_ce: bool, k, p, tag: str,
         k_out, p_out = torch.stack(k_terms), torch.stack(p_terms)
     # toks[t + 1]: forced for even t (odd rows), argmax-fed for odd t (even rows from 2)
     if not torch.equal(k_toks[1::2], p_toks[1::2]):
-        raise AssertionError(f"{tag} dec_head_kernel: a forced next token is not the target")
+        raise AssertionError(f"{tag} {head}: a forced next token is not the target")
     agree = (k_toks[2::2] == p_toks[2::2]).float().mean(dim=1).min().item()
-    log(f"  {tag} decoder fwd {spec}: a second run is bitwise equal; dec_head_kernel alone "
+    log(f"  {tag} decoder fwd {spec}: a second run is bitwise equal; {head} alone "
         f"at all {L} steps: forced next tokens equal, argmax-fed ones agree on >= "
         f"{agree:.4%} of rows a step")
-    compare(f"{tag} dec_head_kernel alone {spec} [out, each step]", [k_out], [p_out],
+    compare(f"{tag} {head} alone {spec} [out, each step]", [k_out], [p_out],
             "bfloat16", worst, tol=HEAD_TOL)
     if agree < AGREE_FIRST:
-        raise AssertionError(f"{tag} dec_head_kernel: next tokens agree on {agree:.4%}")
+        raise AssertionError(f"{tag} {head}: next tokens agree on {agree:.4%}")
 
 
 def check_decoder_reverse(w, din, tok, h0, cond, k, p, with_ce: bool, tag: str, dtype: str,
@@ -1595,17 +1605,20 @@ def phase_train_times(smi: str) -> dict:
     return out
 
 
-# the f32 default step's kernels: rows 2 and 3 on split-TF32 wgmma (the
-# forward's step kernel, the reverse chain's step kernel, the weight-gradient
-# pass) and none of the CUDA-core kernels they and rows 7-8 replaced
+# the f32 default step's kernels: rows 2-4 on split-TF32 wgmma (the
+# forwards' step kernel, the reverse chain's step kernel, the weight-gradient
+# pass, the decoder's vocab head) and none of the CUDA-core kernels they and
+# rows 6-8 replaced
 F32_NEW = (("encoder forward", "seq_fwd_tf32_kernel"),
            ("encoder reverse chain", "enc_step_tf32_kernel"),
-           ("weight-gradient pass", "wgrad_tf32_kernel"))
+           ("weight-gradient pass", "wgrad_tf32_kernel"),
+           ("decoder vocab head", "dec_head_tf32_kernel"))
 F32_GONE = ("enc_fwd_kernel", "enc_bwd_kernel", "wgrad_f32_kernel", "seq_fwd_kernel",
-            "seq_bwd_kernel")
-# the f32 scaled step's kernels: rows 7-8 on split-TF32 wgmma
+            "seq_bwd_kernel", "dec_fwd_kernel")
+# the f32 scaled step's kernels: rows 6-8 on split-TF32 wgmma
 F32_SEQ_NEW = (("sequence forward", "seq_fwd_tf32_kernel"),
-               ("sequence reverse chain", "seq_step_tf32_kernel"))
+               ("sequence reverse chain", "seq_step_tf32_kernel"),
+               ("decoder vocab head", "dec_head_tf32_kernel"))
 
 
 def cudnn_f32_ms(I: int, H: int, layers: int, B: int, L: int) -> tuple:
@@ -1663,6 +1676,8 @@ def phase_train_times_f32(smi: str, check: bool = True) -> dict:
     }
     out = {name: turns(f"{name} f32", kern, plain, smi, 2, 1)
            for name, (kern, plain) in pairs.items()}
+    out["dec_fwd_profile"] = profile_step("row 4 f32, the decoder forward with CE (B=4096 L=64)",
+                                          pairs["fused_train_decoder_fwd"][0], smi)["kernels"]
     del enc, dec
     off, on = cudnn_f32_ms(cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers, B, L)
     out["library"] = {"fused_encoder_fwd": off[0], "fused_encoder_bwd": off[1]}
@@ -1843,9 +1858,8 @@ def phase_scaled_kernels() -> dict:
             raise AssertionError(f"{tag}: fed tokens differ under full teacher forcing")
         compare(f"{tag}, tf 1.0 [logits, hs, cs, gs]", (k[0], *k[2:]), (p[0], *p[2:]), dtype,
                 worst["fused_train_decoder_fwd_logits"])
-        if dtype == "bfloat16":
-            check_decoder_chain(wd, h0, cond, tok, tf_on, False, k, p, f"{tag}, tf 1.0",
-                                worst["fused_train_decoder_fwd_logits"])
+        check_decoder_chain(wd, h0, cond, tok, tf_on, False, k, p, f"{tag}, tf 1.0",
+                            worst["fused_train_decoder_fwd_logits"])
         del k, p
         tf = torch.rand((SL,), generator=g, device="cuda") < 0.9
         tf[3] = False  # at least one argmax-fed step
@@ -1853,9 +1867,8 @@ def phase_scaled_kernels() -> dict:
         p = fd.decoder_fwd_reference(wd, h0, cond, tok, tf, False)
         torch.cuda.synchronize()
         check_fed_tokens(f"{tag}, tf 0.9", k, p, tf)
-        if dtype == "bfloat16":
-            check_decoder_chain(wd, h0, cond, tok, tf, False, k, p, f"{tag}, tf 0.9",
-                                worst["fused_train_decoder_fwd_logits"])
+        check_decoder_chain(wd, h0, cond, tok, tf, False, k, p, f"{tag}, tf 0.9",
+                            worst["fused_train_decoder_fwd_logits"])
         del k, p, wd, params
         torch.cuda.empty_cache()
     for B, Hg in GATE_SHAPES:
@@ -2204,8 +2217,13 @@ def phase_scaled_times_f32(smi: str) -> dict:
     out["fused_train_decoder_fwd_logits"] = dict(
         ms=k_ms, plain_ms=p_ms, library_ms=None, library_tf32_ms=None,
         bounds={r: dec_logits_bound(cfg, 4, r) for r in ("split_tf32", "float32")})
+    out["dec_fwd_profile"] = profile_step(
+        f"row 6 f32, the decoder's logits forward (H=1024 n=4 B={SB} L={SL})",
+        lambda: fd.decoder_fwd(wd, h0, cond, tok, tf, False), smi)["kernels"]
     del wd
     for name, rec in out.items():
+        if name == "dec_fwd_profile":
+            continue
         log(f"  {name} f32 at the scaled shape: {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
             f"ms; bound split-TF32 {rec['bounds']['split_tf32'][0]:.3f} ms, CUDA-core "
             f"{rec['bounds']['float32'][0]:.3f} ms [{smi}]")
@@ -3452,7 +3470,8 @@ def f32_record(rec: dict, kname: str, shape: str) -> dict:
     library call that computes the same f32 function; with TF32 on beside
     it), the split-TF32 bound (3 x the operations over 495 TFLOP/s, or the
     bytes) and the CUDA-core one (67 TFLOP/s), and its launches in one f32
-    step (default model for rows 2-5, scaled for rows 6-8); rows 7-8 also
+    step (default model for rows 2-5, scaled for rows 6-8); rows 4 and 6
+    also their device ms by kernel (step and head launches), rows 7-8 also
     at I=128 (``*_f32_i128``)."""
     if "bounds" in rec:  # phase 8: per-kernel pairs, shared dicts
         ms, plain = rec[kname]
@@ -3466,6 +3485,9 @@ def f32_record(rec: dict, kname: str, shape: str) -> dict:
            "library_ms_f32_tf32_on": lib_tf32, "bound_ms_f32": bt[0], "bound_by_f32": bt[1],
            "bound_ms_f32_cuda_core": bc[0], "launches_f32": rec["launches"][kname],
            "timed_shape_f32": shape}
+    if kname.startswith("fused_train_decoder_fwd"):  # rows 4 and 6: step and head launches
+        out["device_ms_f32_by_kernel"] = {k: v for k, v in rec["dec_fwd_profile"].items()
+                                          if "tf32" in k}
     r = rec.get(f"{kname} I=128")
     if r is not None:
         out.update(ms_f32_i128=r["ms"], plain_ms_f32_i128=r["plain_ms"],

@@ -3,8 +3,7 @@
 // cross-entropy.
 //
 // Replaces the TPU kernels of mlx_vae_tpu/ops/pallas_train_decoder.py:
-//   dec_fwd_bf16_launch, dec_fwd_f32_launch
-//                   <- _fwd_kernel (reached through _run_fwd, from
+//   dec_fwd_launch  <- _fwd_kernel (reached through _run_fwd, from
 //                      decoder_train_ce_pallas and decoder_train_pallas)
 //                      and, with logits out, _fwd_kernel_blk (reached
 //                      through decoder_fwd_blk, the forward of
@@ -29,25 +28,22 @@
 // interface below).
 //
 // Design:
-//  * Forward in bf16 (the tensor cores): step-major, because step t + 1's
-//    layer-0 input is step t's argmax. Per call, a set-up kernel writes the
-//    start token and zeroes the CE sums; then for t = 0 .. L-1, one launch
-//    of train_common.cuh's seq_fwd_step_kernel per layer (a card-wide wgmma
-//    GEMM [x, cond, h_{t-1}] W' with the cell in its epilogue; layer 0
-//    gathers its embedding rows by the fed token and reads the f32
-//    conditions as a third operand segment, layer l > 0 reads the layer
-//    below's stored h; h_{-1} is the f32 h_init, each layer's c runs in an
-//    f32 [n, B, H] buffer), then one dec_head_kernel: the vocab projection
-//    (a wgmma GEMM over K = H, one 128-row tile a block looping over the
-//    vocab's 128-wide column tiles), with the CE or the logits, the argmax
-//    and the next token in its epilogue. n * L + L launches a call, the
-//    kernel boundary being the grid-wide barrier the recurrence needs.
-//  * Forward in f32 (dec_fwd_kernel, CUDA-core FMA; tensor cores in f32
-//    mean TF32): one block (256 threads) owns R rows for all L steps, as in
-//    fused_generate.cu: step input [R][E+C], h of every layer
-//    double-buffered, c, the token and the CE sum in shared memory; one warp
-//    per row does the vocab projection, the CE and the argmax over the V
-//    real lanes (the TPU pads V to 128 with a -1e9 bias instead).
+//  * Forward (the tensor cores; bf16 wgmma, f32 as split-TF32, one frame):
+//    step-major, because step t + 1's layer-0 input is step t's argmax. Per
+//    call, a set-up kernel writes the start token and zeroes the CE sums;
+//    then for t = 0 .. L-1, one launch of train_common.cuh's forward step
+//    kernel per layer (seq_fwd_step_kernel in bf16, seq_fwd_tf32_kernel in
+//    f32: a card-wide GEMM [x, cond, h_{t-1}] W' with the cell in its
+//    epilogue; layer 0 gathers its embedding rows by the fed token and
+//    reads the f32 conditions as a third operand segment, layer l > 0 reads
+//    the layer below's stored h; h_{-1} is the f32 h_init, each layer's c
+//    runs in an f32 [n, B, H] buffer), then one vocab head (dec_head_kernel
+//    in bf16, dec_head_tf32_kernel in f32): the vocab projection (a GEMM
+//    over K = H, one 128-row tile a block looping over the vocab's 128-wide
+//    column tiles), with the CE or the logits, the argmax and the next token
+//    in its epilogue. 1 + n * L + L launches a call, the kernel boundary
+//    being the grid-wide barrier the recurrence needs; one writer per
+//    element and no atomics, so two runs are bitwise equal.
 //  * Backward in bf16 (the tensor cores), before the sums: the head's
 //    cotangent of step t needs only forward residuals (the stored top h, the
 //    targets, dce), so it is formed for all L * B rows m = t * B + b at once,
@@ -85,15 +81,21 @@
 // What bounds it: at the default model (E=128, C=1, H=256, n=2, V=80) and
 // B=4096, L=64, bf16, the forward is ~0.51 TFLOP of products against ~0.8
 // GB of residual stores, so the operations bound it (0.5 ms at the tensor
-// cores' bf16 rate); at hidden 1024 / 4 layers (B=2048) ~7.9 TFLOP. The
+// cores' bf16 rate); at hidden 1024 / 4 layers (B=2048) ~7.9 TFLOP. In f32
+// the same products as split-TF32 are three TF32 products each, so 3 x the
+// operations over 495 TFLOP/s: 3.0 ms default, 47.6 ms scaled. The
 // backward is ~1 TFLOP (the chain's products, the recomputed logits,
 // from_above and the weight gradients): 1.0 ms. A row-tiled CUDA-core
 // kernel streams every weight from L2 (or, past 50 MB of weights, from
 // device memory) at every step to serve a few rows: on an H100 80GB HBM3
-// (700 W) torch.profiler put such a bf16 reverse kernel at 56.8 ms of the
-// default step. Here each launch touches one layer's weights. The chain's
-// layer-0 launches at the default model have N = E + C + H = 385 columns:
-// a fourth 128-wide column tile that holds one column.
+// (700 W) the f32 forward as such a kernel took 1074 ms at the scaled model
+// (PERF.md), its 119.5 MB of f32 weights read from device memory by each of
+// 512 blocks at each step. Here each launch touches one layer's
+// weights, once per 128 rows. The chain's layer-0 launches at the default
+// model have N = E + C + H = 385 columns: a fourth 128-wide column tile that
+// holds one column.
+
+#include <type_traits>
 
 #include "train_common.cuh"
 
@@ -101,166 +103,6 @@ namespace {
 
 using train::NT;
 using train::NW;
-
-struct FwdArgs {
-  const int* targets;  // [B, L]
-  const int* tf;       // [L] 0/1
-  const float* cond;   // [B, C]
-  const float* h_init; // [B, H]
-  const void* emb;     // [V, E] T
-  const void* wcat;    // f32 route: per layer [(K_l + H), 4H], back to back (K_0 = E + C)
-  const float* bias;   // [n, 4H]
-  const void* wout;    // f32 route: [H, V]
-  const float* bout;   // [V]
-  float* out;          // with_ce: ce [B]; else logits [B, L, V]
-  int* toks;           // [L, B] fed tokens
-  void* hs;            // [L, n, B, H] T
-  void* cs;
-  void* gs;            // [L, n, B, 4H] T
-  int B, L, V, E, C, H, n, R, TJ, TR, with_ce, start_token;  // R, TJ, TR: f32 route
-};
-
-// The arguments both routes read.
-FwdArgs fwd_args(const void* targets, const void* tf, const void* cond, const void* h_init,
-                 const void* emb, const void* bias, const void* bout, void* out, void* toks,
-                 void* hs, void* cs, void* gs, int B, int L, int V, int E, int C, int H, int n,
-                 int with_ce, int start_token) {
-  FwdArgs a = {};
-  a.targets = static_cast<const int*>(targets);
-  a.tf = static_cast<const int*>(tf);
-  a.cond = static_cast<const float*>(cond);
-  a.h_init = static_cast<const float*>(h_init);
-  a.emb = emb;
-  a.bias = static_cast<const float*>(bias);
-  a.bout = static_cast<const float*>(bout);
-  a.out = static_cast<float*>(out);
-  a.toks = static_cast<int*>(toks);
-  a.hs = hs;
-  a.cs = cs;
-  a.gs = gs;
-  a.B = B; a.L = L; a.V = V; a.E = E; a.C = C; a.H = H; a.n = n;
-  a.with_ce = with_ce; a.start_token = start_token;
-  return a;
-}
-
-template <typename T, int RPT, int VPL>
-__global__ void __launch_bounds__(NT) dec_fwd_kernel(const FwdArgs a) {
-  extern __shared__ float smem[];
-  const int H = a.H, E = a.E, C = a.C, K0 = E + C, n = a.n, R = a.R, L = a.L, B = a.B,
-            V = a.V, G = 4 * H;
-  float* xin = smem;                          // [R][K0]
-  float* hbuf = xin + R * K0;                 // [2][n][R][H]
-  float* cbuf = hbuf + 2 * n * R * H;         // [n][R][H]
-  float* ce = cbuf + n * R * H;               // [R]
-  int* tok = reinterpret_cast<int*>(ce + R);  // [R]
-  const int row0 = blockIdx.x * R;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* emb = static_cast<const T*>(a.emb);
-  const T* wcat = static_cast<const T*>(a.wcat);
-  const T* wout = static_cast<const T*>(a.wout);
-  T* hs = static_cast<T*>(a.hs);
-  T* cs = static_cast<T*>(a.cs);
-  T* gs = static_cast<T*>(a.gs);
-
-  for (int idx = threadIdx.x; idx < R * H; idx += NT) {
-    const int g = row0 + idx / H;
-    const float v = g < B ? a.h_init[(size_t)g * H + idx % H] : 0.0f;
-    for (int l = 0; l < n; ++l) {
-      hbuf[(size_t)l * R * H + idx] = v;
-      cbuf[(size_t)l * R * H + idx] = 0.0f;
-    }
-  }
-  for (int r = threadIdx.x; r < R; r += NT) {
-    tok[r] = a.start_token;
-    ce[r] = 0.0f;
-  }
-  __syncthreads();
-
-  int p = 0;  // hbuf[p] holds the previous step's h
-  for (int t = 0; t < L; ++t) {
-    for (int idx = threadIdx.x; idx < R * K0; idx += NT) {
-      const int r = idx / K0, k = idx % K0, g = row0 + r;
-      float v = 0.0f;
-      if (g < B) {
-        if (k < E) {
-          const int tk = tok[r];
-          if (tk >= 0 && tk < V) v = train::ld(emb + (size_t)tk * E + k);
-        } else {
-          v = a.cond[(size_t)g * C + (k - E)];
-        }
-      }
-      xin[idx] = v;
-    }
-    for (int r = threadIdx.x; r < R; r += NT)
-      if (row0 + r < B) a.toks[(size_t)t * B + row0 + r] = tok[r];
-    __syncthreads();
-
-    size_t woff = 0;
-    for (int l = 0; l < n; ++l) {
-      const int Kin = l == 0 ? K0 : H;
-      const float* xs = l == 0 ? xin : hbuf + ((size_t)(p ^ 1) * n + (l - 1)) * R * H;
-      const size_t slab = ((size_t)t * n + l) * B;
-      train::cell_fwd<T, RPT>(wcat + woff, a.bias + (size_t)l * G, Kin, H, xs,
-                              hbuf + ((size_t)p * n + l) * R * H,
-                              hbuf + ((size_t)(p ^ 1) * n + l) * R * H, cbuf + (size_t)l * R * H,
-                              a.TJ, a.TR, row0, B, hs + slab * H, cs + slab * H, gs + slab * G);
-      woff += (size_t)(Kin + H) * G;
-      __syncthreads();
-    }
-
-    // ---- vocab projection, CE or logits, next token: one warp per row ----
-    const float* htop = hbuf + ((size_t)(p ^ 1) * n + (n - 1)) * R * H;
-    for (int r = warp; r < R; r += NW) {
-      const int g = row0 + r;
-      const int gc = g < B ? g : B - 1;  // rows past B compute, never store
-      const int target = a.targets[(size_t)gc * L + t];
-      float s[VPL];
-#pragma unroll
-      for (int u = 0; u < VPL; ++u) {
-        const int v = lane + 32 * u;
-        s[u] = -INFINITY;
-        if (v < V) {
-          float acc = 0.0f;
-          for (int k = 0; k < H; ++k)
-            acc = fmaf(train::rnd<T>(htop[r * H + k]), train::ld(wout + (size_t)k * V + v), acc);
-          s[u] = acc + a.bout[v];
-          if (!a.with_ce && g < B) a.out[((size_t)g * L + t) * V + v] = s[u];
-        }
-      }
-      float best = -INFINITY;
-      int besti = 0x7fffffff;
-#pragma unroll
-      for (int u = 0; u < VPL; ++u)
-        if (lane + 32 * u < V && s[u] > best) { best = s[u]; besti = lane + 32 * u; }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, besti, o);
-        if (ob > best || (ob == best && oi < besti)) { best = ob; besti = oi; }
-      }
-      if (a.with_ce) {
-        // best is the row max after the butterfly
-        float e = 0.0f, tl = 0.0f;
-#pragma unroll
-        for (int u = 0; u < VPL; ++u) {
-          const int v = lane + 32 * u;
-          if (v < V) {
-            e += expf(s[u] - best);
-            if (v == target) tl = s[u];
-          }
-        }
-        e = train::warp_sum(e);
-        tl = train::warp_sum(tl);
-        if (lane == 0) ce[r] += (best + logf(e)) - tl;
-      }
-      if (lane == 0) tok[r] = a.tf[t] ? target : besti;
-    }
-    __syncthreads();
-    p ^= 1;
-  }
-  if (a.with_ce)
-    for (int r = threadIdx.x; r < R; r += NT)
-      if (row0 + r < B) a.out[row0 + r] = ce[r];
-}
 
 struct BwdArgs {
   const float* din;      // with_ce: dce [B]; else dlogits [B, L, V]
@@ -433,77 +275,124 @@ __global__ void __launch_bounds__(NT) dec_bwd_kernel(const BwdArgs a) {
   }
 }
 
-template <typename T, int RPT, int VPL>
-cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)a.R * (a.E + a.C) +
-                                       (size_t)3 * a.n * a.R * a.H + 2 * (size_t)a.R);
-  cudaError_t e = cudaFuncSetAttribute(dec_fwd_kernel<T, RPT, VPL>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dec_fwd_kernel<T, RPT, VPL><<<(a.B + a.R - 1) / a.R, NT, smem, st>>>(a);
-  return cudaGetLastError();
-}
+// ------------------------------------------------ forward on the tensor cores
 
-template <typename T, int VPL>
-cudaError_t launch_fwd_rpt(const FwdArgs& a, cudaStream_t st) {
-  switch (a.R / a.TR) {
-    case 1: return launch_fwd<T, 1, VPL>(a, st);
-    case 2: return launch_fwd<T, 2, VPL>(a, st);
-    case 4: return launch_fwd<T, 4, VPL>(a, st);
-    case 8: return launch_fwd<T, 8, VPL>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Two vocab widths keep the number of instantiations (and the build) small.
-template <typename T>
-cudaError_t launch_fwd_vpl(const FwdArgs& a, cudaStream_t st) {
-  return a.V <= 128 ? launch_fwd_rpt<T, 4>(a, st) : launch_fwd_rpt<T, 16>(a, st);
-}
-
-// ------------------------------------------------ bf16 forward on the tensor cores
-
-// Step t's vocab head: logits = h_top(t) [B, H] (bf16, hs row t * n + n - 1)
-// @ wout + bout on wgmma, B operand woutT [V, H] (K-major as it lies; rows
-// >= V read zeros). A block owns 128 rows and loops over the vocab's
-// 128-wide column tiles; a warp walks 16 rows of each staged f32 tile, a
-// lane 4 columns, and keeps each row's running max, sum of exponentials,
-// argmax (ties to the lowest index) and target logit in shared memory, so
-// that after the last tile it holds the whole vocabulary of its rows. The
-// rows' targets are read into shared memory before the first product, so
-// that no row of the epilogue waits on device memory.
+// Step t's vocab head: logits = h_top(t) [B, H] (hs row t * n + n - 1) @
+// wout + bout, B operand woutT [V, H] (K-major as it lies; rows >= V read
+// zeros): on wgmma in bf16 (dec_head_kernel), as split-TF32 in f32
+// (dec_head_tf32_kernel: both operands split while they are staged,
+// train_common.cuh:abt_tile_tf32). A block owns 128 rows and loops over the
+// vocab's 128-wide column tiles; a warp walks 16 rows of each staged f32
+// tile, a lane 4 columns, and keeps each row's running max, sum of
+// exponentials, argmax (ties to the lowest index) and target logit in
+// shared memory, so that after the last tile it holds the whole vocabulary
+// of its rows. The rows' targets are read into shared memory before the
+// first product, so that no row of the epilogue waits on device memory.
 struct HeadArgs {
-  const __nv_bfloat16* h;      // [B, H]
-  const __nv_bfloat16* woutT;  // [V, H]
-  const float* bout;           // [V]
-  const int* targets;          // [B, L]
-  const int* tf;               // [L] 0/1
-  float* out;                  // with_ce: ce [B], added to; else logits [B, L, V]
-  int* toks;                   // [L, B]: row t + 1 is written where t + 1 < L
+  const void* h;       // [B, H] T
+  const void* woutT;   // [V, H] T
+  const float* bout;   // [V]
+  const int* targets;  // [B, L]
+  const int* tf;       // [L] 0/1
+  float* out;          // with_ce: ce [B], added to; else logits [B, L, V]
+  int* toks;           // [L, B]: row t + 1 is written where t + 1 < L
   int B, L, V, H, t, with_ce, vec;
 };
 
 constexpr int HEAD_ROWS = wg::BM / NW;              // rows a warp walks in a tile
 constexpr int HEAD_STATE = 5 * wg::BM * 4;          // bytes of the per-row state
 constexpr int HEAD_SMEM = HEAD_STATE + wg::SMEM;
+constexpr int HEAD_TF_SMEM = HEAD_STATE + wg::TF_SMEM;  // 200,192 B: one block an SM
+
+// A head block's per-row state, HEAD_STATE bytes at the start of its shared
+// memory: the running max, sum and target logit (0 where none yet), the
+// argmax, and the rows' targets.
+struct HeadState {
+  float* run_max;
+  float* run_sum;
+  float* run_tl;
+  int* run_arg;
+  int* target;
+};
+
+__device__ __forceinline__ HeadState head_state(unsigned char* smem_raw, const HeadArgs& a,
+                                                int m0) {
+  HeadState s;
+  s.run_max = reinterpret_cast<float*>(smem_raw);  // [BM] each
+  s.run_sum = s.run_max + wg::BM;
+  s.run_tl = s.run_sum + wg::BM;
+  s.run_arg = reinterpret_cast<int*>(s.run_tl + wg::BM);
+  s.target = s.run_arg + wg::BM;
+  if (threadIdx.x < wg::BM) {  // visible to the epilogue after the product's barriers
+    const int row = m0 + threadIdx.x;
+    s.target[threadIdx.x] = row < a.B ? a.targets[(size_t)row * a.L + a.t] : -1;
+    s.run_tl[threadIdx.x] = 0.0f;
+  }
+  return s;
+}
+
+// Column tile n0's epilogue on the staged f32 tile of the block's logits.
+__device__ __forceinline__ void head_epilogue(const HeadArgs& a, const HeadState& s,
+                                              const float* tile, int m0, int n0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int B = a.B, V = a.V, L = a.L, t = a.t;
+  float bias[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int v = n0 + lane + 32 * q;
+    bias[q] = v < V ? a.bout[v] : 0.0f;
+  }
+  const bool last = n0 + wg::BN >= V, forced = a.tf[t] != 0;
+  for (int i = 0; i < HEAD_ROWS; ++i) {
+    const int r = warp * HEAD_ROWS + i, row = m0 + r;
+    if (row >= B) break;
+    float x[4], best = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = n0 + lane + 32 * q;
+      x[q] = v < V ? tile[r * wg::EPI_PITCH + lane + 32 * q] + bias[q] : -INFINITY;
+      if (!a.with_ce && v < V) a.out[((size_t)row * L + t) * V + v] = x[q];
+      best = fmaxf(best, x[q]);
+      if (v < V && v == s.target[r]) s.run_tl[r] = x[q];
+    }
+    best = train::warp_max(best);
+    // the lowest column holding the max: the first lane of the first q
+    int besti = 0;
+#pragma unroll
+    for (int q = 3; q >= 0; --q) {
+      const unsigned hit = __ballot_sync(0xffffffffu, x[q] == best);
+      if (hit) besti = n0 + 32 * q + __ffs(hit) - 1;
+    }
+    float e = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) e += x[q] > -INFINITY ? expf(x[q] - best) : 0.0f;
+    e = train::warp_sum(e);
+    __syncwarp();  // the target's lane wrote run_tl[r]
+    if (lane == 0) {
+      if (n0 == 0) {
+        s.run_max[r] = best; s.run_sum[r] = e; s.run_arg[r] = besti;
+      } else {
+        const float m = s.run_max[r], nm = fmaxf(m, best);
+        s.run_sum[r] = s.run_sum[r] * expf(m - nm) + e * expf(best - nm);
+        if (best > m) s.run_arg[r] = besti;
+        s.run_max[r] = nm;
+      }
+      if (last) {
+        if (a.with_ce) a.out[row] += (s.run_max[r] + logf(s.run_sum[r])) - s.run_tl[r];
+        if (t + 1 < L) a.toks[(size_t)(t + 1) * B + row] = forced ? s.target[r] : s.run_arg[r];
+      }
+    }
+  }
+}
 
 __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM) dec_head_kernel(const HeadArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  float* run_max = reinterpret_cast<float*>(smem_raw);  // [BM] each
-  float* run_sum = run_max + wg::BM;
-  float* run_tl = run_sum + wg::BM;  // the target's logit, 0 where none (yet)
-  int* run_arg = reinterpret_cast<int*>(run_tl + wg::BM);
-  int* target = run_arg + wg::BM;
+  const int m0 = blockIdx.x * wg::BM, B = a.B, H = a.H, V = a.V;
+  const HeadState s = head_state(smem_raw, a, m0);
   const uint32_t ring = (wg::smem_u32(smem_raw + HEAD_STATE) + 1023u) & ~1023u;
-  const int m0 = blockIdx.x * wg::BM, B = a.B, H = a.H, V = a.V, L = a.L, t = a.t;
+  const __nv_bfloat16* h = static_cast<const __nv_bfloat16*>(a.h);
+  const __nv_bfloat16* woutT = static_cast<const __nv_bfloat16*>(a.woutT);
   const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x < wg::BM) {  // visible to the epilogue after gemm()'s barriers
-    const int row = m0 + threadIdx.x;
-    target[threadIdx.x] = row < B ? a.targets[(size_t)row * L + t] : -1;
-    run_tl[threadIdx.x] = 0.0f;
-  }
-  const bool forced = a.tf[t] != 0;
   for (int n0 = 0; n0 < V; n0 += wg::BN) {
     float acc[64];
     wg::gemm<false>(acc, ring, (H + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
@@ -512,65 +401,33 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM) dec_head_kernel(co
       for (int u = 0; u < 4; ++u) {
         const int r = r0 + 32 * u;
         const uint32_t off = wg::swz(r, c);
-        wg::stage8(dst + off, m0 + r < B ? a.h + (size_t)(m0 + r) * H : nullptr, k, H, a.vec);
-        wg::stage8(dst + wg::TILE + off, n0 + r < V ? a.woutT + (size_t)(n0 + r) * H : nullptr,
-                   k, H, a.vec);
+        wg::stage8(dst + off, m0 + r < B ? h + (size_t)(m0 + r) * H : nullptr, k, H, a.vec);
+        wg::stage8(dst + wg::TILE + off, n0 + r < V ? woutT + (size_t)(n0 + r) * H : nullptr, k,
+                   H, a.vec);
       }
     });
-    float bias[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int v = n0 + lane + 32 * q;
-      bias[q] = v < V ? a.bout[v] : 0.0f;
-    }
-    const float* tile = wg::stage_tile(acc, smem_raw, ring);
-    const bool last = n0 + wg::BN >= V;
-    for (int i = 0; i < HEAD_ROWS; ++i) {
-      const int r = warp * HEAD_ROWS + i, row = m0 + r;
-      if (row >= B) break;
-      float x[4], best = -INFINITY;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int v = n0 + lane + 32 * q;
-        x[q] = v < V ? tile[r * wg::EPI_PITCH + lane + 32 * q] + bias[q] : -INFINITY;
-        if (!a.with_ce && v < V) a.out[((size_t)row * L + t) * V + v] = x[q];
-        best = fmaxf(best, x[q]);
-        if (v < V && v == target[r]) run_tl[r] = x[q];
-      }
-      best = train::warp_max(best);
-      // the lowest column holding the max: the first lane of the first q
-      int besti = 0;
-#pragma unroll
-      for (int q = 3; q >= 0; --q) {
-        const unsigned hit = __ballot_sync(0xffffffffu, x[q] == best);
-        if (hit) besti = n0 + 32 * q + __ffs(hit) - 1;
-      }
-      float e = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) e += x[q] > -INFINITY ? expf(x[q] - best) : 0.0f;
-      e = train::warp_sum(e);
-      __syncwarp();  // the target's lane wrote run_tl[r]
-      if (lane == 0) {
-        if (n0 == 0) {
-          run_max[r] = best; run_sum[r] = e; run_arg[r] = besti;
-        } else {
-          const float m = run_max[r], nm = fmaxf(m, best);
-          run_sum[r] = run_sum[r] * expf(m - nm) + e * expf(best - nm);
-          if (best > m) run_arg[r] = besti;
-          run_max[r] = nm;
-        }
-        if (last) {
-          if (a.with_ce) a.out[row] += (run_max[r] + logf(run_sum[r])) - run_tl[r];
-          if (t + 1 < L) a.toks[(size_t)(t + 1) * B + row] = forced ? target[r] : run_arg[r];
-        }
-      }
-    }
+    head_epilogue(a, s, wg::stage_tile(acc, smem_raw, ring), m0, n0);
     __syncthreads();  // the next column tile's copies reuse the ring
   }
 }
 
-// The set-up of a bf16 forward: the start token in row 0 of toks and, with
-// CE, zero sums.
+__global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
+    dec_head_tf32_kernel(const HeadArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const int m0 = blockIdx.x * wg::BM;
+  const HeadState s = head_state(smem_raw, a, m0);
+  const uint32_t ring = (wg::smem_u32(smem_raw + HEAD_STATE) + 1023u) & ~1023u;
+  const float* h = static_cast<const float*>(a.h);
+  const float* woutT = static_cast<const float*>(a.woutT);
+  for (int n0 = 0; n0 < a.V; n0 += wg::BN) {
+    head_epilogue(a, s, train::abt_tile_tf32(smem_raw, ring, h, woutT, a.B, a.V, a.H, m0, n0,
+                                             a.vec), m0, n0);
+    __syncthreads();  // the next column tile's stages reuse the ring
+  }
+}
+
+// The set-up of a forward: the start token in row 0 of toks and, with CE,
+// zero sums.
 __global__ void __launch_bounds__(256) dec_init_kernel(int* toks, int start_token, float* ce,
                                                       int B) {
   const int b = blockIdx.x * 256 + threadIdx.x;
@@ -582,7 +439,7 @@ __global__ void __launch_bounds__(256) dec_init_kernel(int* toks, int start_toke
 HeadArgs head_args(const void* woutT, const float* bout, const int* targets, const int* tf,
                    float* out, int* toks, int B, int L, int V, int H, int with_ce) {
   HeadArgs h = {};
-  h.woutT = static_cast<const __nv_bfloat16*>(woutT);
+  h.woutT = woutT;
   h.bout = bout;
   h.targets = targets;
   h.tf = tf;
@@ -592,55 +449,96 @@ HeadArgs head_args(const void* woutT, const float* bout, const int* targets, con
   return h;
 }
 
-cudaError_t launch_head(HeadArgs h, const __nv_bfloat16* htop, int t, cudaStream_t st) {
+// The head kernel of type T (bf16 or f32) with its shared memory allowed.
+template <typename T>
+cudaError_t head_smem() {
+  if constexpr (sizeof(T) == 2)
+    return cudaFuncSetAttribute(dec_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                HEAD_SMEM);
+  else
+    return cudaFuncSetAttribute(dec_head_tf32_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_TF_SMEM);
+}
+
+template <typename T>
+cudaError_t launch_head(HeadArgs h, const T* htop, int t, cudaStream_t st) {
   h.h = htop;
   h.t = t;
-  h.vec = h.H % 8 == 0 && train::aligned16(htop) && train::aligned16(h.woutT);
-  dec_head_kernel<<<train::cdiv(h.B, wg::BM), wg::NTH, HEAD_SMEM, st>>>(h);
+  h.vec = h.H % (16 / (int)sizeof(T)) == 0 && train::aligned16(htop) &&
+          train::aligned16(h.woutT);
+  if constexpr (sizeof(T) == 2)
+    dec_head_kernel<<<train::cdiv(h.B, wg::BM), wg::NTH, HEAD_SMEM, st>>>(h);
+  else
+    dec_head_tf32_kernel<<<train::cdiv(h.B, wg::BM), wg::NTH, HEAD_TF_SMEM, st>>>(h);
   return cudaGetLastError();
 }
 
+struct FwdArgs {
+  const int* targets;  // [B, L]
+  const int* tf;       // [L] 0/1
+  const float* cond;   // [B, C]
+  const float* h_init; // [B, H]
+  const void* emb;     // [V, E] T
+  const float* bias;   // [n, 4H]
+  const float* bout;   // [V]
+  float* out;          // with_ce: ce [B]; else logits [B, L, V]
+  int* toks;           // [L, B] fed tokens
+  void* hs;            // [L, n, B, H] T
+  void* cs;
+  void* gs;            // [L, n, B, 4H] T
+  int B, L, V, E, C, H, n, with_ce, start_token;
+};
+
 // n * L step launches and L head launches, step-major (t outer, l inner),
-// after one set-up launch. wt: every layer's interleaved weight back to back
-// (layer 0 with the conditions' segment), woutT: the head's [V, H], cbuf:
-// [n, B, H] f32, each layer's running c (c_{-1} = 0 is read as a null c_in,
-// so it needs no zeroing).
-cudaError_t launch_fwd_bf16(const FwdArgs& a, const __nv_bfloat16* wt,
-                            const __nv_bfloat16* woutT, float* cbuf, cudaStream_t st) {
-  using bf16_t = __nv_bfloat16;
+// after one set-up launch; T = bf16 (seq_fwd_step_kernel, dec_head_kernel)
+// or float (seq_fwd_tf32_kernel, dec_head_tf32_kernel). wt: every layer's
+// interleaved weight back to back (layer 0 with the conditions' segment),
+// woutT: the head's [V, H], cbuf: [n, B, H] f32, each layer's running c
+// (c_{-1} = 0 is read as a null c_in, so it needs no zeroing). A row is
+// read 16 bytes at a time where its width and start allow it, else element
+// by element.
+template <typename T>
+cudaError_t launch_fwd(const FwdArgs& a, const T* wt, const T* woutT, float* cbuf,
+                       cudaStream_t st) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int EV = 16 / sizeof(T);  // elements in 16 bytes
+  using Step = std::conditional_t<BF, train::FwdStepArgs, train::FwdStepTf32Args>;
   const int B = a.B, L = a.L, H = a.H, n = a.n, E = a.E, C = a.C;
   const size_t BH = (size_t)B * H;
-  bf16_t* hs = static_cast<bf16_t*>(a.hs);
-  bf16_t* cs = static_cast<bf16_t*>(a.cs);
-  bf16_t* gs = static_cast<bf16_t*>(a.gs);
+  T* hs = static_cast<T*>(a.hs);
+  T* cs = static_cast<T*>(a.cs);
+  T* gs = static_cast<T*>(a.gs);
   dec_init_kernel<<<train::cdiv(B, 256), 256, 0, st>>>(a.toks, a.start_token,
                                                       a.with_ce ? a.out : nullptr, B);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(train::seq_fwd_step_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+  if constexpr (BF)
+    e = cudaFuncSetAttribute(train::seq_fwd_step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+  else
+    e = cudaFuncSetAttribute(train::seq_fwd_tf32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, wg::TF_SMEM);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(dec_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           HEAD_SMEM);
+  e = head_smem<T>();
   if (e != cudaSuccess) return e;
   // each layer's fixed arguments
-  train::FwdStepArgs ls[8];
+  Step ls[8];
   size_t woff = 0;
   for (int l = 0; l < n; ++l) {
-    train::FwdStepArgs& s = ls[l];
+    Step& s = ls[l];
     s = {};
     s.I = l == 0 ? E : H;
     if (l == 0) {  // the fed token's embedding row, then the conditions
-      s.x = static_cast<const bf16_t*>(a.emb);
+      s.x = static_cast<const T*>(a.emb);
       s.tok_sb = 1;
       s.V = a.V;
       s.cond = a.cond;
       s.C = C;
       s.Cxp = train::round_up(C, wg::BK);
       s.vec_c = C % 4 == 0 && train::aligned16(a.cond);
-      s.vec_x = E % 8 == 0 && train::aligned16(a.emb);
+      s.vec_x = E % EV == 0 && train::aligned16(a.emb);
     } else {
-      s.vec_x = H % 8 == 0 && train::aligned16(hs);
+      s.vec_x = H % EV == 0 && train::aligned16(hs);
     }
     s.Ixp = train::fwd_ixp(s.I, s.C);
     s.Kp = train::fwd_kp(s.I, H, s.C);
@@ -655,24 +553,28 @@ cudaError_t launch_fwd_bf16(const FwdArgs& a, const __nv_bfloat16* wt,
   const dim3 grid(train::fwd_np(H) / wg::BN, train::cdiv(B, wg::BM));
   for (int t = 0; t < L; ++t) {
     for (int l = 0; l < n; ++l) {
-      train::FwdStepArgs& s = ls[l];
+      Step& s = ls[l];
       const size_t slab = (size_t)t * n + l;  // residual row of (t, l)
       if (l == 0) s.tok = a.toks + (size_t)t * B;
       else s.x = hs + (slab - 1) * BH;
-      s.h_f32 = t == 0;
       if (t == 0) {
         s.hprev = a.h_init;
         s.vec_h = H % 4 == 0 && train::aligned16(a.h_init);
         s.c_in = nullptr;
       } else {
         s.hprev = hs + (slab - n) * BH;
-        s.vec_h = H % 8 == 0 && train::aligned16(hs);
+        s.vec_h = H % EV == 0 && train::aligned16(hs);
         s.c_in = cbuf + l * BH;
       }
       s.hs = hs + slab * BH;
       s.cs = cs + slab * BH;
       s.gs = gs + slab * 4 * BH;
-      train::seq_fwd_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(s);
+      if constexpr (BF) {
+        s.h_f32 = t == 0;
+        train::seq_fwd_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(s);
+      } else {
+        train::seq_fwd_tf32_kernel<<<grid, wg::NTH, wg::TF_SMEM, st>>>(s);
+      }
       e = cudaGetLastError();
       if (e != cudaSuccess) return e;
     }
@@ -1128,55 +1030,57 @@ cudaError_t launch_bwd(const BwdArgs& a, int R, const GradOut& o, cudaStream_t s
 extern "C" {
 
 // Each returns a cudaError_t as int: 0 when every launch was accepted.
-// The forward has one entry point a route. f32: wcat, every layer's
-// [K_l + H, 4H] weight back to back, and wout [H, V]; R, TJ, TR the
-// kernel's tile. bf16: wt, every layer's interleaved copy back to back,
-// [fwd_np(H), fwd_kp(K_l, H, C_l)] each (C_0 = C, else 0;
-// ops/train_common.py:interleave_weight), woutT [V, H], and cbuf [n, B, H]
-// f32 the layers' running c.
-int dec_fwd_f32_launch(const void* targets, const void* tf, const void* cond,
-                       const void* h_init, const void* emb, const void* wcat, const void* bias,
-                       const void* wout, const void* bout, void* out, void* toks, void* hs,
-                       void* cs, void* gs, int B, int L, int V, int E, int C, int H, int n, int R,
-                       int TJ, int TR, int with_ce, int start_token, void* stream) {
-  if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8 || TR < 1 || R % TR != 0)
-    return (int)cudaErrorInvalidValue;
-  FwdArgs a = fwd_args(targets, tf, cond, h_init, emb, bias, bout, out, toks, hs, cs, gs, B, L,
-                       V, E, C, H, n, with_ce, start_token);
-  a.wcat = wcat;
-  a.wout = wout;
-  a.R = R; a.TJ = TJ; a.TR = TR;
-  return (int)launch_fwd_vpl<float>(a, static_cast<cudaStream_t>(stream));
-}
-
-int dec_fwd_bf16_launch(const void* targets, const void* tf, const void* cond,
-                        const void* h_init, const void* emb, const void* wt, const void* bias,
-                        const void* woutT, const void* bout, void* out, void* toks, void* hs,
-                        void* cs, void* gs, void* cbuf, int B, int L, int V, int E, int C, int H,
-                        int n, int with_ce, int start_token, void* stream) {
+// The forward, bf16 (bf16 = 1) or f32: wt, every layer's interleaved copy
+// back to back, [fwd_np(H), fwd_kp(K_l, H, C_l)] each (C_0 = C, else 0;
+// ops/train_common.py:interleave_weight), woutT [V, H], the embedding and
+// the residuals hs, cs, gs in the compute dtype, and cbuf [n, B, H] f32 the
+// layers' running c.
+int dec_fwd_launch(const void* targets, const void* tf, const void* cond, const void* h_init,
+                   const void* emb, const void* wt, const void* bias, const void* woutT,
+                   const void* bout, void* out, void* toks, void* hs, void* cs, void* gs,
+                   void* cbuf, int B, int L, int V, int E, int C, int H, int n, int with_ce,
+                   int start_token, int bf16, void* stream) {
   if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8) return (int)cudaErrorInvalidValue;
-  const FwdArgs a = fwd_args(targets, tf, cond, h_init, emb, bias, bout, out, toks, hs, cs, gs,
-                             B, L, V, E, C, H, n, with_ce, start_token);
-  return (int)launch_fwd_bf16(a, static_cast<const __nv_bfloat16*>(wt),
-                              static_cast<const __nv_bfloat16*>(woutT),
-                              static_cast<float*>(cbuf), static_cast<cudaStream_t>(stream));
+  FwdArgs a = {};
+  a.targets = static_cast<const int*>(targets);
+  a.tf = static_cast<const int*>(tf);
+  a.cond = static_cast<const float*>(cond);
+  a.h_init = static_cast<const float*>(h_init);
+  a.emb = emb;
+  a.bias = static_cast<const float*>(bias);
+  a.bout = static_cast<const float*>(bout);
+  a.out = static_cast<float*>(out);
+  a.toks = static_cast<int*>(toks);
+  a.hs = hs;
+  a.cs = cs;
+  a.gs = gs;
+  a.B = B; a.L = L; a.V = V; a.E = E; a.C = C; a.H = H; a.n = n;
+  a.with_ce = with_ce; a.start_token = start_token;
+  float* c = static_cast<float*>(cbuf);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return (int)launch_fwd(a, static_cast<const __nv_bfloat16*>(wt),
+                           static_cast<const __nv_bfloat16*>(woutT), c, s);
+  return (int)launch_fwd(a, static_cast<const float*>(wt), static_cast<const float*>(woutT), c,
+                         s);
 }
 
-// One dec_head_kernel launch, step t of a bf16 forward, alone: htop [B, H]
-// the top layer's h at t (a check of the kernel against its plain twin).
+// One vocab-head launch alone, step t of a forward (dec_head_kernel where
+// bf16, else dec_head_tf32_kernel): htop [B, H] the top layer's h at t, in
+// woutT's dtype (a check of the kernel against its plain twin).
 int dec_head_launch(const void* htop, const void* woutT, const void* bout, const void* targets,
                     const void* tf, void* out, void* toks, int B, int L, int V, int H, int t,
-                    int with_ce, void* stream) {
+                    int with_ce, int bf16, void* stream) {
   if (B < 1 || L < 1 || V < 1 || V > 512 || t < 0 || t >= L) return (int)cudaErrorInvalidValue;
   const HeadArgs h = head_args(woutT, static_cast<const float*>(bout),
                                static_cast<const int*>(targets), static_cast<const int*>(tf),
                                static_cast<float*>(out), static_cast<int*>(toks), B, L, V, H,
                                with_ce);
-  cudaError_t e = cudaFuncSetAttribute(dec_head_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_SMEM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = bf16 ? head_smem<__nv_bfloat16>() : head_smem<float>();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_head(h, static_cast<const __nv_bfloat16*>(htop), t,
-                          static_cast<cudaStream_t>(stream));
+  return (int)(bf16 ? launch_head(h, static_cast<const __nv_bfloat16*>(htop), t, s)
+                    : launch_head(h, static_cast<const float*>(htop), t, s));
 }
 
 // The backward. bf16 reads wcat (every layer's [K_l + H, 4H] weight back to

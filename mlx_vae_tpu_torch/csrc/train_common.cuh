@@ -1,8 +1,8 @@
 // Device code shared by the train-step kernels (fused_encoder.cu,
 // fused_train_decoder.cu and fused_seq_lstm.cu; fused_lstm_gates.cu takes
 // its activations), for Hopper (sm_90a): operand loads and rounding, the
-// forward LSTM cell over a row tile, the reverse cell step, and the
-// weight-gradient passes that the backwards end with.
+// reverse cell step, the weight-gradient passes that the backwards end
+// with, and the forward step kernels (bf16 and split-TF32).
 //
 // Conventions of both kernel pairs (the TPU kernels' residual contract):
 //  * Matmul operands are rounded to the compute dtype T (float or bf16) and
@@ -80,80 +80,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// ---------------------------------------------------------------- forward
-
-// One LSTM layer at one step for a tile of R = RPT * TR rows. Threads are
-// TR row groups x TJ hidden units; a thread owns unit j (and j + TJ, ...)
-// for RPT rows and computes its four gate dots, so each weight it loads
-// serves RPT rows. xs [R][Kin] and hold [R][H] are read, hnew [R][H] and
-// cs [R][H] written (c of a (row, j) pair is touched only by its owner).
-// The residuals of rows < B go to hs/cs [B, H] and gs [B, 4H] slabs.
-template <typename T, int RPT>
-__device__ __forceinline__ void cell_fwd(const T* W, const float* b, int Kin, int H,
-                                         const float* xs, const float* hold, float* hnew,
-                                         float* cs, int TJ, int TR, int row0, int B,
-                                         T* hs_out, T* cs_out, T* gs_out) {
-  const int tj = threadIdx.x % TJ, tr = threadIdx.x / TJ;
-  if (tr >= TR) return;
-  const int G = 4 * H;
-  for (int j = tj; j < H; j += TJ) {
-    float acc[4][RPT];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[q][i] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < Kin; ++k) {
-      const T* wk = W + (size_t)k * G + j;
-      const float w0 = ld(wk), w1 = ld(wk + H), w2 = ld(wk + 2 * H), w3 = ld(wk + 3 * H);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float xv = rnd<T>(xs[(tr + TR * i) * Kin + k]);
-        acc[0][i] = fmaf(xv, w0, acc[0][i]);
-        acc[1][i] = fmaf(xv, w1, acc[1][i]);
-        acc[2][i] = fmaf(xv, w2, acc[2][i]);
-        acc[3][i] = fmaf(xv, w3, acc[3][i]);
-      }
-    }
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const T* wk = W + (size_t)(Kin + k) * G + j;
-      const float w0 = ld(wk), w1 = ld(wk + H), w2 = ld(wk + 2 * H), w3 = ld(wk + 3 * H);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float hv = rnd<T>(hold[(tr + TR * i) * H + k]);
-        acc[0][i] = fmaf(hv, w0, acc[0][i]);
-        acc[1][i] = fmaf(hv, w1, acc[1][i]);
-        acc[2][i] = fmaf(hv, w2, acc[2][i]);
-        acc[3][i] = fmaf(hv, w3, acc[3][i]);
-      }
-    }
-    const float bi = b[j], bf = b[H + j], bg = b[2 * H + j], bo = b[3 * H + j];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = tr + TR * i;
-      const float ig = sigm(acc[0][i] + bi);
-      const float fg = sigm(acc[1][i] + bf);
-      const float gg = tanhf(acc[2][i] + bg);
-      const float og = sigm(acc[3][i] + bo);
-      const float cn = fg * cs[r * H + j] + ig * gg;
-      const float hn = og * tanhf(cn);
-      cs[r * H + j] = cn;
-      hnew[r * H + j] = hn;
-      const int g = row0 + r;
-      if (g < B) {
-        st(hs_out + (size_t)g * H + j, hn);
-        st(cs_out + (size_t)g * H + j, cn);
-        T* gp = gs_out + (size_t)g * G + j;
-        st(gp, ig);
-        st(gp + H, fg);
-        st(gp + 2 * H, gg);
-        st(gp + 3 * H, og);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- reverse
@@ -313,30 +239,28 @@ __device__ __forceinline__ const float* dinp_tile(unsigned char* smem_raw,
   return wg::stage_tile(acc, smem_raw, ring);
 }
 
-// The f32 counterpart (fused_encoder.cu's enc_step_tf32_kernel and
-// fused_seq_lstm.cu's seq_step_tf32_kernel): the same tile as split-TF32
-// (wgmma.cuh:gemm_tf32), both operands split while they are staged (dg's
-// rows, and w's rows read as they lie). Rows and columns outside read
-// zeros; vec: every row of dg and w 16-byte aligned (float4 loads; else
-// element loads).
-__device__ __forceinline__ const float* dinp_tile_tf32(unsigned char* smem_raw, const float* dg,
-                                                       const float* w, int B, int N, int G,
-                                                       bool vec) {
-  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+// The 128 x 128 tile at rows m0, columns n0 of a [M, K] b[N, K]^T as
+// split-TF32 (wgmma.cuh:gemm_tf32), both operands K-major as they lie and
+// split while they are staged in the ring at `ring` (1024-aligned, inside
+// smem_raw). Rows and columns outside read zeros; vec: every row of a and b
+// 16-byte aligned (float4 loads; else element loads). Returns the f32 tile
+// staged in the ring ([BM][EPI_PITCH]).
+__device__ __forceinline__ const float* abt_tile_tf32(unsigned char* smem_raw, uint32_t ring,
+                                                      const float* a, const float* b, int M,
+                                                      int N, int K, int m0, int n0, bool vec) {
   // This thread stages 16-byte chunk c of tile rows r0 + 32 u of both operands.
   const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
   float4 av[4], bv[4];
   float sum[64];
   wg::gemm_tf32(
-      sum, ring, (G + wg::TF_BK - 1) / wg::TF_BK,
+      sum, ring, (K + wg::TF_BK - 1) / wg::TF_BK,
       [&](int kt) {
         const int q = kt * wg::TF_BK + 4 * c;
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int r = r0 + 32 * u;
-          av[u] = wg::load4(m0 + r < B ? dg + (size_t)(m0 + r) * G : nullptr, q, G, vec);
-          bv[u] = wg::load4(n0 + r < N ? w + (size_t)(n0 + r) * G : nullptr, q, G, vec);
+          av[u] = wg::load4(m0 + r < M ? a + (size_t)(m0 + r) * K : nullptr, q, K, vec);
+          bv[u] = wg::load4(n0 + r < N ? b + (size_t)(n0 + r) * K : nullptr, q, K, vec);
         }
       },
       [&](uint32_t dst, int) {
@@ -348,6 +272,17 @@ __device__ __forceinline__ const float* dinp_tile_tf32(unsigned char* smem_raw, 
         }
       });
   return wg::stage_tile(sum, smem_raw, ring);
+}
+
+// The f32 counterpart of dinp_tile (fused_encoder.cu's enc_step_tf32_kernel
+// and fused_seq_lstm.cu's seq_step_tf32_kernel): the same tile of dinp [B,
+// N] = dg [B, G] w^T as split-TF32, dg's rows and w's rows read as they lie.
+__device__ __forceinline__ const float* dinp_tile_tf32(unsigned char* smem_raw, const float* dg,
+                                                       const float* w, int B, int N, int G,
+                                                       bool vec) {
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  return abt_tile_tf32(smem_raw, ring, dg, w, B, N, G, blockIdx.y * wg::BM, blockIdx.x * wg::BN,
+                       vec);
 }
 
 // ------------------------------------------------------- gradient sums
@@ -866,14 +801,18 @@ inline cudaError_t seq_fwd_wgmma(const SeqFwdArgs& s, cudaStream_t st) {
 // ------------------------------------------ f32 forward as split-TF32
 
 // The f32 counterpart of seq_fwd_step_kernel (the whole-stack encoder's
-// forward, fused_encoder.cu, and the sequence forward, fused_seq_lstm.cu):
-// step t of one layer is one card-wide GEMM
+// forward, fused_encoder.cu, the sequence forward, fused_seq_lstm.cu, and
+// the training decoder's forward, fused_train_decoder.cu): step t of one
+// layer is one card-wide GEMM
 // gates_t [B, 4H] = A_t [B, Kp] W' [Kp, Np] on wgmma as split-TF32
 // (wgmma.cuh:gemm_tf32: 128 x 128 tiles, 32-deep stages, 3-stage ring, one
 // block an SM), with the cell in its epilogue. A_t's columns k < I are the
 // step's input row (a dense f32 row, or the embedding row of the row's
-// token, zeros for a token outside [0, V)); columns Ixp + j hold h_{t-1}
-// (the f32 h the previous launch stored, hprev at t = 0, zeros where null).
+// token, zeros for a token outside [0, V)); optionally Ix + k for k < C
+// the row's f32 conditions (the decoder's layer 0, at seq_fwd_step_kernel's
+// columns); columns Ixp + j hold h_{t-1} (the f32 h the previous launch
+// stored, hprev at t = 0, zeros where null). Every boundary is a multiple
+// of 64, so each 32-deep stage reads from one source.
 // W' is interleave_weight's copy of the layer's f32 weight. Both operands
 // are split into TF32 hi and lo while they are staged (reading precomputed
 // hi and lo planes of W' instead measured the same and cost two copies a
@@ -888,6 +827,8 @@ struct FwdStepTf32Args {
   const int* tok;       // the token of row b at tok[b * tok_sb], or null (dense)
   long tok_sb;
   int V;
+  const float* cond;    // [B, C] conditions, columns Ixp - Cxp + k (Cxp = 0: none)
+  int C, Cxp, vec_c;
   const float* hprev;   // [B, H] h_{t-1}, or null: zeros
   const float* c_in;    // [B, H] c_{t-1}, or null: zeros
   float* c_out;         // [B, H] c_t (may be c_in)
@@ -925,6 +866,7 @@ __global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
       if (a.hprev != nullptr) hr[u] = a.hprev + (size_t)row * H;
     }
   }
+  const int Ix = Ixp - a.Cxp;  // where the conditions' columns start
   float4 av[4], bv[4];
   float sum[64];
   wg::gemm_tf32(
@@ -933,9 +875,15 @@ __global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
         const int k0 = kt * wg::TF_BK;
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          av[u] = k0 < Ixp ? wg::load4(xr[u], k0 + 4 * c, I, a.vec_x)
-                           : wg::load4(hr[u], k0 - Ixp + 4 * c, H, a.vec_h);
-          bv[u] = wg::load4(a.w + (size_t)(n0 + r0 + 32 * u) * Kp, k0 + 4 * c, Kp, true);
+          const int r = r0 + 32 * u;
+          if (k0 < Ix)
+            av[u] = wg::load4(xr[u], k0 + 4 * c, I, a.vec_x);
+          else if (k0 < Ixp)  // one or a few stages: the row pointer is formed here
+            av[u] = wg::load4(m0 + r < B ? a.cond + (size_t)(m0 + r) * a.C : nullptr,
+                              k0 - Ix + 4 * c, a.C, a.vec_c);
+          else
+            av[u] = wg::load4(hr[u], k0 - Ixp + 4 * c, H, a.vec_h);
+          bv[u] = wg::load4(a.w + (size_t)(n0 + r) * Kp, k0 + 4 * c, Kp, true);
         }
       },
       [&](uint32_t dst, int) {

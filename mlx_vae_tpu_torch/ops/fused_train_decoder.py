@@ -17,21 +17,24 @@ Both are one ``torch.autograd.Function`` whose forward is
 launches its kernels on CUDA tensors (counted once per call in
 ``.launches``) and runs its plain version, :func:`decoder_fwd_reference` /
 :func:`decoder_bwd_reference`, on CPU tensors. The forward's route is chosen
-by dtype before any launch: in bf16 it is n * L launches of
-``csrc/train_common.cuh``'s tensor-core step kernel and L launches of the
-vocab head ``dec_head_kernel`` (:func:`decoder_fwd_steps_reference` is the
-plain twin launch by launch, :func:`decoder_head_step_reference` of one head
-launch); in f32 one CUDA-core kernel. So is the backward's: in bf16 a head
-pass over all L * B rows (two launches; :func:`decoder_head_bwd_reference`),
-then the reverse chain, 1 + n * L tensor-core launches
-(:func:`decoder_reverse_step_reference` is the plain twin of one,
-:func:`decoder_reverse_steps_reference` of the whole reverse launch by
-launch), and the sum of d(h_init); in f32 one CUDA-core kernel. Both then
-form the weight-gradient sums (:func:`decoder_grads`). The plain versions
-store the same residuals in the same dtype (h, c and ACTIVATED gates in the
-compute dtype) and the plain backward computes from them what the kernels'
-backward computes, so the card can hold each kernel against its plain
-version on identical inputs. Shapes outside
+by dtype before any launch, in one frame: one set-up launch, then per step
+n launches of ``csrc/train_common.cuh``'s forward step kernel
+(``seq_fwd_step_kernel`` on bf16 ``wgmma``, ``seq_fwd_tf32_kernel`` as
+split-TF32 in f32) and one launch of the vocab head (``dec_head_kernel``,
+``dec_head_tf32_kernel``); :func:`decoder_fwd_steps_reference` is the plain
+twin launch by launch (``split_tf32=True`` for f32),
+:func:`decoder_head_step_reference` of one head launch, and
+:func:`decoder_fwd_launch_plan` the host side's plan. So is the backward's:
+in bf16 a head pass over all L * B rows (two launches;
+:func:`decoder_head_bwd_reference`), then the reverse chain, 1 + n * L
+tensor-core launches (:func:`decoder_reverse_step_reference` is the plain
+twin of one, :func:`decoder_reverse_steps_reference` of the whole reverse
+launch by launch), and the sum of d(h_init); in f32 one CUDA-core kernel.
+Both then form the weight-gradient sums (:func:`decoder_grads`). The plain
+versions store the same residuals in the same dtype (h, c and ACTIVATED
+gates in the compute dtype) and the plain backward computes from them what
+the kernels' backward computes, so the card can hold each kernel against
+its plain version on identical inputs. Shapes outside
 :func:`fused_train_decoder_supported` raise ``NotImplementedError`` on CUDA;
 a failed build or launch raises ``RuntimeError``.
 
@@ -54,10 +57,11 @@ import torch
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.ops.build import load_library
 from mlx_vae_tpu_torch.ops.train_common import (
-    MAX_SMEM, MAX_V, SCRATCH_ELEMS, StackWeights, bwd_rows, cell_step_reference, check,
-    embed_rows, embedding_grad, fwd_tile, interleave_weight, layer_grads, layer_leaves,
-    prepare_stack_weights, raise_if, rebuild_params, require_cuda, reverse_gate_reference,
-    reverse_step_reference, scratch_fits, seq_fwd_step_reference, shifted, stream_of, sum_outer)
+    MAX_SMEM, MAX_V, SCRATCH_ELEMS, TF32_SMEM, StackWeights, bwd_rows, cell_step_reference,
+    check, embed_rows, embedding_grad, fwd_step_plan, fwd_tile, interleave_weight, layer_grads,
+    layer_leaves, prepare_stack_weights, raise_if, rebuild_params, require_cuda,
+    reverse_gate_reference, reverse_step_reference, scratch_fits, seq_fwd_step_reference, shifted,
+    split_tf32_matmul, stream_of, sum_outer)
 
 
 # ----------------------------------------------------------- plain version
@@ -77,16 +81,21 @@ def _fwd_outputs(cfg: ModelConfig, B: int, L: int, dev, with_ce: bool):
 
 def decoder_head_step_reference(w: StackWeights, t: int, hs: torch.Tensor,
                                 targets: torch.Tensor, tf: torch.Tensor, toks: torch.Tensor,
-                                out: torch.Tensor, with_ce: bool) -> None:
-    """Plain twin of one ``dec_head_kernel`` launch, step ``t``, in place:
-    the logits of the top layer's stored h ``hs[t, n-1]`` (f32 products of
-    the rounded operands); with CE, ``out [B] += logsumexp - logit[target]``
-    (0 for a target outside [0, V)), else ``out[:, t] = logits`` (``out [B,
-    L, V]``); and for ``t + 1 < L``, ``toks[t + 1]`` is the target where
-    ``tf[t]``, else the argmax (ties to the lowest index)."""
+                                out: torch.Tensor, with_ce: bool,
+                                split_tf32: bool = False) -> None:
+    """Plain twin of one vocab-head launch (``dec_head_kernel``; with
+    ``split_tf32`` the f32 ``dec_head_tf32_kernel``, whose product is
+    :func:`~mlx_vae_tpu_torch.ops.train_common.split_tf32_matmul`), step
+    ``t``, in place: the logits of the top layer's stored h ``hs[t, n-1]``
+    (f32 products of the rounded operands); with CE, ``out [B] += logsumexp
+    - logit[target]`` (0 for a target outside [0, V)), else ``out[:, t] =
+    logits`` (``out [B, L, V]``); and for ``t + 1 < L``, ``toks[t + 1]`` is
+    the target where ``tf[t]``, else the argmax (ties to the lowest
+    index)."""
     V = w.cfg.vocab_size
     L, n = hs.shape[:2]
-    logits = hs[t, n - 1].float() @ w.wout.float() + w.bout
+    mm = split_tf32_matmul if split_tf32 else torch.matmul
+    logits = mm(hs[t, n - 1].float(), w.wout.float()) + w.bout
     target = targets[:, t].int()
     if with_ce:
         m = logits.max(dim=1, keepdim=True).values
@@ -126,14 +135,17 @@ def decoder_fwd_reference(w: StackWeights, h_init: torch.Tensor, cond: torch.Ten
 
 
 def decoder_fwd_steps_reference(w: StackWeights, h_init: torch.Tensor, cond: torch.Tensor,
-                                targets: torch.Tensor, tf_mask: torch.Tensor, with_ce: bool):
-    """Plain twin of the bf16 forward, launch by launch (contract of
-    :func:`decoder_fwd_reference`, which it equals bit for bit): per step,
-    the step kernel's twin (``train_common.seq_fwd_step_reference``) per
-    layer, layer 0 over the fed tokens' embedding rows and the conditions,
-    layer l > 0 over the layer below's stored h, with residuals at rows
-    ``t * n + l``, h_{-1} = ``h_init`` and c_{-1} = 0; then
-    :func:`decoder_head_step_reference`."""
+                                targets: torch.Tensor, tf_mask: torch.Tensor, with_ce: bool,
+                                split_tf32: bool = False):
+    """Plain twin of the forward kernels, launch by launch (contract of
+    :func:`decoder_fwd_reference`, which it equals bit for bit without
+    ``split_tf32``): per step, the step kernel's twin
+    (``train_common.seq_fwd_step_reference``) per layer, layer 0 over the
+    fed tokens' embedding rows and the conditions, layer l > 0 over the
+    layer below's stored h, with residuals at rows ``t * n + l``, h_{-1} =
+    ``h_init`` and c_{-1} = 0; then :func:`decoder_head_step_reference`.
+    ``split_tf32``: the f32 kernels' products (the step's and the head's),
+    within the split's ~2^-21 of each product."""
     cfg = w.cfg
     n, H, E, C = cfg.num_layers, cfg.hidden_dim, cfg.embedding_dim, cfg.num_conditions
     B, L = targets.shape
@@ -150,8 +162,9 @@ def decoder_fwd_steps_reference(w: StackWeights, h_init: torch.Tensor, cond: tor
             kw = (dict(xs=w.emb, I=E, tokens=toks.T, cond=cond) if l == 0 else
                   dict(xs=hs2, I=H, x_stride=n, x_offset=l - 1))
             seq_fwd_step_reference(wts[l], w.bias[l], t, c=c[l], hs=hs2, cs=cs2, gs=gs2, H=H,
-                                   h0=h_init, res_stride=n, res_offset=l, **kw)
-        decoder_head_step_reference(w, t, hs, targets, tf, toks, out, with_ce)
+                                   h0=h_init, res_stride=n, res_offset=l,
+                                   split_tf32=split_tf32, **kw)
+        decoder_head_step_reference(w, t, hs, targets, tf, toks, out, with_ce, split_tf32)
     return out, toks, hs, cs, gs
 
 
@@ -323,6 +336,10 @@ def decoder_bwd_reference(w: StackWeights, din: torch.Tensor, targets: torch.Ten
 
 # ------------------------------------------------------------------ kernels
 
+# The forward's shared-memory rule is that of the row-tiled kernel it
+# replaced: the step and head launches take every width, but the rule stays
+# the support predicate, so that the routes (which ask it, as the JAX
+# package asks its own) do not move.
 def _fwd_smem(cfg: ModelConfig):
     K0, H, n = cfg.embedding_dim + cfg.num_conditions, cfg.hidden_dim, cfg.num_layers
     return lambda r: r * K0 + 3 * n * r * H + 2 * r
@@ -358,6 +375,32 @@ def _unsupported_reason(cfg: ModelConfig) -> Optional[str]:
     return None
 
 
+HEAD_STATE = 5 * 128 * 4  # csrc HEAD_STATE: a head block's per-row state, bytes
+
+
+def decoder_fwd_launch_plan(cfg: ModelConfig, B: int, L: int) -> list:
+    """The launches of one forward call (the host side of
+    ``csrc/fused_train_decoder.cu:launch_fwd``), each ``dict(kernel, grid,
+    smem, count)``, the step launches also with ``Kp``: one set-up launch,
+    then per step n step launches (one per layer, layer 0 with the
+    conditions' segment) and one vocab head, in bf16 on ``wgmma``, in f32
+    as split-TF32. ``smem`` is a block's dynamic shared memory: the bf16
+    ring (3 x 32 KB) or the split-TF32 ring (3 x 64 KB), each with 1 KB of
+    alignment slack, and the head's per-row state; grids are (x, y, z)."""
+    E, C, H, n = cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim, cfg.num_layers
+    bf16 = cfg.compute_dtype == "bfloat16"
+    ring = 3 * 32768 + 1024 if bf16 else TF32_SMEM
+    rows = -(-B // 128)
+    out = [dict(kernel="dec_init_kernel", grid=(-(-B // 256), 1, 1), smem=0, count=1)]
+    for l in range(n):
+        _, kp, np_ = fwd_step_plan(E if l == 0 else H, H, C if l == 0 else 0)
+        out.append(dict(kernel="seq_fwd_step_kernel" if bf16 else "seq_fwd_tf32_kernel",
+                        grid=(np_ // 128, rows, 1), smem=ring, count=L, Kp=kp))
+    out.append(dict(kernel="dec_head_kernel" if bf16 else "dec_head_tf32_kernel",
+                    grid=(rows, 1, 1), smem=HEAD_STATE + ring, count=L))
+    return out
+
+
 def fused_train_decoder_supported(cfg: ModelConfig) -> bool:
     """Shapes the kernels take: 1..8 layers, f32 or bf16, V <= 512, and one
     row's state within a block's shared memory. ``reference_zero_state``
@@ -370,11 +413,9 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     declare its C interface."""
     lib = load_library("fused_train_decoder", verbose)
     p, i, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.dec_fwd_f32_launch.argtypes = [p] * 14 + [i] * 12 + [p]
-    lib.dec_fwd_f32_launch.restype = i
-    lib.dec_fwd_bf16_launch.argtypes = [p] * 15 + [i] * 9 + [p]
-    lib.dec_fwd_bf16_launch.restype = i
-    lib.dec_head_launch.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.dec_fwd_launch.argtypes = [p] * 15 + [i] * 10 + [p]
+    lib.dec_fwd_launch.restype = i
+    lib.dec_head_launch.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.dec_head_launch.restype = i
     lib.dec_bwd_launch.argtypes = [p] * 28 + [lg] + [i] * 10 + [p]
     lib.dec_bwd_launch.restype = i
@@ -387,9 +428,9 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
 
 def launch_decoder_fwd(lib, w: StackWeights, h_init, cond, targets, tf, with_ce: bool,
                        stream: int):
-    """Allocate the outputs (and in bf16 the interleaved weights and the
-    layers' running c) and launch the forward kernels (no device or support
-    checks: :func:`decoder_fwd` makes them)."""
+    """Allocate the outputs, the interleaved weights and the layers'
+    running c, and launch the forward kernels (no device or support checks:
+    :func:`decoder_fwd` makes them)."""
     cfg = w.cfg
     B, L = targets.shape
     H, n, V, E, C = (cfg.hidden_dim, cfg.num_layers, cfg.vocab_size, cfg.embedding_dim,
@@ -400,44 +441,39 @@ def launch_decoder_fwd(lib, w: StackWeights, h_init, cond, targets, tf, with_ce:
     hs = torch.empty((L, n, B, H), dtype=wdt, device=dev)
     cs = torch.empty_like(hs)
     gs = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
-    ins = (targets.data_ptr(), tf.data_ptr(), cond.data_ptr(), h_init.data_ptr(),
-           w.emb.data_ptr())
-    outs = (w.bout.data_ptr(), out.data_ptr(), toks.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-            gs.data_ptr())
-    if wdt == torch.bfloat16:  # each layer's interleaved copy, back to back, and the running c
-        wt = torch.cat([interleave_weight(m, E if l == 0 else H, H, C if l == 0 else 0).reshape(-1)
-                        for l, m in enumerate(w.layers)])
-        cbuf = torch.empty((n, B, H), dtype=torch.float32, device=dev)
-        rc = lib.dec_fwd_bf16_launch(
-            *ins, wt.data_ptr(), w.bias.data_ptr(), w.woutT.data_ptr(), *outs, cbuf.data_ptr(),
-            B, L, V, E, C, H, n, int(with_ce), cfg.start_token, stream)
-    else:
-        R, tj, tr = fwd_tile(cfg.hidden_dim, _fwd_smem(cfg))
-        rc = lib.dec_fwd_f32_launch(
-            *ins, w.wcat.data_ptr(), w.bias.data_ptr(), w.wout.data_ptr(), *outs,
-            B, L, V, E, C, H, n, R, tj, tr, int(with_ce), cfg.start_token, stream)
+    # each layer's interleaved copy, back to back, and the running c
+    wt = torch.cat([interleave_weight(m, E if l == 0 else H, H, C if l == 0 else 0).reshape(-1)
+                    for l, m in enumerate(w.layers)])
+    cbuf = torch.empty((n, B, H), dtype=torch.float32, device=dev)
+    rc = lib.dec_fwd_launch(
+        targets.data_ptr(), tf.data_ptr(), cond.data_ptr(), h_init.data_ptr(), w.emb.data_ptr(),
+        wt.data_ptr(), w.bias.data_ptr(), w.woutT.data_ptr(), w.bout.data_ptr(), out.data_ptr(),
+        toks.data_ptr(), hs.data_ptr(), cs.data_ptr(), gs.data_ptr(), cbuf.data_ptr(),
+        B, L, V, E, C, H, n, int(with_ce), cfg.start_token, int(wdt == torch.bfloat16), stream)
     raise_if(rc, "decoder forward", lib.dec_error_string)
     return out, toks, hs, cs, gs
 
 
 def launch_decoder_head(lib, w: StackWeights, t: int, hs, targets, tf, toks, out,
                         with_ce: bool, stream: int) -> None:
-    """One ``dec_head_kernel`` launch alone, step ``t`` of a bf16 forward, in
-    place on ``toks`` and ``out`` (contract of
-    :func:`decoder_head_step_reference`; for holding the kernel against its
-    twin: no checks, no count)."""
+    """One vocab-head launch alone, step ``t`` of a forward, in place on
+    ``toks`` and ``out``: ``dec_head_kernel`` for bf16 ``hs``,
+    ``dec_head_tf32_kernel`` for f32 (contract of
+    :func:`decoder_head_step_reference`, with ``split_tf32`` in f32; for
+    holding the kernel against its twin: no checks, no count)."""
     L, n, B, H = hs.shape
     rc = lib.dec_head_launch(hs[t, n - 1].data_ptr(), w.woutT.data_ptr(), w.bout.data_ptr(),
                              targets.data_ptr(), tf.data_ptr(), out.data_ptr(), toks.data_ptr(),
-                             B, L, w.cfg.vocab_size, H, t, int(with_ce), stream)
+                             B, L, w.cfg.vocab_size, H, t, int(with_ce),
+                             int(hs.dtype == torch.bfloat16), stream)
     raise_if(rc, "decoder head", lib.dec_error_string)
 
 
 def decoder_fwd(w: StackWeights, h_init: torch.Tensor, cond: torch.Tensor,
                 targets: torch.Tensor, tf_mask: torch.Tensor, with_ce: bool):
     """The forward (contract of :func:`decoder_fwd_reference`). CPU tensors
-    run the plain version; CUDA tensors launch the kernels (bf16: the step
-    and head chain; f32: ``dec_fwd_kernel``), counted once per call in
+    run the plain version; CUDA tensors launch the kernels (the step and
+    head chain: :func:`decoder_fwd_launch_plan`), counted once per call in
     ``decoder_fwd.launches`` (the CE specialization) or
     ``decoder_fwd.logits_launches`` (the logits one, which
     ``ops/decoder_cv.py:decoder_train_cvp`` also runs)."""

@@ -20,6 +20,11 @@ embedding row and the conditions) and one vocab-head twin
   argmax-fed tokens and >= 97.0% of rows agree (the JAX package's
   kernel/scan contract), and the outputs are held on the rows whose fed
   tokens agree.
+* The f32 kernels' twin (``split_tf32=True``: the step's and the head's
+  products as split-TF32): within 1e-6 of each output's largest magnitude
+  of the plain f32 forward, and against ``_run_fwd`` and
+  ``decoder_fwd_blk`` in interpret mode under the same contract and f32
+  tolerance as the plain twin.
 * The step kernel's plan with the condition segment: each weight row at
   its reduction column, and ``C = 0`` giving the plan and matrix of a step
   kernel without conditions.
@@ -68,11 +73,13 @@ def _case(shape, dtype, tf_name, seed=0):
     return jcfg, ModelConfig(**kw), npp, h0, cond, tok, tf
 
 
-def _port(tcfg, npp, h0, cond, tok, tf, with_ce, steps=True):
+def _port(tcfg, npp, h0, cond, tok, tf, with_ce, steps=True, split_tf32=False):
     w = tc.prepare_stack_weights(params_from_numpy(npp), tcfg, with_head=True)
-    fn = fd.decoder_fwd_steps_reference if steps else fd.decoder_fwd_reference
-    return fn(w, torch.from_numpy(h0), torch.from_numpy(cond), torch.from_numpy(tok),
-              torch.from_numpy(tf), with_ce)
+    args = (w, torch.from_numpy(h0), torch.from_numpy(cond), torch.from_numpy(tok),
+            torch.from_numpy(tf), with_ce)
+    if not steps:
+        return fd.decoder_fwd_reference(*args)
+    return fd.decoder_fwd_steps_reference(*args, split_tf32=split_tf32)
 
 
 def _f32(a):
@@ -152,6 +159,62 @@ def test_steps_match_jax_fwd_blk(shape, dtype, tf_name):
     out, (toks, hs, cs, gs) = decoder_fwd_blk(p, jcfg, jnp.asarray(h0), jnp.asarray(cond),
                                               jnp.asarray(tok), jnp.asarray(tf), interpret=True)
     _hold_against(got, out, toks, (hs, cs, gs) if tf.all() else None, dtype, tf)
+
+
+@pytest.mark.parametrize("tf_name", list(TF))
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("shape", SHAPES + BLK_SHAPES)
+def test_split_steps_match_the_plain_forward(shape, with_ce, tf_name):
+    """The f32 kernels' twin (split-TF32 products) against the plain f32
+    forward: the fed tokens under the greedy contract (equal under full
+    teacher forcing), then on the rows whose fed tokens agree the CE or
+    logits, and with teacher forcing all on hs, cs and gs, each within 1e-6
+    of its largest magnitude (the split keeps ~2^-21 of each product),
+    targets outside [0, V) included."""
+    _, tcfg, npp, h0, cond, tok, tf = _case(shape, "float32", tf_name)
+    tok[0, 1], tok[1, 3], tok[2, 0] = -1, tcfg.vocab_size, 999
+    got = _port(tcfg, npp, h0, cond, tok, tf, with_ce, split_tf32=True)
+    want = _port(tcfg, npp, h0, cond, tok, tf, with_ce, steps=False)
+    rows = (got[1] == want[1]).all(dim=0).numpy()
+    if tf.all():
+        assert rows.all()
+    else:
+        first = int(np.nonzero(~tf)[0][0]) + 1
+        assert (got[1][first] == want[1][first]).float().mean().item() >= AGREE_FIRST
+        assert rows.mean() >= AGREE_ROWS
+    pairs = [("out", got[0][rows], want[0][rows])]
+    if tf.all():
+        pairs += list(zip(("hs", "cs", "gs"), got[2:], want[2:]))
+    for name, g, w in pairs:
+        err = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        assert err <= 1e-6, f"{name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("tf_name", list(TF))
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_split_steps_match_jax_run_fwd(shape, with_ce, tf_name):
+    """The f32 kernels' twin against ``_run_fwd(interpret=True)``, with
+    ``test_steps_match_jax_run_fwd``'s contract and f32 tolerance."""
+    jcfg, tcfg, npp, h0, cond, tok, tf = _case(shape, "float32", tf_name)
+    got = _port(tcfg, npp, h0, cond, tok, tf, with_ce, split_tf32=True)
+    p = jax.tree_util.tree_map(jnp.asarray, npp)
+    out, res = _run_fwd(p, jcfg, jnp.asarray(h0), jnp.asarray(cond), jnp.asarray(tok), True,
+                        jnp.asarray(tf), with_ce)
+    _hold_against(got, out, res[4][:L], res[5:] if tf.all() else None, "float32", tf)
+
+
+@pytest.mark.parametrize("tf_name", list(TF))
+@pytest.mark.parametrize("shape", BLK_SHAPES)
+def test_split_steps_match_jax_fwd_blk(shape, tf_name):
+    """The f32 kernels' twin, logits specialization, against
+    ``decoder_fwd_blk(interpret=True)``."""
+    jcfg, tcfg, npp, h0, cond, tok, tf = _case(shape, "float32", tf_name, seed=3)
+    got = _port(tcfg, npp, h0, cond, tok, tf, False, split_tf32=True)
+    p = jax.tree_util.tree_map(jnp.asarray, npp)
+    out, (toks, hs, cs, gs) = decoder_fwd_blk(p, jcfg, jnp.asarray(h0), jnp.asarray(cond),
+                                              jnp.asarray(tok), jnp.asarray(tf), interpret=True)
+    _hold_against(got, out, toks, (hs, cs, gs) if tf.all() else None, "float32", tf)
 
 
 # (I, C, H): conditions beside ragged and aligned input widths

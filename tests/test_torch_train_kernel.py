@@ -1,6 +1,7 @@
 """The train step's CUDA kernels (fused encoder, fused training decoder:
-forward and backward each; in bf16 the decoder forward's step and vocab-head
-chain, each head launch also alone, and the decoder backward's head pass and
+forward and backward each; the decoder forward's step and vocab-head chain
+in bf16 and as split-TF32 in f32, each head launch also alone, and in bf16
+the decoder backward's head pass and
 reverse chain, each also alone; and the instances of the gate pair's
 forward and backward) against their plain PyTorch versions, on the card. Tests
 marked ``cuda`` skip without a CUDA device. This file imports no JAX, so it
@@ -59,11 +60,14 @@ def _cfg(shape, dtype="float32"):
 
 @pytest.mark.parametrize("shape", range(len(CONFIGS)))
 def test_config_picks_its_kernel_instances(shape):
-    """The decoder's tile plan picks the instances each configuration is here
-    to exercise; the encoder, on the tensor cores in both dtypes (f32 as
-    split-TF32), plans every configuration with its split-TF32 kernels and
-    none of the CUDA-core ones, and its shared-memory rule still takes them
-    all, so no route moved (a CPU check of the host-side plans)."""
+    """The decoder's reverse kernel picks the rows per block each
+    configuration is here to exercise, and the decoder forward's support
+    rule (the shared-memory plan of the row-tiled kernel the step and head
+    chain replaced, kept so that no route moves) still takes every
+    configuration at the rows per thread it always did; the encoder and the
+    decoder forward, on the tensor cores in both dtypes (f32 as split-TF32),
+    plan every configuration with their split-TF32 kernels and none of the
+    CUDA-core ones (a CPU check of the host-side plans)."""
     rpt, rows, kw, (B, L) = CONFIGS[shape]
     cfg = _cfg(shape)
     assert fe.fused_encoder_supported(cfg) and fd.fused_train_decoder_supported(cfg)
@@ -74,6 +78,8 @@ def test_config_picks_its_kernel_instances(shape):
     kernels = {p["kernel"] for p in fe.encoder_launch_plan(cfg, B, L)}
     assert kernels == {"seq_fwd_tf32_kernel", "gate_kernel", "enc_step_tf32_kernel",
                        "wgrad_tf32_kernel", "demb_kernel"}
+    kernels = {p["kernel"] for p in fd.decoder_fwd_launch_plan(cfg, B, L)}
+    assert kernels == {"dec_init_kernel", "seq_fwd_tf32_kernel", "dec_head_tf32_kernel"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -98,6 +104,35 @@ def test_encoder_launch_plan_fits_the_card(shape, dtype):
     rev = sum(p["count"] for p in plan if p["kernel"] in ("gate_kernel", "enc_step_kernel",
                                                           "enc_step_tf32_kernel"))
     assert (fwd, rev) == (n * L, 1 + n * L)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", range(len(CONFIGS)))
+def test_decoder_fwd_launch_plan_fits_the_card(shape, dtype):
+    """Every launch of the decoder forward's plan fits an H100 block and
+    grid: its shared memory within MAX_SMEM (in f32 the split-TF32 ring,
+    197,632 B, and the head's 200,192 B), grid y within 65,535; a call is one
+    set-up launch, n * L step launches (layer 0 with the conditions'
+    segment) and L heads."""
+    B, L = CONFIGS[shape][3]
+    cfg = _cfg(shape, dtype)
+    plan = fd.decoder_fwd_launch_plan(cfg, B, L)
+    for p in plan:
+        assert p["smem"] <= tc.MAX_SMEM, p
+        x, y, z = p["grid"]
+        assert x >= 1 and 1 <= y <= 65535 and z == 1, p
+    bf16 = dtype == "bfloat16"
+    step, head = (("seq_fwd_step_kernel", "dec_head_kernel") if bf16 else
+                  ("seq_fwd_tf32_kernel", "dec_head_tf32_kernel"))
+    count = {k: sum(p["count"] for p in plan if p["kernel"] == k)
+             for k in ("dec_init_kernel", step, head)}
+    n = cfg.num_layers
+    assert count == {"dec_init_kernel": 1, step: n * L, head: L}
+    E, C, H = cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim
+    kps = [p["Kp"] for p in plan if p["kernel"] == step]
+    assert kps == [tc.fwd_step_plan(E, H, C)[1]] + [tc.fwd_step_plan(H, H)[1]] * (n - 1)
+    if not bf16:
+        assert [p["smem"] for p in plan[1:]] == [tc.TF32_SMEM] * n + [200192]
 
 
 def test_gates_refuse_what_the_kernels_do_not_take():
@@ -410,6 +445,11 @@ def _device_kernels(fn) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # CUPTI can drop a kernel launched as the profiler starts (a forward's
+        # first launch is its dec_init_kernel): a first kernel and a
+        # synchronize open the window before fn's launches
+        torch.ones(1, device="cuda")
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -562,8 +602,11 @@ def test_f32_weight_gradients_repeat_bit_for_bit(dev, shape):
             assert torch.equal(a, b), name
 
 
-# the bf16 decoder forward's chain: (n, E, C, H, V, B, L) over one row, ragged
-# batches, ragged E, C, H and V, and vocabularies of 1, 3 and 4 column tiles
+# the decoder forward's chain: (n, E, C, H, V, B, L) over one row, ragged
+# batches, ragged E, C, H and V, and vocabularies of 1, 2, 3 and 4 column
+# tiles; rows read 16 bytes at a time and element by element (in f32: E =
+# 129, C = 1, 3, 5 and H = 50 by element; E = 20, C = 4 and H = 100 by 16
+# bytes)
 DEC_FWD = [
     (1, 16, 1, 32, 80, 1, 5),
     (2, 20, 3, 100, 200, 37, 6),
@@ -571,6 +614,7 @@ DEC_FWD = [
     (2, 129, 3, 32, 300, 129, 3),
     (2, 128, 1, 256, 80, 1000, 4),
     (1, 16, 5, 1024, 512, 130, 2),
+    (2, 20, 4, 50, 80, 33, 4),
 ]
 
 
@@ -612,14 +656,33 @@ def test_decoder_bf16_forward_chain_matches_plain(dev, case, with_ce):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_ce", [True, False])
 @pytest.mark.parametrize("case", range(len(DEC_FWD)))
-def test_decoder_head_kernel_matches_plain(dev, case, with_ce):
-    """One dec_head_kernel launch at every step, alone, on the plain
-    forward's residuals against decoder_head_step_reference on the same
-    inputs (targets outside [0, V) included): both read the same rounded
-    operands, so each step's CE term (from zero) or logits is within 1e-4;
-    under teacher forcing 0.5, forced next tokens equal the target and
-    argmax-fed ones agree on >= 99.0% of rows at every step."""
-    cfg, w, tok, cond, h0 = _dec_case(case, "bfloat16", dev)
+def test_decoder_f32_forward_chain_matches_split_twin(dev, case, with_ce):
+    """The f32 forward (one set-up launch, n * L split-TF32 step launches,
+    layer 0 with the conditions' segment, and L split-TF32 vocab heads)
+    against its step twin launch by launch (decoder_fwd_steps_reference with
+    split_tf32) and against the plain f32 forward, teacher forcing all on:
+    the same fed tokens, every output within 1e-4 of its largest magnitude;
+    a second call equals the first bit for bit."""
+    cfg, w, tok, cond, h0 = _dec_case(case, "float32", dev)
+    L = tok.shape[1]
+    tf = torch.ones((L,), dtype=torch.bool, device=dev)
+    k1 = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
+    k2 = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
+    want = fd.decoder_fwd_steps_reference(w, h0, cond, tok, tf, with_ce, split_tf32=True)
+    p = fd.decoder_fwd_reference(w, h0, cond, tok, tf, with_ce)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[1], want[1]) and torch.equal(k1[1], p[1])
+    _close((k1[0], *k1[2:]), (want[0], *want[2:]), "float32")
+    _close((k1[0], *k1[2:]), (p[0], *p[2:]), "float32")
+    for a, b in zip(k1, k2):
+        assert torch.equal(a, b)
+
+
+def _head_alone(dev, case, with_ce, dtype):
+    """One vocab-head launch at every step, alone, on the plain forward's
+    residuals against decoder_head_step_reference on the same inputs (f32:
+    its split_tf32 product), under teacher forcing 0.5."""
+    cfg, w, tok, cond, h0 = _dec_case(case, dtype, dev)
     B, L = tok.shape
     g = torch.Generator().manual_seed(case + 100)
     tf = (torch.rand((L,), generator=g) < 0.5).to(dev)
@@ -635,7 +698,8 @@ def test_decoder_head_kernel_matches_plain(dev, case, with_ce):
             k_out.zero_()
             p_out.zero_()
         fd.launch_decoder_head(lib, w, t, hs, tok, tf_i, k_toks, k_out, with_ce, st)
-        fd.decoder_head_step_reference(w, t, hs, tok, tf, p_toks, p_out, with_ce)
+        fd.decoder_head_step_reference(w, t, hs, tok, tf, p_toks, p_out, with_ce,
+                                       split_tf32=dtype == "float32")
         torch.cuda.synchronize()
         got, want = (k_out, p_out) if with_ce else (k_out[:, t], p_out[:, t])
         assert torch.isfinite(got).all(), t
@@ -650,22 +714,87 @@ def test_decoder_head_kernel_matches_plain(dev, case, with_ce):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_head_kernel_matches_plain(dev, case, with_ce):
+    """One dec_head_kernel launch at every step, alone, on the plain
+    forward's residuals against decoder_head_step_reference on the same
+    inputs (targets outside [0, V) included): both read the same rounded
+    operands, so each step's CE term (from zero) or logits is within 1e-4;
+    under teacher forcing 0.5, forced next tokens equal the target and
+    argmax-fed ones agree on >= 99.0% of rows at every step."""
+    _head_alone(dev, case, with_ce, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_f32_head_kernel_matches_split_twin(dev, case, with_ce):
+    """One dec_head_tf32_kernel launch at every step, alone, against
+    decoder_head_step_reference(split_tf32=True) on the same f32 stored h
+    (targets -1, V and 999 included; V of 1 to 4 column tiles; H = 50 read
+    element by element): each step's CE term or logits within 1e-4, forced
+    next tokens equal to the target, argmax-fed ones on >= 99.0% of rows at
+    every step."""
+    _head_alone(dev, case, with_ce, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decoder_forward_routes_by_dtype(dev, dtype, with_ce):
-    """bf16: one set-up launch, then n * L launches of the tensor-core step
-    kernel (train_common.cuh:seq_fwd_step_kernel) and L of dec_head_kernel,
-    and no dec_fwd_kernel; f32 still runs the CUDA-core dec_fwd_kernel, once."""
+    """Both dtypes: one set-up launch, then n * L launches of the step kernel
+    (train_common.cuh: seq_fwd_step_kernel in bf16, the split-TF32
+    seq_fwd_tf32_kernel in f32) and L of the vocab head (dec_head_kernel,
+    dec_head_tf32_kernel), as decoder_fwd_launch_plan plans them, and no
+    CUDA-core dec_fwd_kernel."""
     import re
 
     cfg, w, tok, cond, h0 = _dec_case(2, dtype, dev)
     L, n = tok.shape[1], cfg.num_layers
     tf = torch.ones((L,), dtype=torch.bool, device=dev)
     names = _device_kernels(lambda: fd.decoder_fwd(w, h0, cond, tok, tf, with_ce))
-    kernels = ("dec_init_kernel", "seq_fwd_step_kernel", "dec_head_kernel", "dec_fwd_kernel")
+    bf16 = dtype == "bfloat16"
+    step, head = (("seq_fwd_step_kernel", "dec_head_kernel") if bf16 else
+                  ("seq_fwd_tf32_kernel", "dec_head_tf32_kernel"))
+    kernels = ("dec_init_kernel", step, head, "dec_fwd_kernel")
     count = {k: sum(bool(re.search(rf"\b{k}\b", m)) for m in names) for k in kernels}
-    want = (dict(zip(kernels, (1, n * L, L, 0))) if dtype == "bfloat16" else
-            dict(zip(kernels, (0, 0, 0, 1))))
-    assert count == want, names
+    assert count == dict(zip(kernels, (1, n * L, L, 0))), names
+    plan = {}
+    for p in fd.decoder_fwd_launch_plan(cfg, *tok.shape):
+        plan[p["kernel"]] = plan.get(p["kernel"], 0) + p["count"]
+    assert plan == {k: count[k] for k in kernels[:3]}
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose first element sits one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [4, 6])
+def test_decoder_forward_takes_misaligned_views(dev, case, dtype, with_ce):
+    """The embedding, fc_out's [V, H] weight, the conditions and h_init as
+    contiguous views that start off a 16-byte boundary (E = 128, H = 256 and
+    E = 20, C = 4, widths the loaders otherwise read 16 bytes at a time):
+    the loaders take their element path and every output equals the aligned
+    call's bit for bit."""
+    import dataclasses
+
+    cfg, w, tok, cond, h0 = _dec_case(case, dtype, dev)
+    tf = torch.ones((tok.shape[1],), dtype=torch.bool, device=dev)
+    want = fd.decoder_fwd(w, h0, cond, tok, tf, with_ce)
+    wm = dataclasses.replace(w, emb=_misaligned(w.emb), woutT=_misaligned(w.woutT))
+    got = fd.decoder_fwd(wm, _misaligned(h0), _misaligned(cond), tok, tf, with_ce)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _dec_bwd_inputs(case, with_ce, dev):

@@ -71,12 +71,15 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    split-TF32 in f32) must repeat bit for bit, and each head launch alone,
    on the plain forward's residuals, is held against
    ``decoder_head_step_reference`` (f32: ``split_tf32=True``; CE or logits
-   within 1e-4, next tokens on >= 99.0% of rows). The decoder backward's reverse alone (bf16: the
-   head pass over all L*B rows and the tensor-core chain; f32:
-   ``dec_bwd_kernel``) is held against ``decoder_reverse_steps_reference``
-   (dgates, dx0, dlog, d(h_init), d(cond)); in bf16 a second backward must
-   equal the first bit for bit, the head pass alone (targets -1, V and 999
-   mixed in) is held against ``decoder_head_bwd_reference`` within 1e-4,
+   within 1e-4, next tokens on >= 99.0% of rows). The decoder backward's reverse alone (the
+   head pass over all L*B rows and the tensor-core chain: bf16 ``wgmma``;
+   f32 split-TF32, ``dec_head_bwd_tf32_kernel``, ``dec_dtop_tf32_kernel``,
+   ``dec_step_tf32_kernel``) is held against
+   ``decoder_reverse_steps_reference`` (f32: ``split_tf32=True``, and also
+   the plain f32 reverse; dgates, dx0, dlog, d(h_init), d(cond)); in both
+   dtypes a second backward must equal the first bit for bit, the head pass
+   alone (targets -1, V and 999 mixed in) is held against
+   ``decoder_head_bwd_reference`` (f32: ``split_tf32=True``) within 1e-4,
    and the backward also runs on the kernel forward's residuals. Teacher
    forcing 0.9: the fed-token rows agree on >= 97.0% and the first
    argmax-fed step on >= 99.0% (an argmax can flip where two logits tie).
@@ -111,13 +114,17 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    plain versions in turns, cuDNN's two-layer f32 LSTM with TF32 off (the
    f32 function: rows 2-3's ``library_ms_f32``) and on (printed only), both
    bounds (split-TF32: 3 x the operations over 495 TFLOP/s; CUDA-core: over
-   67 TFLOP/s), row 4's device time by kernel (``torch.profiler``: step and
-   head launches), the train kernels' launches in one f32 step, the f32
-   step on the fused route against the plain route, and one f32 fused step
-   under ``torch.profiler``, which must show the split-TF32 kernels of rows
-   2-4 (``seq_fwd_tf32_kernel``, ``enc_step_tf32_kernel``,
-   ``wgrad_tf32_kernel``, ``dec_head_tf32_kernel``) and none of the
-   CUDA-core kernels deleted since (``F32_GONE``);
+   67 TFLOP/s), rows 4 and 5's device time by kernel (``torch.profiler``:
+   row 4's step and head launches; row 5's head pass, dtop, gate, chain
+   launches, d(h_init) sum, weight-gradient passes and demb), the train
+   kernels' launches in one f32 step, the f32 step on the fused route
+   against the plain route, and one f32 fused step under
+   ``torch.profiler``, which must show the split-TF32 kernels of rows 2-5
+   (``seq_fwd_tf32_kernel``, ``enc_step_tf32_kernel``,
+   ``wgrad_tf32_kernel``, ``dec_head_tf32_kernel``,
+   ``dec_head_bwd_tf32_kernel``, ``dec_dtop_tf32_kernel``,
+   ``dec_step_tf32_kernel``) and none of the CUDA-core kernels deleted
+   since (``F32_GONE``, ``dec_bwd_kernel`` among them);
 9. scaled kernels vs plain: the per-layer sequence LSTM forward and backward
    (I=128, 129 (the scaled decoder's layer 0) and 1024, H=1024, B=2048,
    L=64, f32 and bf16, each backward also over residuals and inputs
@@ -307,9 +314,9 @@ the larger of its operations over the card's peak for their type and its
 bytes, each input read once and each output written once, over 3.35 TB/s);
 rows 2-8 also carry their f32 numbers (``ms_f32``, ``plain_ms_f32``,
 ``library_ms_f32``, ``bound_ms_f32`` as split-TF32 and
-``bound_ms_f32_cuda_core``, ``launches_f32``); rows 4 and 6 also their
-device ms by kernel (``device_ms_f32_by_kernel``: the step launches and the
-vocab heads).
+``bound_ms_f32_cuda_core``, ``launches_f32``); rows 4, 5 and 6 also their
+device ms by kernel (``device_ms_f32_by_kernel``: rows 4 and 6 the step
+launches and the vocab heads, row 5 every kernel of the backward).
 Without CUDA the script exits 2 and prints no result.
 """
 
@@ -992,19 +999,27 @@ GATE_SAMPLES = 200  # launches of each call behind row 9's median
 
 
 def profile_step(what: str, fn, smi: str) -> dict:
-    """One call of ``fn`` under ``torch.profiler`` after a warm-up call: the
+    """One call of ``fn`` under ``torch.profiler`` after a warm-up call (the
+    profiler's warm-up step): the
     device time of each kernel by name, and the device's idle share (1 -
     the summed device time over the call's wall time on CUDA events; the
     port runs on one stream, so its kernels do not overlap), both against
     the profiled call's wall time and against the mean of three calls
     without the profiler (which adds host time to every launch)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the warm-up call runs as the profiler's warm-up step, traced but not
+    # kept: CUPTI can drop the kernels launched as tracing starts (row 5's
+    # first ones, its zero fills and head pass, went missing so), and the
+    # kept step then finds it running. The step's own range on the device
+    # ("ProfilerStep#1") is no kernel.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         start.record()
         fn()
         end.record()
@@ -1012,7 +1027,7 @@ def profile_step(what: str, fn, smi: str) -> dict:
     wall = start.elapsed_time(end)
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
             name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:80]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
@@ -1175,10 +1190,12 @@ DEC_FWD_NOTE = ("; n*L launches of train_common.cuh:seq_fwd_step_kernel (bf16) o
 # the bf16 decoder backward: the head pass and the chain's step kernel
 DEC_BWD_NOTE = ("; bf16: fused_train_decoder.cu:dec_head_bwd_kernel and dec_dtop_kernel "
                 "over all L*B rows, then train_common.cuh:gate_kernel and n*L launches of "
-                "fused_train_decoder.cu:dec_step_kernel; also the reverse alone against "
-                "decoder_reverse_steps_reference (dgates, dx0, dlog, dh_init, dcond) and the "
-                "head pass alone against decoder_head_bwd_reference within 1e-4, with targets "
-                "outside [0, V)")
+                "fused_train_decoder.cu:dec_step_kernel; f32 the same frame as split-TF32 "
+                "(dec_head_bwd_tf32_kernel, dec_dtop_tf32_kernel, gate_kernel<float>, "
+                "dec_step_tf32_kernel); also the reverse alone against "
+                "decoder_reverse_steps_reference (dgates, dx0, dlog, dh_init, dcond; f32 "
+                "split_tf32=True and the plain f32 reverse) and the head pass alone against "
+                "decoder_head_bwd_reference within 1e-4, with targets outside [0, V)")
 TRAIN_NOTES = {"fused_train_decoder_fwd": DEC_FWD_NOTE, "fused_train_decoder_bwd": DEC_BWD_NOTE}
 TRAIN_REPLACES = {
     "fused_encoder_fwd": "mlx_vae_tpu/ops/pallas_encoder.py:119",
@@ -1404,18 +1421,20 @@ def check_decoder_chain(w, h0, cond, tok, tf, with_ce: bool, k, p, tag: str,
 
 def check_decoder_reverse(w, din, tok, h0, cond, k, p, with_ce: bool, tag: str, dtype: str,
                           worst: list) -> None:
-    """The decoder backward's reverse alone (bf16: the head pass and the
-    tensor-core chain; f32: ``dec_bwd_kernel``) on the plain forward's
+    """The decoder backward's reverse alone (the head pass and the
+    tensor-core chain: bf16 ``wgmma``, f32 split-TF32) on the plain forward's
     residuals ``p`` against ``decoder_reverse_steps_reference``, its plain
-    twin launch by launch: dgates, dx0, dlog, d(h_init), d(cond). In bf16
-    also: a second backward equals the first bit for bit; the head pass
-    alone, with targets -1, V and 999 mixed in, against
-    ``decoder_head_bwd_reference`` within HEAD_TOL (the same rounded
-    operands, f32 sums); and the whole backward on the kernel forward's own
-    residuals ``k`` against its plain version on the same residuals."""
+    twin launch by launch (f32: ``split_tf32=True``, and also the plain f32
+    reverse): dgates, dx0, dlog, d(h_init), d(cond). Then, in both dtypes: a
+    second backward equals the first bit for bit; the head pass alone, with
+    targets -1, V and 999 mixed in, against ``decoder_head_bwd_reference``
+    (f32: ``split_tf32=True``) within HEAD_TOL (the same rounded operands,
+    f32 sums); and the whole backward on the kernel forward's own residuals
+    ``k`` against its plain version on the same residuals."""
     from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
 
     spec = "ce" if with_ce else "logits"
+    split = dtype == "float32"
     lib, st = fd.build_library(), torch.cuda.current_stream().cuda_stream
 
     def run():
@@ -1423,13 +1442,18 @@ def check_decoder_reverse(w, din, tok, h0, cond, k, p, with_ce: bool, tag: str, 
                                      with_reverse=True)
 
     kr = run()
-    pr = fd.decoder_reverse_steps_reference(w, din, tok, *p[2:], with_ce)
+    pr = fd.decoder_reverse_steps_reference(w, din, tok, *p[2:], with_ce, split_tf32=split)
     torch.cuda.synchronize()
-    compare(f"{tag} decoder reverse alone {spec} [dgates, dx0, dlog, dh_init, dcond]", kr[7:],
-            pr, dtype, worst)
+    twin = "its split-TF32 twin" if split else "its twin"
+    compare(f"{tag} decoder reverse alone {spec} against {twin} [dgates, dx0, dlog, dh_init, "
+            f"dcond]", kr[7:], pr, dtype, worst)
     del pr
-    if dtype != "bfloat16":
-        return
+    if split:
+        pr = fd.decoder_reverse_steps_reference(w, din, tok, *p[2:], with_ce)
+        torch.cuda.synchronize()
+        compare(f"{tag} decoder reverse alone {spec} against the plain f32 reverse [dgates, "
+                f"dx0, dlog, dh_init, dcond]", kr[7:], pr, dtype, worst)
+        del pr
     again = run()
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip([*kr[0], *kr[1:]], [*again[0], *again[1:]])):
@@ -1441,7 +1465,7 @@ def check_decoder_reverse(w, din, tok, h0, cond, k, p, with_ce: bool, tag: str, 
     for j, bad in enumerate((-1, w.cfg.vocab_size, 999)):
         tgt[j::7, j::3] = bad
     kh = fd.launch_decoder_head_bwd(lib, w, din, tgt, p[2], with_ce, st)
-    ph = fd.decoder_head_bwd_reference(w, din, tgt, p[2], with_ce)
+    ph = fd.decoder_head_bwd_reference(w, din, tgt, p[2], with_ce, split_tf32=split)
     torch.cuda.synchronize()
     compare(f"{tag} decoder head pass alone {spec}, targets -1/V/999 mixed in [dlog, dtop]",
             kh, ph, dtype, worst, tol=HEAD_TOL)
@@ -1605,16 +1629,19 @@ def phase_train_times(smi: str) -> dict:
     return out
 
 
-# the f32 default step's kernels: rows 2-4 on split-TF32 wgmma (the
-# forwards' step kernel, the reverse chain's step kernel, the weight-gradient
-# pass, the decoder's vocab head) and none of the CUDA-core kernels they and
-# rows 6-8 replaced
+# the f32 default step's kernels: rows 2-5 on split-TF32 wgmma (the
+# forwards' step kernel, the reverse chains' step kernels, the
+# weight-gradient pass, the decoder's vocab head and the decoder backward's
+# head pass) and none of the CUDA-core kernels they and rows 6-8 replaced
 F32_NEW = (("encoder forward", "seq_fwd_tf32_kernel"),
            ("encoder reverse chain", "enc_step_tf32_kernel"),
            ("weight-gradient pass", "wgrad_tf32_kernel"),
-           ("decoder vocab head", "dec_head_tf32_kernel"))
+           ("decoder vocab head", "dec_head_tf32_kernel"),
+           ("decoder reverse chain", "dec_step_tf32_kernel"),
+           ("decoder backward's head pass", "dec_head_bwd_tf32_kernel"),
+           ("decoder backward's dtop", "dec_dtop_tf32_kernel"))
 F32_GONE = ("enc_fwd_kernel", "enc_bwd_kernel", "wgrad_f32_kernel", "seq_fwd_kernel",
-            "seq_bwd_kernel", "dec_fwd_kernel")
+            "seq_bwd_kernel", "dec_fwd_kernel", "dec_bwd_kernel")
 # the f32 scaled step's kernels: rows 6-8 on split-TF32 wgmma
 F32_SEQ_NEW = (("sequence forward", "seq_fwd_tf32_kernel"),
                ("sequence reverse chain", "seq_step_tf32_kernel"),
@@ -1639,12 +1666,15 @@ def cudnn_f32_ms(I: int, H: int, layers: int, B: int, L: int) -> tuple:
 
 def phase_train_times_f32(smi: str, check: bool = True) -> dict:
     """Phase 8's f32 pass, default model, B=4096, L=64: rows 2-5 against
-    their plain versions in turns; cuDNN's two-layer f32 LSTM with TF32 off
-    (rows 2-3's library_ms) and on; both bounds (split-TF32 and CUDA-core);
+    their plain versions in turns; rows 4 and 5 alone under
+    ``torch.profiler`` (device ms by kernel); cuDNN's two-layer f32 LSTM with
+    TF32 off (rows 2-3's library_ms) and on; both bounds (split-TF32 and
+    CUDA-core);
     the train kernels' launches in one f32 fused step (counts set to 0 just
     before); the f32 step, fused route against plain route; one f32 fused
     step under ``torch.profiler``, which (``check``) must show the
-    split-TF32 kernels of rows 2-3 and none of the CUDA-core ones."""
+    split-TF32 kernels of rows 2-5 (``F32_NEW``) and none of the CUDA-core
+    ones (``F32_GONE``)."""
     from mlx_vae_tpu_torch.config import TrainConfig
     from mlx_vae_tpu_torch.ops import fused_encoder as fe
     from mlx_vae_tpu_torch.ops import fused_train_decoder as fd
@@ -1678,6 +1708,8 @@ def phase_train_times_f32(smi: str, check: bool = True) -> dict:
            for name, (kern, plain) in pairs.items()}
     out["dec_fwd_profile"] = profile_step("row 4 f32, the decoder forward with CE (B=4096 L=64)",
                                           pairs["fused_train_decoder_fwd"][0], smi)["kernels"]
+    out["dec_bwd_profile"] = profile_step("row 5 f32, the decoder backward with CE (B=4096 L=64)",
+                                          pairs["fused_train_decoder_bwd"][0], smi)["kernels"]
     del enc, dec
     off, on = cudnn_f32_ms(cfg.embedding_dim, cfg.hidden_dim, cfg.num_layers, B, L)
     out["library"] = {"fused_encoder_fwd": off[0], "fused_encoder_bwd": off[1]}
@@ -3471,8 +3503,9 @@ def f32_record(rec: dict, kname: str, shape: str) -> dict:
     it), the split-TF32 bound (3 x the operations over 495 TFLOP/s, or the
     bytes) and the CUDA-core one (67 TFLOP/s), and its launches in one f32
     step (default model for rows 2-5, scaled for rows 6-8); rows 4 and 6
-    also their device ms by kernel (step and head launches), rows 7-8 also
-    at I=128 (``*_f32_i128``)."""
+    also their device ms by kernel (step and head launches), row 5 every
+    kernel of its backward's profile, rows 7-8 also at I=128
+    (``*_f32_i128``)."""
     if "bounds" in rec:  # phase 8: per-kernel pairs, shared dicts
         ms, plain = rec[kname]
         lib, lib_tf32 = rec["library"].get(kname), rec["library_tf32"].get(kname)
@@ -3488,6 +3521,8 @@ def f32_record(rec: dict, kname: str, shape: str) -> dict:
     if kname.startswith("fused_train_decoder_fwd"):  # rows 4 and 6: step and head launches
         out["device_ms_f32_by_kernel"] = {k: v for k, v in rec["dec_fwd_profile"].items()
                                           if "tf32" in k}
+    if kname == "fused_train_decoder_bwd":  # row 5: head pass, chain, sums, dW passes, demb
+        out["device_ms_f32_by_kernel"] = rec["dec_bwd_profile"]
     r = rec.get(f"{kname} I=128")
     if r is not None:
         out.update(ms_f32_i128=r["ms"], plain_ms_f32_i128=r["plain_ms"],

@@ -44,39 +44,40 @@
 //    in its epilogue. 1 + n * L + L launches a call, the kernel boundary
 //    being the grid-wide barrier the recurrence needs; one writer per
 //    element and no atomics, so two runs are bitwise equal.
-//  * Backward in bf16 (the tensor cores), before the sums: the head's
-//    cotangent of step t needs only forward residuals (the stored top h, the
-//    targets, dce), so it is formed for all L * B rows m = t * B + b at once,
-//    ahead of the recurrence: dec_head_bwd_kernel recomputes the logits on
-//    wgmma (dec_head_kernel's operands, 128 rows a block) and writes dlog =
-//    (softmax - onehot) * dce [L, B, V] f32 (for V > 128 a first pass over
-//    the column tiles finds each row's max and sum); dec_dtop_kernel forms
-//    dtop = bf16(dlog) fc_out^T [L, B, H] f32 on wgmma (JAX's from_above:
-//    dlogits rounded to the compute dtype, f32 sums). Then the reverse chain
-//    of fused_encoder.cu's frame: train_common.cuh's gate_kernel runs the
-//    gate step of (L-1, n-1) from dtop(L-1); for t = L-1 .. 0 and l = n-1 ..
-//    0, dec_step_kernel is one card-wide wgmma GEMM dinp = dgates(t, l)
-//    W_l^T (train_common.cuh's dinp_tile, wcat read as it lies) over all
-//    K_l + H columns, whose epilogue routes each column: the input columns
-//    run the gate step of (t, l-1) (l > 0), or are dx0 at t and the
-//    conditions' cotangent, added into d(cond) in the reference's t order
-//    (l = 0); the top layer's h columns run the gate step of (t-1, n-1) with
-//    dtop(t-1) added; the others hand dh[l] to the next launch of layer l,
-//    at t = 0 the cotangents of h_init, which reduce_kernel sums over layers
-//    (layer 0 first). 2 + 1 + n * L + 1 launches; one writer per element, so
-//    two runs are bitwise equal.
-//  * Backward in f32 (dec_bwd_kernel, CUDA-core FMA): a block owns R rows
-//    and walks t = L-1 .. 0: dlogits per row by one warp, its projection
-//    through fc_out, then the layers top down (train_common.cuh). It writes
-//    dgates and dx0 and dlogits [L, B, V]; d(h_init) and d(cond) are per-row
-//    sums and stay in the block.
+//  * Backward (the tensor cores; bf16 wgmma, f32 as split-TF32, one frame),
+//    before the sums: the head's cotangent of step t needs only forward
+//    residuals (the stored top h, the targets, dce), so it is formed for all
+//    L * B rows m = t * B + b at once, ahead of the recurrence: the head pass
+//    (dec_head_bwd_kernel in bf16, dec_head_bwd_tf32_kernel in f32)
+//    recomputes the logits from the head's operands, 128 rows a block, and
+//    writes dlog = (softmax - onehot) * dce [L, B, V] f32 (for V > 128 a
+//    first pass over the column tiles finds each row's max and sum); then
+//    dtop = dlog fc_out^T [L, B, H] f32 (dec_dtop_kernel: dlog rounded to
+//    bf16, dec_dtop_tf32_kernel: unrounded, JAX's from_above: dlogits in the
+//    compute dtype, f32 sums). Then the reverse chain of fused_encoder.cu's
+//    frame: train_common.cuh's gate_kernel<T> runs the gate step of (L-1,
+//    n-1) from dtop(L-1); for t = L-1 .. 0 and l = n-1 .. 0, one card-wide
+//    GEMM dinp = dgates(t, l) W_l^T (dec_step_kernel on train_common.cuh's
+//    dinp_tile, dec_step_tf32_kernel on dinp_tile_tf32; wcat read as it
+//    lies) over all K_l + H columns, whose epilogue routes each column: the
+//    input columns run the gate step of (t, l-1) (l > 0), or are dx0 at t
+//    and the conditions' cotangent, added into d(cond) in the reference's t
+//    order (l = 0); the top layer's h columns run the gate step of (t-1,
+//    n-1) with dtop(t-1) added; the others hand dh[l] to the next launch of
+//    layer l, at t = 0 the cotangents of h_init, which reduce_kernel sums
+//    over layers (layer 0 first). 2 + 1 + n * L + 1 launches; one writer per
+//    element, so two runs are bitwise equal. (A CUDA-core reverse in which
+//    a block of R rows walks all L steps reads every layer's transposed
+//    weight from L2 at each step to serve its rows: as such the f32 reverse
+//    took 69.3 ms of the 133.5 ms default f32 step on an H100 80GB HBM3 at
+//    700 W, PERF.md.)
 //  * Backward, sums over rows: dW and db of each layer, d(fc_out),
 //    d(fc_out bias) and d(embedding) are split reductions over the t*B rows
 //    with partials added in a fixed order (train_common.cuh), where the TPU
-//    kernel added into one VMEM accumulator across its sequential grid. In
-//    bf16 the dW products run on the tensor cores (wgmma; fc_out's f32
-//    dlogits are rounded to bf16 for its product and summed unrounded into
-//    d(fc_out bias)); in f32 on CUDA cores.
+//    kernel added into one VMEM accumulator across its sequential grid. The
+//    dW products run on the tensor cores (bf16 wgmma, f32 split-TF32;
+//    fc_out's f32 dlogits are rounded to bf16 for its bf16 product and summed
+//    unrounded into d(fc_out bias)).
 //
 // What bounds it: at the default model (E=128, C=1, H=256, n=2, V=80) and
 // B=4096, L=64, bf16, the forward is ~0.51 TFLOP of products against ~0.8
@@ -85,7 +86,8 @@
 // the same products as split-TF32 are three TF32 products each, so 3 x the
 // operations over 495 TFLOP/s: 3.0 ms default, 47.6 ms scaled. The
 // backward is ~1 TFLOP (the chain's products, the recomputed logits,
-// from_above and the weight gradients): 1.0 ms. A row-tiled CUDA-core
+// from_above and the weight gradients): 1.0 ms in bf16, 6.0 ms as
+// split-TF32. A row-tiled CUDA-core
 // kernel streams every weight from L2 (or, past 50 MB of weights, from
 // device memory) at every step to serve a few rows: on an H100 80GB HBM3
 // (700 W) the f32 forward as such a kernel took 1074 ms at the scaled model
@@ -95,13 +97,13 @@
 // model have N = E + C + H = 385 columns: a fourth 128-wide column tile that
 // holds one column.
 
+#include <climits>
 #include <type_traits>
 
 #include "train_common.cuh"
 
 namespace {
 
-using train::NT;
 using train::NW;
 
 struct BwdArgs {
@@ -110,170 +112,20 @@ struct BwdArgs {
   const void* hs;        // [L, n, B, H] T
   const void* cs;
   const void* gs;        // [L, n, B, 4H] T
-  const void* wcat;      // per layer [(K_l + H), 4H] T, back to back (bf16 reads it)
-  const void* wT;        // per layer [4H, (K_l + H)] T, back to back (f32 reads it)
+  const void* wcat;      // per layer [(K_l + H), 4H] T, back to back
   const void* wout;      // [H, V] T
   const void* woutT;     // [V, H] T
   const float* bout;     // [V]
-  float* dh;             // bf16: [n, B, H] zeros, the h cotangent handed down a step
-  float* dc;             // bf16: [n, B, H] zeros, each layer's running dc
-  float* dtop;           // bf16: [L, B, H] the head's cotangent of the top layer's h
+  float* dh;             // [n, B, H] zeros, the h cotangent handed down a step
+  float* dc;             // [n, B, H] zeros, each layer's running dc
+  float* dtop;           // [L, B, H] the head's cotangent of the top layer's h
   void* dgates;          // [L, n, B, 4H] T
   void* dx0;             // [L, B, E] T
   float* dlog;           // [L, B, V]
   float* dh_init;        // [B, H]
-  float* dcond;          // [B, C] (bf16: zeros on entry, added to)
+  float* dcond;          // [B, C] zeros on entry, added to
   int B, L, V, E, C, H, n, with_ce;
 };
-
-// The f32 reverse kernel (bf16 runs the tensor-core chain below).
-template <int R, int VPL>
-__global__ void __launch_bounds__(NT) dec_bwd_kernel(const BwdArgs a) {
-  using T = float;
-  extern __shared__ float smem[];
-  const int H = a.H, E = a.E, C = a.C, n = a.n, L = a.L, B = a.B, V = a.V, G = 4 * H;
-  const int K0 = E + C;
-  float* dh = smem;            // [n][R][H]
-  float* dc = dh + n * R * H;  // [n][R][H]
-  float* fa = dc + n * R * H;  // [R][H] cotangent from above
-  float* dg = fa + R * H;      // [R][4H]
-  float* dl = dg + R * G;      // [R][V] this step's dlogits
-  float* dcs = dl + R * V;     // [R][C] d(cond) sums
-  const int row0 = blockIdx.x * R;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* hs = static_cast<const T*>(a.hs);
-  const T* cs = static_cast<const T*>(a.cs);
-  const T* gs = static_cast<const T*>(a.gs);
-  const T* wT = static_cast<const T*>(a.wT);
-  const T* wout = static_cast<const T*>(a.wout);
-  const T* woutT = static_cast<const T*>(a.woutT);
-  T* dgates = static_cast<T*>(a.dgates);
-  T* dx0 = static_cast<T*>(a.dx0);
-
-  for (int idx = threadIdx.x; idx < n * R * H; idx += NT) {
-    dh[idx] = 0.0f;
-    dc[idx] = 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < R * C; idx += NT) dcs[idx] = 0.0f;
-  __syncthreads();
-  size_t wend = 0;
-  for (int l = 0; l < n; ++l) wend += (size_t)((l == 0 ? K0 : H) + H) * G;
-
-  for (int t = L - 1; t >= 0; --t) {
-    // ---- dlogits: one warp per row ----
-    const T* htop = hs + ((size_t)t * n + (n - 1)) * B * H;
-    for (int r = warp; r < R; r += NW) {
-      const int g = row0 + r;
-      float d[VPL];
-      if (a.with_ce) {
-        float s[VPL];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int u = 0; u < VPL; ++u) {
-          const int v = lane + 32 * u;
-          s[u] = -INFINITY;
-          if (v < V && g < B) {
-            float acc = 0.0f;
-            for (int k = 0; k < H; ++k)
-              acc = fmaf(train::ld(htop + (size_t)g * H + k), train::ld(wout + (size_t)k * V + v),
-                         acc);
-            s[u] = acc + a.bout[v];
-            mx = fmaxf(mx, s[u]);
-          }
-        }
-        mx = train::warp_max(mx);
-        float e[VPL], tot = 0.0f;
-#pragma unroll
-        for (int u = 0; u < VPL; ++u) {
-          e[u] = (lane + 32 * u < V && g < B) ? expf(s[u] - mx) : 0.0f;
-          tot += e[u];
-        }
-        tot = train::warp_sum(tot);
-        const int target = g < B ? a.targets[(size_t)g * L + t] : -1;
-        const float dce = g < B ? a.din[g] : 0.0f;
-#pragma unroll
-        for (int u = 0; u < VPL; ++u) {
-          const int v = lane + 32 * u;
-          d[u] = g < B ? (e[u] / tot - (v == target ? 1.0f : 0.0f)) * dce : 0.0f;
-        }
-      } else {
-#pragma unroll
-        for (int u = 0; u < VPL; ++u) {
-          const int v = lane + 32 * u;
-          d[u] = (v < V && g < B) ? a.din[((size_t)g * L + t) * V + v] : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < VPL; ++u) {
-        const int v = lane + 32 * u;
-        if (v < V) {
-          dl[r * V + v] = d[u];
-          if (g < B) a.dlog[((size_t)t * B + g) * V + v] = d[u];
-        }
-      }
-    }
-    __syncthreads();
-    // ---- cotangent of the top h from the vocab projection ----
-    for (int j = threadIdx.x; j < H; j += NT) {
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-      for (int v = 0; v < V; ++v) {
-        const float w = train::ld(woutT + (size_t)v * H + j);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(train::rnd<T>(dl[r * V + v]), w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) fa[r * H + j] = acc[r];
-    }
-    __syncthreads();
-
-    // ---- the LSTM stack, top layer down ----
-    size_t woff = wend;
-    for (int l = n - 1; l >= 0; --l) {
-      const int Kx = l == 0 ? K0 : H, K = Kx + H;
-      woff -= (size_t)K * G;
-      const size_t slab = ((size_t)t * n + l) * B;
-      const size_t prev = ((size_t)(t - 1) * n + l) * B;
-      float* dhl = dh + (size_t)l * R * H;
-      train::cell_bwd_gates<T>(gs + slab * G, cs + slab * H, t > 0 ? cs + prev * H : nullptr,
-                               dhl, dc + (size_t)l * R * H, fa, dg, dgates + slab * G, R, H,
-                               row0, B);
-      __syncthreads();
-      if (l > 0) {
-        train::cell_bwd_dinp<T, R>(wT + woff, dg, K, G, [&](int r, int k, float v) {
-          if (k < Kx) fa[r * H + k] = v;
-          else dhl[r * H + (k - Kx)] = v;
-        });
-      } else {
-        T* dxt = dx0 + (size_t)t * B * E;
-        train::cell_bwd_dinp<T, R>(wT + woff, dg, K, G, [&](int r, int k, float v) {
-          const int g = row0 + r;
-          if (k < E) {
-            if (g < B) train::st(dxt + (size_t)g * E + k, v);
-          } else if (k < K0) {
-            dcs[r * C + (k - E)] += v;
-          } else {
-            dhl[r * H + (k - K0)] = v;
-          }
-        });
-      }
-      __syncthreads();
-    }
-  }
-  // every layer's h at t = 0 is the shared h_init
-  for (int idx = threadIdx.x; idx < R * H; idx += NT) {
-    const int g = row0 + idx / H;
-    if (g >= B) continue;
-    float s = 0.0f;
-    for (int l = 0; l < n; ++l) s += dh[(size_t)l * R * H + idx];
-    a.dh_init[(size_t)g * H + idx % H] = s;
-  }
-  for (int idx = threadIdx.x; idx < R * C; idx += NT) {
-    const int g = row0 + idx / C;
-    if (g < B) a.dcond[(size_t)g * C + idx % C] = dcs[idx];
-  }
-}
 
 // ------------------------------------------------ forward on the tensor cores
 
@@ -584,64 +436,151 @@ cudaError_t launch_fwd(const FwdArgs& a, const T* wt, const T* woutT, float* cbu
   return cudaSuccess;
 }
 
-// ------------------------------------------------ bf16 backward on the tensor cores
+// ------------------------------------------------ backward on the tensor cores
 
 // The head's backward for all L * B rows m = t * B + b at once, before the
 // chain (its cotangent of step t needs only forward residuals).
-//  * with_ce: the logits h_top(t) [B, H] @ wout + bout on wgmma, operands as
-//    dec_head_kernel stages them (woutT [V, H] K-major as it lies), one
-//    128-row tile a block over the vocab's 128-wide column tiles; dlog =
-//    (softmax - onehot(target)) * dce [L, B, V] f32, where a target outside
-//    [0, V) adds no one-hot (decoder_reverse_reference). A warp walks 16
-//    rows of each staged tile, a lane 4 columns. For V > 128 a first pass
-//    over the column tiles keeps each row's running max and sum of
-//    exponentials in shared memory and a second one recomputes each tile
+//  * with_ce: the logits h_top(t) [B, H] @ wout + bout, B operand woutT [V,
+//    H] (K-major as it lies), one 128-row tile a block over the vocab's
+//    128-wide column tiles: on wgmma in bf16 (dec_head_bwd_kernel, operands
+//    as dec_head_kernel stages them; a block owns rows m of the flat L * B),
+//    as split-TF32 in f32 (dec_head_bwd_tf32_kernel on abt_tile_tf32; a
+//    block owns rows b of one step t, its grid (row tiles of B) x L, since
+//    the top h of row m lies at hs row t * n + n - 1, not densely in m).
+//    dlog = (softmax - onehot(target)) * dce [L, B, V] f32, where a target
+//    outside [0, V) adds no one-hot (decoder_reverse_reference). A warp
+//    walks 16 rows of each staged tile, a lane 4 columns. For V > 128 a
+//    first pass over the column tiles keeps each row's running max and sum
+//    of exponentials in shared memory and a second one recomputes each tile
 //    and writes dlog; at V <= 128 one tile holds the whole row.
 //  * else: dlog is the given dlogits [B, L, V], transposed to [L, B, V].
 struct HeadBwdArgs {
-  const __nv_bfloat16* hs;     // [L, n, B, H]: the top layer's h at rows t * n + n - 1
-  const __nv_bfloat16* woutT;  // [V, H]
-  const float* bout;           // [V]
-  const int* targets;          // [B, L]
-  const float* din;            // with_ce: dce [B]; else dlogits [B, L, V]
-  float* dlog;                 // [L, B, V]
+  const void* hs;       // [L, n, B, H] T: the top layer's h at rows t * n + n - 1
+  const void* woutT;    // [V, H] T
+  const float* bout;    // [V]
+  const int* targets;   // [B, L]
+  const float* din;     // with_ce: dce [B]; else dlogits [B, L, V]
+  float* dlog;          // [L, B, V]
   int B, L, V, H, n, with_ce, vec;
 };
+
+// A head-pass block's per-row state at the start of its shared memory (at
+// most HEAD_STATE bytes): the running max and sum, and the rows' dce and
+// targets, read before the first product so that no row of the epilogue
+// waits on device memory. The block's rows are m0 .. m0 + rows - 1.
+struct HeadBwdState {
+  float* run_max;
+  float* run_sum;
+  float* dce;
+  int* target;
+};
+
+__device__ __forceinline__ HeadBwdState head_bwd_state(unsigned char* smem_raw,
+                                                       const HeadBwdArgs& a, size_t m0,
+                                                       int rows) {
+  HeadBwdState s;
+  s.run_max = reinterpret_cast<float*>(smem_raw);  // [BM] each
+  s.run_sum = s.run_max + wg::BM;
+  s.dce = s.run_sum + wg::BM;
+  s.target = reinterpret_cast<int*>(s.dce + wg::BM);
+  if (threadIdx.x < wg::BM) {  // visible to the epilogue after the product's barriers
+    const size_t m = m0 + threadIdx.x;
+    const bool in = (int)threadIdx.x < rows;
+    s.target[threadIdx.x] = in ? a.targets[(m % a.B) * a.L + m / a.B] : -1;
+    s.dce[threadIdx.x] = in ? a.din[m % a.B] : 0.0f;
+  }
+  return s;
+}
+
+// Without CE: the block's rows of the given dlogits, transposed.
+__device__ __forceinline__ void head_bwd_copy(const HeadBwdArgs& a, size_t m0, int rows) {
+  const int B = a.B, L = a.L, V = a.V;
+  for (int idx = threadIdx.x; idx < wg::BM * V; idx += wg::NTH) {
+    const int r = idx / V, v = idx % V;
+    const size_t m = m0 + r;
+    if (r < rows) a.dlog[m * V + v] = a.din[((m % B) * L + m / B) * V + v];
+  }
+}
+
+// Column tile n0's epilogue on the staged f32 tile of the block's logits:
+// a first pass (of two) updates each row's running max and sum; the final
+// pass writes dlog.
+__device__ __forceinline__ void head_bwd_epilogue(const HeadBwdArgs& a, const HeadBwdState& s,
+                                                  const float* tile, size_t m0, int rows, int n0,
+                                                  int passes, bool final_pass) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int V = a.V;
+  float bias[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int v = n0 + lane + 32 * q;
+    bias[q] = v < V ? a.bout[v] : 0.0f;
+  }
+  for (int i = 0; i < HEAD_ROWS; ++i) {
+    const int r = warp * HEAD_ROWS + i;
+    const size_t m = m0 + r;
+    if (r >= rows) break;
+    float x[4], mx = -INFINITY, sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = n0 + lane + 32 * q;
+      x[q] = v < V ? tile[r * wg::EPI_PITCH + lane + 32 * q] + bias[q] : -INFINITY;
+      mx = fmaxf(mx, x[q]);
+    }
+    if (passes == 1 || !final_pass) {  // this tile's max and sum of exponentials
+      mx = train::warp_max(mx);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sum += x[q] > -INFINITY ? expf(x[q] - mx) : 0.0f;
+      sum = train::warp_sum(sum);
+    }
+    if (!final_pass) {
+      if (lane == 0) {
+        if (n0 == 0) {
+          s.run_max[r] = mx; s.run_sum[r] = sum;
+        } else {
+          const float m_old = s.run_max[r], nm = fmaxf(m_old, mx);
+          s.run_sum[r] = s.run_sum[r] * expf(m_old - nm) + sum * expf(mx - nm);
+          s.run_max[r] = nm;
+        }
+      }
+      continue;
+    }
+    if (passes > 1) {  // the whole row's, from the first pass
+      mx = s.run_max[r];
+      sum = s.run_sum[r];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int v = n0 + lane + 32 * q;
+      if (v < V)
+        a.dlog[m * V + v] = (expf(x[q] - mx) / sum - (v == s.target[r] ? 1.0f : 0.0f)) * s.dce[r];
+    }
+  }
+}
 
 __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
     dec_head_bwd_kernel(const HeadBwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  float* run_max = reinterpret_cast<float*>(smem_raw);  // [BM] each
-  float* run_sum = run_max + wg::BM;
-  float* dce = run_sum + wg::BM;
-  int* target = reinterpret_cast<int*>(dce + wg::BM);
-  const uint32_t ring = (wg::smem_u32(smem_raw + HEAD_STATE) + 1023u) & ~1023u;
-  const int B = a.B, L = a.L, V = a.V, H = a.H, n = a.n;
-  const size_t M = (size_t)L * B, m0 = (size_t)blockIdx.x * wg::BM;
+  const int B = a.B, V = a.V, H = a.H, n = a.n;
+  const size_t M = (size_t)a.L * B, m0 = (size_t)blockIdx.x * wg::BM;
+  const int rows = M - m0 < (size_t)wg::BM ? (int)(M - m0) : wg::BM;
   if (!a.with_ce) {
-    for (int idx = threadIdx.x; idx < wg::BM * V; idx += wg::NTH) {
-      const size_t m = m0 + idx / V;
-      const int v = idx % V;
-      if (m < M) a.dlog[m * V + v] = a.din[((m % B) * L + m / B) * V + v];
-    }
+    head_bwd_copy(a, m0, rows);
     return;
   }
+  const HeadBwdState s = head_bwd_state(smem_raw, a, m0, rows);
+  const uint32_t ring = (wg::smem_u32(smem_raw + HEAD_STATE) + 1023u) & ~1023u;
+  const __nv_bfloat16* hs = static_cast<const __nv_bfloat16*>(a.hs);
+  const __nv_bfloat16* woutT = static_cast<const __nv_bfloat16*>(a.woutT);
   const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const __nv_bfloat16* hr[4];  // the rows this thread stages
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const size_t m = m0 + r0 + 32 * u;
-    hr[u] = m < M ? a.hs + (((m / B) * n + n - 1) * B + m % B) * H : nullptr;
-  }
-  if (threadIdx.x < wg::BM) {  // visible to the epilogue after gemm()'s barriers
-    const size_t m = m0 + threadIdx.x;
-    target[threadIdx.x] = m < M ? a.targets[(m % B) * L + m / B] : -1;
-    dce[threadIdx.x] = m < M ? a.din[m % B] : 0.0f;
+    hr[u] = m < M ? hs + (((m / B) * n + n - 1) * B + m % B) * H : nullptr;
   }
   const int passes = V > wg::BN ? 2 : 1;
   for (int pass = 0; pass < passes; ++pass) {
-    const bool final_pass = pass == passes - 1;
     for (int n0 = 0; n0 < V; n0 += wg::BN) {
       float acc[64];
       wg::gemm<false>(acc, ring, (H + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
@@ -652,78 +591,70 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
           const uint32_t off = wg::swz(r, c);
           wg::stage8(dst + off, hr[u], k, H, a.vec);
           wg::stage8(dst + wg::TILE + off,
-                     n0 + r < V ? a.woutT + (size_t)(n0 + r) * H : nullptr, k, H, a.vec);
+                     n0 + r < V ? woutT + (size_t)(n0 + r) * H : nullptr, k, H, a.vec);
         }
       });
-      float bias[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int v = n0 + lane + 32 * q;
-        bias[q] = v < V ? a.bout[v] : 0.0f;
-      }
-      const float* tile = wg::stage_tile(acc, smem_raw, ring);
-      for (int i = 0; i < HEAD_ROWS; ++i) {
-        const int r = warp * HEAD_ROWS + i;
-        const size_t m = m0 + r;
-        if (m >= M) break;
-        float x[4], mx = -INFINITY, s = 0.0f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int v = n0 + lane + 32 * q;
-          x[q] = v < V ? tile[r * wg::EPI_PITCH + lane + 32 * q] + bias[q] : -INFINITY;
-          mx = fmaxf(mx, x[q]);
-        }
-        if (passes == 1 || !final_pass) {  // this tile's max and sum of exponentials
-          mx = train::warp_max(mx);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) s += x[q] > -INFINITY ? expf(x[q] - mx) : 0.0f;
-          s = train::warp_sum(s);
-        }
-        if (!final_pass) {
-          if (lane == 0) {
-            if (n0 == 0) {
-              run_max[r] = mx; run_sum[r] = s;
-            } else {
-              const float m_old = run_max[r], nm = fmaxf(m_old, mx);
-              run_sum[r] = run_sum[r] * expf(m_old - nm) + s * expf(mx - nm);
-              run_max[r] = nm;
-            }
-          }
-          continue;
-        }
-        if (passes > 1) {  // the whole row's, from the first pass
-          mx = run_max[r];
-          s = run_sum[r];
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int v = n0 + lane + 32 * q;
-          if (v < V)
-            a.dlog[m * V + v] = (expf(x[q] - mx) / s - (v == target[r] ? 1.0f : 0.0f)) * dce[r];
-        }
-      }
+      head_bwd_epilogue(a, s, wg::stage_tile(acc, smem_raw, ring), m0, rows, n0, passes,
+                        pass == passes - 1);
       __syncthreads();  // the next column tile's copies reuse the ring
     }
   }
 }
 
-// dtop [M, H] f32 = bf16(dlog) [M, V] wout^T on wgmma, M = L * B: A the f32
-// dlog rows rounded to bf16 while staged, B wout [H, V] (row j is column j
-// of the product: K-major as it lies); one 128 x 128 tile a block, staged in
-// shared memory so that the rows are stored whole.
+__global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
+    dec_head_bwd_tf32_kernel(const HeadBwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const int B = a.B, V = a.V, H = a.H, n = a.n, t = blockIdx.y, b0 = blockIdx.x * wg::BM;
+  const size_t m0 = (size_t)t * B + b0;
+  const int rows = min(wg::BM, B - b0);
+  if (!a.with_ce) {
+    head_bwd_copy(a, m0, rows);
+    return;
+  }
+  const HeadBwdState s = head_bwd_state(smem_raw, a, m0, rows);
+  const uint32_t ring = (wg::smem_u32(smem_raw + HEAD_STATE) + 1023u) & ~1023u;
+  const float* htop = static_cast<const float*>(a.hs) + ((size_t)t * n + n - 1) * B * H;
+  const float* woutT = static_cast<const float*>(a.woutT);
+  const int passes = V > wg::BN ? 2 : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    for (int n0 = 0; n0 < V; n0 += wg::BN) {
+      head_bwd_epilogue(a, s,
+                        train::abt_tile_tf32(smem_raw, ring, htop, woutT, B, V, H, b0, n0, a.vec),
+                        m0, rows, n0, passes, pass == passes - 1);
+      __syncthreads();  // the next column tile's stages reuse the ring
+    }
+  }
+}
+
+// dtop [M, H] f32 = dlog [M, V] wout^T, M = L * B, B operand wout [H, V]
+// (row j is column j of the product: K-major as it lies); one 128 x 128
+// tile a block, staged in shared memory so that the rows are stored whole.
+// bf16 (dec_dtop_kernel): the f32 dlog rows rounded to bf16 while staged,
+// on wgmma. f32 (dec_dtop_tf32_kernel): dlog unrounded, as split-TF32.
 struct DtopArgs {
-  const float* dlog;            // [M, V]
-  const __nv_bfloat16* wout;    // [H, V]
-  float* dtop;                  // [M, H]
+  const float* dlog;  // [M, V]
+  const void* wout;   // [H, V] T
+  float* dtop;        // [M, H]
   size_t M;
   int V, H, vec_a, vec_b;
 };
+
+__device__ __forceinline__ void dtop_store(const float* tile, const DtopArgs& a, size_t m0,
+                                           int n0) {
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
+    const int r = idx / wg::BN, cc = idx % wg::BN;
+    if (m0 + r < a.M && n0 + cc < a.H)
+      a.dtop[(m0 + r) * a.H + n0 + cc] = tile[r * wg::EPI_PITCH + cc];
+  }
+}
 
 __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM) dec_dtop_kernel(const DtopArgs a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int n0 = blockIdx.x * wg::BN, V = a.V, H = a.H;
   const size_t m0 = (size_t)blockIdx.y * wg::BM, M = a.M;
+  const __nv_bfloat16* wout = static_cast<const __nv_bfloat16*>(a.wout);
   float acc[64];
   wg::gemm<false>(acc, ring, (V + wg::BK - 1) / wg::BK, [&](uint32_t dst, int kt) {
     const int k = kt * wg::BK;
@@ -733,93 +664,113 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM) dec_dtop_kernel(co
       const uint32_t off = wg::swz(r, c);
       wg::stage8(dst + off, m0 + r < M ? a.dlog + (m0 + r) * V : nullptr, k + 8 * c, V,
                  a.vec_a);
-      wg::stage8(dst + wg::TILE + off, n0 + r < H ? a.wout + (size_t)(n0 + r) * V : nullptr,
+      wg::stage8(dst + wg::TILE + off, n0 + r < H ? wout + (size_t)(n0 + r) * V : nullptr,
                  k + 8 * c, V, a.vec_b);
     }
   });
-  const float* tile = wg::stage_tile(acc, smem_raw, ring);
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
-    const int r = idx / wg::BN, cc = idx % wg::BN;
-    if (m0 + r < M && n0 + cc < H)
-      a.dtop[(m0 + r) * H + n0 + cc] = tile[r * wg::EPI_PITCH + cc];
-  }
+  dtop_store(wg::stage_tile(acc, smem_raw, ring), a, m0, n0);
 }
 
-// The head's backward: dec_head_bwd_kernel, then dec_dtop_kernel.
-cudaError_t head_bwd(const HeadBwdArgs& h, const __nv_bfloat16* wout, float* dtop,
-                     cudaStream_t st) {
-  const size_t M = (size_t)h.L * h.B;
+__global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
+    dec_dtop_tf32_kernel(const DtopArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  dtop_store(train::abt_tile_tf32(smem_raw, ring, a.dlog, static_cast<const float*>(a.wout),
+                                  (int)a.M, a.H, a.V, m0, n0, a.vec_a && a.vec_b),
+             a, m0, n0);
+}
+
+// The head's backward of type T: the head pass, then dtop. A row is read 16
+// bytes at a time where its width and start allow it, else element by
+// element.
+template <typename T>
+cudaError_t head_bwd(const BwdArgs& a, cudaStream_t st) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int EV = 16 / sizeof(T);  // elements in 16 bytes
+  const size_t M = (size_t)a.L * a.B;
+  if (!BF && M > (size_t)INT_MAX) return cudaErrorInvalidValue;  // abt_tile_tf32's int rows
   const int tiles = train::cdiv((long)M, wg::BM);
-  cudaError_t e = cudaFuncSetAttribute(dec_head_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_SMEM);
-  if (e != cudaSuccess) return e;
-  dec_head_bwd_kernel<<<tiles, wg::NTH, HEAD_SMEM, st>>>(h);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  DtopArgs d = {};
-  d.dlog = h.dlog;
-  d.wout = wout;
-  d.dtop = dtop;
-  d.M = M;
-  d.V = h.V;
-  d.H = h.H;
-  d.vec_a = h.V % 4 == 0 && train::aligned16(h.dlog);
-  d.vec_b = h.V % 8 == 0 && train::aligned16(wout);
-  e = cudaFuncSetAttribute(dec_dtop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           wg::SMEM);
-  if (e != cudaSuccess) return e;
-  dec_dtop_kernel<<<dim3(train::cdiv(h.H, wg::BN), tiles), wg::NTH, wg::SMEM, st>>>(d);
-  return cudaGetLastError();
-}
-
-HeadBwdArgs head_bwd_args(const BwdArgs& a) {
   HeadBwdArgs h = {};
-  h.hs = static_cast<const __nv_bfloat16*>(a.hs);
-  h.woutT = static_cast<const __nv_bfloat16*>(a.woutT);
+  h.hs = a.hs;
+  h.woutT = a.woutT;
   h.bout = a.bout;
   h.targets = a.targets;
   h.din = a.din;
   h.dlog = a.dlog;
   h.B = a.B; h.L = a.L; h.V = a.V; h.H = a.H; h.n = a.n; h.with_ce = a.with_ce;
-  h.vec = a.H % 8 == 0 && train::aligned16(a.hs) && train::aligned16(a.woutT);
-  return h;
+  h.vec = a.H % EV == 0 && train::aligned16(a.hs) && train::aligned16(a.woutT);
+  cudaError_t e;
+  if constexpr (BF) {
+    e = cudaFuncSetAttribute(dec_head_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             HEAD_SMEM);
+    if (e != cudaSuccess) return e;
+    dec_head_bwd_kernel<<<tiles, wg::NTH, HEAD_SMEM, st>>>(h);
+  } else {
+    e = cudaFuncSetAttribute(dec_head_bwd_tf32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, HEAD_TF_SMEM);
+    if (e != cudaSuccess) return e;
+    dec_head_bwd_tf32_kernel<<<dim3(train::cdiv(a.B, wg::BM), a.L), wg::NTH, HEAD_TF_SMEM,
+                               st>>>(h);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  DtopArgs d = {};
+  d.dlog = a.dlog;
+  d.wout = a.wout;
+  d.dtop = a.dtop;
+  d.M = M;
+  d.V = a.V;
+  d.H = a.H;
+  d.vec_a = a.V % 4 == 0 && train::aligned16(a.dlog);
+  d.vec_b = a.V % EV == 0 && train::aligned16(a.wout);
+  const dim3 grid(train::cdiv(a.H, wg::BN), tiles);
+  if constexpr (BF) {
+    e = cudaFuncSetAttribute(dec_dtop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::SMEM);
+    if (e != cudaSuccess) return e;
+    dec_dtop_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(d);
+  } else {
+    e = cudaFuncSetAttribute(dec_dtop_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::TF_SMEM);
+    if (e != cudaSuccess) return e;
+    dec_dtop_tf32_kernel<<<grid, wg::NTH, wg::TF_SMEM, st>>>(d);
+  }
+  return cudaGetLastError();
 }
 
 // One chain launch, (t, l), in the order (L-1, n-1), (L-1, n-2), ..., (0, 0).
+template <typename T>
 struct StepArgs {
-  const __nv_bfloat16* dg;  // [B, 4H] dgates at (t, l): the A operand
-  const __nv_bfloat16* w;   // [K_l + H, 4H] layer l's wcat: row k is column k of the product
-  __nv_bfloat16* dx;        // [B, E] dx0 at t (l = 0)
+  const T* dg;              // [B, 4H] dgates at (t, l): the A operand
+  const T* w;               // [K_l + H, 4H] layer l's wcat: row k is column k of the product
+  T* dx;                    // [B, E] dx0 at t (l = 0)
   float* dcond;             // [B, C] (l = 0), added to
   const float* dh_in;       // [B, H] dh of layer l - 1 from (t + 1, l - 1) (l > 0)
   float* dh_out;            // [B, H] dh of layer l for (t - 1, l), or of h_init at t = 0
   int B, Kx, N, G, H, E, C, vec;
   int below;                // l > 0: input columns run the gate step of (t, l - 1)
   int top;                  // l = n - 1, t > 0: h columns run the gate step of (t - 1, l)
-  train::GateArgs gx;       // the gate step of (t, l - 1)
-  train::GateArgs gh;       // the gate step of (t - 1, n - 1), dtop(t - 1) added
+  train::GateArgsT<T> gx;   // the gate step of (t, l - 1)
+  train::GateArgsT<T> gh;   // the gate step of (t - 1, n - 1), dtop(t - 1) added
 };
 
-// dinp [B, K_l + H] = dgates(t, l) W_l^T (train_common.cuh's dinp_tile), and
-// its epilogue, per column (a tile may straddle E, K_l = E + C at l = 0, or
-// K_l = H):
+// The epilogue of a chain launch on the staged f32 tile of dinp [B, K_l +
+// H] = dgates(t, l) W_l^T, per column (a tile may straddle E, K_l = E + C at
+// l = 0, or K_l = H):
 //  * k < K_l, l > 0: the cotangent of layer l - 1's h at t; its thread runs
 //    the gate step of (t, l - 1) at unit k with dh_in + value;
-//  * l = 0, k < E: dx0 at t, rounded to bf16;
+//  * l = 0, k < E: dx0 at t, in T;
 //  * l = 0, E <= k < E + C: added to d(cond) (one writer per element a
 //    launch, launches in the reference's t-descending order);
 //  * k = K_l + j, top: the top layer's h cotangent at t - 1 from the step
 //    after; its thread runs the gate step of (t - 1, n - 1) at unit j, where
 //    the gate step adds the head's dtop(t - 1);
 //  * k = K_l + j, otherwise: stored to dh_out.
-__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
-    dec_step_kernel(const StepArgs a) {
-  extern __shared__ unsigned char smem_raw[];
+template <typename T>
+__device__ __forceinline__ void dec_step_epilogue(const float* tile, const StepArgs<T>& a) {
   const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
-  const int B = a.B, N = a.N;
-  const float* tile = train::dinp_tile(smem_raw, a.dg, a.w, B, N, a.G, a.vec);
-  const int Kx = a.Kx, H = a.H, E = a.E;
+  const int B = a.B, N = a.N, Kx = a.Kx, H = a.H, E = a.E;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < wg::BM * wg::BN; idx += wg::NTH) {
     const int r = idx / wg::BN, cc = idx % wg::BN, row = m0 + r, col = n0 + cc;
@@ -837,27 +788,42 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
   }
 }
 
-// The bf16 reverse: the head's backward (2 launches), then the chain's
+// bf16: the product on wgmma (train_common.cuh's dinp_tile).
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
+    dec_step_kernel(const StepArgs<__nv_bfloat16> a) {
+  extern __shared__ unsigned char smem_raw[];
+  dec_step_epilogue(train::dinp_tile(smem_raw, a.dg, a.w, a.B, a.N, a.G, a.vec), a);
+}
+
+// f32: the product as split-TF32 (train_common.cuh's dinp_tile_tf32).
+__global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
+    dec_step_tf32_kernel(const StepArgs<float> a) {
+  extern __shared__ unsigned char smem_raw[];
+  dec_step_epilogue(train::dinp_tile_tf32(smem_raw, a.dg, a.w, a.B, a.N, a.G, a.vec), a);
+}
+
+// The reverse of type T: the head's backward (2 launches), then the chain's
 // 1 + n * L launches on one stream (the kernel boundary is the grid-wide
 // barrier), then d(h_init) = sum over layers of dh (1 launch). Launch (t, l)
 // reads dh[l - 1], which launch (t + 1, l - 1) wrote and launch (t, l - 1)
 // overwrites after it; at t = 0 the h columns of every layer go to dh[l]
 // after launch (0, l + 1) has read it. dh, dc and dcond are zeros on entry.
-cudaError_t reverse_bf16(const BwdArgs& a, cudaStream_t st) {
-  using bf16_t = __nv_bfloat16;
+template <typename T>
+cudaError_t reverse_chain(const BwdArgs& a, cudaStream_t st) {
+  constexpr bool BF = sizeof(T) == 2;
   const int B = a.B, L = a.L, H = a.H, E = a.E, C = a.C, n = a.n, G = 4 * H;
-  const bf16_t* gs = static_cast<const bf16_t*>(a.gs);
-  const bf16_t* cs = static_cast<const bf16_t*>(a.cs);
-  const bf16_t* wcat = static_cast<const bf16_t*>(a.wcat);
-  bf16_t* dgates = static_cast<bf16_t*>(a.dgates);
+  const T* gs = static_cast<const T*>(a.gs);
+  const T* cs = static_cast<const T*>(a.cs);
+  const T* wcat = static_cast<const T*>(a.wcat);
+  T* dgates = static_cast<T*>(a.dgates);
   const size_t BH = (size_t)B * H;
-  cudaError_t e = head_bwd(head_bwd_args(a), static_cast<const bf16_t*>(a.wout), a.dtop, st);
+  cudaError_t e = head_bwd<T>(a, st);
   if (e != cudaSuccess) return e;
   // the gate step of (s, l): zero state before s = 0; the top layer's h
   // also takes the head's cotangent dtop(s)
   auto gate_at = [&](int s, int l) {
     const size_t slab = ((size_t)s * n + l) * B;
-    train::GateArgs x = {};
+    train::GateArgsT<T> x = {};
     x.gs = gs + slab * G;
     x.cs = cs + slab * H;
     x.cprev = s > 0 ? cs + (slab - (size_t)n * B) * H : nullptr;
@@ -873,15 +839,20 @@ cudaError_t reverse_bf16(const BwdArgs& a, cudaStream_t st) {
       gate_at(L - 1, n - 1), a.dh + (n - 1) * BH, B * H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(dec_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           wg::SMEM);
+  const int smem = BF ? wg::SMEM : wg::TF_SMEM;
+  if constexpr (BF)
+    e = cudaFuncSetAttribute(dec_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  else
+    e = cudaFuncSetAttribute(dec_step_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (e != cudaSuccess) return e;
   size_t wend = 0;
   for (int l = 0; l < n; ++l) wend += (size_t)((l == 0 ? E + C : H) + H) * G;
-  StepArgs s = {};
+  StepArgs<T> s = {};
   s.B = B; s.G = G; s.H = H; s.E = E; s.C = C;
   s.dcond = a.dcond;
-  s.vec = G % 8 == 0 && train::aligned16(a.wcat) && train::aligned16(a.dgates);
+  s.vec = G % (16 / (int)sizeof(T)) == 0 && train::aligned16(a.wcat) &&
+          train::aligned16(a.dgates);
   for (int t = L - 1; t >= 0; --t) {
     size_t woff = wend;
     for (int l = n - 1; l >= 0; --l) {
@@ -890,7 +861,7 @@ cudaError_t reverse_bf16(const BwdArgs& a, cudaStream_t st) {
       s.N = s.Kx + H;
       s.w = wcat + woff;
       s.dg = dgates + ((size_t)t * n + l) * B * G;
-      s.dx = static_cast<bf16_t*>(a.dx0) + (size_t)t * B * E;
+      s.dx = static_cast<T*>(a.dx0) + (size_t)t * B * E;
       s.below = l > 0;
       s.top = l == n - 1 && t > 0;
       s.dh_in = l > 0 ? a.dh + (l - 1) * BH : nullptr;
@@ -898,35 +869,16 @@ cudaError_t reverse_bf16(const BwdArgs& a, cudaStream_t st) {
       if (s.below) s.gx = gate_at(t, l - 1);
       if (s.top) s.gh = gate_at(t - 1, n - 1);
       const dim3 grid(train::cdiv(s.N, wg::BN), train::cdiv(B, wg::BM));
-      dec_step_kernel<<<grid, wg::NTH, wg::SMEM, st>>>(s);
+      if constexpr (BF)
+        dec_step_kernel<<<grid, wg::NTH, smem, st>>>(s);
+      else
+        dec_step_tf32_kernel<<<grid, wg::NTH, smem, st>>>(s);
       e = cudaGetLastError();
       if (e != cudaSuccess) return e;
     }
   }
   // every layer's h at t = 0 is the shared h_init
   return train::reduce(a.dh, n, (long)BH, a.dh_init, st);
-}
-
-template <int R, int VPL>
-cudaError_t launch_bwd_kernel(const BwdArgs& a, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)2 * a.n * R * a.H + (size_t)R * a.H +
-                                       (size_t)R * 4 * a.H + (size_t)R * a.V + (size_t)R * a.C);
-  cudaError_t e = cudaFuncSetAttribute(dec_bwd_kernel<R, VPL>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dec_bwd_kernel<R, VPL><<<(a.B + R - 1) / R, NT, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-template <int VPL>
-cudaError_t launch_bwd_r(const BwdArgs& a, int R, cudaStream_t st) {
-  switch (R) {
-    case 1: return launch_bwd_kernel<1, VPL>(a, st);
-    case 2: return launch_bwd_kernel<2, VPL>(a, st);
-    case 4: return launch_bwd_kernel<4, VPL>(a, st);
-    case 8: return launch_bwd_kernel<8, VPL>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 struct GradOut {
@@ -944,10 +896,8 @@ struct GradOut {
 };
 
 template <typename T>
-cudaError_t launch_bwd(const BwdArgs& a, int R, const GradOut& o, cudaStream_t st) {
-  cudaError_t e;
-  if constexpr (sizeof(T) == 2) e = reverse_bf16(a, st);
-  else e = a.V <= 128 ? launch_bwd_r<4>(a, R, st) : launch_bwd_r<16>(a, R, st);
+cudaError_t launch_bwd(const BwdArgs& a, const GradOut& o, cudaStream_t st) {
+  cudaError_t e = reverse_chain<T>(a, st);
   if (e != cudaSuccess) return e;
   const int B = a.B, L = a.L, H = a.H, E = a.E, C = a.C, n = a.n, V = a.V, G = 4 * H,
             M = B * L;
@@ -1083,19 +1033,17 @@ int dec_head_launch(const void* htop, const void* woutT, const void* bout, const
                     : launch_head(h, static_cast<const float*>(htop), t, s));
 }
 
-// The backward. bf16 reads wcat (every layer's [K_l + H, 4H] weight back to
-// back), wout [H, V] and woutT [V, H], with dh and dc its [n, B, H] f32
-// buffers and dcond zeros on entry, and dtop [L, B, H] f32 scratch; f32
-// reads wT (every layer's transpose back to back), wout and woutT, with R
-// its rows per block.
+// The backward, bf16 (bf16 = 1) or f32: wcat (every layer's [K_l + H, 4H]
+// weight back to back), wout [H, V] and woutT [V, H] in the compute dtype,
+// with dh and dc its [n, B, H] f32 buffers and dcond zeros on entry, and
+// dtop [L, B, H] f32 scratch.
 int dec_bwd_launch(const void* din, const void* targets, const void* toks, const void* hs,
                    const void* cs, const void* gs, const void* emb, const void* wcat,
-                   const void* wT, const void* wout, const void* woutT, const void* bout,
-                   const void* h_init, const void* cond, void* dh, void* dc, void* dtop,
-                   void* dgates, void* dx0, void* dlog, void* dh_init, void* dcond, void* dW,
-                   void* db, void* dwout, void* dbout, void* demb, void* scratch,
-                   long scratch_elems, int B, int L, int V, int E, int C, int H, int n, int bf16,
-                   int R, int with_ce, void* stream) {
+                   const void* wout, const void* woutT, const void* bout, const void* h_init,
+                   const void* cond, void* dh, void* dc, void* dtop, void* dgates, void* dx0,
+                   void* dlog, void* dh_init, void* dcond, void* dW, void* db, void* dwout,
+                   void* dbout, void* demb, void* scratch, long scratch_elems, int B, int L,
+                   int V, int E, int C, int H, int n, int bf16, int with_ce, void* stream) {
   BwdArgs a;
   a.din = static_cast<const float*>(din);
   a.targets = static_cast<const int*>(targets);
@@ -1103,7 +1051,6 @@ int dec_bwd_launch(const void* din, const void* targets, const void* toks, const
   a.cs = cs;
   a.gs = gs;
   a.wcat = wcat;
-  a.wT = wT;
   a.wout = wout;
   a.woutT = woutT;
   a.bout = static_cast<const float*>(bout);
@@ -1130,26 +1077,29 @@ int dec_bwd_launch(const void* din, const void* targets, const void* toks, const
   o.scratch_elems = scratch_elems;
   if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_bwd<__nv_bfloat16>(a, R, o, s) : launch_bwd<float>(a, R, o, s));
+  return (int)(bf16 ? launch_bwd<__nv_bfloat16>(a, o, s) : launch_bwd<float>(a, o, s));
 }
 
-// The bf16 backward's head pass alone (dec_head_bwd_kernel, dec_dtop_kernel):
-// dlog [L, B, V] and dtop [L, B, H] f32 from hs [L, n, B, H] (a check of the
-// kernels against their plain twin).
+// The backward's head pass alone, bf16 (dec_head_bwd_kernel, dec_dtop_kernel)
+// or f32 (dec_head_bwd_tf32_kernel, dec_dtop_tf32_kernel): dlog [L, B, V]
+// and dtop [L, B, H] f32 from hs [L, n, B, H] in woutT's dtype (a check of
+// the kernels against their plain twin).
 int dec_head_bwd_launch(const void* hs, const void* woutT, const void* wout, const void* bout,
                         const void* targets, const void* din, void* dlog, void* dtop, int B,
-                        int L, int V, int H, int n, int with_ce, void* stream) {
+                        int L, int V, int H, int n, int with_ce, int bf16, void* stream) {
   if (B < 1 || L < 1 || V < 1 || V > 512 || n < 1 || n > 8) return (int)cudaErrorInvalidValue;
   BwdArgs a = {};
   a.hs = hs;
   a.woutT = woutT;
+  a.wout = wout;
   a.bout = static_cast<const float*>(bout);
   a.targets = static_cast<const int*>(targets);
   a.din = static_cast<const float*>(din);
   a.dlog = static_cast<float*>(dlog);
+  a.dtop = static_cast<float*>(dtop);
   a.B = B; a.L = L; a.V = V; a.H = H; a.n = n; a.with_ce = with_ce;
-  return (int)head_bwd(head_bwd_args(a), static_cast<const __nv_bfloat16*>(wout),
-                       static_cast<float*>(dtop), static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(bf16 ? head_bwd<__nv_bfloat16>(a, s) : head_bwd<float>(a, s));
 }
 
 const char* dec_error_string(int code) {

@@ -14,9 +14,8 @@
 //    stored activations, so a gate that saturated to exactly 1.0 in bf16
 //    has a zero a*(1-a) term, as on the TPU.
 //  * Layer l's combined weight is [K_l + H, 4H] (input rows, then recurrent
-//    rows); the CUDA-core reverse step (the f32 training decoder's) reads
-//    its transpose [4H, K_l + H] so that a thread owning one input column
-//    reads neighbouring addresses.
+//    rows); the reverse chains read it as it lies (row k is column k of the
+//    input cotangent).
 //
 // Cross-row sums. On the TPU a backward kernel adds every batch block's
 // weight gradient into one VMEM accumulator, because its grid runs in order
@@ -101,72 +100,10 @@ __device__ __forceinline__ float gate_cot(const float (&a)[4], float c, float cp
   return dct * fg;
 }
 
-// Phase A of the reverse step of one layer at step t, for a tile of R rows:
-// from the stored activations and c, and the running (dh, dc), form the
-// four gate cotangents, rounded to T (the TPU casts dgates to the weight
-// dtype before its products). They go to dg [R][4H] in shared memory and
-// to the dgates slab [B, 4H]; dc becomes dc_tot * f.
-//   gs/cs_t/cs_prev: this layer's residual slabs at t (cs_prev at t-1, or
-//   null at t = 0, where c_prev is c0 [B, H] f32, or 0 if c0 is null too);
-//   dh, dc, fa: [R][H] (fa is the cotangent arriving from above: the layer
-//   above's input cotangent, the vocab projection's for the decoder's top
-//   layer, or the per-step output cotangent of a single layer).
-template <typename T>
-__device__ __forceinline__ void cell_bwd_gates(const T* gs, const T* cs_t, const T* cs_prev,
-                                               const float* dh, float* dc, const float* fa,
-                                               float* dg, T* dg_out, int R, int H, int row0,
-                                               int B, const float* c0 = nullptr) {
-  const int G = 4 * H;
-  for (int idx = threadIdx.x; idx < R * H; idx += NT) {
-    const int r = idx / H, j = idx % H, g = row0 + r;
-    float a[4] = {0.f, 0.f, 0.f, 0.f}, c = 0.f, cp = 0.f;
-    if (g < B) {
-      const T* gp = gs + (size_t)g * G + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a[q] = ld(gp + q * H);
-      c = ld(cs_t + (size_t)g * H + j);
-      cp = cs_prev != nullptr ? ld(cs_prev + (size_t)g * H + j)
-                              : (c0 != nullptr ? c0[(size_t)g * H + j] : 0.0f);
-    }
-    float d4[4];
-    dc[idx] = gate_cot<T>(a, c, cp, dh[idx] + fa[idx], dc[idx], d4);
-    float* d = dg + (size_t)r * G + j;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) d[q * H] = d4[q];
-    if (g < B) {
-      T* o = dg_out + (size_t)g * G + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) st(o + q * H, d4[q]);
-    }
-  }
-}
-
-// Phase B: the input cotangent dinp [R][Kl + H] = dg [R][4H] @ W^T, read
-// from WT [4H][Kl + H]. Each column k is owned by one thread for all R rows
-// and handed to sink(r, k, value).
-template <typename T, int R, typename Sink>
-__device__ __forceinline__ void cell_bwd_dinp(const T* WT, const float* dg, int K, int G,
-                                              Sink sink) {
-  for (int k = threadIdx.x; k < K; k += NT) {
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-    for (int q = 0; q < G; ++q) {
-      const float w = ld(WT + (size_t)q * K + k);
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(dg[r * G + q], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) sink(r, k, acc[r]);
-  }
-}
-
 // The reverse step of one layer at one step s, element by element: the
 // epilogue of the tensor-core reverse products (dinp_tile and dinp_tile_tf32
 // below) and the first launch of their chains (gate_kernel). T: the
-// residuals' and dgates' type (bf16, or f32 on the encoder's split-TF32
-// chain).
+// residuals' and dgates' type (bf16, or f32 on the split-TF32 chains).
 template <typename T>
 struct GateArgsT {
   const T* gs;         // [B, 4H] activated gates at s
@@ -274,9 +211,10 @@ __device__ __forceinline__ const float* abt_tile_tf32(unsigned char* smem_raw, u
   return wg::stage_tile(sum, smem_raw, ring);
 }
 
-// The f32 counterpart of dinp_tile (fused_encoder.cu's enc_step_tf32_kernel
-// and fused_seq_lstm.cu's seq_step_tf32_kernel): the same tile of dinp [B,
-// N] = dg [B, G] w^T as split-TF32, dg's rows and w's rows read as they lie.
+// The f32 counterpart of dinp_tile (fused_encoder.cu's enc_step_tf32_kernel,
+// fused_seq_lstm.cu's seq_step_tf32_kernel and fused_train_decoder.cu's
+// dec_step_tf32_kernel): the same tile of dinp [B, N] = dg [B, G] w^T as
+// split-TF32, dg's rows and w's rows read as they lie.
 __device__ __forceinline__ const float* dinp_tile_tf32(unsigned char* smem_raw, const float* dg,
                                                        const float* w, int B, int N, int G,
                                                        bool vec) {

@@ -24,13 +24,16 @@ split-TF32 in f32) and one launch of the vocab head (``dec_head_kernel``,
 ``dec_head_tf32_kernel``); :func:`decoder_fwd_steps_reference` is the plain
 twin launch by launch (``split_tf32=True`` for f32),
 :func:`decoder_head_step_reference` of one head launch, and
-:func:`decoder_fwd_launch_plan` the host side's plan. So is the backward's:
-in bf16 a head pass over all L * B rows (two launches;
-:func:`decoder_head_bwd_reference`), then the reverse chain, 1 + n * L
-tensor-core launches (:func:`decoder_reverse_step_reference` is the plain
-twin of one, :func:`decoder_reverse_steps_reference` of the whole reverse
-launch by launch), and the sum of d(h_init); in f32 one CUDA-core kernel.
-Both then form the weight-gradient sums (:func:`decoder_grads`). The plain
+:func:`decoder_fwd_launch_plan` the host side's plan. So is the backward's,
+in one frame for both dtypes: a head pass over all L * B rows (two launches,
+``dec_head_bwd_kernel`` and ``dec_dtop_kernel`` on bf16 ``wgmma``,
+``dec_head_bwd_tf32_kernel`` and ``dec_dtop_tf32_kernel`` as split-TF32 in
+f32; :func:`decoder_head_bwd_reference`), then the reverse chain, 1 + n * L
+tensor-core launches (``dec_step_kernel``, ``dec_step_tf32_kernel``;
+:func:`decoder_reverse_step_reference` is the plain twin of one,
+:func:`decoder_reverse_steps_reference` of the whole reverse launch by
+launch, ``split_tf32=True`` for f32), and the sum of d(h_init). Then the
+weight-gradient sums (:func:`decoder_grads`). The plain
 versions store the same residuals in the same dtype (h, c and ACTIVATED
 gates in the compute dtype) and the plain backward computes from them what
 the kernels' backward computes, so the card can hold each kernel against
@@ -169,18 +172,20 @@ def decoder_fwd_steps_reference(w: StackWeights, h_init: torch.Tensor, cond: tor
 
 
 def _head_bwd_step(w: StackWeights, t: int, din: torch.Tensor, targets: torch.Tensor,
-                   hs: torch.Tensor, with_ce: bool):
+                   hs: torch.Tensor, with_ce: bool, split_tf32: bool = False):
     """Step ``t`` of the vocab head's backward: ``(dlogits [B, V], the top
     layer's h cotangent [B, H])``, both f32. With CE, dlogits is (softmax of
     the logits recomputed from the stored top h - onehot(target)) * dce,
     where a target outside [0, V) adds no one-hot; the cotangent is dlogits
     rounded to the compute dtype times fc_out^T, f32 sums (JAX's
-    ``from_above``)."""
+    ``from_above``). ``split_tf32``: both products as the f32 kernels form
+    them (:func:`~mlx_vae_tpu_torch.ops.train_common.split_tf32_matmul`)."""
     V, wdt = w.cfg.vocab_size, w.cfg.dtype
     n = hs.shape[1]
     wout = w.wout.float()
+    mm = split_tf32_matmul if split_tf32 else torch.matmul
     if with_ce:
-        logits = hs[t, n - 1].float() @ wout + w.bout
+        logits = mm(hs[t, n - 1].float(), wout) + w.bout
         p = torch.softmax(logits, dim=1)
         target = targets[:, t].long()
         onehot = torch.nn.functional.one_hot(target.clamp(0, V - 1), V).float()
@@ -188,7 +193,7 @@ def _head_bwd_step(w: StackWeights, t: int, din: torch.Tensor, targets: torch.Te
         dl = (p - onehot) * din.float()[:, None]
     else:
         dl = din[:, t].float()
-    return dl, dl.to(wdt).float() @ wout.T
+    return dl, mm(dl.to(wdt).float(), wout.T)
 
 
 def decoder_reverse_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
@@ -227,26 +232,30 @@ def decoder_reverse_reference(w: StackWeights, din: torch.Tensor, targets: torch
 
 
 def decoder_head_bwd_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
-                               hs: torch.Tensor, with_ce: bool):
-    """Plain twin of the bf16 backward's head pass (``dec_head_bwd_kernel``
-    then ``dec_dtop_kernel``): ``(dlog [L, B, V], dtop [L, B, H])`` f32, the
-    head's backward of every step, each formed as
-    :func:`decoder_reverse_reference` forms it."""
+                               hs: torch.Tensor, with_ce: bool, split_tf32: bool = False):
+    """Plain twin of the backward's head pass (``dec_head_bwd_kernel`` then
+    ``dec_dtop_kernel``; with ``split_tf32`` the f32
+    ``dec_head_bwd_tf32_kernel`` then ``dec_dtop_tf32_kernel``): ``(dlog [L,
+    B, V], dtop [L, B, H])`` f32, the head's backward of every step, each
+    formed as :func:`decoder_reverse_reference` forms it (``split_tf32``:
+    within the split's ~2^-21 of each product)."""
     L, _, B, H = hs.shape
     f32 = dict(dtype=torch.float32, device=hs.device)
     dlog = torch.empty((L, B, w.cfg.vocab_size), **f32)
     dtop = torch.empty((L, B, H), **f32)
     for t in range(L):
-        dlog[t], dtop[t] = _head_bwd_step(w, t, din, targets, hs, with_ce)
+        dlog[t], dtop[t] = _head_bwd_step(w, t, din, targets, hs, with_ce, split_tf32)
     return dlog, dtop
 
 
 def decoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Tensor,
                                    gs: torch.Tensor, dtop: torch.Tensor, dgates: torch.Tensor,
                                    dx0: torch.Tensor, dcond: torch.Tensor, dh: torch.Tensor,
-                                   dc: torch.Tensor) -> None:
+                                   dc: torch.Tensor, split_tf32: bool = False) -> None:
     """Plain twin of one ``dec_step_kernel`` launch, (step ``t``, layer
-    ``l``), in place.
+    ``l``), in place (``split_tf32``: of one f32 ``dec_step_tf32_kernel``
+    launch, whose product is
+    :func:`~mlx_vae_tpu_torch.ops.train_common.split_tf32_matmul`).
 
     ``dinp = dgates[t, l] W_l^T`` (f32 products of the rounded operands, as
     :func:`decoder_reverse_reference` forms them), then each column as the
@@ -260,7 +269,8 @@ def decoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Te
     cfg = w.cfg
     n, E = cfg.num_layers, cfg.embedding_dim
     kx = E + cfg.num_conditions if l == 0 else cfg.hidden_dim
-    dinp = dgates[t, l].float() @ w.layers[l].float().T
+    mm = split_tf32_matmul if split_tf32 else torch.matmul
+    dinp = mm(dgates[t, l].float(), w.layers[l].float().T)
     if l > 0:
         reverse_gate_reference(cfg, t, l - 1, dh[l - 1] + dinp[:, :kx], cs, gs, dgates, dc)
     else:
@@ -274,13 +284,15 @@ def decoder_reverse_step_reference(w: StackWeights, t: int, l: int, cs: torch.Te
 
 def decoder_reverse_steps_reference(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
                                     hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor,
-                                    with_ce: bool):
-    """Plain twin of the bf16 reverse, launch by launch (contract of
-    :func:`decoder_reverse_reference`, which it equals bit for bit): the
-    head pass (:func:`decoder_head_bwd_reference`); the gate step of (L-1,
-    n-1) from ``dh[n-1] + dtop[L-1]``; :func:`decoder_reverse_step_reference`
-    for t = L-1 .. 0, l = n-1 .. 0; then d(h_init), the sum of ``dh`` over
-    layers, layer 0 first."""
+                                    with_ce: bool, split_tf32: bool = False):
+    """Plain twin of the reverse, launch by launch (contract of
+    :func:`decoder_reverse_reference`, which it equals bit for bit without
+    ``split_tf32``): the head pass (:func:`decoder_head_bwd_reference`); the
+    gate step of (L-1, n-1) from ``dh[n-1] + dtop[L-1]``;
+    :func:`decoder_reverse_step_reference` for t = L-1 .. 0, l = n-1 .. 0;
+    then d(h_init), the sum of ``dh`` over layers, layer 0 first.
+    ``split_tf32``: the f32 kernels' products (the head pass's and the
+    chain's), within the split's ~2^-21 of each product."""
     cfg = w.cfg
     L, n, B, H = hs.shape
     dev = hs.device
@@ -288,11 +300,12 @@ def decoder_reverse_steps_reference(w: StackWeights, din: torch.Tensor, targets:
     dx0 = torch.empty((L, B, cfg.embedding_dim), dtype=cfg.dtype, device=dev)
     dcond = torch.zeros((B, cfg.num_conditions), dtype=torch.float32, device=dev)
     dh, dc = torch.zeros((2, n, B, H), dtype=torch.float32, device=dev)
-    dlog, dtop = decoder_head_bwd_reference(w, din, targets, hs, with_ce)
+    dlog, dtop = decoder_head_bwd_reference(w, din, targets, hs, with_ce, split_tf32)
     reverse_gate_reference(cfg, L - 1, n - 1, dh[n - 1] + dtop[L - 1], cs, gs, dgates, dc)
     for t in range(L - 1, -1, -1):
         for l in range(n - 1, -1, -1):
-            decoder_reverse_step_reference(w, t, l, cs, gs, dtop, dgates, dx0, dcond, dh, dc)
+            decoder_reverse_step_reference(w, t, l, cs, gs, dtop, dgates, dx0, dcond, dh, dc,
+                                           split_tf32)
     return dgates, dx0, dlog, sum(dh), dcond
 
 
@@ -336,10 +349,10 @@ def decoder_bwd_reference(w: StackWeights, din: torch.Tensor, targets: torch.Ten
 
 # ------------------------------------------------------------------ kernels
 
-# The forward's shared-memory rule is that of the row-tiled kernel it
-# replaced: the step and head launches take every width, but the rule stays
-# the support predicate, so that the routes (which ask it, as the JAX
-# package asks its own) do not move.
+# The forward's and the backward's shared-memory rules are those of the
+# row-tiled kernels they replaced: the head, step and chain launches take
+# every width, but the rules stay the support predicate, so that the routes
+# (which ask it, as the JAX package asks its own) do not move.
 def _fwd_smem(cfg: ModelConfig):
     K0, H, n = cfg.embedding_dim + cfg.num_conditions, cfg.hidden_dim, cfg.num_layers
     return lambda r: r * K0 + 3 * n * r * H + 2 * r
@@ -417,9 +430,9 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     lib.dec_fwd_launch.restype = i
     lib.dec_head_launch.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.dec_head_launch.restype = i
-    lib.dec_bwd_launch.argtypes = [p] * 28 + [lg] + [i] * 10 + [p]
+    lib.dec_bwd_launch.argtypes = [p] * 27 + [lg] + [i] * 9 + [p]
     lib.dec_bwd_launch.restype = i
-    lib.dec_head_bwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.dec_head_bwd_launch.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.dec_head_bwd_launch.restype = i
     lib.dec_error_string.argtypes = [i]
     lib.dec_error_string.restype = ctypes.c_char_p
@@ -505,10 +518,10 @@ decoder_fwd.logits_launches = 0
 def launch_decoder_bwd(lib, w: StackWeights, din, targets, toks, h_init, cond, hs, cs, gs,
                        with_ce: bool, stream: int, with_reverse: bool = False):
     """Allocate the outputs and scratch and launch the backward kernels (no
-    device or support checks: :func:`decoder_bwd` makes them). bf16 runs the
-    head pass and the tensor-core reverse chain on ``wcat`` with zeroed
-    ``[n, B, H]`` dh and dc buffers and an ``[L, B, H]`` dtop; f32 the
-    CUDA-core reverse kernel on ``wT``. Returns ``(dW, db, dwout, dbout,
+    device or support checks: :func:`decoder_bwd` makes them): the head pass
+    and the tensor-core reverse chain on ``wcat`` (bf16 ``wgmma``, f32
+    split-TF32) with zeroed ``[n, B, H]`` dh and dc buffers and an ``[L, B,
+    H]`` dtop, then the weight-gradient sums. Returns ``(dW, db, dwout, dbout,
     demb, dh_init, dcond)``, and with ``with_reverse`` also the reverse's
     ``(dgates, dx0, dlog, dh_init, dcond)`` (the contract of
     :func:`decoder_reverse_reference`)."""
@@ -516,7 +529,6 @@ def launch_decoder_bwd(lib, w: StackWeights, din, targets, toks, h_init, cond, h
     L, n, B, H = hs.shape
     E, C, V = cfg.embedding_dim, cfg.num_conditions, cfg.vocab_size
     dev, wdt = hs.device, cfg.dtype
-    bf16 = wdt == torch.bfloat16
     K0 = E + C
     f32 = dict(dtype=torch.float32, device=dev)
     dgates = torch.empty((L, n, B, 4 * H), dtype=wdt, device=dev)
@@ -531,20 +543,18 @@ def launch_decoder_bwd(lib, w: StackWeights, din, targets, toks, h_init, cond, h
     dbout = torch.empty((V,), **f32)
     demb = torch.empty((V, E), **f32)
     scratch = torch.empty((SCRATCH_ELEMS,), **f32)
-    dhc = torch.zeros((2, n, B, H), **f32) if bf16 else None  # dh, dc
-    dtop = torch.empty((L, B, H), **f32) if bf16 else None
+    dh, dc = torch.zeros((2, n, B, H), **f32)
+    dtop = torch.empty((L, B, H), **f32)
     h0 = h_init.to(wdt).contiguous()
     cond_w = cond.to(wdt).contiguous()
-    R = 0 if bf16 else bwd_rows(_bwd_smem(cfg))
     rc = lib.dec_bwd_launch(
         din.data_ptr(), targets.data_ptr(), toks.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        gs.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(), w.wT.data_ptr(), w.wout.data_ptr(),
+        gs.data_ptr(), w.emb.data_ptr(), w.wcat.data_ptr(), w.wout.data_ptr(),
         w.woutT.data_ptr(), w.bout.data_ptr(), h0.data_ptr(), cond_w.data_ptr(),
-        dhc[0].data_ptr() if bf16 else None, dhc[1].data_ptr() if bf16 else None,
-        dtop.data_ptr() if bf16 else None, dgates.data_ptr(), dx0.data_ptr(), dlog.data_ptr(),
-        dh_init.data_ptr(), dcond.data_ptr(), dW_flat.data_ptr(), db.data_ptr(),
-        dwout.data_ptr(), dbout.data_ptr(), demb.data_ptr(), scratch.data_ptr(), SCRATCH_ELEMS,
-        B, L, V, E, C, H, n, int(bf16), R, int(with_ce), stream)
+        dh.data_ptr(), dc.data_ptr(), dtop.data_ptr(), dgates.data_ptr(), dx0.data_ptr(),
+        dlog.data_ptr(), dh_init.data_ptr(), dcond.data_ptr(), dW_flat.data_ptr(),
+        db.data_ptr(), dwout.data_ptr(), dbout.data_ptr(), demb.data_ptr(), scratch.data_ptr(),
+        SCRATCH_ELEMS, B, L, V, E, C, H, n, int(wdt == torch.bfloat16), int(with_ce), stream)
     raise_if(rc, "decoder backward", lib.dec_error_string)
     dW, off = [], 0
     for size in sizes:
@@ -556,10 +566,12 @@ def launch_decoder_bwd(lib, w: StackWeights, din, targets, toks, h_init, cond, h
 
 def launch_decoder_head_bwd(lib, w: StackWeights, din, targets, hs, with_ce: bool,
                             stream: int):
-    """The bf16 backward's head pass alone (``dec_head_bwd_kernel`` then
-    ``dec_dtop_kernel``): ``(dlog [L, B, V], dtop [L, B, H])`` f32, the
-    contract of :func:`decoder_head_bwd_reference` (for holding the kernels
-    against their twin: no checks, no count)."""
+    """The backward's head pass alone, by the residuals' dtype
+    (``dec_head_bwd_kernel`` then ``dec_dtop_kernel`` for bf16 ``hs``,
+    ``dec_head_bwd_tf32_kernel`` then ``dec_dtop_tf32_kernel`` for f32):
+    ``(dlog [L, B, V], dtop [L, B, H])`` f32, the contract of
+    :func:`decoder_head_bwd_reference` (with ``split_tf32`` in f32; for
+    holding the kernels against their twin: no checks, no count)."""
     L, n, B, H = hs.shape
     V = w.cfg.vocab_size
     dlog = torch.empty((L, B, V), dtype=torch.float32, device=hs.device)
@@ -567,7 +579,7 @@ def launch_decoder_head_bwd(lib, w: StackWeights, din, targets, hs, with_ce: boo
     rc = lib.dec_head_bwd_launch(hs.data_ptr(), w.woutT.data_ptr(), w.wout.data_ptr(),
                                  w.bout.data_ptr(), targets.data_ptr(), din.data_ptr(),
                                  dlog.data_ptr(), dtop.data_ptr(), B, L, V, H, n,
-                                 int(with_ce), stream)
+                                 int(with_ce), int(hs.dtype == torch.bfloat16), stream)
     raise_if(rc, "decoder head backward", lib.dec_error_string)
     return dlog, dtop
 
@@ -576,8 +588,8 @@ def decoder_bwd(w: StackWeights, din: torch.Tensor, targets: torch.Tensor,
                 toks: torch.Tensor, h_init: torch.Tensor, cond: torch.Tensor,
                 hs: torch.Tensor, cs: torch.Tensor, gs: torch.Tensor, with_ce: bool):
     """The backward (contract of :func:`decoder_bwd_reference`). CPU tensors
-    run the plain version; CUDA tensors launch the kernels (bf16: the head
-    pass and the tensor-core reverse chain; f32: ``dec_bwd_kernel``), then
+    run the plain version; CUDA tensors launch the kernels (the head pass
+    and the tensor-core reverse chain: bf16 ``wgmma``, f32 split-TF32), then
     the weight-gradient sums, counted once per call in
     ``decoder_bwd.launches``."""
     if hs.device.type == "cpu":

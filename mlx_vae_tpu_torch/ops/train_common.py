@@ -53,9 +53,8 @@ class StackWeights:
     """An LSTM stack's weights in the kernels' layout, on one device.
 
     ``wcat`` holds every layer's ``[K_l + H, 4H]`` combined weight back to
-    back and ``wT`` every layer's transpose ``[4H, K_l + H]`` (the decoder's
-    f32 reverse kernel reads input columns from it; None for the encoder,
-    whose reverse chain reads ``wcat``); ``layers`` are views of ``wcat``.
+    back (the reverse chains read it as it lies); ``layers`` are views of
+    ``wcat``.
     Matrices are in the compute dtype, biases in float32. ``wout``,
     ``woutT`` and ``bout`` (decoder only) are ``fc_out`` as ``[H, V]``,
     ``[V, H]`` and ``[V]``.
@@ -64,7 +63,6 @@ class StackWeights:
     cfg: ModelConfig
     emb: torch.Tensor
     wcat: torch.Tensor
-    wT: Optional[torch.Tensor]
     layers: tuple
     bias: torch.Tensor
     wout: Optional[torch.Tensor] = None
@@ -82,7 +80,6 @@ def prepare_stack_weights(params: dict, cfg: ModelConfig,
         mats = [combined_weight(params[f"lstm_layer_{i}"]).to(wdt)
                 for i in range(cfg.num_layers)]
         wcat = torch.cat([m.reshape(-1) for m in mats])
-        wT = torch.cat([m.T.reshape(-1) for m in mats]) if with_head else None
         layers, off = [], 0
         for m in mats:
             layers.append(wcat[off:off + m.numel()].view(m.shape))
@@ -95,7 +92,7 @@ def prepare_stack_weights(params: dict, cfg: ModelConfig,
             head = dict(wout=wout.T.contiguous(), woutT=wout.contiguous(),
                         bout=params["fc_out"]["bias"].float().contiguous())
         return StackWeights(cfg=cfg, emb=params["embedding"]["weight"].to(wdt).contiguous(),
-                            wcat=wcat, wT=wT, layers=tuple(layers), bias=bias, **head)
+                            wcat=wcat, layers=tuple(layers), bias=bias, **head)
 
 
 def layer_grads(dW: List[torch.Tensor], db: torch.Tensor, cfg: ModelConfig,

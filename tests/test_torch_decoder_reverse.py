@@ -14,6 +14,12 @@ within 1e-4 in float32 (the JAX package's kernel-vs-autodiff tolerance) and
 2e-2 of each leaf's largest magnitude in bfloat16 (both sides store
 activated gates in bf16 and round the same operands; one bf16 ulp is ~4e-3
 relative, and a summation order can move a rounding).
+
+The f32 kernels' twins (``split_tf32=True``: every product of the head pass
+and the chain as ``split_tf32_matmul``, within ~2^-21 of each product) hold
+the plain f32 reverse within 2e-6 of each output's largest magnitude, the
+head pass alone within 1e-6, and through ``decoder_grads`` the same JAX VJP
+within the f32 tolerance above.
 """
 
 import jax
@@ -139,3 +145,70 @@ def test_twin_gradients_match_pallas_vjp(case):
         else:
             err = _scaled_err(mine, ref)
             assert err < 2e-2, f"{name}: scaled err {err:.3e}"
+
+
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+def test_split_reverse_twins_hold_the_f32_reference(shape, with_ce):
+    """The f32 kernels' twin launch by launch (split_tf32) against the plain
+    f32 reverse: dgates, dx0, dlog, d(h_init) and d(cond) each within 2e-6
+    of its largest magnitude (targets -1, V and 999 mixed in)."""
+    *_, w, _, _, tok, din, _, hs, cs, gs = _case(*SHAPES[shape], "float32", with_ce, seed=shape)
+    args = (w, torch.from_numpy(din), torch.from_numpy(tok), hs, cs, gs, with_ce)
+    got = fd.decoder_reverse_steps_reference(*args, split_tf32=True)
+    want = fd.decoder_reverse_reference(*args)
+    errs = {name: _scaled_err(g, w_) for name, g, w_ in
+            zip(("dgates", "dx0", "dlog", "dh_init", "dcond"), got, want)}
+    print(f"split reverse twin vs plain f32, shape {shape}, ce={with_ce}: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for name, err in errs.items():
+        assert err <= 2e-6, (name, err)
+
+
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+def test_split_head_twin_holds_the_unsplit_head(shape, with_ce):
+    """decoder_head_bwd_reference with split_tf32 (the f32 head pass's
+    products) against the unsplit f32 head: dlog and dtop within 1e-6 of
+    their largest magnitude; without CE dlog is the given dlogits as they
+    are."""
+    *_, w, _, _, tok, din, _, hs, _, _ = _case(*SHAPES[shape], "float32", with_ce, seed=shape)
+    args = (w, torch.from_numpy(din), torch.from_numpy(tok), hs, with_ce)
+    got = fd.decoder_head_bwd_reference(*args, split_tf32=True)
+    want = fd.decoder_head_bwd_reference(*args)
+    for name, g, w_ in zip(("dlog", "dtop"), got, want):
+        err = _scaled_err(g, w_)
+        assert err <= 1e-6, (name, err)
+    if not with_ce:
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+def test_split_twin_gradients_match_pallas_vjp(shape, with_ce):
+    """The f32 kernels' twin (split_tf32) through decoder_grads, with its
+    d(h_init) and d(cond), against the VJP of decoder_train_ce_pallas /
+    decoder_train_pallas (interpret mode) within the f32 tolerance, 1e-4."""
+    n, C, V, H = SHAPES[shape]
+    jcfg, tcfg, npp, w, h0, cond, tok, din, toks, hs, cs, gs = _case(
+        n, C, V, H, "float32", with_ce, seed=shape)
+    dgates, dx0, dlog, dh_init, dcond = fd.decoder_reverse_steps_reference(
+        w, torch.from_numpy(din), torch.from_numpy(tok), hs, cs, gs, with_ce, split_tf32=True)
+    dW, db, dwout, dbout, demb = fd.decoder_grads(w, toks, torch.from_numpy(h0),
+                                                  torch.from_numpy(cond), hs, dgates, dx0, dlog)
+    fn = decoder_train_ce_pallas if with_ce else decoder_train_pallas
+    tf = jnp.ones((L,), bool)
+    _, vjp = jax.vjp(lambda p, h, c: fn(p, jcfg, h, c, jnp.asarray(tok), True, tf),
+                     jax.tree_util.tree_map(jnp.asarray, npp), jnp.asarray(h0),
+                     jnp.asarray(cond))
+    jgp, jgh, jgc = vjp(jnp.asarray(din))
+    leaves = tc.layer_grads(dW, db, tcfg, E + C)
+    pairs = [("h_init", dh_init, jgh), ("conditions", dcond, jgc),
+             ("embedding.weight", demb, jgp["embedding"]["weight"]),
+             ("fc_out.weight", dwout.T, jgp["fc_out"]["weight"]),
+             ("fc_out.bias", dbout, jgp["fc_out"]["bias"])]
+    pairs += [(f"lstm_layer_{l}.{k}", leaves[3 * l + i], jgp[f"lstm_layer_{l}"][k])
+              for l in range(n) for i, k in enumerate(("Wx", "Wh", "bias"))]
+    for name, mine, ref in pairs:
+        np.testing.assert_allclose(np.asarray(mine), np.asarray(ref, np.float32), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)

@@ -276,8 +276,8 @@ def test_head_step_ties_and_targets_outside_the_vocab():
     cfg = ModelConfig(vocab_size=V, hidden_dim=H, embedding_dim=4, latent_dim=8, num_layers=1)
     wout = torch.zeros((H, V))
     bout = torch.tensor([0.0, 2.0, 2.0, -1.0, 1.0])
-    w = tc.StackWeights(cfg=cfg, emb=torch.zeros((V, 4)), wcat=torch.zeros(1), wT=torch.zeros(1),
-                        layers=(), bias=torch.zeros(1), wout=wout, woutT=wout.T, bout=bout)
+    w = tc.StackWeights(cfg=cfg, emb=torch.zeros((V, 4)), wcat=torch.zeros(1), layers=(),
+                        bias=torch.zeros(1), wout=wout, woutT=wout.T, bout=bout)
     hs = torch.zeros((Lh, 1, Bh, H))
     targets = torch.tensor([[4, 1], [-1, 0], [V, 2]], dtype=torch.int32)
     tf = torch.tensor([False, False])

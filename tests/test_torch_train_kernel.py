@@ -1,8 +1,8 @@
 """The train step's CUDA kernels (fused encoder, fused training decoder:
 forward and backward each; the decoder forward's step and vocab-head chain
-in bf16 and as split-TF32 in f32, each head launch also alone, and in bf16
-the decoder backward's head pass and
-reverse chain, each also alone; and the instances of the gate pair's
+in bf16 and as split-TF32 in f32, each head launch also alone, and the
+decoder backward's head pass and reverse chain in bf16 and as split-TF32 in
+f32, each also alone; and the instances of the gate pair's
 forward and backward) against their plain PyTorch versions, on the card. Tests
 marked ``cuda`` skip without a CUDA device. This file imports no JAX, so it
 also runs on a GPU machine without it:
@@ -797,10 +797,10 @@ def test_decoder_forward_takes_misaligned_views(dev, case, dtype, with_ce):
         assert torch.equal(a, b)
 
 
-def _dec_bwd_inputs(case, with_ce, dev):
+def _dec_bwd_inputs(case, with_ce, dev, dtype="bfloat16"):
     """A DEC_FWD case's plain forward residuals (teacher forcing all on) and
     a backward cotangent: (cfg, w, tok, cond, h0, (toks, hs, cs, gs), din)."""
-    cfg, w, tok, cond, h0 = _dec_case(case, "bfloat16", dev)
+    cfg, w, tok, cond, h0 = _dec_case(case, dtype, dev)
     B, L = tok.shape
     tf = torch.ones((L,), dtype=torch.bool, device=dev)
     res = fd.decoder_fwd_reference(w, h0, cond, tok, tf, with_ce)[1:]
@@ -854,25 +854,107 @@ def test_decoder_head_bwd_matches_plain(dev, case, with_ce):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_f32_head_bwd_matches_split_twin(dev, case, with_ce):
+    """The f32 backward's head pass alone (dec_head_bwd_tf32_kernel, then
+    dec_dtop_tf32_kernel) against decoder_head_bwd_reference(split_tf32=True)
+    on the same stored h: dlog and dtop within 1e-4 of their largest
+    magnitude, over V = 80, 200, 300 and 512 (one, two, three and four column
+    tiles; V > 128 takes two passes), targets -1, V and 999 mixed in, H = 50
+    read element by element and ragged batches (B = 33, 37, 129, 1000)."""
+    _, w, tok, _, _, (_, hs, _, _), din = _dec_bwd_inputs(case, with_ce, dev, "float32")
+    lib, st = fd.build_library(), tc.stream_of(dev)
+    got = fd.launch_decoder_head_bwd(lib, w, din, tok, hs, with_ce, st)
+    want = fd.decoder_head_bwd_reference(w, din, tok, hs, with_ce, split_tf32=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dlog", "dtop"), got, want):
+        assert torch.isfinite(a).all(), name
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("case", range(len(DEC_FWD)))
+def test_decoder_f32_reverse_chain_matches_split_twin(dev, case, with_ce):
+    """The f32 backward's reverse alone (the split-TF32 head pass, the gate
+    kernel, one split-TF32 product per (step, layer) with the gate step in
+    its epilogue, the d(h_init) sum): dgates, dx0, dlog, d(h_init) and
+    d(cond) against decoder_reverse_steps_reference(split_tf32=True) on the
+    same residuals within 1e-4, over the cases of the bf16 chain's test; a
+    second run repeats the first bit for bit, gradient sums included."""
+    _, w, tok, cond, h0, (toks, hs, cs, gs), din = _dec_bwd_inputs(case, with_ce, dev,
+                                                                   "float32")
+    lib, st = fd.build_library(), tc.stream_of(dev)
+    run = lambda: fd.launch_decoder_bwd(lib, w, din, tok, toks, h0, cond, hs, cs, gs,  # noqa: E731
+                                        with_ce, st, with_reverse=True)
+    k1, k2 = run(), run()
+    want = fd.decoder_reverse_steps_reference(w, din, tok, hs, cs, gs, with_ce, split_tf32=True)
+    torch.cuda.synchronize()
+    _close(k1[7:], want, "float32")
+    for a, b in zip([*k1[0], *k1[1:]], [*k2[0], *k2[1:]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ce", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [4, 6])
+def test_decoder_backward_takes_misaligned_views(dev, case, dtype, with_ce):
+    """The cotangent (dce or dlogits), the stored h and fc_out's [H, V] and
+    [V, H] weights as contiguous views that start off a 16-byte boundary (H =
+    256 and 50, V = 80: widths the loaders otherwise read 16 bytes at a
+    time): the head pass, the chain and the weight-gradient passes take
+    their element path and every output equals the aligned call's bit for
+    bit."""
+    import dataclasses
+
+    _, w, tok, cond, h0, (toks, hs, cs, gs), din = _dec_bwd_inputs(case, with_ce, dev, dtype)
+    want = fd.decoder_bwd(w, din, tok, toks, h0, cond, hs, cs, gs, with_ce)
+    wm = dataclasses.replace(w, wout=_misaligned(w.wout), woutT=_misaligned(w.woutT))
+    got = fd.decoder_bwd(wm, _misaligned(din), tok, toks, h0, cond, _misaligned(hs), cs, gs,
+                         with_ce)
+    torch.cuda.synchronize()
+    for a, b in zip([*got[0], *got[1:]], [*want[0], *want[1:]]):
+        assert torch.equal(a, b)
+
+
+def _dec_bwd_reduces(cfg, B: int, L: int) -> int:
+    """reduce_kernel launches of one decoder backward: d(h_init)'s, then the
+    weight-gradient passes' (train_common.cuh:wgrad: one where a pass splits
+    its rows, one after each bias's column sums; demb: one)."""
+    E, C, H, V, n = (cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim, cfg.vocab_size,
+                     cfg.num_layers)
+    bf16, M, G = cfg.compute_dtype == "bfloat16", B * L, 4 * H
+    passes = [(E, G, False), (C, G, False), (H, G, True)] + [(H, G, False), (H, G, True)] * (n - 1)
+    passes.append((H, V, True))
+    return 1 + sum((tc.wgrad_splits(K, N, M, bf16) > 1) + db for K, N, db in passes) + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decoder_backward_routes_by_dtype(dev, dtype):
-    """bf16: the head pass (dec_head_bwd_kernel, dec_dtop_kernel), then
-    train::gate_kernel once and dec_step_kernel per (step, layer), and no
-    dec_bwd_kernel; f32 still runs the CUDA-core dec_bwd_kernel, once."""
+    """Both dtypes, one frame: the head pass (dec_head_bwd_kernel and
+    dec_dtop_kernel in bf16, dec_head_bwd_tf32_kernel and
+    dec_dtop_tf32_kernel in f32), then train::gate_kernel once, the chain's
+    step kernel per (step, layer) (dec_step_kernel, dec_step_tf32_kernel) and
+    one reduce_kernel for d(h_init) beside the weight-gradient passes' own,
+    and no CUDA-core dec_bwd_kernel."""
     import re
 
     cfg, w, tok, cond, h0 = _dec_case(2, dtype, dev)
     B, L = tok.shape
     n = cfg.num_layers
     p = fd.decoder_fwd_reference(w, h0, cond, tok, torch.ones((L,), dtype=torch.bool,
-                                                                device=dev), True)
+                                                              device=dev), True)
     dce = torch.randn((B,), device=dev)
     names = _device_kernels(lambda: fd.decoder_bwd(w, dce, tok, p[1], h0, cond, *p[2:], True))
-    kernels = ("dec_head_bwd_kernel", "dec_dtop_kernel", "gate_kernel", "dec_step_kernel",
-               "dec_bwd_kernel")
+    sfx = "" if dtype == "bfloat16" else "_tf32"
+    kernels = (f"dec_head_bwd{sfx}_kernel", f"dec_dtop{sfx}_kernel", "gate_kernel",
+               f"dec_step{sfx}_kernel", "reduce_kernel", "dec_bwd_kernel")
     count = {k: sum(bool(re.search(rf"\b{k}\b", m)) for m in names) for k in kernels}
-    want = (dict(zip(kernels, (1, 1, 1, n * L, 0))) if dtype == "bfloat16" else
-            dict(zip(kernels, (0, 0, 0, 0, 1))))
+    want = dict(zip(kernels, (1, 1, 1, n * L, _dec_bwd_reduces(cfg, B, L), 0)))
     assert count == want, names
 
 

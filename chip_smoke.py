@@ -2,7 +2,8 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-17 below
+    python3 chip_smoke.py            # phases 1-18 below
+    python3 chip_smoke.py --quality  # phases 1-2 and 18 alone
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -293,7 +294,24 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    rows 7 and 9's forwards, and its TF=1 argmax agrees with the plain route
    on the card on >= 99.0% of first tokens and >= 97.0% of rows. Rows 7-9
    of the kernels line gain ``launches_refused``, row 9 its times at [256,
-   256] (``*_b256``).
+   256] (``*_b256``);
+18. quality parity, a short version of ``studies/quality_parity.py`` (one
+   seed, 67): its synthetic corpus at 4,500 molecules, then
+   ``quality_parity.run_seed``: two checkpoints through ``cli.train`` (2
+   bf16 epochs at B=1024, ``--steps_per_dispatch 8``, ``--use_pallas``; one
+   with ``--use_property_predictor``), ``studies/conditioning_fidelity.py``
+   and ``studies/latent_opt_fidelity.py`` at 2048 rows a target (targets 50
+   / 90 / 130, T=0.8, 300 descent steps), ``cli.encode --split test`` (bf16)
+   and ``cli.generate`` (50,000 molecules at T=0.8 and 8192 greedy rows),
+   on the best and on the final-epoch checkpoints, and the conditioning
+   study again on the best plain checkpoint with the f32 sampler and the
+   scan sampler. Every number it records is finite; every study but the
+   scan rerun ran on the fused route through ``tc::gen_tc_kernel``, all
+   with their tokens and latents on cuda; the
+   train dispatches took more than one step; rows 1-5 were each launched,
+   and the CUDA-core sampler never. Printed: each study's MAE by target, the
+   encode report, validity and mols/s, the seconds of each part. Rows 1-5 of
+   the kernels line gain ``launches_quality``.
 
 ``--f32_times`` runs phases 1-2, then only phase 8's and phase 11's f32
 passes (their profile is printed, not checked for kernel names), and prints
@@ -996,6 +1014,7 @@ def time_ms(fn, reps: int) -> float:
 
 
 GATE_SAMPLES = 200  # launches of each call behind row 9's median
+PROFILE_TRIES = 3  # profiler sessions a profile may take (see profile_step)
 
 
 def profile_step(what: str, fn, smi: str) -> dict:
@@ -1005,34 +1024,40 @@ def profile_step(what: str, fn, smi: str) -> dict:
     the summed device time over the call's wall time on CUDA events; the
     port runs on one stream, so its kernels do not overlap), both against
     the profiled call's wall time and against the mean of three calls
-    without the profiler (which adds host time to every launch)."""
+    without the profiler (which adds host time to every launch). A session
+    in which CUPTI recorded no device time at all is traced again, up to
+    ``PROFILE_TRIES`` sessions in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    # the warm-up call runs as the profiler's warm-up step, traced but not
-    # kept: CUPTI can drop the kernels launched as tracing starts (row 5's
-    # first ones, its zero fills and head pass, went missing so), and the
-    # kept step then finds it running. The step's own range on the device
-    # ("ProfilerStep#1") is no kernel.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:80]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for attempt in range(1, PROFILE_TRIES + 1):
+        # the warm-up call runs as the profiler's warm-up step, traced but
+        # not kept: CUPTI can drop the kernels launched as tracing starts
+        # (row 5's first ones, its zero fills and head pass, went missing
+        # so), and the kept step then finds it running. The step's own range
+        # on the device ("ProfilerStep#1") is no kernel.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        wall = start.elapsed_time(end)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+                name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:80]
+                by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        if by_name:
+            break
+        log(f"  profile, {what}: the profiler recorded no device time (session {attempt} "
+            f"of {PROFILE_TRIES}) [{smi}]")
     busy = sum(by_name.values())
     if not by_name:
-        log(f"  profile, {what}: the profiler recorded no device time [{smi}]")
         return {"wall_ms": wall, "device_ms": None, "idle_share": None, "kernels": {}}
     plain_wall = time_ms(fn, 3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -3472,6 +3497,106 @@ REFUSED_NOTE = ("phase 17: the V=600 (B=512) and 9-layer (B=256) bf16 counted st
                 "the V=600 cli.train epoch (2,000 molecules, B=256)")
 
 
+# ------------------------------------------------------------------ phase 18
+# the quality-parity study cut to one seed, 4,500 molecules and 2 epochs
+QUALITY_SEED = 67
+QUALITY_MOLECULES = 4500
+
+
+def quality_config() -> dict:
+    from mlx_vae_tpu_torch.studies import quality_parity as qp
+
+    return {**qp.RECORD_CONFIG, "epochs": 2, "molecules": QUALITY_MOLECULES,
+            "bulk_molecules": 50000}
+
+
+def finite_numbers(tree, path="") -> list:
+    """The paths of every number in ``tree`` that is not finite."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in finite_numbers(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in finite_numbers(v, f"{path}[{i}]")]
+    if isinstance(tree, float) and not math.isfinite(tree):
+        return [path]
+    return []
+
+
+def phase_quality(smi: str) -> dict:
+    """Phase 18 (the docstring); returns the launches of rows 1-5."""
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+    from mlx_vae_tpu_torch.studies import quality_parity as qp
+
+    t_phase = time.perf_counter()
+    cfg = quality_config()
+    counters = {k: v for k, v in kernel_counters().items() if k in TRAIN_KERNELS}
+    counters["fused_generate_tc"] = (fused_generate, "tc_launches")
+    counters["fused_generate"] = (fused_generate, "core_launches")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "corpus.json")
+        sha = qp.make_corpus(QUALITY_MOLECULES, data)
+        reset_counts(counters)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = qp.run_seed(cfg, QUALITY_SEED, data, tmp, "cuda")
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+    log(f"  corpus {QUALITY_MOLECULES} molecules (sha256 {sha[:16]}...); seed {QUALITY_SEED}; "
+        f"launches {counts}")
+    for tag, t in rec["train"].items():
+        h = t["history"]
+        log(f"  cli.train {tag}: {t['wall_s']:.1f}s, dispatches {t['dispatches']}, final train "
+            f"{h['train_loss'][-1]:.4f} val {h['val_loss'][-1]:.4f} [{smi}]")
+    studies = {}
+    for sel, ev in (("best", rec), ("final", rec["final_checkpoint"])):
+        epochs = {tag: t["best_epoch"] if sel == "best" else t["history"]["epoch"][-1]
+                  for tag, t in rec["train"].items()}
+        log(f"  the {sel} checkpoints (epochs {epochs}):")
+        for name in ("conditioning", "latent_opt"):
+            doc = studies[f"{sel} {name}"] = ev[name]
+            rows = [(r["target"], r["mae"]) if name == "conditioning" else
+                    (r["target"], r["conditional"]["mae"], r["optimized"]["mae"],
+                     r["optimized"]["surrogate_pred_after"]) for r in doc["results"]]
+            log(f"    {name}: route {doc['route']}, tokens on {doc['tokens_device']}; "
+                f"(target, MAE{', MAE optimized, surrogate' if name == 'latent_opt' else ''}) "
+                f"{rows}")
+        r = ev["reconstruction"]
+        log(f"    cli.encode: " + ", ".join(f"{k} {r[k]}" for k in qp.RECON_KEYS)
+            + f"; seconds {r['seconds']}")
+        for name in ("bulk", "greedy"):
+            g = ev[name]
+            log(f"    cli.generate {name}: {g['num_molecules']} molecules, validity "
+                f"{g['validity']:.4f}, {g['mols_per_sec']:,.0f} mols/s (generation), metrics "
+                f"on the host {g['metrics_s']:.2f}s, wall {g['wall_s']:.1f}s [{smi}]")
+    for name, doc in rec["conditioning_reruns"].items():
+        studies[f"rerun {name}"] = doc
+        log(f"  conditioning rerun on the best plain checkpoint, {name}: route {doc['route']}, "
+            f"MAE {[r['mae'] for r in doc['results']]}")
+    bad = finite_numbers(rec)
+    if bad:
+        raise AssertionError(f"18: numbers not finite at {bad}")
+    for name, doc in studies.items():
+        want = ({"sampler": "scan", "kernel": None} if name == "rerun scan" else
+                {"sampler": "fused", "kernel": "tc::gen_tc_kernel"})
+        if {k: doc["route"][k] for k in want} != want:
+            raise AssertionError(f"18: {name} ran on {doc['route']}, expected {want}")
+        devices = doc["tokens_device"] + doc.get("latent_device", [])
+        if not devices or any(not d.startswith("cuda") for d in devices):
+            raise AssertionError(f"18: {name}'s tensors on {devices}")
+    if min(t["steps_per_dispatch_taken"] for t in rec["train"].values()) < 2:
+        raise AssertionError(f"18: no multi-step dispatch: "
+                             f"{[t['dispatches'] for t in rec['train'].values()]}")
+    if counts["fused_generate"] != 0 or min(v for k, v in counts.items()
+                                            if k != "fused_generate") < 1:
+        raise AssertionError(f"18: launches {counts}: expected rows 1-5 and no CUDA-core "
+                             "sampler")
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f}s")
+    return counts
+
+
+QUALITY_NOTE = ("phase 18: the quality-parity study cut to one seed, 4,500 molecules and 2 "
+                "bf16 epochs at B=1024: two cli.train runs, both studies at 2048 rows a target, "
+                "cli.encode of the test split, cli.generate of 50,000 and 8192 greedy molecules")
+
+
 # kernel: (source, the TPU kernel it replaces, its row in phase 11's times,
 # the timed shape)
 SEQ_RECORDS = {
@@ -3535,9 +3660,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
                     help="time every sampler cluster size and rows-per-thread instance "
-                         "instead of phases 3-17")
+                         "instead of phases 3-18")
     ap.add_argument("--f32_times", action="store_true",
                     help="run only phase 8's and phase 11's f32 passes after the build")
+    ap.add_argument("--quality", action="store_true",
+                    help="run only phase 18 after the build")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3570,6 +3697,15 @@ def main() -> int:
         f32["scaled"] = phase_scaled_times_f32(smi)
         log(smi)
         print(json.dumps({"f32_times": f32}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+
+    if args.quality:
+        log(f"[18 quality parity] one seed, {QUALITY_MOLECULES} molecules, 2 bf16 epochs "
+            f"[{smi}]")
+        quality = phase_quality(smi)
+        log(smi)
+        print(json.dumps({"quality_launches": quality}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
@@ -3643,6 +3779,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         refused = phase_refused(smi, tmp)
 
+    log(f"[18 quality parity] studies/quality_parity.py cut to one seed, {QUALITY_MOLECULES} "
+        f"molecules, 2 bf16 epochs at B=1024; both studies, cli.encode, cli.generate [{smi}]")
+    quality = phase_quality(smi)
+
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
     sampler_err = ("largest |kernel - plain| of the first step's scaled logits over "
@@ -3668,6 +3808,7 @@ def main() -> int:
         "bound_ms_bf16": bounds["fused_generate_tc_bf16"][0],
         "bf16_ms": times[("bfloat16", 8192)][0], "tiers": tiers,
         "library_ms": None, "launches_dp": dp["fused_generate_tc"],
+        "launches_quality": quality["fused_generate_tc"], "launches_quality_note": QUALITY_NOTE,
         "launches_dp_note": "phase 15(b): cli.generate --data_parallel, 8192 greedy rows, rank "
                             "0 (2048 rows a rank a batch, a warm-up batch and 2)",
         "timed_shape": "B=8192 L=64 f32 T=0.8"}, {
@@ -3679,6 +3820,7 @@ def main() -> int:
                          "not take); the default config's served run launches it 0 times",
         "max_abs_err": worst["cuda_core"][0], "err_metric": sampler_err,
         "max_row_disagreement": worst["cuda_core"][1], "launches_dp": dp["fused_generate"],
+        "launches_quality": quality["fused_generate"],
         "ms": c_ms, "plain_ms": p_ms,
         "bound_ms": bounds["fused_generate"][0], "bound_by": bounds["fused_generate"][1],
         "library_ms": None,
@@ -3688,6 +3830,7 @@ def main() -> int:
             "launches_train_cli": cli["launches"][kname], "launches_dp": dp[kname],
             "launches_dp_note": "phase 15(b): one DP step, 2048 rows, rank 0",
             "launches_curve": curve[kname], "launches_curve_note": CURVE_NOTE,
+            "launches_quality": quality[kname], "launches_quality_note": QUALITY_NOTE,
             **({"launches_eval_cli": ev[kname]} if kname in ev else {}),
             "max_abs_err": errs[kname][0],
             "err_metric": f"largest |kernel - plain| over every output (forward) or "

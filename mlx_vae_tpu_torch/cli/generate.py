@@ -151,11 +151,13 @@ def main(argv=None):
                          "achieved = A + B*request")
     with cli_ranks("mlx_vae_tpu_torch.cli.generate", argv, args.device, args.data_parallel,
                    sources=("fused_generate",)) as device:
-        if device is not None:
-            _generate(args, calib, device)
+        return None if device is None else _generate(args, calib, device)
 
 
-def _generate(args, calib, device) -> None:
+def _generate(args, calib, device):
+    """Generate, report and write; returns rank 0's output keys without the
+    tokens, with the host's seconds for the metrics (``metrics_s``), or
+    None on the other ranks."""
     from mlx_vae_tpu_torch.cli.common import (data_parallel_mesh, normalized_targets,
                                               resolve_property_stats)
     from mlx_vae_tpu_torch.config import ModelConfig
@@ -235,7 +237,8 @@ def _generate(args, calib, device) -> None:
     tokens = tokens[: args.num_molecules]
     rate = len(tokens) / dt
     if rank() != 0:  # rank 0 alone reports and writes
-        return
+        return None
+    t_metrics = time.perf_counter()
     validity = selfies_validity(tokens, alphabet or [])
     print(f"Generated {len(tokens):,} molecules in {dt:.2f}s "
           f"({rate:,.0f} mols/sec on {device}, warm-up excluded)")
@@ -273,6 +276,7 @@ def _generate(args, calib, device) -> None:
               + (f", TPSA {mm['tpsa_mean']:.1f}±{mm['tpsa_std']:.1f} "
                  f"(target {mm['tpsa_target']:.0f}, "
                  f"MAE {mm['tpsa_mae']:.1f})" if "tpsa_mae" in mm else ""))
+    meta["metrics_s"] = time.perf_counter() - t_metrics
     if args.top_k or args.top_p < 1.0:
         meta["top_k"], meta["top_p"] = args.top_k, args.top_p
     selfies = ([decode_tokens(t, alphabet) for t in tokens[:1000]]
@@ -289,6 +293,7 @@ def _generate(args, calib, device) -> None:
         with open(args.output, "w") as f:
             json.dump(out, f)
     print(f"Saved {args.output}")
+    return meta
 
 
 if __name__ == "__main__":

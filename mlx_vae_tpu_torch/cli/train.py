@@ -161,7 +161,8 @@ TRAIN_SOURCES = ("fused_encoder", "fused_train_decoder", "fused_seq_lstm", "fuse
 def main(argv=None):
     """Run the CLI. Under a process group (given, or from torchrun's
     environment) this process is one rank; otherwise a multi-device run
-    spawns its ranks here and returns when they have."""
+    spawns its ranks here and returns when they have. Returns this
+    process's trainer (None where it spawned the ranks)."""
     import torch.distributed as dist
 
     from mlx_vae_tpu_torch.cli.common import cli_ranks
@@ -171,13 +172,14 @@ def main(argv=None):
     with cli_ranks("mlx_vae_tpu_torch.cli.train", argv, args.device, args.data_parallel,
                    args.model_parallel, TRAIN_SOURCES) as device:
         if device is None:
-            return
-        _train(args, device)
+            return None
+        trainer = _train(args, device)
         if dist.is_initialized():  # the idle ranks of a pure tensor-parallel run wait here
             dist.barrier()
+    return trainer
 
 
-def _train(args, device) -> None:
+def _train(args, device):
     import torch.distributed as dist
 
     from mlx_vae_tpu_torch.config import ModelConfig, TrainConfig
@@ -307,7 +309,7 @@ def _train(args, device) -> None:
     trainer.alphabet = data.get("alphabet")
     if trainer.idle:
         print(f"  This rank is outside the {args.model_parallel}-rank mesh; idle")
-        return
+        return trainer
     if trainer.mesh is not None:
         print(f"✓ Trainer created on a mesh {trainer.mesh.shape} of "
               f"{len(trainer.mesh.ranks)} ranks")
@@ -381,6 +383,7 @@ def _train(args, device) -> None:
                   f"kl={tm['kl']:.4f}")
 
     print("\n✓ Training complete! ✓")
+    return trainer
 
 
 if __name__ == "__main__":

@@ -197,6 +197,8 @@ class ARCVAETrainer:
         self._save_error: Optional[BaseException] = None
 
         self.history = make_history()
+        # train dispatches by their number of steps, over the trainer's life
+        self.dispatch_steps: collections.Counter = collections.Counter()
 
         self.params = params
         self.opt_states = {name: adam_init(p) for name, p in params.items()}
@@ -406,6 +408,7 @@ class ARCVAETrainer:
 
         def push_one(first_idx, p):
             self.params, self.opt_states, metrics = one_step(p)
+            self.dispatch_steps[1] += 1
             pending.append((first_idx, _Readback(metrics), 1))
 
         def dispatch_chunk(first_idx):
@@ -419,6 +422,7 @@ class ARCVAETrainer:
                     self.params, self.opt_states,
                     torch.stack([m for m, _ in chunk]),
                     torch.stack([c for _, c in chunk]), None, beta, tf, noise)
+            self.dispatch_steps[len(chunk)] += 1
             pending.append((first_idx, _Readback(metrics), len(chunk)))
             chunk.clear()
 

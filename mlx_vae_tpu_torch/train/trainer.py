@@ -22,7 +22,9 @@ How it maps onto PyTorch on one device:
   read back after.
 * The batch order is the JAX trainer's exactly: ``np.random.default_rng``
   of the seed drives ``to_index_batches``. Randomness on the device comes
-  from one ``torch.Generator`` on the device, seeded from the seed, through
+  from one ``torch.Generator`` on the device, seeded
+  ``parallel/mesh.py:fold_seed(seed, data rank)`` (rank 0 on one device:
+  a stream apart from the init's ``manual_seed(seed)``), through
   :meth:`ARCVAETrainer._next_noise` alone.
 * The corpus lives on the device, per trainer (``uint8`` tokens when the
   vocabulary fits a byte), and steps take index batches
@@ -179,10 +181,15 @@ class ARCVAETrainer:
                 params = pmesh.shard_params(self.mesh, params, self.layouts)
 
         seed = tcfg.seed if seed is None else seed
+        # The noise stream is the seed folded with this data rank (0 where
+        # the batch is not split), never ``manual_seed(seed)`` itself: the
+        # CLIs draw the init from a CPU generator seeded ``seed``, and a CPU
+        # trainer seeded alike would replay the init's values as its first
+        # steps' noise.
+        data_rank = (self.mesh.data_rank
+                     if self.mesh is not None and self.mesh.model == 1 else 0)
         self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(
-            pmesh.fold_seed(seed, self.mesh.data_rank)
-            if self.mesh is not None and self.mesh.model == 1 else seed)
+        self._generator.manual_seed(pmesh.fold_seed(seed, data_rank))
         self._shuffle_rng = np.random.default_rng(seed)
 
         self.checkpoint_dir = Path(tcfg.checkpoint_dir)

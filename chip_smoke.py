@@ -2,8 +2,9 @@
 """Drive the PyTorch + CUDA port's serving path and train step once on an
 NVIDIA GPU.
 
-    python3 chip_smoke.py            # phases 1-18 below
+    python3 chip_smoke.py            # phases 1-19 below
     python3 chip_smoke.py --quality  # phases 1-2 and 18 alone
+    python3 chip_smoke.py --steps    # phases 1-2 and 19 alone
     python3 chip_smoke.py --sweep    # phases 1-2, then the sampler's cluster / tile sweep
 
 Run from the root of a checkout, on a machine with one CUDA card, nvcc and
@@ -11,8 +12,9 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: one nvcc per source, all at once, builds every
-   ``mlx_vae_tpu_torch/csrc/*.cu`` (sm_90a): the sampler, the fused encoder,
-   the fused training decoder, the sequence LSTM and the gate pair; the
+   ``mlx_vae_tpu_torch/csrc/*.cu`` (sm_90a): the sampler, the step-major
+   sampler, the fused encoder, the fused training decoder, the sequence
+   LSTM and the gate pair; the
    build fails if ptxas serialized a ``wgmma`` chain (warning C7515);
 3. kernel vs plain: both fused sampler kernels, the tensor-core
    ``gen_tc_kernel`` (the default model's route) and the CUDA-core
@@ -311,7 +313,34 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    train dispatches took more than one step; rows 1-5 were each launched,
    and the CUDA-core sampler never. Printed: each study's MAE by target, the
    encode report, validity and mols/s, the seconds of each part. Rows 1-5 of
-   the kernels line gain ``launches_quality``.
+   the kernels line gain ``launches_quality``;
+19. the step-major sampler (``csrc/fused_generate_steps.cu``: per step n
+   launches of the forward step (bf16 ``gen_step_kernel``, f32
+   ``seq_fwd_tf32_kernel``) and one sampling head, the route of
+   every config the tensor-core kernel refuses from ``STEPS_MIN_H`` on):
+   (a) the route, taken by config, against the plain version at the
+   scaled model (hidden 1024, 4 layers, V=80) in bf16 and f32, H=768 n=2
+   bf16, H=256 n=2 V=300 f32 and the smallest H it takes in each dtype, B
+   = 256 and 2048, L=64, greedy, T=0.8 and top-k=6 / top-p=0.8, with phase
+   3's tolerances and agreement floors (in bf16 with top-k / top-p the row
+   floor is the lower of 97.0% and the CUDA-core kernel's agreement on the
+   same inputs less 2 points: ``TRUNC_BF16_MARGIN``), a second call equal bit for bit,
+   and at B=2048 its seed blocks moved and alone at B=256 bitwise
+   unchanged; (b) a random-init scaled bf16 checkpoint served by
+   ``cli.serve`` (tiers 256 and 2048; /health names the route, same seed
+   same tokens) and sampled twice by ``cli.generate`` (the same tokens),
+   with the launch counters set to 0 just before each and read just after:
+   step-route calls alone; (c) at the scaled model, B = 256 / 2048 / 8192,
+   both dtypes, the step route, the CUDA-core kernel (forced; timed by one
+   call where a call takes seconds) and the plain version in turns
+   (``bench_sampler_routes.bench``), and one B=8192 bf16 step-route pass
+   under ``torch.profiler`` (device ms by kernel; it must show
+   ``gen_step_kernel`` and the head, and no other sampler kernel and no
+   ``seq_fwd_step_kernel``). The kernels line
+   gains ``fused_generate_steps``.
+
+``--steps`` runs phases 1-2 and 19 alone and prints the
+``fused_generate_steps`` entry as the kernels line.
 
 ``--f32_times`` runs phases 1-2, then only phase 8's and phase 11's f32
 passes (their profile is printed, not checked for kernel names), and prints
@@ -599,6 +628,7 @@ def reset_sampler_counts() -> None:
     from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
 
     fused_generate.launches = fused_generate.tc_launches = fused_generate.core_launches = 0
+    fused_generate.step_launches = 0
 
 
 def phase_slice(tmp: str) -> int:
@@ -1179,8 +1209,8 @@ def phase_sweep(smi: str) -> list:
     return out
 
 
-SOURCES = ("fused_generate", "fused_encoder", "fused_train_decoder", "fused_seq_lstm",
-           "fused_lstm_gates")
+SOURCES = ("fused_generate", "fused_generate_steps", "fused_encoder", "fused_train_decoder",
+           "fused_seq_lstm", "fused_lstm_gates")
 
 
 def build_all() -> None:
@@ -1197,6 +1227,7 @@ def build_all() -> None:
         raise AssertionError("ptxas serialized wgmma (C7515): see the build log above")
     for mod in (fused_decoder, fused_encoder, fused_train_decoder, fused_seq_lstm, fused_lstm):
         mod.build_library()
+    fused_decoder.build_steps_library()
 
 
 TRAIN_SOURCES = {
@@ -3599,6 +3630,295 @@ QUALITY_NOTE = ("phase 18: the quality-parity study cut to one seed, 4,500 molec
 
 # kernel: (source, the TPU kernel it replaces, its row in phase 11's times,
 # the timed shape)
+# ------------------------------------------------------------------ phase 19
+
+# (name, dtype, widths, batches): the configs phase 19(a) holds the step
+# route at, against the plain version; "smallest" is filled in from the rule
+STEP_CHECKS = (
+    ("scaled", "bfloat16", SCALED, (256, 2048)),
+    ("scaled", "float32", SCALED, (256, 2048)),
+    ("H=768 n=2", "bfloat16", dict(hidden_dim=768), (256, 2048)),
+    ("H=256 n=2 V=300", "float32", dict(vocab_size=300), (256, 2048)),
+    ("smallest", "bfloat16", None, (256, 2048)),
+    ("smallest", "float32", None, (256, 2048)),
+)
+STEP_MODES = (("greedy", 1.0, {"greedy": True}), ("T=0.8", 0.8, {}),
+              ("top_k=6 top_p=0.8", 0.8, {"top_k": 6, "top_p": 0.8}))
+STEP_TIMED = (256, 2048, 8192)  # 19(c)'s batches at the scaled model
+# 19(a), bf16 with top-k / top-p: the row floor where the CUDA-core kernel,
+# an independent implementation, agrees with the plain version on fewer
+# rows on the same inputs: its agreement less this margin. In bf16 an f32
+# summation order moves some h across a bf16 rounding boundary, which moves
+# the logits by ~1e-5, and a random-init model's kept set has its k-th gap
+# under 1e-4 in ~2% of a row's steps, so every implementation parts from
+# the plain version on some truncated rows: at H=768 the CUDA-core kernel
+# agrees on 87.9-97.4% of rows over two init seeds (PERF.md), where
+# the step route fell short of it by at most 0.9 points; 0.02 is about
+# twice that.
+TRUNC_BF16_MARGIN = 0.02
+
+
+def steps_smallest(dtype: str) -> dict:
+    """The smallest hidden width the route sends to the step route at the
+    default's other widths (E=128, C=1, V=80, n=2)."""
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.ops.fused_decoder import STEPS_MIN_H, fused_generate_route
+
+    H = STEPS_MIN_H[dtype]
+    while fused_generate_route(ModelConfig(hidden_dim=H, compute_dtype=dtype)) != "steps":
+        H += 1
+    return dict(hidden_dim=H)
+
+
+def steps_model(dtype: str, widths: dict, seed: int = 0):
+    """A random-init decoder at ``widths`` on the card with its prepared
+    weights: ``(cfg, params, weights)``."""
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.models.decoder import init_decoder_params
+    from mlx_vae_tpu_torch.ops.fused_decoder import prepare_weights
+    from mlx_vae_tpu_torch.utils.tree import params_from_numpy, params_to_numpy
+
+    cfg = ModelConfig(compute_dtype=dtype, **widths)
+    gen = torch.Generator().manual_seed(seed)
+    params = params_from_numpy(params_to_numpy(init_decoder_params(gen, cfg)), "cuda")
+    return cfg, params, prepare_weights(params, cfg, "cuda")
+
+
+def phase_steps_vs_plain() -> tuple:
+    """19(a): the step route, taken by config, against the plain version at
+    every ``STEP_CHECKS`` config, batch and mode: the first step's scaled
+    logits within ``LOGIT_ATOL``, >= 99.0% first tokens and >= 97.0% rows, a
+    second call equal bit for bit, tokens in range and pad after EOS,
+    truncated first tokens in the plain kept set; at B=2048, T=0.8, its
+    seed blocks reversed in the batch and blocks alone at B=256 bitwise
+    unchanged. In bf16 with top-k / top-p the CUDA-core kernel (forced) runs
+    on the same inputs too, and the row floor is the lower of 97.0% and its
+    agreement less ``TRUNC_BF16_MARGIN``. Returns (largest |kernel - plain|
+    logit, largest share of rows that differed)."""
+    from mlx_vae_tpu_torch.ops.fused_decoder import (
+        fused_generate, fused_generate_reference, fused_generate_route)
+    from mlx_vae_tpu_torch.ops.sampling import truncate_logits_bisect
+
+    L, worst = 64, [0.0, 0.0]
+    for name, dtype, widths, batches in STEP_CHECKS:
+        widths = widths if widths is not None else steps_smallest(dtype)
+        cfg, params, w = steps_model(dtype, widths)
+        if fused_generate_route(cfg) != "steps":
+            raise AssertionError(f"{name} {dtype} should take the step route")
+        what = f"{name} ({widths}) {dtype}"
+        for B in batches:
+            for mode, temp, kw in STEP_MODES:
+                h0, cond, seeds, temps = inputs(cfg, params, B, temp, seed=7)
+                lp = torch.empty((B, cfg.vocab_size), device="cuda")
+                lk = torch.empty_like(lp)
+                p = fused_generate_reference(w, h0, cond, seeds, temps, L, logits_out=lp, **kw)
+                before = fused_generate.step_launches
+                k = fused_generate(w, h0, cond, seeds, temps, L, logits_out=lk, **kw)
+                again = fused_generate(w, h0, cond, seeds, temps, L, **kw)
+                torch.cuda.synchronize()
+                if fused_generate.step_launches != before + 2:
+                    raise AssertionError(f"{what}: the calls did not take the step route")
+                first, rows = agreement(k, p)
+                err = (lk - lp).abs().max().item()
+                worst = [max(worst[0], err), max(worst[1], 1.0 - rows)]
+                line = (f"  steps {what} B={B} {mode}: first tokens {first:.4%}, rows "
+                        f"{rows:.4%}, first-step logits max |diff| {err:.3e}, repeat "
+                        f"{'bitwise equal' if torch.equal(k, again) else 'DIFFERS'}")
+                floor = AGREE_ROWS
+                if "top_k" in kw:
+                    kept = truncate_logits_bisect(lp, cfg.vocab_size, 6, 0.8) > -0.5e30
+                    inside = kept[torch.arange(B, device="cuda"),
+                                  k[:, 0].long()].float().mean().item()
+                    line += f", first tokens in the plain kept set {inside:.4%}"
+                    if inside < 1.0:
+                        raise AssertionError("a truncated first token lies outside the kept set")
+                    if dtype == "bfloat16":
+                        core = fused_generate(w, h0, cond, seeds, temps, L, kernel="cuda_core",
+                                              **kw)
+                        core_rows = agreement(core, p)[1]
+                        floor = min(AGREE_ROWS, core_rows - TRUNC_BF16_MARGIN)
+                        line += (f"; the CUDA-core kernel on the same inputs: rows "
+                                 f"{core_rows:.4%}, so the row floor is {floor:.4%}")
+                log(line)
+                if not torch.equal(k, again):
+                    raise AssertionError(f"{what} B={B} {mode}: a second call differs")
+                if first < AGREE_FIRST or rows < floor:
+                    raise AssertionError(f"{what} B={B} {mode}: agreement below "
+                                         f"{AGREE_FIRST:.0%} / {floor:.2%}")
+                if not err <= LOGIT_ATOL[dtype]:
+                    raise AssertionError(f"{what} B={B} {mode}: logits differ by {err} > "
+                                         f"{LOGIT_ATOL[dtype]}")
+                if not ((k >= 0) & (k < cfg.vocab_size)).all():
+                    raise AssertionError("token id out of range")
+                check_eos(k, cfg)
+                if mode == "T=0.8" and B > 256:
+                    check_seed_blocks(w, h0, cond, seeds, temps, k, "steps", f"{what} B={B}")
+    return tuple(worst)
+
+
+def steps_checkpoint(path: str):
+    """A random-init scaled-model checkpoint with stats and an alphabet, as
+    ``default_checkpoint`` writes the default one: ``(cfg, path)``."""
+    from mlx_vae_tpu_torch.data.prepare import make_synthetic_dataset
+    from mlx_vae_tpu_torch.train.checkpoint import build_checkpoint_host, write_checkpoint
+
+    cfg, params, _ = steps_model("bfloat16", SCALED, seed=8)
+    alphabet = make_synthetic_dataset(n=4, vocab_size=cfg.vocab_size)["alphabet"]
+    write_checkpoint(path, build_checkpoint_host(
+        0, {"encoder": {}, "decoder": params}, {"encoder": {}, "decoder": {}}, {},
+        data_stats={"properties_mean": [60.0], "properties_std": [25.0],
+                        "alphabet": alphabet}))
+    return cfg, path
+
+
+def phase_steps_served(tmp: str) -> dict:
+    """19(b): a random-init scaled bf16 checkpoint served by ``cli.serve``
+    (tiers 256 and 2048) and sampled by ``cli.generate``: the same seed
+    gives the same tokens, /health names the route, and the sampler
+    launches, counted from 0 just before, are step-route calls alone.
+    Returns the step-route calls of each run."""
+    import numpy as np
+
+    from mlx_vae_tpu_torch.cli import generate as cli_generate
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+
+    cfg, ck = steps_checkpoint(f"{tmp}/checkpoint_scaled.npz")
+    ready, thread, base, up = start_server([
+        "--checkpoint", ck, "--batch_sizes", "256,2048", "--max_length", "64",
+        "--compute_dtype", "bfloat16"])
+    try:
+        wait_warm(ready)
+        reset_sampler_counts()
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        if health["sampler"] != "fused" or health["sampler_route"] != "steps":
+            raise AssertionError(f"scaled checkpoint: /health sampler {health['sampler']}, "
+                                 f"route {health['sampler_route']}")
+        req = {"num_molecules": 1500, "target": [90.0], "temperature": 0.8, "seed": 11,
+               "return_tokens": True}
+        _, a = post(base, req)
+        _, b = post(base, req)
+        _, g = post(base, {**req, "num_molecules": 200, "greedy": True})
+        toks = np.asarray(a["tokens"])
+        if a["tokens"] != b["tokens"] or toks.shape != (1500, 64) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size or np.asarray(g["tokens"]).shape != (200, 64):
+            raise AssertionError("scaled checkpoint: same-seed tokens differ, or a bad token "
+                                 "matrix")
+        served = fused_generate.step_launches
+        if served < 1 or fused_generate.core_launches or fused_generate.tc_launches \
+                or fused_generate.launches != served:
+            raise AssertionError(f"scaled checkpoint served: {served} step-route, "
+                                 f"{fused_generate.core_launches} CUDA-core, "
+                                 f"{fused_generate.tc_launches} tensor-core calls")
+        log(f"  served scaled bf16 checkpoint: /health sampler={health['sampler']} "
+            f"route={health['sampler_route']}; 1500 molecules at {a['mols_per_sec']:.1f} "
+            f"mols/s ({a['passes']} pass(es)), same seed -> same tokens; {served} step-route "
+            f"calls, 0 CUDA-core, 0 tensor-core")
+    finally:
+        stop_server(ready, thread)
+    reset_sampler_counts()
+    outs = []
+    for i in range(2):
+        text = run_main(cli_generate.main, [
+            "--checkpoint", ck, "--num_molecules", "4096", "--batch_size", "2048",
+            "--max_length", "64", "--target", "90", "--compute_dtype", "bfloat16",
+            "--output", f"{tmp}/gen_scaled_{i}.npz"])
+        outs.append(np.load(f"{tmp}/gen_scaled_{i}.npz")["tokens"])
+    gen = fused_generate.step_launches
+    if gen < 2 or fused_generate.core_launches or fused_generate.tc_launches \
+            or not np.array_equal(outs[0], outs[1]) or "Validity" not in text:
+        raise AssertionError(f"cli.generate on the scaled checkpoint: {gen} step-route calls, "
+                             f"{fused_generate.core_launches} CUDA-core, "
+                             f"{fused_generate.tc_launches} tensor-core; same tokens twice: "
+                             f"{np.array_equal(outs[0], outs[1])}")
+    log(f"  cli.generate, scaled bf16 checkpoint, 4096 molecules twice (B=2048): {gen} "
+        f"step-route calls, 0 CUDA-core, 0 tensor-core, the same tokens both times")
+    return {"serve": served, "generate": gen}
+
+
+def phase_steps_times(smi: str) -> dict:
+    """19(c): at the scaled model (V=80), B = 256 / 2048 / 8192, L=64,
+    T=0.8, f32 and bf16: the step route, the CUDA-core kernel (forced) and
+    the plain version in turns (``bench_sampler_routes.bench``), each with
+    its bound; one B=8192 bf16 step-route pass under ``torch.profiler``.
+    Returns the records by "dtype B=..." and the profile."""
+    from mlx_vae_tpu_torch.bench_sampler_routes import bench
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        for rec in bench(f"{SCALED['hidden_dim']}:{SCALED['num_layers']}:80", dtype, STEP_TIMED,
+                         ["steps", "cuda_core", "plain"], 64, 0.8, 2, 0.5, 2.0, 0, smi):
+            out.setdefault(f"{dtype} B={rec['B']}", {})[rec["route"]] = rec
+    for key, r in out.items():
+        ratio = r["steps"]["ms"] / r["cuda_core"]["ms"]
+        log(f"  {key}: steps {r['steps']['ms']:.3f} ms = {ratio:.3f}x the CUDA-core kernel "
+            f"({r['cuda_core']['ms']:.3f}), "
+            f"{r['steps']['ms'] / r['plain']['ms']:.3f}x plain ({r['plain']['ms']:.3f}); bound "
+            f"{r['steps']['bound_ms']:.3f} ({r['steps']['bound_by']}) [{smi}]")
+    cfg, params, w = steps_model("bfloat16", SCALED)
+    h0, cond, seeds, temps = inputs(cfg, params, 8192, 0.8, seed=3)
+    out["profile"] = profile_step(
+        "one B=8192 bf16 step-route pass, scaled model",
+        lambda: fused_generate(w, h0, cond, seeds, temps, 64), smi)
+    names = out["profile"]["kernels"]
+    if not any("gen_head_kernel" in k for k in names) or \
+            not any("gen_step_kernel" in k for k in names) or \
+            any(x in k for k in names
+                for x in ("fused_generate_kernel", "gen_tc_kernel", "seq_fwd_step_kernel")):
+        raise AssertionError(f"the step route's profile shows {sorted(names)}")
+    return out
+
+
+def phase_steps(smi: str) -> dict:
+    """Phase 19 (the docstring): (a), (b) with the counters reset just
+    before the served runs and read just after, (c)."""
+    log("[19 step-major sampler] (a) the step route vs plain at the scaled model, H=768, V=300 "
+        "and the smallest H it takes; (b) a scaled bf16 checkpoint through cli.serve and "
+        f"cli.generate; (c) steps vs CUDA-core vs plain at the scaled model [{smi}]")
+    worst = phase_steps_vs_plain()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_steps_served(tmp)
+    log(f"[19(c) step-major sampler times] CUDA events [{smi}]")
+    return {"worst": worst, "launches": launches, "times": phase_steps_times(smi)}
+
+
+def steps_record(steps: dict) -> dict:
+    """The kernels line's ``fused_generate_steps`` entry from phase 19."""
+    t = steps["times"]
+    main = t["bfloat16 B=8192"]
+    return {
+        "name": "fused_generate_steps", "route": "cuda",
+        "source": "mlx_vae_tpu_torch/csrc/fused_generate_steps.cu (gen_init_kernel, "
+                  "gen_step_kernel (train_common.cuh seq_fwd_step, stage sums in registers) / "
+                  "train_common.cuh seq_fwd_tf32_kernel, gen_head_kernel / "
+                  "gen_head_tf32_kernel)",
+        "replaces": "mlx_vae_tpu/ops/pallas_decoder.py:142",
+        "launches": steps["launches"]["serve"] + steps["launches"]["generate"],
+        "launches_note": STEPS_NOTE, "launches_by_run": steps["launches"],
+        "max_abs_err": steps["worst"][0],
+        "err_metric": "largest |kernel - plain| of the first step's scaled logits over phase "
+                      "19(a)'s configs, B=256/2048, greedy/T=0.8/top-k+top-p (tolerance 1e-4 "
+                      "f32, 1e-2 bf16)",
+        "max_row_disagreement": steps["worst"][1],
+        "ms": main["steps"]["ms"], "plain_ms": main["plain"]["ms"],
+        "bound_ms": main["steps"]["bound_ms"], "bound_by": main["steps"]["bound_by"],
+        "bound_note": "bf16 on the tensor cores at 989 TFLOP/s; f32 (tiers) as split-TF32, 3 x "
+                      "the operations at 495 TFLOP/s",
+        "library_ms": None, "cuda_core_ms": main["cuda_core"]["ms"],
+        "tiers": {k: {r: {"ms": v[r]["ms"], "bound_ms": v[r]["bound_ms"]} for r in v}
+                  for k, v in t.items() if k != "profile"},
+        "device_ms_by_kernel": t["profile"]["kernels"],
+        "idle_share": t["profile"]["idle_share"],
+        "timed_shape": "hidden 1024, 4 layers, V=80, E=128, C=1, B=8192 L=64 bf16 T=0.8"}
+
+
+STEPS_NOTE = ("phase 19(b): a random-init scaled bf16 checkpoint served by cli.serve (tiers "
+              "256 and 2048: two 1500-molecule requests and a 200-molecule greedy one) and "
+              "cli.generate (4096 molecules at B=2048, twice); counted per call (1 + n*L + L "
+              "launches each: gen_init_kernel, gen_step_kernel, gen_head_kernel)")
+
+
 SEQ_RECORDS = {
     "seq_lstm_fwd": ("fused_seq_lstm.cu", "pallas_seq_lstm.py:116", "seq_lstm_fwd I=1024",
                      "I=1024 H=1024 B=2048 L=64 bf16"),
@@ -3665,6 +3985,8 @@ def main() -> int:
                     help="run only phase 8's and phase 11's f32 passes after the build")
     ap.add_argument("--quality", action="store_true",
                     help="run only phase 18 after the build")
+    ap.add_argument("--steps", action="store_true",
+                    help="run only phase 19 (the step-major sampler) after the build")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3706,6 +4028,13 @@ def main() -> int:
         quality = phase_quality(smi)
         log(smi)
         print(json.dumps({"quality_launches": quality}))
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
+
+    if args.steps:
+        steps = phase_steps(smi)
+        log(smi)
+        print(json.dumps({"kernels": [steps_record(steps)]}))
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
@@ -3782,6 +4111,8 @@ def main() -> int:
     log(f"[18 quality parity] studies/quality_parity.py cut to one seed, {QUALITY_MOLECULES} "
         f"molecules, 2 bf16 epochs at B=1024; both studies, cli.encode, cli.generate [{smi}]")
     quality = phase_quality(smi)
+
+    steps = phase_steps(smi)
 
     bounds = default_bounds()
     t_ms, c_ms, p_ms = times[("float32", 8192)]
@@ -3869,7 +4200,7 @@ def main() -> int:
             "timed_shape": shape,
             **(f32_record(seq_f32, kname, F32_SCALED_SHAPES[kname])
                if kname in F32_SCALED_SHAPES else {})}
-            for kname, (src, tpu, row, shape) in SEQ_RECORDS.items()]}))
+            for kname, (src, tpu, row, shape) in SEQ_RECORDS.items()] + [steps_record(steps)]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -116,13 +116,18 @@ def route_sources(mcfg) -> dict:
     from mlx_vae_tpu_torch.models.decoder import train_decoder_route
     from mlx_vae_tpu_torch.models.encoder import encoder_route
     from mlx_vae_tpu_torch.models.vae import generation_sampler
+    from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate_route
 
     gates = ["fused_lstm_gates"] if mcfg.use_pallas else []
     kernels = {"fused": ["fused_encoder"], "seq": ["fused_seq_lstm"]}
     decoder = {"fused": ["fused_train_decoder"], "cvp": ["fused_train_decoder"], "cv": []}
+    sampler = gates
+    if generation_sampler(mcfg) == "fused":
+        steps = fused_generate_route(mcfg) == "steps"
+        sampler = ["fused_generate_steps" if steps else "fused_generate"]
     return {"encode": kernels.get(encoder_route(mcfg), gates),
             "next_token": decoder.get(train_decoder_route(mcfg), gates),
-            "greedy": ["fused_generate"] if generation_sampler(mcfg) == "fused" else gates}
+            "greedy": sampler}
 
 
 def kernels_note(device, sources) -> str:
@@ -197,7 +202,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     with cli_ranks("mlx_vae_tpu_torch.cli.encode", argv, args.device, args.data_parallel,
                    sources=("fused_encoder", "fused_train_decoder", "fused_seq_lstm",
-                            "fused_lstm_gates", "fused_generate")) as device:
+                            "fused_lstm_gates", "fused_generate",
+                            "fused_generate_steps")) as device:
         return None if device is None else _encode(args, device)
 
 

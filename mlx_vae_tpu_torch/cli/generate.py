@@ -150,7 +150,7 @@ def main(argv=None):
                          "B != 0), the fitted response line "
                          "achieved = A + B*request")
     with cli_ranks("mlx_vae_tpu_torch.cli.generate", argv, args.device, args.data_parallel,
-                   sources=("fused_generate",)) as device:
+                   sources=("fused_generate", "fused_generate_steps")) as device:
         return None if device is None else _generate(args, calib, device)
 
 

@@ -38,7 +38,9 @@ server's flags, endpoints, field names and 400/500/503 mapping:
 * **Sampler by config**: the fused sampler where the kernel takes the
   model, else the scan sampler (``models/vae.py:generation_sampler``), as
   the JAX server routes on its accelerator; ``/health`` reports it as
-  ``"sampler"``.
+  ``"sampler"``, and the fused sampler's route
+  (``ops/fused_decoder.py:fused_generate_route``: ``"tc"``, ``"steps"`` or
+  ``"cuda_core"``) as ``"sampler_route"``.
 
 Seeded streams are reproducible on one device; they are not the JAX
 server's threefry draws, and the CPU and the card give different bits.
@@ -773,7 +775,7 @@ class GenerationService:
         return out
 
     def health(self) -> dict:
-        from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate
+        from mlx_vae_tpu_torch.ops.fused_decoder import fused_generate, fused_generate_route
 
         total = len(self.tiers) * len(self.pkeys)
         return {"status": "ok", "model": self.shape,
@@ -797,6 +799,8 @@ class GenerationService:
                     "block_rows": self.chunk},
                 "stats": dict(self._stats),
                 "sampler": self.sampler,
+                "sampler_route": (fused_generate_route(self.cfg) if self.sampler == "fused"
+                                  else None),
                 "kernel_launches": fused_generate.launches,
                 "max_length": self.max_length,
                 "backend": self.device.type,

@@ -373,33 +373,9 @@ cudaError_t launch_fwd(const FwdArgs& a, const T* wt, const T* woutT, float* cbu
   if (e != cudaSuccess) return e;
   e = head_smem<T>();
   if (e != cudaSuccess) return e;
-  // each layer's fixed arguments
-  Step ls[8];
-  size_t woff = 0;
-  for (int l = 0; l < n; ++l) {
-    Step& s = ls[l];
-    s = {};
-    s.I = l == 0 ? E : H;
-    if (l == 0) {  // the fed token's embedding row, then the conditions
-      s.x = static_cast<const T*>(a.emb);
-      s.tok_sb = 1;
-      s.V = a.V;
-      s.cond = a.cond;
-      s.C = C;
-      s.Cxp = train::round_up(C, wg::BK);
-      s.vec_c = C % 4 == 0 && train::aligned16(a.cond);
-      s.vec_x = E % EV == 0 && train::aligned16(a.emb);
-    } else {
-      s.vec_x = H % EV == 0 && train::aligned16(hs);
-    }
-    s.Ixp = train::fwd_ixp(s.I, s.C);
-    s.Kp = train::fwd_kp(s.I, H, s.C);
-    s.w = wt + woff;
-    s.bias = a.bias + (size_t)l * 4 * H;
-    s.c_out = cbuf + l * BH;
-    s.B = B; s.H = H;
-    woff += (size_t)train::fwd_np(H) * s.Kp;
-  }
+  Step ls[8];  // each layer's fixed arguments
+  train::dec_fwd_layers(ls, n, static_cast<const T*>(a.emb), a.cond, hs, wt, a.bias, cbuf, B,
+                        a.V, E, C, H);
   const HeadArgs head = head_args(woutT, a.bout, a.targets, a.tf, a.out, a.toks, B, L, a.V, H,
                                   a.with_ce);
   const dim3 grid(train::fwd_np(H) / wg::BN, train::cdiv(B, wg::BM));

@@ -565,8 +565,10 @@ cudaError_t demb(const T* dx, const int* tok, long tok_st, long tok_sb, int B, i
 //    applies the activations, reads c_{t-1} from the f32 running buffer (c0 at
 //    t = 0, zeros where null), writes c_t back and stores h, c and the
 //    activated gates of step t in bf16 (gate-major [i | f | g | o]: a warp
-//    writes four 64-byte runs of a row), and the f32 h at the last step. One
-//    writer per element and no atomics, so two runs are bitwise equal.
+//    writes four 64-byte runs of a row), and the f32 h at the last step; c
+//    and the gates only where their pointers are set (the step-major
+//    sampler, fused_generate_steps.cu, keeps no residuals). One writer per
+//    element and no atomics, so two runs are bitwise equal.
 // What bounds it: at I = H = 1024, B = 2048, L = 64 the products are 2.2
 // TFLOP against ~2.7 GB of operand and residual traffic, so the operations
 // bound it (2.2 ms at the tensor cores' bf16 rate).
@@ -590,14 +592,17 @@ struct FwdStepArgs {
   const __nv_bfloat16* w;  // [Np, Kp] interleave_weight
   const float* bias;       // [4H]
   __nv_bfloat16* hs;       // [B, H] step t's h
-  __nv_bfloat16* cs;       // [B, H] step t's c
-  __nv_bfloat16* gs;       // [B, 4H] step t's activated gates
+  __nv_bfloat16* cs;       // [B, H] step t's c, or null: not stored (the sampler)
+  __nv_bfloat16* gs;       // [B, 4H] step t's activated gates, or null: not stored
   float* hf;               // [B, H] f32 h, or null
   int B, I, Ixp, H, Kp, h_f32, vec_x, vec_h;
 };
 
-__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
-    seq_fwd_step_kernel(const FwdStepArgs a) {
+// The step's body; FRESH: the product's stages summed in f32 registers
+// (wg::gemm), for the step-major sampler's own instance
+// (fused_generate_steps.cu:gen_step_kernel, one block an SM).
+template <bool FRESH>
+__device__ __forceinline__ void seq_fwd_step(const FwdStepArgs& a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
   const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
@@ -628,7 +633,7 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
   }
   const int Ix = Ixp - a.Cxp;  // where the conditions' columns start
   float acc[64];
-  wg::gemm<false>(acc, ring, Kp / wg::BK, [&](uint32_t dst, int kt) {
+  wg::gemm<false, FRESH>(acc, ring, Kp / wg::BK, [&](uint32_t dst, int kt) {
     const int k0 = kt * wg::BK;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -664,14 +669,21 @@ __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
     const float hn = og * tanhf(cn);
     a.c_out[bu] = cn;
     st(a.hs + bu, hn);
-    st(a.cs + bu, cn);
-    __nv_bfloat16* gp = a.gs + row * G + u;
-    st(gp, ig);
-    st(gp + H, fg);
-    st(gp + 2 * H, gg);
-    st(gp + 3 * H, og);
+    if (a.cs != nullptr) st(a.cs + bu, cn);
+    if (a.gs != nullptr) {
+      __nv_bfloat16* gp = a.gs + row * G + u;
+      st(gp, ig);
+      st(gp + H, fg);
+      st(gp + 2 * H, gg);
+      st(gp + 3 * H, og);
+    }
     if (a.hf != nullptr) a.hf[bu] = hn;
   }
+}
+
+__global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
+    seq_fwd_step_kernel(const FwdStepArgs a) {
+  seq_fwd_step<false>(a);
 }
 
 // One layer over L steps. Step t's input rows are xs + t * x_st ([B, I]);
@@ -773,8 +785,8 @@ struct FwdStepTf32Args {
   const float* w;       // [Np, Kp] interleave_weight (f32)
   const float* bias;    // [4H]
   float* hs;            // [B, H] step t's h
-  float* cs;            // [B, H] step t's c
-  float* gs;            // [B, 4H] step t's activated gates
+  float* cs;            // [B, H] step t's c, or null: not stored (the sampler)
+  float* gs;            // [B, 4H] step t's activated gates, or null: not stored
   float* hf;            // [B, H] a copy of h, or null
   int B, I, Ixp, H, Kp, vec_x, vec_h;
 };
@@ -849,12 +861,14 @@ __global__ void __launch_bounds__(wg::NTH, wg::TF_BLOCKS_PER_SM)
     const float hn = og * tanhf(cn);
     a.c_out[bu] = cn;
     a.hs[bu] = hn;
-    a.cs[bu] = cn;
-    float* gp = a.gs + row * G + u;
-    gp[0] = ig;
-    gp[H] = fg;
-    gp[2 * H] = gg;
-    gp[3 * H] = og;
+    if (a.cs != nullptr) a.cs[bu] = cn;
+    if (a.gs != nullptr) {
+      float* gp = a.gs + row * G + u;
+      gp[0] = ig;
+      gp[H] = fg;
+      gp[2 * H] = gg;
+      gp[3 * H] = og;
+    }
     if (a.hf != nullptr) a.hf[bu] = hn;
   }
 }
@@ -920,6 +934,48 @@ inline cudaError_t seq_fwd_tf32(const SeqFwdTf32Args& s, cudaStream_t st) {
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
+}
+
+// The fixed arguments of a decoder forward's n step launches
+// (fused_train_decoder.cu:launch_fwd, fused_generate_steps.cu:launch_steps);
+// Step = FwdStepArgs (T = bf16) or FwdStepTf32Args (T = float). Layer 0
+// reads the fed token's row of emb [V, E] (the caller sets tok each step),
+// then the f32 conditions [B, C] as a third segment; layer l > 0 reads the
+// layer below's h, rows of hrows' buffer (16 bytes at a time where H and
+// its start allow). wt: every layer's interleave_weight copy back to back;
+// layer l's running c is row l of cbuf [n, B, H]. The caller sets each
+// launch's input, h_{t-1}, c_{t-1} and outputs.
+template <typename Step, typename T>
+inline void dec_fwd_layers(Step* ls, int n, const T* emb, const float* cond, const T* hrows,
+                           const T* wt, const float* bias, float* cbuf, int B, int V, int E,
+                           int C, int H) {
+  constexpr int EV = 16 / sizeof(T);  // elements in 16 bytes
+  const size_t BH = (size_t)B * H;
+  size_t woff = 0;
+  for (int l = 0; l < n; ++l) {
+    Step& s = ls[l];
+    s = {};
+    s.I = l == 0 ? E : H;
+    if (l == 0) {  // the fed token's embedding row, then the conditions
+      s.x = emb;
+      s.tok_sb = 1;
+      s.V = V;
+      s.cond = cond;
+      s.C = C;
+      s.Cxp = round_up(C, wg::BK);
+      s.vec_c = C % 4 == 0 && aligned16(cond);
+      s.vec_x = E % EV == 0 && aligned16(emb);
+    } else {
+      s.vec_x = H % EV == 0 && aligned16(hrows);
+    }
+    s.Ixp = fwd_ixp(s.I, s.C);
+    s.Kp = fwd_kp(s.I, H, s.C);
+    s.w = wt + woff;
+    s.bias = bias + (size_t)l * 4 * H;
+    s.c_out = cbuf + l * BH;
+    s.B = B; s.H = H;
+    woff += (size_t)fwd_np(H) * s.Kp;
+  }
 }
 
 }  // namespace train

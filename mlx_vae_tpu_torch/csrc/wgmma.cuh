@@ -188,15 +188,22 @@ __device__ __forceinline__ void fence_acc(float (&acc)[64]) {
 // order. MN: both operands MN-major (each tile two 64-wide atoms, 8 KB
 // apart) rather than K-major. `ring` is the 1024-aligned shared address of
 // the STAGES-stage ring. Stage kt + 2's copies are issued while stage kt's
-// products run.
-template <bool MN, typename Load>
+// products run. FRESH: each stage's product is formed afresh on the tensor
+// cores (scale-d 0 at its first k16 step) and added to acc in f32
+// registers, so that the sum over the stages rounds as IEEE f32 does rather
+// than as the tensor cores' accumulator does (the step-major sampler's bf16
+// steps and head, whose argmax and truncated sampling feed the rounded h
+// back; as fused_generate.cu's tensor-core kernel; 64 more registers).
+template <bool MN, bool FRESH = false, typename Load>
 __device__ __forceinline__ void gemm(float (&acc)[64], uint32_t ring, int nk, Load&& load) {
   constexpr uint32_t KSTEP = MN ? 16 * LINE : 32;  // bytes per k16 step
   constexpr uint32_t LBO = MN ? 8 * 1024 : 16;
   const uint32_t a_off = (threadIdx.x / 128) * 8192;  // this warpgroup's 64 rows
+  float part[64];  // FRESH: the stage's product (unused otherwise)
+  float (&d)[64] = FRESH ? part : acc;  // where the wgmmas accumulate
 #pragma unroll
-  for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
-  fence_acc(acc);
+  for (int j = 0; j < 64; ++j) acc[j] = part[j] = 0.0f;
+  fence_acc(d);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) load(ring + s * STAGE, s);
@@ -207,19 +214,23 @@ __device__ __forceinline__ void gemm(float (&acc)[64], uint32_t ring, int nk, Lo
     proxy_fence();
     __syncthreads();  // stage kt is in; stage kt - 1 is no longer read
     const uint32_t sa = ring + (kt % STAGES) * STAGE, sb = sa + TILE;
-    fence_acc(acc);
+    fence_acc(d);
     fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      mma_m64n128k16<MN, MN>(acc, desc(sa + a_off + kk * KSTEP, LBO, 1024),
-                             desc(sb + kk * KSTEP, LBO, 1024), 1);
+      mma_m64n128k16<MN, MN>(d, desc(sa + a_off + kk * KSTEP, LBO, 1024),
+                             desc(sb + kk * KSTEP, LBO, 1024), FRESH ? kk > 0 : 1);
     commit();
-    fence_acc(acc);
+    fence_acc(d);
     const int nxt = kt + STAGES - 1;
     if (nxt < nk) load(ring + (nxt % STAGES) * STAGE, nxt);
     cp_commit();
     wait<0>();
-    fence_acc(acc);
+    fence_acc(d);
+    if constexpr (FRESH) {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) acc[j] += part[j];
+    }
   }
 }
 

@@ -1,31 +1,41 @@
 """Fused autoregressive sampler: the CUDA kernels, their wrapper and their
 plain PyTorch versions.
 
-Counterpart of ``mlx_vae_tpu/ops/pallas_decoder.py:pallas_generate``. Two
-kernels of ``csrc/fused_generate.cu`` (CUDA C++ for ``sm_90a``) run the whole
-sampling loop in one launch each; their designs and what bounds them are
-noted at the top of that file:
+Counterpart of ``mlx_vae_tpu/ops/pallas_decoder.py:pallas_generate``. Three
+routes, each a kernel design of its own; their designs and what bounds them
+are noted at the top of their sources:
 
-* ``gen_tc_kernel`` (the tensor-core route): a cluster of S CTAs a 64-row
-  tile, gate columns split over the cluster, ``wgmma`` products (split-TF32
-  in f32). It takes every config :func:`fused_generate_tc_supported` admits
-  (the default model in f32 and bf16).
-* ``fused_generate_kernel`` (the CUDA-core route): every other config that
+* ``"tc"``: ``csrc/fused_generate.cu:tc::gen_tc_kernel``, the whole loop in
+  one launch: a cluster of S CTAs a 64-row tile, gate columns split over the
+  cluster, ``wgmma`` products (split-TF32 in f32). It takes every config
+  :func:`fused_generate_tc_supported` admits (the default model in f32 and
+  bf16: a power-of-two H, V <= 256, every layer's h and c in a CTA).
+* ``"steps"``: ``csrc/fused_generate_steps.cu``, the training decoder's
+  forward frame without its residuals: 1 + n * L + L launches a call, each
+  step n launches of ``train_common.cuh``'s forward step (bf16 ``wgmma``
+  with its stage sums in f32 registers, f32 split-TF32) and one sampling
+  head on the tensor cores. It
+  takes the configs :func:`fused_generate_steps_supported` admits and
+  :func:`steps_preferred` gives it (the hidden-1024 / 4-layer model, H=768,
+  V > 256).
+* ``"cuda_core"``: ``csrc/fused_generate.cu:fused_generate_kernel``, the
+  whole loop in one launch on the CUDA cores: every other config that
   :func:`fused_generate_supported` admits.
 
 The route depends on the config alone, never on the batch, and is decided
 before any launch (:func:`fused_generate_route`).
 ``fused_generate_reference`` below is the function in plain torch on the
 same prepared weights and the same hash-based Gumbel noise: the CPU tests
-run it, and ``chip_smoke.py`` holds both kernels against it on the card.
+run it, and ``chip_smoke.py`` holds every route against it on the card.
 ``fused_generate_split_reference`` is the tensor-core kernel's layout twin:
-its interleaved operands, its per-CTA column slices and its 3-term product.
+its interleaved operands, its per-CTA column slices and its 3-term product;
+``fused_generate_steps_reference`` the step route's, launch by launch.
 
 :func:`fused_generate` takes the plain version only for tensors that lie on
 the CPU. On a CUDA tensor it launches a kernel or raises: shapes outside
-:func:`fused_generate_supported` (or, with the tensor-core kernel forced,
-outside :func:`fused_generate_tc_supported`) raise ``NotImplementedError``,
-a failed build or launch raises ``RuntimeError``.
+:func:`fused_generate_supported` (or outside the forced route's own
+predicate) raise ``NotImplementedError``, a failed build or launch raises
+``RuntimeError``; nothing falls back to another route.
 
 Random numbers are a pure function of (block seed, row in block, step,
 vocab index) — ``r24 = mix(mix(key ^ v)) >> 8`` with
@@ -47,12 +57,14 @@ import torch
 
 from mlx_vae_tpu_torch.config import ModelConfig
 from mlx_vae_tpu_torch.ops.build import load_library
+from mlx_vae_tpu_torch.ops.fused_train_decoder import _fwd_unsupported_reason
 from mlx_vae_tpu_torch.ops.lstm import combined_weight, lstm_gates
 from mlx_vae_tpu_torch.ops.sampling import _check_truncation, truncate_logits_bisect
 from mlx_vae_tpu_torch.ops.train_common import (  # noqa: F401 (re-exported)
-    MAX_SMEM, MAX_V, NT, RPTS, _tf32_rna, check, tf32_split)
+    MAX_SMEM, MAX_V, NT, RPTS, TF32_SMEM, _tf32_rna, check, fwd_step_plan, interleave_weight,
+    seq_fwd_step_reference, split_tf32_matmul, tf32_split)
 
-KERNELS = ("tc", "cuda_core")  # the sampler's two routes
+KERNELS = ("tc", "steps", "cuda_core")  # the sampler's routes
 
 _BB = 256  # rows per seed/temperature block (pallas_decoder._BB)
 
@@ -187,13 +199,25 @@ class TcWeights:
 
 
 @dataclass(frozen=True)
+class StepsWeights:
+    """The step route's operands: every layer's gate-interleaved, K-major
+    copy (``ops/train_common.py:interleave_weight``, layer 0 with the
+    conditions' segment) back to back, and ``fc_out`` as a K-major ``[V,
+    H]``, both in the compute dtype."""
+
+    wt: torch.Tensor       # flat
+    woutT: torch.Tensor    # [V, H]
+
+
+@dataclass(frozen=True)
 class FusedWeights:
     """Decoder weights in the kernels' layouts, all on one device.
 
     ``wcat`` holds every layer's ``[K_l + H, 4H]`` combined weight back to
     back (``K_0 = E + C``, ``K_l = H`` above); ``layers`` are views into it.
     Weight matrices are in the compute dtype, biases in float32. ``tc`` holds
-    the tensor-core kernel's operands where it takes the config, else None.
+    the tensor-core kernel's operands where it takes the config, ``steps``
+    the step route's where the route is ``"steps"``, else None.
     """
 
     cfg: ModelConfig
@@ -204,6 +228,7 @@ class FusedWeights:
     wout: torch.Tensor     # [H, V]
     bout: torch.Tensor     # [V] f32
     tc: Optional[TcWeights] = None
+    steps: Optional[StepsWeights] = None
 
 
 def _flat_views(mats):
@@ -243,16 +268,30 @@ def prepare_tc_weights(mats, wout: torch.Tensor, cfg: ModelConfig) -> TcWeights:
     return TcWeights(xp, hp, w, wlo, layers, layers_lo, hh.contiguous(), hl.contiguous())
 
 
-def prepare_weights(params: dict, cfg: ModelConfig, device) -> FusedWeights:
+def step_weights(mats, cfg: ModelConfig) -> torch.Tensor:
+    """Every layer's interleaved copy (``interleave_weight``, layer 0 over
+    ``[x | cond | h]``) of the combined weights ``mats``, flat, back to
+    back, in their dtype: the step route's ``wt``."""
+    E, C, H = cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim
+    return torch.cat([interleave_weight(m, E if l == 0 else H, H, C if l == 0 else 0).reshape(-1)
+                      for l, m in enumerate(mats)])
+
+
+def prepare_weights(params: dict, cfg: ModelConfig, device,
+                    kernel: Optional[str] = None) -> FusedWeights:
     """Transpose, cast and stack decoder ``params`` (the ``.npz`` tree, as
     tensors) for :func:`fused_generate`, with the tensor-core kernel's
-    operands where it takes the config. Do this once per model: it copies
-    every weight."""
+    operands where it takes the config and the step route's where the route
+    (:func:`fused_generate_route`; ``kernel`` forces one) is ``"steps"``. Do
+    this once per model: it copies every weight."""
     wdt = cfg.dtype
     mats = [combined_weight(params[f"lstm_layer_{i}"]).to(device, wdt)
             for i in range(cfg.num_layers)]
     wcat, layers = _flat_views(mats)
     wout = params["fc_out"]["weight"].T.to(device, wdt).contiguous()
+    steps = None
+    if _unsupported_reason(cfg) is None and fused_generate_route(cfg, kernel) == "steps":
+        steps = StepsWeights(step_weights(mats, cfg), wout.T.contiguous())
     return FusedWeights(
         cfg=cfg,
         emb=params["embedding"]["weight"].to(device, wdt).contiguous(),
@@ -263,6 +302,7 @@ def prepare_weights(params: dict, cfg: ModelConfig, device) -> FusedWeights:
         wout=wout,
         bout=params["fc_out"]["bias"].to(device, torch.float32).contiguous(),
         tc=prepare_tc_weights(mats, wout, cfg) if fused_generate_tc_supported(cfg) else None,
+        steps=steps,
     )
 
 
@@ -444,7 +484,84 @@ def fused_generate_split_reference(w: FusedWeights, h0: torch.Tensor,
     return torch.stack(out, dim=1).to(torch.int32)
 
 
-# ---- the kernel ----
+def sample_head_step_reference(w: FusedWeights, t: int, htop: torch.Tensor,
+                               seeds: torch.Tensor, temps: torch.Tensor, out: torch.Tensor,
+                               ended: torch.Tensor, greedy: bool = False, top_k: int = 0,
+                               top_p: float = 1.0, logits_out: Optional[torch.Tensor] = None,
+                               split_tf32: bool = False) -> None:
+    """Plain twin of one sampling-head launch of the step route
+    (``gen_head_kernel``; with ``split_tf32`` the f32 ``gen_head_tf32_kernel``,
+    whose product is :func:`~mlx_vae_tpu_torch.ops.train_common.split_tf32_matmul`),
+    step ``t``, in place: the logits of the top layer's h ``htop [B, H]``
+    (f32 products of the rounded operands) plus the bias, divided by the
+    temperature of the row's seed block (``logits_out`` gets them at t = 0);
+    then, as :func:`fused_generate_reference` samples, truncation and Gumbel
+    noise (unless ``greedy``), the argmax, pad after the end token
+    (``ended [B]`` bool, updated) and the token into ``out[:, t]``."""
+    cfg = w.cfg
+    B, V = htop.shape[0], cfg.vocab_size
+    rows = torch.arange(B, device=htop.device)
+    blk, rib = rows // block_rows(B), rows % block_rows(B)
+    mm = split_tf32_matmul if split_tf32 else torch.matmul
+    temp = temps.float()[blk].clamp_min(1e-6)[:, None]
+    scaled = (mm(htop.float(), w.wout.float()) + w.bout) / temp
+    if t == 0 and logits_out is not None:
+        logits_out.copy_(scaled)
+    if not greedy:
+        scaled = truncate_logits_bisect(scaled, V, top_k=top_k, top_p=top_p)
+        scaled = scaled + gumbel_noise(seeds[blk], rib, t, V)
+    tok = torch.where(ended, cfg.pad_token, torch.argmax(scaled, dim=1))
+    ended |= tok == cfg.end_token
+    out[:, t] = tok.to(out.dtype)
+
+
+@torch.no_grad()
+def fused_generate_steps_reference(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
+                                   seeds: torch.Tensor, temps: torch.Tensor, max_length: int,
+                                   greedy: bool = False, top_k: int = 0, top_p: float = 1.0,
+                                   logits_out: Optional[torch.Tensor] = None,
+                                   split_tf32: bool = False) -> torch.Tensor:
+    """Plain twin of the step route launch by launch (the contract of
+    :func:`fused_generate_reference`): per step, the forward step kernel's
+    twin (``train_common.seq_fwd_step_reference``) per layer on the
+    interleaved copies (:func:`step_weights`), layer 0 over the fed token's
+    embedding row and the conditions, layer l > 0 over the layer below's h,
+    every layer's h_{-1} = ``h0`` and c_{-1} = 0, one state row a layer
+    (read, then overwritten, as the kernels' two slots are); then
+    :func:`sample_head_step_reference`. Without ``split_tf32`` its f32
+    products are :func:`fused_generate_reference`'s; ``split_tf32``: the
+    f32 kernels' (the steps' and the head's), within the split's ~2^-21 of
+    each product."""
+    cfg = w.cfg
+    n, H, E, C = cfg.num_layers, cfg.hidden_dim, cfg.embedding_dim, cfg.num_conditions
+    B, dev = h0.shape[0], h0.device
+    wt = step_weights(w.layers, cfg)
+    wts, off = [], 0
+    for l in range(n):
+        _, kp, np_ = fwd_step_plan(E if l == 0 else H, H, C if l == 0 else 0)
+        wts.append(wt[off:off + np_ * kp].view(np_, kp))
+        off += np_ * kp
+    hs = torch.empty((n, B, H), dtype=cfg.dtype, device=dev)  # one row a layer
+    cs = torch.empty_like(hs)
+    gs = torch.empty((n, B, 4 * H), dtype=cfg.dtype, device=dev)
+    c = torch.empty((n, B, H), dtype=torch.float32, device=dev)
+    toks = torch.full((B, max_length + 1), cfg.start_token, dtype=torch.int64, device=dev)
+    out = torch.empty((B, max_length), dtype=torch.int32, device=dev)
+    ended = torch.zeros(B, dtype=torch.bool, device=dev)
+    cond, h0 = cond.float(), h0.float()
+    for t in range(max_length):
+        for l in range(n):
+            kw = (dict(xs=w.emb, I=E, tokens=toks, cond=cond) if l == 0 else
+                  dict(xs=hs, I=H, x_stride=0, x_offset=l - 1))
+            seq_fwd_step_reference(wts[l], w.bias[l], t, c=c[l], hs=hs, cs=cs, gs=gs, H=H, h0=h0,
+                                   res_stride=0, res_offset=l, split_tf32=split_tf32, **kw)
+        sample_head_step_reference(w, t, hs[n - 1], seeds, temps, out, ended, greedy, top_k,
+                                   top_p, logits_out, split_tf32)
+        toks[:, t + 1] = out[:, t]
+    return out
+
+
+# ---- the kernels ----
 
 def _cell_layout(H: int):
     """(TJ, TR): threads along hidden units x row groups (csrc: tj/tr)."""
@@ -485,6 +602,70 @@ def fused_generate_supported(cfg: ModelConfig) -> bool:
     H <= 1024, V <= 512, and a tile of one row group whose shared memory
     (inputs, double-buffered h and c of every layer) fits one block."""
     return _unsupported_reason(cfg) is None
+
+
+def _steps_unsupported_reason(cfg: ModelConfig) -> Optional[str]:
+    reason = _unsupported_reason(cfg)
+    if reason is not None:
+        return reason
+    reason = _fwd_unsupported_reason(cfg)
+    if reason is not None:
+        return f"the train forward's frame: {reason}"
+    return None
+
+
+def fused_generate_steps_supported(cfg: ModelConfig) -> bool:
+    """Configs the step route takes: those of :func:`fused_generate_supported`
+    that the training decoder's forward frame also takes
+    (``ops/fused_train_decoder.py:_fwd_unsupported_reason``), whose step
+    kernels and head it runs. The config alone decides."""
+    return _steps_unsupported_reason(cfg) is None
+
+
+# the step route's smallest hidden width by compute dtype (steps_preferred)
+STEPS_MIN_H = {"bfloat16": 48, "float32": 192}
+
+
+def steps_preferred(cfg: ModelConfig) -> bool:
+    """Whether a config the tensor-core kernel refuses and the step route
+    takes goes to the step route rather than the CUDA-core kernel: from
+    ``H >= STEPS_MIN_H[compute_dtype]``, at every batch size.
+
+    The rule comes from a sweep over H (n=2, V=80, E=128, C=1; L=64, T=0.8,
+    B = 256 / 2048 / 8192; ``python -m mlx_vae_tpu_torch.bench_sampler_routes
+    --configs 48:2:80,96:2:80,160:2:80,192:2:80,384:2:80,768:2:80 --routes
+    steps,cuda_core``; PERF.md). In bf16 the step route was the faster
+    at every H and batch measured (4.45 against 4.70 ms at H=48, B=256). In f32
+    a step launch costs more (split-TF32) and the persistent CUDA-core kernel
+    won at two of the three batches at H=96 and 160 (3.7 against 6.1 ms at
+    H=96, B=2048), the step route at two of three from H=192 and at all from
+    H=384. Below the cut a step's n + 1 launches cost more than the CUDA-core
+    kernel's step over its few weights."""
+    return cfg.hidden_dim >= STEPS_MIN_H[cfg.compute_dtype]
+
+
+def steps_launch_plan(cfg: ModelConfig, B: int, L: int) -> list:
+    """The launches of one step-route call (the host side of
+    ``csrc/fused_generate_steps.cu:launch_steps``), each ``dict(kernel,
+    grid, smem, count)``, the step launches also with ``Kp``: one set-up
+    launch, then per step n step launches (one per layer, layer 0 with the
+    conditions' segment) and one sampling head, in bf16 on ``wgmma``
+    (``gen_step_kernel``: the train forward's step with its stage sums in
+    f32 registers), in f32 as split-TF32. ``smem`` is a block's dynamic
+    shared memory, the bf16 ring (3 x 32 KB) or the split-TF32 ring (3 x 64
+    KB), each with 1 KB of alignment slack; grids are (x, y, z)."""
+    E, C, H, n = cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim, cfg.num_layers
+    bf16 = cfg.compute_dtype == "bfloat16"
+    ring = 3 * 32768 + 1024 if bf16 else TF32_SMEM
+    rows = -(-B // 128)
+    out = [dict(kernel="gen_init_kernel", grid=(-(-B // 256), 1, 1), smem=0, count=1)]
+    for l in range(n):
+        _, kp, np_ = fwd_step_plan(E if l == 0 else H, H, C if l == 0 else 0)
+        out.append(dict(kernel="gen_step_kernel" if bf16 else "seq_fwd_tf32_kernel",
+                        grid=(np_ // 128, rows, 1), smem=ring, count=L, Kp=kp))
+    out.append(dict(kernel="gen_head_kernel" if bf16 else "gen_head_tf32_kernel",
+                    grid=(rows, 1, 1), smem=ring, count=L))
+    return out
 
 
 def _tile_rows(cfg: ModelConfig, rows_per_thread: Optional[int] = None) -> int:
@@ -528,26 +709,44 @@ def build_library(verbose: bool = False) -> ctypes.CDLL:
     return lib
 
 
+def build_steps_library(verbose: bool = False) -> ctypes.CDLL:
+    """Build ``csrc/fused_generate_steps.cu`` for sm_90a (``ops/build.py``),
+    load it and declare its C interface."""
+    lib = load_library("fused_generate_steps", verbose)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gen_steps_launch.argtypes = [p] * 16 + [i] * 10 + [f] + [i] * 4 + [p]
+    lib.gen_steps_launch.restype = i
+    lib.gen_head_launch.argtypes = [p] * 9 + [i] * 8 + [f] + [i] * 3 + [p]
+    lib.gen_head_launch.restype = i
+    lib.gen_steps_error_string.argtypes = [i]
+    lib.gen_steps_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def fused_generate_route(cfg: ModelConfig, kernel: Optional[str] = None,
                          rows_per_thread: Optional[int] = None,
                          cluster: Optional[int] = None) -> str:
-    """The kernel :func:`fused_generate` launches for ``cfg``: ``"tc"`` where
-    :func:`fused_generate_tc_supported` holds, else ``"cuda_core"``, from
-    the config alone. ``kernel`` forces one (``rows_per_thread`` implies the
-    CUDA-core kernel, ``cluster`` the tensor-core one); forcing ``"tc"`` on
-    a config it does not take raises ``NotImplementedError``."""
+    """The route :func:`fused_generate` launches for ``cfg``, from the config
+    alone: ``"tc"`` where :func:`fused_generate_tc_supported` holds, else
+    ``"steps"`` where :func:`fused_generate_steps_supported` and
+    :func:`steps_preferred` hold, else ``"cuda_core"``. ``kernel`` forces
+    one (``rows_per_thread`` implies the CUDA-core kernel, ``cluster`` the
+    tensor-core one); forcing ``"tc"`` or ``"steps"`` on a config it does not
+    take raises ``NotImplementedError``."""
     if kernel is None:
         if rows_per_thread is not None:
             kernel = "cuda_core"
         elif cluster is not None or fused_generate_tc_supported(cfg):
             kernel = "tc"
+        elif fused_generate_steps_supported(cfg) and steps_preferred(cfg):
+            kernel = "steps"
         else:
             kernel = "cuda_core"
     if kernel not in KERNELS:
         raise ValueError(f"kernel={kernel!r}: one of {KERNELS}")
+    if kernel != "cuda_core" and rows_per_thread is not None:
+        raise ValueError("rows_per_thread applies to the CUDA-core kernel only")
     if kernel == "tc":
-        if rows_per_thread is not None:
-            raise ValueError("rows_per_thread applies to the CUDA-core kernel only")
         reason = _tc_unsupported_reason(cfg)
         if reason is not None:
             raise NotImplementedError(f"the tensor-core sampler does not take {reason}")
@@ -556,6 +755,10 @@ def fused_generate_route(cfg: ModelConfig, kernel: Optional[str] = None,
                              f"{tc_clusters(cfg)} for this config")
     elif cluster is not None:
         raise ValueError("cluster applies to the tensor-core kernel only")
+    if kernel == "steps":
+        reason = _steps_unsupported_reason(cfg)
+        if reason is not None:
+            raise NotImplementedError(f"the step-major sampler does not take {reason}")
     return kernel
 
 
@@ -580,10 +783,10 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
                    cluster: Optional[int] = None) -> torch.Tensor:
     """Sample ``[B, max_length]`` int32 tokens (contract of
     :func:`fused_generate_reference`, ``logits_out`` included). CPU tensors
-    run the plain version; CUDA tensors launch the kernel
-    :func:`fused_generate_route` picks from the config, counted in
-    ``fused_generate.launches`` and in ``fused_generate.tc_launches`` or
-    ``fused_generate.core_launches``. ``kernel`` forces a kernel,
+    run the plain version; CUDA tensors launch the route
+    :func:`fused_generate_route` picks from the config, counted once a call
+    in ``fused_generate.launches`` and in ``fused_generate.tc_launches``,
+    ``.step_launches`` or ``.core_launches``. ``kernel`` forces a route,
     ``rows_per_thread`` the CUDA-core kernel's tile (:func:`_tile_rows`),
     ``cluster`` the tensor-core kernel's cluster size
     (:func:`tc_cluster_size`); the tokens depend on none of them.
@@ -623,7 +826,9 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"weights.{name} must be contiguous {dtype} on {dev} "
                              f"(prepare_weights makes them so)")
-    lib = build_library()
+    lib = build_steps_library() if route == "steps" else build_library()
+    error_string = lib.gen_steps_error_string if route == "steps" else \
+        lib.fused_generate_error_string
     out = torch.empty((B, max_length), dtype=torch.int32, device=dev)
     l0 = logits_out.data_ptr() if logits_out is not None else None
     common = (B, max_length, cfg.vocab_size, cfg.embedding_dim, C, H, cfg.num_layers,
@@ -646,6 +851,26 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
                 w.bout.data_ptr(), seeds.data_ptr(), temps.data_ptr(), out.data_ptr(), l0,
                 *common, S, tc.xp, tc.hp, _tc_head_tiles(cfg, S), cfg.start_token,
                 cfg.end_token, cfg.pad_token, stream)
+        elif route == "steps":
+            st = w.steps
+            if st is None:
+                raise ValueError("weights.steps is None: prepare_weights(..., kernel='steps') "
+                                 "builds the step route's operands")
+            for name, t in (("wt", st.wt), ("woutT", st.woutT)):
+                if t.device != dev or t.dtype != cfg.dtype or not t.is_contiguous():
+                    raise ValueError(f"weights.steps.{name} must be contiguous {cfg.dtype} on "
+                                     f"{dev} (prepare_weights makes them so)")
+            n, V = cfg.num_layers, cfg.vocab_size
+            hbuf = torch.empty((2, n, B, H), dtype=cfg.dtype, device=dev)
+            cbuf = torch.empty((n, B, H), dtype=torch.float32, device=dev)
+            scaled = torch.empty((B, V), dtype=torch.float32, device=dev)
+            start, ended = torch.empty((2, B), dtype=torch.int32, device=dev)
+            rc = lib.gen_steps_launch(
+                w.emb.data_ptr(), cond.data_ptr(), h0.data_ptr(), st.wt.data_ptr(),
+                w.bias.data_ptr(), st.woutT.data_ptr(), w.bout.data_ptr(), seeds.data_ptr(),
+                temps.data_ptr(), out.data_ptr(), l0, hbuf.data_ptr(), cbuf.data_ptr(),
+                scaled.data_ptr(), start.data_ptr(), ended.data_ptr(), *common,
+                cfg.start_token, cfg.end_token, cfg.pad_token, stream)
         else:
             tj, tr = _cell_layout(H)
             rc = lib.fused_generate_launch(
@@ -656,17 +881,20 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
                 cfg.start_token, cfg.end_token, cfg.pad_token, stream)
     if rc != 0:
         raise RuntimeError(f"fused_generate ({route}) launch failed: "
-                           f"{lib.fused_generate_error_string(rc).decode()} ({rc})")
+                           f"{error_string(rc).decode()} ({rc})")
     with _count_lock:  # a server's warm-up thread and dispatcher both launch
         fused_generate.launches += 1
         if route == "tc":
             fused_generate.tc_launches += 1
+        elif route == "steps":
+            fused_generate.step_launches += 1
         else:
             fused_generate.core_launches += 1
     return out
 
 
 _count_lock = threading.Lock()
-fused_generate.launches = 0       # every launch
+fused_generate.launches = 0       # every call on the card
 fused_generate.tc_launches = 0    # gen_tc_kernel
+fused_generate.step_launches = 0  # the step route (fused_generate_steps.cu), once a call
 fused_generate.core_launches = 0  # fused_generate_kernel

@@ -35,7 +35,8 @@ def _finite(x: torch.Tensor, what: str) -> float:
 
 
 # the kernels of the data-parallel steps and generation (``ops/build.py`` names)
-SOURCES = ("fused_encoder", "fused_train_decoder", "fused_seq_lstm", "fused_generate")
+SOURCES = ("fused_encoder", "fused_train_decoder", "fused_seq_lstm", "fused_generate",
+           "fused_generate_steps")
 
 
 def launch_counts() -> dict:
@@ -53,6 +54,7 @@ def launch_counts() -> dict:
             "seq_lstm_fwd": fs.seq_lstm_fwd.launches,
             "seq_lstm_bwd": fs.seq_lstm_bwd_tm.launches,
             "fused_generate_tc": fused_generate.tc_launches,
+            "fused_generate_steps": fused_generate.step_launches,
             "fused_generate": fused_generate.core_launches}
 
 

@@ -121,7 +121,7 @@ def route(mcfg, device) -> dict:
     if sampler != "fused":
         kernel = None
     elif device.type == "cuda":
-        kernel = {"tc": "tc::gen_tc_kernel",
+        kernel = {"tc": "tc::gen_tc_kernel", "steps": "fused_generate_steps.cu (step route)",
                   "cuda_core": "fused_generate_kernel"}[fused_generate_route(mcfg)]
     else:
         kernel = "plain version (CPU)"

@@ -1,6 +1,8 @@
 """The fused sampler's CUDA kernels against their plain PyTorch version, on
-the card: the CUDA-core ``fused_generate_kernel`` (forced) and the
-tensor-core ``gen_tc_kernel`` (the route of every config it takes). Tests
+the card: the CUDA-core ``fused_generate_kernel`` (forced), the
+tensor-core ``gen_tc_kernel`` (the route of every config it takes) and the
+step route (``csrc/fused_generate_steps.cu``: the forward step kernels and
+the sampling head ``gen_head_kernel`` / ``gen_head_tf32_kernel``). Tests
 marked ``cuda`` skip without a CUDA device. This file imports no JAX, so it
 also runs on a GPU machine without it:
 
@@ -45,7 +47,7 @@ def dev():
 def _run(cfg, dev, B=300, L=24, temp=0.9, logits=False, **kw):
     params = init_decoder_params(torch.Generator().manual_seed(0), cfg)
     params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
-    w = fd.prepare_weights(params, cfg, dev)
+    w = fd.prepare_weights(params, cfg, dev, kernel=kw.get("kernel"))
     g = torch.Generator(device=dev).manual_seed(1)
     z = torch.randn((B, cfg.latent_dim), generator=g, device=dev)
     cond = torch.randn((B, cfg.num_conditions), generator=g, device=dev)
@@ -239,3 +241,196 @@ def test_tc_shared_memory_plan_matches_csrc(dev):
             assert fd._tc_smem_bytes(cfg, S) == lib.fused_generate_tc_smem(
                 cfg.hidden_dim, cfg.num_layers, cfg.vocab_size, S, fd._tc_head_tiles(cfg, S),
                 int(dtype == "bfloat16")), (i, dtype, S)
+
+
+# ---- the step route ----
+
+# configs the tensor-core kernel refuses; the step route is the route of the
+# first three in both dtypes, of the last in bf16 alone (f32 forces it there:
+# H=48 is below STEPS_MIN_H["float32"])
+STEP_SHAPES = [
+    dict(num_layers=2, hidden_dim=384, embedding_dim=64, vocab_size=80),
+    dict(num_layers=1, hidden_dim=192, embedding_dim=16, vocab_size=300, num_conditions=3),
+    dict(num_layers=3, hidden_dim=320, embedding_dim=20, vocab_size=512),
+    dict(num_layers=2, hidden_dim=48, embedding_dim=16, vocab_size=24),
+]
+
+
+def _steps_cfg(shape, dtype):
+    return ModelConfig(latent_dim=8, compute_dtype=dtype, **STEP_SHAPES[shape])
+
+
+def test_step_shapes_take_their_route():
+    """The step shapes are configs the route sends to the step route, but
+    the last in f32 (a CPU check)."""
+    for i in range(len(STEP_SHAPES)):
+        for dtype in ("float32", "bfloat16"):
+            want = "cuda_core" if (i, dtype) == (len(STEP_SHAPES) - 1, "float32") else "steps"
+            assert fd.fused_generate_route(_steps_cfg(i, dtype)) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["greedy", "stochastic", "truncated"])
+@pytest.mark.parametrize("shape", range(len(STEP_SHAPES)))
+def test_steps_kernel_matches_plain(dev, shape, mode, dtype):
+    cfg = _steps_cfg(shape, dtype)
+    kw = {"greedy": {"greedy": True}, "stochastic": {},
+          "truncated": {"top_k": 6, "top_p": 0.8}}[mode]
+    before = fd.fused_generate.step_launches
+    k, p, lk, lp = _run(cfg, dev, logits=True, kernel="steps", **kw)
+    assert fd.fused_generate.step_launches == before + 1
+    first = (k[:, 0] == p[:, 0]).float().mean().item()
+    rows = (k == p).all(1).float().mean().item()
+    assert first >= 0.99 and rows >= 0.97, (first, rows)
+    assert ((k >= 0) & (k < cfg.vocab_size)).all()
+    err = (lk - lp).abs().max().item()
+    assert err <= LOGIT_ATOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_steps_route_kernels_under_the_profiler(dev, dtype):
+    """One call is 1 set-up launch, n*L step launches and L heads, and no
+    other sampler kernel (the call alone is traced; a trace in which CUPTI
+    recorded no device event is taken again, up to 3 traces)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _steps_cfg(0, dtype)
+    L, n, B = 8, cfg.num_layers, 300
+    params = init_decoder_params(torch.Generator().manual_seed(0), cfg)
+    params = {k: {m: t.to(dev) for m, t in v.items()} for k, v in params.items()}
+    w = fd.prepare_weights(params, cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    cond = torch.randn((B, cfg.num_conditions), generator=g, device=dev)
+    h0 = hidden_init_row(params, cfg, torch.randn((B, cfg.latent_dim), generator=g, device=dev),
+                         cond).contiguous()
+    args = (h0, cond, torch.ones(2, dtype=torch.int32, device=dev),
+            torch.full((2,), 0.9, device=dev), L)
+    fd.fused_generate(w, *args)  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # CUPTI can drop a kernel launched as the profiler starts: a first
+            # kernel and a synchronize open the window (test_torch_train_kernel.py)
+            torch.ones(1, device=dev)
+            torch.cuda.synchronize()
+            fd.fused_generate(w, *args)
+            torch.cuda.synchronize()
+        ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ran:
+            break
+    step = "gen_step_kernel" if dtype == "bfloat16" else "seq_fwd_tf32_kernel"
+    head = "gen_head_kernel" if dtype == "bfloat16" else "gen_head_tf32_kernel"
+    names = ("gen_init_kernel", step, head, "fused_generate_kernel", "gen_tc_kernel",
+             "seq_fwd_step_kernel")
+    got = {name: sum(name in k for k in ran) for name in names}
+    assert got == {"gen_init_kernel": 1, step: n * L, head: L, "fused_generate_kernel": 0,
+                   "gen_tc_kernel": 0, "seq_fwd_step_kernel": 0}, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("V", [80, 300, 512])
+def test_steps_head_matches_its_plain_step(dev, V, dtype):
+    """One sampling head alone (step t = 3, a third of the rows already
+    ended, the end token's bias raised so that rows end mid-row) against
+    sample_head_step_reference on the same inputs: tokens, ended flags and,
+    at t = 0, the scaled logits."""
+    cfg = ModelConfig(hidden_dim=192, embedding_dim=16, vocab_size=V, latent_dim=8,
+                      compute_dtype=dtype)
+    params = init_decoder_params(torch.Generator().manual_seed(V), cfg)
+    params["fc_out"]["bias"][cfg.end_token] += 3.0
+    params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+    w = fd.prepare_weights(params, cfg, dev, kernel="steps")
+    lib = fd.build_steps_library()
+    B, L = 300, 6
+    g = torch.Generator(device=dev).manual_seed(4)
+    htop = torch.randn((B, cfg.hidden_dim), generator=g, device=dev).tanh().to(cfg.dtype)
+    nb = -(-B // fd.block_rows(B))
+    seeds = torch.randint(0, 2**31 - 1, (nb,), generator=g, device=dev, dtype=torch.int32)
+    temps = torch.tensor([0.8, 1.3], device=dev)[:nb]
+    for t, kw in ((3, dict(top_k=6, top_p=0.8)), (3, dict(greedy=True)), (0, {})):
+        ended = torch.arange(B, device=dev) % 3 == 0
+        out_k = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+        out_p = out_k.clone()
+        ended_k = ended.int().contiguous()
+        ended_p = ended.clone()
+        lk = torch.full((B, V), float("nan"), device=dev)
+        lp = torch.full((B, V), float("nan"), device=dev)
+        scaled = torch.empty((B, V), device=dev)
+        rc = lib.gen_head_launch(
+            htop.data_ptr(), w.steps.woutT.data_ptr(), w.bout.data_ptr(), seeds.data_ptr(),
+            temps.data_ptr(), out_k.data_ptr(), lk.data_ptr(), scaled.data_ptr(),
+            ended_k.data_ptr(), B, L, V, cfg.hidden_dim, t, fd.block_rows(B),
+            int(kw.get("greedy", False)), kw.get("top_k", 0), kw.get("top_p", 1.0),
+            cfg.end_token, cfg.pad_token, int(dtype == "bfloat16"),
+            torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, lib.gen_steps_error_string(rc)
+        fd.sample_head_step_reference(w, t, htop, seeds, temps, out_p, ended_p,
+                                      logits_out=lp, split_tf32=dtype == "float32", **kw)
+        torch.cuda.synchronize()
+        agree = (out_k[:, t] == out_p[:, t]).float().mean().item()
+        assert agree >= 0.99, (t, kw, agree)
+        same = out_k[:, t] == out_p[:, t]
+        assert torch.equal(ended_k.bool()[same], ended_p[same])
+        assert (out_k[ended, t] == cfg.pad_token).all()
+        assert ((out_k[:, t] == cfg.end_token) & ~ended).any()  # rows end at this step
+        assert torch.equal(out_k[:, :t], out_p[:, :t]) and (out_k[:, t + 1:] == -1).all()
+        if t == 0:
+            assert (lk - lp).abs().max().item() <= LOGIT_ATOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_steps_misaligned_views_and_bitwise_repeat(dev, dtype):
+    """cond and h0 as views that start 4 bytes past a 16-byte boundary (the
+    element loads) give the tokens of aligned copies (the vector loads),
+    and a second call repeats the first bit for bit."""
+    cfg = _steps_cfg(1, dtype)
+    params = init_decoder_params(torch.Generator().manual_seed(0), cfg)
+    params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+    w = fd.prepare_weights(params, cfg, dev)
+    B, H, C = 300, cfg.hidden_dim, cfg.num_conditions
+    g = torch.Generator(device=dev).manual_seed(3)
+    z = torch.randn((B, cfg.latent_dim), generator=g, device=dev)
+    cond = torch.randn((B, C), generator=g, device=dev)
+    h0 = hidden_init_row(params, cfg, z, cond).contiguous()
+    seeds = torch.randint(0, 2**31 - 1, (2,), generator=g, device=dev, dtype=torch.int32)
+    temps = torch.full((2,), 0.9, device=dev)
+    hb = torch.empty(B * H + 1, device=dev)
+    cb = torch.empty(B * C + 1, device=dev)
+    h0_m, cond_m = hb[1:].view(B, H), cb[1:].view(B, C)
+    h0_m.copy_(h0)
+    cond_m.copy_(cond)
+    assert h0_m.data_ptr() % 16 and cond_m.data_ptr() % 16
+    a = fd.fused_generate(w, h0, cond, seeds, temps, 16, top_k=6, top_p=0.8)
+    b = fd.fused_generate(w, h0, cond, seeds, temps, 16, top_k=6, top_p=0.8)
+    m = fd.fused_generate(w, h0_m, cond_m, seeds, temps, 16, top_k=6, top_p=0.8)
+    assert torch.equal(a, b) and torch.equal(a, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_steps_seed_block_tokens_do_not_depend_on_the_batch(dev, dtype):
+    """A seed block alone at B=256 equals its rows inside B=2048, bit for
+    bit (the serving layer's contract)."""
+    cfg = _steps_cfg(0, dtype)
+    params = init_decoder_params(torch.Generator().manual_seed(0), cfg)
+    params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+    w = fd.prepare_weights(params, cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    B = 2048
+    z = torch.randn((B, cfg.latent_dim), generator=g, device=dev)
+    cond = torch.randn((B, cfg.num_conditions), generator=g, device=dev)
+    seeds = torch.randint(0, 2**31 - 1, (B // 256,), generator=g, device=dev, dtype=torch.int32)
+    temps = torch.linspace(0.5, 1.2, B // 256, device=dev)
+    h0 = hidden_init_row(params, cfg, z, cond).contiguous()
+    big = fd.fused_generate(w, h0, cond, seeds, temps, 24, top_k=6, top_p=0.8)
+    for blk in (0, 5):
+        rows = slice(256 * blk, 256 * (blk + 1))
+        alone = fd.fused_generate(w, h0[rows].contiguous(), cond[rows].contiguous(),
+                                  seeds[blk:blk + 1].contiguous(),
+                                  temps[blk:blk + 1].contiguous(), 24, top_k=6, top_p=0.8)
+        assert torch.equal(big[rows], alone), blk

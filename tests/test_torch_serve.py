@@ -103,6 +103,7 @@ def test_health_names_the_sampler(server):
     CPU); /health says so."""
     _, h = _get(server, "/health")
     assert h["sampler"] == "fused"
+    assert h["sampler_route"] == "tc"  # H=16: a cluster size fits
 
 
 def test_refused_model_is_served_by_the_scan_sampler(tmp_path, capsys):
@@ -117,6 +118,7 @@ def test_refused_model_is_served_by_the_scan_sampler(tmp_path, capsys):
     svc = tserve.GenerationService(args)
     try:
         assert svc.health()["sampler"] == "scan" and svc.weights is None
+        assert svc.health()["sampler_route"] is None
         req = {"num_molecules": 5, "target": [0.0, 0.0], "seed": 2, "return_tokens": True}
         a, b = svc.generate(req), svc.generate(req)
         toks = np.asarray(a["tokens"])

@@ -315,8 +315,10 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    encode report, validity and mols/s, the seconds of each part. Rows 1-5 of
    the kernels line gain ``launches_quality``;
 19. the step-major sampler (``csrc/fused_generate_steps.cu``: per step n
-   launches of the forward step (bf16 ``gen_step_kernel``, f32
-   ``seq_fwd_tf32_kernel``) and one sampling head, the route of
+   launches of the forward step (bf16 ``gen_step_tma_kernel``: a TMA
+   producer warpgroup, ``wgmma`` consumers keeping the f32 stage sums, a
+   persistent grid; f32 ``seq_fwd_tf32_kernel``) and one sampling
+   head, the route of
    every config the tensor-core kernel refuses from ``STEPS_MIN_H`` on):
    (a) the route, taken by config, against the plain version at the
    scaled model (hidden 1024, 4 layers, V=80) in bf16 and f32, H=768 n=2
@@ -335,9 +337,18 @@ PyTorch built for CUDA. Phases (each prints one line or a few):
    call where a call takes seconds) and the plain version in turns
    (``bench_sampler_routes.bench``), and one B=8192 bf16 step-route pass
    under ``torch.profiler`` (device ms by kernel; it must show
-   ``gen_step_kernel`` and the head, and no other sampler kernel and no
-   ``seq_fwd_step_kernel``). The kernels line
-   gains ``fused_generate_steps``.
+   ``gen_step_tma_kernel`` and the head, and no other sampler kernel, no
+   ``seq_fwd_step_kernel`` and no ``gen_step_kernel``, the bf16 step it replaced);
+   then per launch, the bf16 step's device ms at layer 0 and at layers 1-3,
+   B = 256 / 2048 / 8192, beside its bound, ``torch.lstm_cell``'s
+   bf16 step at I = H = 1024 (the library yardstick) and the L2 read rate
+   (``bench_step_launch``); (d) the step route's bf16 digests
+   (``digest_steps``: tokens and first-step logits at (a)'s bf16 configs and
+   modes, B = 256 and 2048, with their inputs' hashes), printed for a
+   comparison with another tree. The kernels line
+   gains ``fused_generate_steps`` (with ``step_ms``, ``library_step_ms``,
+   ``step_bound``: ``ms`` and the launch plan's modelled ``l2_bytes``, and
+   the digests).
 
 ``--steps`` runs phases 1-2 and 19 alone and prints the
 ``fused_generate_steps`` entry as the kernels line.
@@ -3863,10 +3874,59 @@ def phase_steps_times(smi: str) -> dict:
         lambda: fused_generate(w, h0, cond, seeds, temps, 64), smi)
     names = out["profile"]["kernels"]
     if not any("gen_head_kernel" in k for k in names) or \
-            not any("gen_step_kernel" in k for k in names) or \
+            not any("gen_step_tma_kernel" in k for k in names) or \
             any(x in k for k in names
-                for x in ("fused_generate_kernel", "gen_tc_kernel", "seq_fwd_step_kernel")):
+                for x in ("fused_generate_kernel", "gen_tc_kernel", "seq_fwd_step_kernel",
+                          "gen_step_kernel")):
         raise AssertionError(f"the step route's profile shows {sorted(names)}")
+    out["launch"] = phase_steps_launch(smi)
+    return out
+
+
+def phase_steps_launch(smi: str) -> dict:
+    """19(c), per launch: the bf16 step kernel's device ms at layer 0 and at
+    layers 1-3 of the scaled model, B = 256 / 2048 / 8192 (medians of one
+    pass under the profiler, ``bench_step_launch.launches``), beside each
+    launch's bound (its FLOP at 989 TFLOP/s) and the L2 bytes that the
+    launch plan models (an input of the bound, not measured),
+    ``torch.lstm_cell``'s bf16 step at I = H = 1024 (the library yardstick
+    of a layer-1..3 launch; never called by the port), and the L2 read rate
+    a kernel gets from a 16 MB resident buffer."""
+    from mlx_vae_tpu_torch import bench_step_launch as bsl
+    from mlx_vae_tpu_torch.config import ModelConfig
+    from mlx_vae_tpu_torch.ops.fused_decoder import steps_launch_plan
+
+    spec = f"{SCALED['hidden_dim']}:{SCALED['num_layers']}:80"
+    recs = bsl.launches(spec, STEP_TIMED, smi)
+    cfg = ModelConfig(compute_dtype="bfloat16", **SCALED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for r in recs:
+        plan = steps_launch_plan(cfg, r["B"], 64, sms)
+        r["plan"] = {"layer0_l2_bytes": plan[1]["l2_bytes"], "upper_l2_bytes": plan[2]["l2_bytes"],
+                     "kernel": plan[1]["kernel"]}
+        if r["upper_ms"] is None or not any("gen_step_tma_kernel" in k for k in r["names"]):
+            raise AssertionError(f"19(c): no bf16 step launch timed at B={r['B']}: {r['names']}")
+    lib = bsl.library_ms(SCALED["hidden_dim"], STEP_TIMED, smi)
+    for r in recs:
+        log(f"  B={r['B']}: a layer-1..3 launch {r['upper_ms']:.4f} ms against torch.lstm_cell "
+            f"{lib[r['B']]:.4f} ms and its bound {r['upper_bound_ms']:.4f} ms; layer 0 "
+            f"{r['layer0_ms']:.4f} ms (bound {r['layer0_bound_ms']:.4f}); the plan's L2 bytes "
+            f"a launch {r['plan']['upper_l2_bytes']:.4g} / {r['plan']['layer0_l2_bytes']:.4g}; "
+            f"{r['plan']['kernel']} [{smi}]")
+    return {"launches": recs, "library_ms": lib, "l2_tb_s": bsl.l2_rate(smi)}
+
+
+def phase_steps_digest(smi: str) -> dict:
+    """19(d): the step route's bf16 digests (``digest_steps``: tokens and
+    first-step logits at phase 19(a)'s bf16 configs and modes, B = 256 and
+    2048, each beside its inputs' hash), printed for a comparison with the
+    same module run in another tree."""
+    from mlx_vae_tpu_torch.digest_steps import digest
+
+    out = digest((256, 2048))
+    for k, v in out.items():
+        log(f"  digest {k}: inputs {v['inputs']} tokens {v['tokens']} logits {v['logits']}")
+    log(f"  19(d): {len(out)} step-route digests [{smi}]")
     return out
 
 
@@ -3880,19 +3940,23 @@ def phase_steps(smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_steps_served(tmp)
     log(f"[19(c) step-major sampler times] CUDA events [{smi}]")
-    return {"worst": worst, "launches": launches, "times": phase_steps_times(smi)}
+    times = phase_steps_times(smi)
+    log(f"[19(d) step-major sampler digests] the bf16 step route's tokens and logits [{smi}]")
+    return {"worst": worst, "launches": launches, "times": times,
+            "digest": phase_steps_digest(smi)}
 
 
 def steps_record(steps: dict) -> dict:
     """The kernels line's ``fused_generate_steps`` entry from phase 19."""
     t = steps["times"]
     main = t["bfloat16 B=8192"]
+    step = next(r for r in t["launch"]["launches"] if r["B"] == 8192)
     return {
         "name": "fused_generate_steps", "route": "cuda",
         "source": "mlx_vae_tpu_torch/csrc/fused_generate_steps.cu (gen_init_kernel, "
-                  "gen_step_kernel (train_common.cuh seq_fwd_step, stage sums in registers) / "
-                  "train_common.cuh seq_fwd_tf32_kernel, gen_head_kernel / "
-                  "gen_head_tf32_kernel)",
+                  "gen_step_tma_kernel (TMA producer warpgroup, wgmma consumers keeping the f32 "
+                  "stage sums, persistent grid) / train_common.cuh seq_fwd_tf32_kernel, "
+                  "gen_head_kernel / gen_head_tf32_kernel)",
         "replaces": "mlx_vae_tpu/ops/pallas_decoder.py:142",
         "launches": steps["launches"]["serve"] + steps["launches"]["generate"],
         "launches_note": STEPS_NOTE, "launches_by_run": steps["launches"],
@@ -3906,8 +3970,21 @@ def steps_record(steps: dict) -> dict:
         "bound_note": "bf16 on the tensor cores at 989 TFLOP/s; f32 (tiers) as split-TF32, 3 x "
                       "the operations at 495 TFLOP/s",
         "library_ms": None, "cuda_core_ms": main["cuda_core"]["ms"],
+        "step_ms": step["upper_ms"], "library_step_ms": t["launch"]["library_ms"][8192],
+        "step_bound": {"ms": step["upper_bound_ms"], "l2_bytes": step["plan"]["upper_l2_bytes"]},
+        "step_note": "a layer-1..3 bf16 step launch (gen_step_tma_kernel, Kp = 2048) at B=8192: "
+                     "median device ms of one pass under the profiler; library: one bf16 "
+                     "torch.lstm_cell at I = H = 1024 (two cuBLAS products and the cell), never "
+                     "called by the port; step_bound: inputs of a bound, not measurements: ms, "
+                     "the launch's FLOP at 989 TFLOP/s, and l2_bytes, what the launch plan "
+                     "(ops/fused_decoder.py:steps_launch_plan) models its CTAs to read from L2",
+        "step_launches": {r["B"]: {k: r[k] for k in ("layer0_ms", "upper_ms", "layer0_bound_ms",
+                                                       "upper_bound_ms", "plan")}
+                          for r in t["launch"]["launches"]},
+        "library_step_ms_by_B": t["launch"]["library_ms"], "l2_tb_s": t["launch"]["l2_tb_s"],
+        "digest_steps": steps["digest"],
         "tiers": {k: {r: {"ms": v[r]["ms"], "bound_ms": v[r]["bound_ms"]} for r in v}
-                  for k, v in t.items() if k != "profile"},
+                  for k, v in t.items() if k not in ("profile", "launch")},
         "device_ms_by_kernel": t["profile"]["kernels"],
         "idle_share": t["profile"]["idle_share"],
         "timed_shape": "hidden 1024, 4 layers, V=80, E=128, C=1, B=8192 L=64 bf16 T=0.8"}
@@ -3916,7 +3993,7 @@ def steps_record(steps: dict) -> dict:
 STEPS_NOTE = ("phase 19(b): a random-init scaled bf16 checkpoint served by cli.serve (tiers "
               "256 and 2048: two 1500-molecule requests and a 200-molecule greedy one) and "
               "cli.generate (4096 molecules at B=2048, twice); counted per call (1 + n*L + L "
-              "launches each: gen_init_kernel, gen_step_kernel, gen_head_kernel)")
+              "launches each: gen_init_kernel, gen_step_tma_kernel, gen_head_kernel)")
 
 
 SEQ_RECORDS = {

@@ -598,10 +598,6 @@ struct FwdStepArgs {
   int B, I, Ixp, H, Kp, h_f32, vec_x, vec_h;
 };
 
-// The step's body; FRESH: the product's stages summed in f32 registers
-// (wg::gemm), for the step-major sampler's own instance
-// (fused_generate_steps.cu:gen_step_kernel, one block an SM).
-template <bool FRESH>
 __device__ __forceinline__ void seq_fwd_step(const FwdStepArgs& a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -633,7 +629,7 @@ __device__ __forceinline__ void seq_fwd_step(const FwdStepArgs& a) {
   }
   const int Ix = Ixp - a.Cxp;  // where the conditions' columns start
   float acc[64];
-  wg::gemm<false, FRESH>(acc, ring, Kp / wg::BK, [&](uint32_t dst, int kt) {
+  wg::gemm<false>(acc, ring, Kp / wg::BK, [&](uint32_t dst, int kt) {
     const int k0 = kt * wg::BK;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -683,7 +679,7 @@ __device__ __forceinline__ void seq_fwd_step(const FwdStepArgs& a) {
 
 __global__ void __launch_bounds__(wg::NTH, wg::BLOCKS_PER_SM)
     seq_fwd_step_kernel(const FwdStepArgs a) {
-  seq_fwd_step<false>(a);
+  seq_fwd_step(a);
 }
 
 // One layer over L steps. Step t's input rows are xs + t * x_st ([B, I]);

@@ -192,8 +192,8 @@ __device__ __forceinline__ void fence_acc(float (&acc)[64]) {
 // cores (scale-d 0 at its first k16 step) and added to acc in f32
 // registers, so that the sum over the stages rounds as IEEE f32 does rather
 // than as the tensor cores' accumulator does (the step-major sampler's bf16
-// steps and head, whose argmax and truncated sampling feed the rounded h
-// back; as fused_generate.cu's tensor-core kernel; 64 more registers).
+// head, whose argmax and truncated sampling feed the token back; as
+// fused_generate.cu's tensor-core kernel; 64 more registers).
 template <bool MN, bool FRESH = false, typename Load>
 __device__ __forceinline__ void gemm(float (&acc)[64], uint32_t ring, int nk, Load&& load) {
   constexpr uint32_t KSTEP = MN ? 16 * LINE : 32;  // bytes per k16 step

@@ -12,9 +12,10 @@ are noted at the top of their sources:
   bf16: a power-of-two H, V <= 256, every layer's h and c in a CTA).
 * ``"steps"``: ``csrc/fused_generate_steps.cu``, the training decoder's
   forward frame without its residuals: 1 + n * L + L launches a call, each
-  step n launches of ``train_common.cuh``'s forward step (bf16 ``wgmma``
-  with its stage sums in f32 registers, f32 split-TF32) and one sampling
-  head on the tensor cores. It
+  step n step launches (bf16: ``gen_step_tma_kernel``, a TMA producer warpgroup
+  and ``wgmma`` consumers that keep the f32 stage sums, a persistent grid of
+  :func:`steps_tile`'s tiles; f32: ``train_common.cuh``'s
+  split-TF32 forward step) and one sampling head on the tensor cores. It
   takes the configs :func:`fused_generate_steps_supported` admits and
   :func:`steps_preferred` gives it (the hidden-1024 / 4-layer model, H=768,
   V > 256).
@@ -49,6 +50,7 @@ stochastic comparisons are distributional.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -61,7 +63,7 @@ from mlx_vae_tpu_torch.ops.fused_train_decoder import _fwd_unsupported_reason
 from mlx_vae_tpu_torch.ops.lstm import combined_weight, lstm_gates
 from mlx_vae_tpu_torch.ops.sampling import _check_truncation, truncate_logits_bisect
 from mlx_vae_tpu_torch.ops.train_common import (  # noqa: F401 (re-exported)
-    MAX_SMEM, MAX_V, NT, RPTS, TF32_SMEM, _tf32_rna, check, fwd_step_plan, interleave_weight,
+    BK, MAX_SMEM, MAX_V, NT, RPTS, TF32_SMEM, _tf32_rna, check, fwd_step_plan, interleave_weight,
     seq_fwd_step_reference, split_tf32_matmul, tf32_split)
 
 KERNELS = ("tc", "steps", "cuda_core")  # the sampler's routes
@@ -644,27 +646,95 @@ def steps_preferred(cfg: ModelConfig) -> bool:
     return cfg.hidden_dim >= STEPS_MIN_H[cfg.compute_dtype]
 
 
-def steps_launch_plan(cfg: ModelConfig, B: int, L: int) -> list:
+# gen_step_tma_kernel's tile instances (csrc ws::Tile<NC>): rows a tile, 64 NC
+STEP_TILES = (64, 192)
+STEP_B_BYTES = 128 * 128  # a stage's weight tile (csrc ws::B_BYTES)
+H100_SMS = 132  # the SMs of an H100 SXM: the tile rule's default where no card is asked
+
+
+def steps_ring(bm: int) -> int:
+    """Stages in flight of the ``bm``-row instance (csrc ``ws::Tile::RING``):
+    6, or 4 for 192 rows (its 40 KB stages)."""
+    return 4 if bm == 192 else 6
+
+
+def steps_step_smem(bm: int) -> int:
+    """Dynamic shared memory of one ``gen_step_tma_kernel`` block with
+    ``bm`` rows a tile (csrc ``ws::Tile::SMEM``): 1 KB of alignment, the
+    ring of :func:`steps_ring` stages (an A tile of ``bm`` 128-byte lines
+    and the 16 KB weight tile), a full and an empty mbarrier a stage, and
+    two buffers of the cell's inputs (the c_{t-1} tile, ``bm`` x 32 f32,
+    and the bias slice, 4 x 32 f32) with a barrier each way each."""
+    ring = steps_ring(bm)
+    return 1024 + ring * (bm * 128 + STEP_B_BYTES) + 2 * ring * 8 + 4 * 8 + 2 * (bm * 128 + 512)
+
+
+def steps_tile(cfg: ModelConfig, B: int, sms: int = H100_SMS) -> int:
+    """The bf16 step kernel's rows a tile for a call of ``B`` rows on a card
+    of ``sms`` SMs, from the config and B alone: 64 (one consumer
+    warpgroup) where 128-row tiles would not fill one wave of ``sms`` CTAs,
+    else 192 (three consumer warpgroups, the fewest bytes a product): on
+    an H100 at the scaled model, 64-row tiles are the faster below that
+    wave and 192-row tiles above it, and 128-row tiles (two consumer
+    warpgroups, no longer built) lost to one or the other at every batch
+    (``python -m mlx_vae_tpu_torch.bench_step_launch --tiles 64,192``;
+    PERF.md). A row's tokens do not depend on the instance."""
+    ncol = fwd_step_plan(cfg.embedding_dim, cfg.hidden_dim, cfg.num_conditions)[2] // 128
+    return 64 if -(-B // 128) * ncol < sms else 192
+
+
+def steps_bf16_operands(h0: torch.Tensor, cond: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``h0 [B, H]`` and the conditions ``[B, C]`` (f32) as the bf16 step
+    kernel reads them by TMA, which converts nothing: rounded to bf16 (to
+    nearest even, as the kernel's staging of an f32 row, ``wg::stage8``,
+    and the twin's ``.to(bfloat16)`` round), the conditions padded with
+    zeros to their stage width (C rounded up to 64 columns). Made once a
+    call; fresh tensors, so aligned whatever views come in."""
+    B, C = cond.shape
+    condb = torch.zeros((B, -(-C // BK) * BK), dtype=torch.bfloat16, device=cond.device)
+    condb[:, :C] = cond.to(torch.bfloat16)
+    return h0.to(torch.bfloat16).contiguous(), condb
+
+
+def steps_launch_plan(cfg: ModelConfig, B: int, L: int, sms: int = H100_SMS) -> list:
     """The launches of one step-route call (the host side of
-    ``csrc/fused_generate_steps.cu:launch_steps``), each ``dict(kernel,
-    grid, smem, count)``, the step launches also with ``Kp``: one set-up
-    launch, then per step n step launches (one per layer, layer 0 with the
-    conditions' segment) and one sampling head, in bf16 on ``wgmma``
-    (``gen_step_kernel``: the train forward's step with its stage sums in
-    f32 registers), in f32 as split-TF32. ``smem`` is a block's dynamic
-    shared memory, the bf16 ring (3 x 32 KB) or the split-TF32 ring (3 x 64
-    KB), each with 1 KB of alignment slack; grids are (x, y, z)."""
+    ``csrc/fused_generate_steps.cu:launch_steps_bf16`` / ``launch_steps_f32``),
+    each ``dict(kernel, grid, smem, count)``: one set-up launch, then per
+    step n step launches (one per layer, layer 0 with the conditions'
+    segment) and one sampling head; grids are (x, y, z), ``smem`` a block's
+    dynamic shared memory. The step launches also carry ``Kp``; in f32 they
+    are split-TF32 (``seq_fwd_tf32_kernel``, 128 x 128 tiles, the 3 x 64 KB
+    ring); in bf16 ``gen_step_tma_kernel<NC>`` at :func:`steps_tile`'s
+    rows a tile on a card of ``sms`` SMs: a persistent grid whose ``grid``
+    is an upper bound (one CTA an SM at most; the launcher asks the card
+    how many it holds at once) over ``tiles`` (column tiles, row tiles),
+    with ``threads`` (NC consumer warpgroups and the producer warpgroup),
+    ``ring`` bytes, and ``l2_bytes``, a model of what its CTAs read from L2
+    (each tile a stage's weight tile and A rows, whether TMA or the
+    producer's own loads bring them), not a measurement. Layer 0's bf16 entry
+    names the call's bf16 copies of h0 and the conditions (``inputs_bf16``,
+    :func:`steps_bf16_operands`)."""
     E, C, H, n = cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim, cfg.num_layers
     bf16 = cfg.compute_dtype == "bfloat16"
-    ring = 3 * 32768 + 1024 if bf16 else TF32_SMEM
     rows = -(-B // 128)
     out = [dict(kernel="gen_init_kernel", grid=(-(-B // 256), 1, 1), smem=0, count=1)]
+    bm = steps_tile(cfg, B, sms)
     for l in range(n):
         _, kp, np_ = fwd_step_plan(E if l == 0 else H, H, C if l == 0 else 0)
-        out.append(dict(kernel="gen_step_kernel" if bf16 else "seq_fwd_tf32_kernel",
-                        grid=(np_ // 128, rows, 1), smem=ring, count=L, Kp=kp))
+        if not bf16:
+            out.append(dict(kernel="seq_fwd_tf32_kernel", grid=(np_ // 128, rows, 1),
+                            smem=TF32_SMEM, count=L, Kp=kp))
+            continue
+        gx, gy = np_ // 128, -(-B // bm)
+        step = dict(kernel=f"gen_step_tma_kernel<{bm // 64}>", grid=(min(gx * gy, sms), 1, 1),
+                    tiles=(gx, gy), threads=bm * 2 + 128, smem=steps_step_smem(bm),
+                    ring=steps_ring(bm) * (bm * 128 + STEP_B_BYTES), count=L, Kp=kp,
+                    l2_bytes=gx * gy * (kp // BK) * (STEP_B_BYTES + bm * 128))
+        if l == 0:
+            step["inputs_bf16"] = dict(h0=(B, H), cond=(B, -(-C // BK) * BK))
+        out.append(step)
     out.append(dict(kernel="gen_head_kernel" if bf16 else "gen_head_tf32_kernel",
-                    grid=(rows, 1, 1), smem=ring, count=L))
+                    grid=(rows, 1, 1), smem=3 * 32768 + 1024 if bf16 else TF32_SMEM, count=L))
     return out
 
 
@@ -714,8 +784,10 @@ def build_steps_library(verbose: bool = False) -> ctypes.CDLL:
     load it and declare its C interface."""
     lib = load_library("fused_generate_steps", verbose)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gen_steps_launch.argtypes = [p] * 16 + [i] * 10 + [f] + [i] * 4 + [p]
+    lib.gen_steps_launch.argtypes = [p] * 18 + [i] * 10 + [f] + [i] * 5 + [p]
     lib.gen_steps_launch.restype = i
+    lib.gen_step_launch.argtypes = [p, p, ctypes.c_long, i] + [p] * 7 + [i] * 5 + [p]
+    lib.gen_step_launch.restype = i
     lib.gen_head_launch.argtypes = [p] * 9 + [i] * 8 + [f] + [i] * 3 + [p]
     lib.gen_head_launch.restype = i
     lib.gen_steps_error_string.argtypes = [i]
@@ -773,6 +845,11 @@ def tc_cluster_size(cfg: ModelConfig) -> int:
     return tc_clusters(cfg)[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
                    seeds: torch.Tensor, temps: torch.Tensor, max_length: int,
                    greedy: bool = False, top_k: int = 0,
@@ -789,7 +866,9 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
     ``.step_launches`` or ``.core_launches``. ``kernel`` forces a route,
     ``rows_per_thread`` the CUDA-core kernel's tile (:func:`_tile_rows`),
     ``cluster`` the tensor-core kernel's cluster size
-    (:func:`tc_cluster_size`); the tokens depend on none of them.
+    (:func:`tc_cluster_size`); the tokens depend on none of them. The bf16
+    step route takes its rows a tile from :func:`steps_tile` at the card's
+    SM count.
     """
     _check_truncation(top_k, top_p)
     route = fused_generate_route(w.cfg, kernel, rows_per_thread, cluster)
@@ -865,12 +944,18 @@ def fused_generate(w: FusedWeights, h0: torch.Tensor, cond: torch.Tensor,
             cbuf = torch.empty((n, B, H), dtype=torch.float32, device=dev)
             scaled = torch.empty((B, V), dtype=torch.float32, device=dev)
             start, ended = torch.empty((2, B), dtype=torch.int32, device=dev)
+            h0b = condb = None
+            bm = 128  # the f32 kernel takes no tile instance
+            if cfg.compute_dtype == "bfloat16":
+                h0b, condb = steps_bf16_operands(h0, cond)
+                bm = steps_tile(cfg, B, _sm_count(dev))
+            ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
             rc = lib.gen_steps_launch(
-                w.emb.data_ptr(), cond.data_ptr(), h0.data_ptr(), st.wt.data_ptr(),
-                w.bias.data_ptr(), st.woutT.data_ptr(), w.bout.data_ptr(), seeds.data_ptr(),
-                temps.data_ptr(), out.data_ptr(), l0, hbuf.data_ptr(), cbuf.data_ptr(),
-                scaled.data_ptr(), start.data_ptr(), ended.data_ptr(), *common,
-                cfg.start_token, cfg.end_token, cfg.pad_token, stream)
+                w.emb.data_ptr(), cond.data_ptr(), h0.data_ptr(), ptr(h0b), ptr(condb),
+                st.wt.data_ptr(), w.bias.data_ptr(), st.woutT.data_ptr(), w.bout.data_ptr(),
+                seeds.data_ptr(), temps.data_ptr(), out.data_ptr(), l0, hbuf.data_ptr(),
+                cbuf.data_ptr(), scaled.data_ptr(), start.data_ptr(), ended.data_ptr(), *common,
+                cfg.start_token, cfg.end_token, cfg.pad_token, bm // 64, stream)
         else:
             tj, tr = _cell_layout(H)
             rc = lib.fused_generate_launch(

@@ -321,13 +321,13 @@ def test_steps_route_kernels_under_the_profiler(dev, dtype):
         ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
         if ran:
             break
-    step = "gen_step_kernel" if dtype == "bfloat16" else "seq_fwd_tf32_kernel"
+    step = "gen_step_tma_kernel" if dtype == "bfloat16" else "seq_fwd_tf32_kernel"
     head = "gen_head_kernel" if dtype == "bfloat16" else "gen_head_tf32_kernel"
     names = ("gen_init_kernel", step, head, "fused_generate_kernel", "gen_tc_kernel",
-             "seq_fwd_step_kernel")
+             "seq_fwd_step_kernel", "gen_step_kernel")  # the last: the replaced bf16 step
     got = {name: sum(name in k for k in ran) for name in names}
     assert got == {"gen_init_kernel": 1, step: n * L, head: L, "fused_generate_kernel": 0,
-                   "gen_tc_kernel": 0, "seq_fwd_step_kernel": 0}, got
+                   "gen_tc_kernel": 0, "seq_fwd_step_kernel": 0, "gen_step_kernel": 0}, got
 
 
 @pytest.mark.cuda
@@ -434,3 +434,120 @@ def test_steps_seed_block_tokens_do_not_depend_on_the_batch(dev, dtype):
                                   seeds[blk:blk + 1].contiguous(),
                                   temps[blk:blk + 1].contiguous(), 24, top_k=6, top_p=0.8)
         assert torch.equal(big[rows], alone), blk
+
+
+# ---- the bf16 step kernel alone
+
+def _step_case(dev, B, H, layer, seed=0):
+    """One step launch's inputs at (B, H), E=128, C=1, V=80: layer 0 at
+    t = 0 (the fed tokens' embedding rows, a few tokens outside [0, V), the
+    conditions, f32 h0, c = 0) or a layer above at t > 0 (bf16 input rows
+    and h_{t-1}, f32 c_{t-1}); the layer's interleaved weight and bias."""
+    from mlx_vae_tpu_torch.ops.lstm import combined_weight
+
+    cfg = ModelConfig(hidden_dim=H, latent_dim=8, compute_dtype="bfloat16")
+    E, C, V = cfg.embedding_dim, cfg.num_conditions, cfg.vocab_size
+    I = E if layer == 0 else H
+    params = init_decoder_params(torch.Generator().manual_seed(seed), cfg)
+    lp = params[f"lstm_layer_{min(layer, 1)}"]
+    wt = fd.interleave_weight(combined_weight(lp).to(dev, torch.bfloat16), I, H,
+                              C if layer == 0 else 0).contiguous()
+    bias = lp["bias"].to(dev, torch.float32).contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed + B + H)
+    case = dict(cfg=cfg, I=I, C=C if layer == 0 else 0, wt=wt, bias=bias)
+    if layer == 0:
+        tok = torch.randint(0, V, (B,), generator=g, device=dev, dtype=torch.int32)
+        tok[::37] = -1
+        tok[5::41] = V
+        case.update(x=params["embedding"]["weight"].to(dev, torch.bfloat16).contiguous(), tok=tok,
+                    cond=torch.randn((B, C), generator=g, device=dev),
+                    h0=0.5 * torch.randn((B, H), generator=g, device=dev), c_in=None)
+    else:
+        case.update(x=(0.5 * torch.randn((B, H), generator=g, device=dev)).bfloat16(), tok=None,
+                    hprev=(0.5 * torch.randn((B, H), generator=g, device=dev)).bfloat16(),
+                    c_in=torch.randn((B, H), generator=g, device=dev))
+    return case
+
+
+def _rows(case):
+    return case["x"].shape[0] if case["tok"] is None else case["tok"].shape[0]
+
+
+def _launch_step(case, dev, bm, x=None, hprev=None):
+    """gen_step_launch on the case (layer 0: its bf16 copies of h0 and the
+    conditions), ``bm`` rows a tile; ``x`` / ``hprev`` replace the
+    case's rows (a misaligned view). Returns (h bf16, c f32)."""
+    lib = fd.build_steps_library()
+    B, H = _rows(case), case["cfg"].hidden_dim
+    condb = None
+    if case["tok"] is not None:
+        h0b, condb = fd.steps_bf16_operands(case["h0"], case["cond"])
+        hp = h0b
+    else:
+        hp = case["hprev"]
+    x = case["x"] if x is None else x
+    hp = hp if hprev is None else hprev
+    c = torch.full((B, H), float("nan"), device=dev)
+    h = torch.full((B, H), float("nan"), device=dev).bfloat16()
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    rc = lib.gen_step_launch(
+        x.data_ptr(), ptr(case["tok"]), 1, case["cfg"].vocab_size, ptr(condb), hp.data_ptr(),
+        ptr(case["c_in"]), c.data_ptr(), case["wt"].data_ptr(), case["bias"].data_ptr(),
+        h.data_ptr(), B, case["I"], H, case["C"], bm // 64,
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert rc == 0, lib.gen_steps_error_string(rc)
+    torch.cuda.synchronize()
+    return h, c
+
+
+def _plain_step(case, dev):
+    """seq_fwd_step_reference on the same inputs: f32 products of the
+    bf16-rounded operands (layer 0 at t = 0, a layer above at t = 1)."""
+    B, H = _rows(case), case["cfg"].hidden_dim
+    hs = torch.zeros((2, B, H), dtype=torch.bfloat16, device=dev)
+    cs, gs = torch.zeros_like(hs), torch.zeros((2, B, 4 * H), dtype=torch.bfloat16, device=dev)
+    if case["tok"] is not None:
+        c = torch.zeros((B, H), device=dev)
+        fd.seq_fwd_step_reference(case["wt"], case["bias"], 0, case["x"], c, hs, cs, gs,
+                                  case["I"], H, tokens=case["tok"].long()[:, None],
+                                  h0=case["h0"], cond=case["cond"])
+        return hs[0], c
+    c = case["c_in"].clone()
+    hs[0] = case["hprev"]
+    fd.seq_fwd_step_reference(case["wt"], case["bias"], 1, case["x"][None], c, hs, cs, gs,
+                              case["I"], H, x_stride=0)
+    return hs[1], c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("H", [96, 100, 768, 1024])
+@pytest.mark.parametrize("B", [200, 256, 1000])
+def test_step_launch_matches_its_plain_step(dev, B, H, layer):
+    """One gen_step_tma_kernel launch alone against its plain step: h
+    within 1e-2 (the stages' sums differ in order from the plain f32
+    product, which can move a bf16 h by one step of 2^-8 near 1) and c
+    within 1e-3; every tile instance gives the tile rule's output bit for
+    bit (the same wgmma instructions over the same stages for every row),
+    so does a repeat, and so do misaligned views of the input rows and
+    h_{t-1} (the producer warpgroup stages those itself, as it does every h at
+    H=100)."""
+    case = _step_case(dev, B, H, layer)
+    h, c = _launch_step(case, dev, fd.steps_tile(case["cfg"], B))
+    hp, cp = _plain_step(case, dev)
+    assert torch.isfinite(h.float()).all() and torch.isfinite(c).all()
+    assert (h.float() - hp.float()).abs().max().item() <= 1e-2
+    assert (c - cp).abs().max().item() <= 1e-3
+    for bm in fd.STEP_TILES:
+        ht, ct = _launch_step(case, dev, bm)
+        assert torch.equal(ht, h) and torch.equal(ct, c), bm
+    if layer == 0:
+        return
+    xm = torch.empty(B * H + 1, dtype=torch.bfloat16, device=dev)[1:].view(B, H)
+    hm = torch.empty(B * H + 1, dtype=torch.bfloat16, device=dev)[1:].view(B, H)
+    xm.copy_(case["x"])
+    hm.copy_(case["hprev"])
+    assert xm.data_ptr() % 16 and hm.data_ptr() % 16
+    for bm in fd.STEP_TILES:
+        hv, cv = _launch_step(case, dev, bm, x=xm, hprev=hm)
+        assert torch.equal(hv, h) and torch.equal(cv, c), bm

@@ -70,9 +70,11 @@ PLANS = [
 
 @pytest.mark.parametrize("case", range(len(PLANS)))
 def test_launch_plan(case):
-    """1 + n*L + L launches: the set-up, n step launches a step (grid: 128
-    gate columns of 32 units by 128 rows), one head a step (128 rows a
-    block); every block's shared memory within the card's 232,448 B."""
+    """1 + n*L + L launches: the set-up, n step launches a step, one head a
+    step (128 rows a block); every block's shared memory within the card's
+    232,448 B. f32 steps: 128 gate columns of 32 units by 128 rows. bf16
+    steps: ``gen_step_tma_kernel`` at the call's rows a tile, a persistent
+    grid of at most one CTA an SM."""
     kw, B = PLANS[case]
     cfg, L = ModelConfig(**kw), 64
     plan = fd.steps_launch_plan(cfg, B, L)
@@ -81,18 +83,137 @@ def test_launch_plan(case):
     assert plan[0] == dict(kernel="gen_init_kernel", grid=(-(-B // 256), 1, 1), smem=0, count=1)
     rows = -(-B // 128)
     bf16 = cfg.compute_dtype == "bfloat16"
+    bm = fd.steps_tile(cfg, B)
     for l, p in enumerate(plan[1:1 + n]):
         _, kp, np_ = fwd_step_plan(cfg.embedding_dim if l == 0 else H, H,
                                    cfg.num_conditions if l == 0 else 0)
-        assert p["kernel"] == ("gen_step_kernel" if bf16 else "seq_fwd_tf32_kernel")
-        assert p["grid"] == (np_ // 128, rows, 1) and np_ == 4 * H and p["Kp"] == kp
-        assert p["count"] == L
+        assert np_ == 4 * H and p["Kp"] == kp and p["count"] == L
+        if bf16:
+            assert p["kernel"] == f"gen_step_tma_kernel<{bm // 64}>"
+            gx, gy = np_ // 128, -(-B // bm)
+            assert p["tiles"] == (gx, gy)
+            assert p["grid"] == (min(gx * gy, 132), 1, 1)
+        else:
+            assert p["kernel"] == "seq_fwd_tf32_kernel" and p["grid"] == (np_ // 128, rows, 1)
     head = plan[-1]
     assert head["kernel"] == ("gen_head_kernel" if bf16 else "gen_head_tf32_kernel")
     assert head["grid"] == (rows, 1, 1) and head["count"] == L
     assert max(p["smem"] for p in plan) <= MAX_SMEM
     print(f"{kw} B={B}: {len(plan)} kernels, {sum(p['count'] for p in plan)} launches, "
           f"largest smem {max(p['smem'] for p in plan)} B")
+
+
+TILE_CONFIGS = [dict(**SCALED), dict(hidden_dim=768), dict(vocab_size=300),
+                dict(vocab_size=512, **SCALED)]
+
+
+@pytest.mark.parametrize("B", [200, 256, 2048, 8192])
+@pytest.mark.parametrize("config", range(len(TILE_CONFIGS)))
+def test_bf16_step_launch_plan(config, B):
+    """The bf16 step launches at the scaled model, H=768, V=300 and V=512:
+    the rows a tile the tile rule picks, tiles that cover every row and
+    gate column, a persistent grid of at most one CTA an SM, a ring of 6
+    stages (4 of 192 rows; an A tile of bm 128-byte lines and the 16 KB
+    weight tile), its barriers and two buffers of the cell's c_{t-1} and
+    bias within the block's 232,448 B, and the modelled L2 bytes each
+    launch's CTAs read: each tile a stage's weight tile and A rows."""
+    cfg = ModelConfig(compute_dtype="bfloat16", **TILE_CONFIGS[config])
+    E, C, H = cfg.embedding_dim, cfg.num_conditions, cfg.hidden_dim
+    bm = fd.steps_tile(cfg, B)
+    assert bm in fd.STEP_TILES
+    plan = fd.steps_launch_plan(cfg, B, 64)
+    for l, p in enumerate(plan[1:1 + cfg.num_layers]):
+        _, kp, np_ = fwd_step_plan(E if l == 0 else H, H, C if l == 0 else 0)
+        gx, gy = p["tiles"]
+        assert p["grid"][0] == min(132, gx * gy)
+        assert gx * 128 == np_ and gy * bm >= B and (gy - 1) * bm < B
+        assert p["threads"] == 2 * bm + 128
+        depth = 4 if bm == 192 else 6
+        assert p["ring"] == depth * (bm * 128 + 16384)
+        assert p["smem"] == 1024 + p["ring"] + 16 * depth + 32 + 2 * (bm * 128 + 512) <= MAX_SMEM
+        assert p["l2_bytes"] == gx * gy * (kp // 64) * (16384 + bm * 128)
+    assert plan[1]["inputs_bf16"] == dict(h0=(B, H), cond=(B, 64))
+
+
+@pytest.mark.parametrize("config", range(len(TILE_CONFIGS)))
+def test_step_tile_rule(config):
+    """The tile rule reads the config and B alone: 64-row tiles below one
+    wave of 128-row tiles (132 CTAs), from there 192-row tiles. The same B
+    gives the same rows from a fresh config."""
+    kw = TILE_CONFIGS[config]
+    cfg = ModelConfig(compute_dtype="bfloat16", **kw)
+    ncol = 4 * cfg.hidden_dim // 128
+    got = {B: fd.steps_tile(cfg, B) for B in (1, 64, 65, 200, 256, 1000, 2048, 8192)}
+    for B, bm in got.items():
+        assert bm == (64 if -(-B // 128) * ncol < fd.H100_SMS else 192)
+        assert fd.steps_tile(ModelConfig(compute_dtype="bfloat16", **kw), B) == bm
+    assert got[1] == 64 and got[8192] == 192
+    assert got[256] == (64 if ncol * 2 < 132 else 192)
+    assert fd.steps_tile(ModelConfig(hidden_dim=32, compute_dtype="bfloat16"), 20000) == 192
+
+
+def test_bf16_operands_are_the_twins_rounding():
+    """The bf16 copies of h0 and the conditions that the kernel's TMA reads
+    equal, bit for bit, the twin's rounding of those segments
+    (``.to(bfloat16)``) and round to nearest even (an independent bit-level
+    rounding of the f32 words, as the kernel's f32 staging, cvt.rn, did):
+    h0 ``[B, H]``, the conditions zero-padded to their 64-wide stage;
+    misaligned views come out as fresh contiguous tensors; the twin fed the
+    copies' values gives the same tokens and logits as fed the f32 rows."""
+    rng = np.random.default_rng(5)
+    B, H, C = 37, 48, 3
+    h0 = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
+    cond = torch.from_numpy((rng.standard_normal((B, C)) * 40).astype(np.float32))
+    # ties to even, a signed zero, a subnormal
+    h0[0, :4] = torch.tensor([1.0 + 2.0**-8, 1.0 + 3 * 2.0**-8, -0.0, 1e-40])
+    hb, cb = fd.steps_bf16_operands(h0, cond)
+    assert hb.dtype == cb.dtype == torch.bfloat16 and hb.shape == (B, H) and cb.shape == (B, 64)
+    assert torch.equal(hb.view(torch.int16), h0.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(cb[:, :C].view(torch.int16), cond.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(cb[:, C:].view(torch.int16), torch.zeros((B, 64 - C), dtype=torch.int16))
+
+    def rne(x):  # f32 -> bf16 bits, round to nearest even
+        u = x.numpy().view(np.uint32).astype(np.uint64)
+        return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+    assert np.array_equal(hb.view(torch.int16).numpy().view(np.uint16), rne(h0))
+    assert np.array_equal(cb[:, :C].contiguous().view(torch.int16).numpy().view(np.uint16),
+                          rne(cond))
+    view_h, view_c = torch.empty(B * H + 1)[1:].view(B, H), torch.empty(B * C + 1)[1:].view(B, C)
+    view_h.copy_(h0)
+    view_c.copy_(cond)
+    hv, cv = fd.steps_bf16_operands(view_h, view_c)
+    assert hv.is_contiguous() and cv.is_contiguous()
+    assert torch.equal(hv.view(torch.int16), hb.view(torch.int16)) and torch.equal(
+        cv.view(torch.int16), cb.view(torch.int16))
+    cfg = ModelConfig(hidden_dim=H, embedding_dim=16, latent_dim=8, vocab_size=24,
+                      num_conditions=C, compute_dtype="bfloat16")
+    params, w = _weights(cfg, kernel="steps")
+    nb = -(-B // fd.block_rows(B))
+    seeds, temps = torch.arange(nb, dtype=torch.int32) + 3, torch.full((nb,), 0.8)
+    l32, lb = torch.empty((B, 24)), torch.empty((B, 24))
+    want = fd.fused_generate_steps_reference(w, h0, cond, seeds, temps, 8, top_k=6, top_p=0.8,
+                                             logits_out=l32)
+    got = fd.fused_generate_steps_reference(w, hb.float(), cb[:, :C].float(), seeds, temps, 8,
+                                            top_k=6, top_p=0.8, logits_out=lb)
+    assert torch.equal(got, want) and torch.equal(lb, l32)
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+def test_step_tile_follows_the_cards_sm_count(sms):
+    """The tile rule and the plan read the card's SM count: 64-row tiles
+    while 128-row tiles would not fill one wave of ``sms`` CTAs, and the
+    plan's grid (an upper bound: the launcher asks the card how many CTAs
+    it holds) never above ``sms`` CTAs. The scaled model has 32
+    column tiles, so one wave of 128-row tiles is ``sms / 32`` row tiles."""
+    cfg = ModelConfig(compute_dtype="bfloat16", **SCALED)
+    for B in (128, 256, 512, 1024, 2048):
+        want = 64 if -(-B // 128) * 32 < sms else 192
+        assert fd.steps_tile(cfg, B, sms) == want, B
+        for p in fd.steps_launch_plan(cfg, B, 4, sms)[1:1 + cfg.num_layers]:
+            assert p["grid"][0] == min(sms, p["tiles"][0] * p["tiles"][1])
+    for B in (256, 8192):  # without a card: an H100's 132 SMs
+        assert fd.steps_tile(cfg, B) == fd.steps_tile(cfg, B, fd.H100_SMS)
 
 
 # ---- the route, by config alone ----
